@@ -1,0 +1,128 @@
+"""Flag registry for the port: a copy of dingo_tpu's ``FlagRegistry`` with
+only the flags the IVF_FLAT/FLAT serving path reads.
+
+Crossovers that JAX resolved against ``jax.default_backend()`` resolve
+here against the device the index lives on: "auto" turns the hand-written
+kernel on for CUDA tensors at the same thresholds the JAX package uses on
+the TPU, and off on the CPU (where the JAX package also runs its XLA arm).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Dict, Optional
+
+import torch
+
+
+class Flag:
+    def __init__(self, name: str, default: Any, help_: str = "",
+                 mutable: bool = False):
+        self.name = name
+        self.default = default
+        self.help = help_
+        self.mutable = mutable
+        self.value = default
+
+
+class FlagRegistry:
+    """DEFINE_*/FLAGS_* analog with optional hot changes."""
+
+    def __init__(self):
+        self._flags: Dict[str, Flag] = {}
+        self._lock = threading.Lock()
+
+    def define(self, name: str, default: Any, help_: str = "",
+               mutable: bool = False) -> None:
+        with self._lock:
+            if name not in self._flags:
+                self._flags[name] = Flag(name, default, help_, mutable)
+
+    def get(self, name: str) -> Any:
+        return self._flags[name].value
+
+    def set(self, name: str, value: Any, boot: bool = False) -> None:
+        with self._lock:
+            flag = self._flags[name]
+            if not boot and not flag.mutable:
+                raise PermissionError(f"flag {name} is not hot-changeable")
+            flag.value = type(flag.default)(value) if flag.default is not None \
+                else value
+
+    def all(self) -> Dict[str, Any]:
+        return {k: f.value for k, f in self._flags.items()}
+
+
+FLAGS = FlagRegistry()
+
+FLAGS.define("use_pallas_fused_search", "auto", mutable=True,
+             help_="route FLAT L2/IP searches through the fused top-k "
+                   "kernel (B1; no [b, n] score matrix). 'auto' enables it "
+                   "for CUDA-resident stores with capacity >= 2048; "
+                   "True/False force")
+FLAGS.define("use_pallas_ivf_search", "auto", mutable=True,
+             help_="route trained IVF_FLAT searches through the list-scan "
+                   "kernel (B2; reads only probed buckets). 'auto' enables "
+                   "it for CUDA-resident indexes with dimension >= 256; "
+                   "True/False force")
+FLAGS.define("vector_blocked_layout", "false", mutable=True,
+             help_="dimension-blocked scan mirror: not ported yet, setting "
+                   "it on raises NotSupported")
+FLAGS.define("ivf_prune_scan", "false", mutable=True,
+             help_="early-pruning scan kernels: not ported yet, setting it "
+                   "on raises NotSupported")
+FLAGS.define("ivf_shape_bucketing", True, mutable=True,
+             help_="round (topk, nprobe) up to the {1,1.5}x-pow2 ladder; "
+                   "results are sliced back to the requested topk")
+FLAGS.define("ivf_compact_tombstone_ratio", 0.25, mutable=True,
+             help_="compact an IVF view once this fraction of its rows are "
+                   "tombstones")
+FLAGS.define("ivf_compact_spill_ratio", 0.5, mutable=True,
+             help_="compact once incremental appends allocated this many "
+                   "extra spill buckets relative to the dense build")
+FLAGS.define("train_sample_rows", 65536, mutable=True,
+             help_="train-sample row cap for k-means (0 = full corpus, "
+                   "lifting derived caps too)")
+
+
+def _parse_tri(flag) -> Optional[bool]:
+    """Tri-state crossover flag: None = 'auto', True/False force. FLAGS.set
+    coerces to the default's type, so booleans may arrive as strings."""
+    if isinstance(flag, str):
+        low = flag.strip().lower()
+        if low == "auto":
+            return None
+        return low in ("true", "1", "on", "yes")
+    return bool(flag)
+
+
+def fused_kernel_enabled(capacity: int, device: torch.device) -> bool:
+    """use_pallas_fused_search crossover for FLAT searches."""
+    v = _parse_tri(FLAGS.get("use_pallas_fused_search"))
+    if v is None:
+        return device.type == "cuda" and capacity >= 2048
+    return v
+
+
+def ivf_kernel_enabled(dimension: int, device: torch.device) -> bool:
+    """use_pallas_ivf_search crossover for trained IVF_FLAT searches."""
+    v = _parse_tri(FLAGS.get("use_pallas_ivf_search"))
+    if v is None:
+        return device.type == "cuda" and dimension >= 256
+    return v
+
+
+def unported_layouts_requested() -> list:
+    """Names of the set flags whose layouts this slice does not carry (the
+    blocked mirror and the pruned scans, kernels B3/B4). The index layer
+    raises NotSupported for them, never reroutes silently."""
+    return [n for n in ("vector_blocked_layout", "ivf_prune_scan")
+            if _parse_tri(FLAGS.get(n))]
+
+
+def train_sample_rows() -> int:
+    """Row cap shared by the train paths (floor 0; 0 = full corpus)."""
+    try:
+        return max(0, int(FLAGS.get("train_sample_rows")))
+    except (TypeError, ValueError):
+        return 65536

@@ -1,0 +1,30 @@
+"""Device resolution for the port's entry points.
+
+Every entry point takes ``device=None`` and resolves it here: ``None``
+means the CUDA device, and a CUDA request with no CUDA device raises.
+There is no "CUDA if available, else CPU" policy: callers that want the
+CPU (the tests) ask for it.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+class DeviceUnavailable(RuntimeError):
+    """A CUDA device was requested (explicitly or by default) and none
+    is present."""
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None
+                   ) -> torch.device:
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise DeviceUnavailable(
+            "no CUDA device: pass device='cpu' to run on the host"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev

@@ -1,0 +1,107 @@
+// Running top-k pieces shared by the scan kernels (the Hopper counterpart
+// of _select_topk in dingo_tpu/ops/pallas_topk.py).
+//
+// A running list is k <= K_MAX (score, slot) pairs in shared memory, sorted
+// by descending score. A warp inserts one candidate at a time, all 32 lanes
+// cooperating (each lane owns list positions lane and lane + 32), so an
+// insertion costs two ballots and one shift, independent of k. A candidate
+// is inserted only when its score is strictly above the current k-th best:
+// among equal scores the earlier candidate stays, which keeps the lowest
+// slot when candidates arrive in slot order (the TPU kernel's tie rule).
+// Slots whose score is -inf are never inserted, so a list that saw fewer
+// than k valid rows keeps (-inf, -1) entries, the contract of every exit.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <climits>
+
+namespace dingo {
+
+constexpr int K_MAX = 64;
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+__device__ __forceinline__ void list_init(float* vals, int* ids, int k) {
+  const int lane = threadIdx.x & 31;
+  for (int i = lane; i < k; i += 32) {
+    vals[i] = -CUDART_INF_F;
+    ids[i] = -1;
+  }
+  __syncwarp();
+}
+
+// Called by all 32 lanes of a warp with the same (v, id); requires
+// v > vals[k - 1].
+__device__ __forceinline__ void warp_insert(float* vals, int* ids, int k,
+                                            float v, int id) {
+  const int lane = threadIdx.x & 31;
+  const int i0 = lane, i1 = lane + 32;
+  float a = 0.f, b = 0.f;
+  int ia = -1, ib = -1;
+  bool ga = false, gb = false;
+  if (i0 < k) { a = vals[i0]; ia = ids[i0]; ga = a >= v; }
+  if (i1 < k) { b = vals[i1]; ib = ids[i1]; gb = b >= v; }
+  const int p = __popc(__ballot_sync(FULL_MASK, ga)) +
+                __popc(__ballot_sync(FULL_MASK, gb));
+  __syncwarp();
+  if (i0 < k && i0 >= p && i0 + 1 < k) { vals[i0 + 1] = a; ids[i0 + 1] = ia; }
+  if (i1 < k && i1 >= p && i1 + 1 < k) { vals[i1 + 1] = b; ids[i1 + 1] = ib; }
+  if (lane == 0) { vals[p] = v; ids[p] = id; }
+  __syncwarp();
+}
+
+__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
+  return v > bv || (v == bv && i < bi);
+}
+
+// Second pass: cand_v/cand_i hold [rows, m] candidates (m = lists x k);
+// one block per row picks the top k by k rounds of a block-wide argmax
+// (ties -> lowest candidate position, i.e. the earliest list). Taken
+// candidates are marked NaN in cand_v, which is scratch. Writes slot -1
+// wherever the picked score is -inf.
+template <int THREADS>
+__global__ void merge_candidates(float* __restrict__ cand_v,
+                                 const int* __restrict__ cand_i, int m,
+                                 int k, float* __restrict__ out_v,
+                                 int* __restrict__ out_i) {
+  constexpr int NW = THREADS / 32;
+  __shared__ float sv[NW];
+  __shared__ int si[NW];
+  const int row = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* cv = cand_v + (size_t)row * m;
+  const int* ci = cand_i + (size_t)row * m;
+  for (int r = 0; r < k; ++r) {
+    float best = -CUDART_INF_F;
+    int bidx = INT_MAX;
+    for (int j = threadIdx.x; j < m; j += THREADS) {
+      const float v = cv[j];
+      if (better(v, j, best, bidx)) { best = v; bidx = j; }
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ov = __shfl_down_sync(FULL_MASK, best, off);
+      const int oi = __shfl_down_sync(FULL_MASK, bidx, off);
+      if (better(ov, oi, best, bidx)) { best = ov; bidx = oi; }
+    }
+    if (lane == 0) { sv[warp] = best; si[warp] = bidx; }
+    __syncthreads();
+    if (warp == 0) {
+      best = lane < NW ? sv[lane] : -CUDART_INF_F;
+      bidx = lane < NW ? si[lane] : INT_MAX;
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ov = __shfl_down_sync(FULL_MASK, best, off);
+        const int oi = __shfl_down_sync(FULL_MASK, bidx, off);
+        if (better(ov, oi, best, bidx)) { best = ov; bidx = oi; }
+      }
+      if (lane == 0) {
+        const bool none = bidx == INT_MAX || best == -CUDART_INF_F;
+        out_v[(size_t)row * k + r] = best;
+        out_i[(size_t)row * k + r] = none ? -1 : ci[bidx];
+        if (bidx != INT_MAX) cv[bidx] = CUDART_NAN_F;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace dingo

@@ -1,0 +1,251 @@
+"""VectorIndex abstract API + filter model (port of dingo_tpu/index/base.py).
+
+Every filter mode compiles to a per-slot validity bitmap on the host
+(FilterSpec.slot_mask): 64-bit external ids stay on the host, kernels work
+in slot space, and the host translates slots back to ids after top-k.
+"""
+
+from __future__ import annotations
+
+import abc
+import dataclasses
+import enum
+import hashlib
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from dingo_tpu_torch.common.config import unported_layouts_requested
+from dingo_tpu_torch.ops.distance import Metric
+
+
+class IndexType(enum.Enum):
+    """pb::common::VectorIndexType equivalents."""
+
+    FLAT = "flat"
+    IVF_FLAT = "ivf_flat"
+    IVF_PQ = "ivf_pq"
+    HNSW = "hnsw"
+    DISKANN = "diskann"
+    BRUTEFORCE = "bruteforce"
+    BINARY_FLAT = "binary_flat"
+    BINARY_IVF_FLAT = "binary_ivf_flat"
+
+
+class VectorIndexError(Exception):
+    """Base error; carries an errno-style code matching pb::error::Errno."""
+
+
+class NotSupported(VectorIndexError):
+    """EVECTOR_NOT_SUPPORT: the reader falls back to a brute-force scan for
+    untrained IVF / BRUTEFORCE; the port also raises it for every feature
+    this slice does not carry yet."""
+
+
+class NotTrained(VectorIndexError):
+    """EVECTOR_INDEX_NOT_TRAIN."""
+
+
+class InvalidParameter(VectorIndexError):
+    """EILLEGAL_PARAMTETERS [sic — the reference spells it this way]."""
+
+
+@dataclasses.dataclass(frozen=True)
+class IndexParameter:
+    """Union of pb::common::VectorIndexParameter fields (the same fields as
+    the JAX package, so snapshots and parameters carry across)."""
+
+    index_type: IndexType = IndexType.FLAT
+    dimension: int = 0
+    metric: Metric = Metric.L2
+    ncentroids: int = 2048
+    nsubvector: int = 64
+    nbits_per_idx: int = 8
+    default_nprobe: int = 80
+    max_elements: int = 0
+    efconstruction: int = 200
+    nlinks: int = 32
+    dtype: str = "float32"
+    precision: str = ""
+    host_vectors: bool = False
+    scalar_speedup_keys: Tuple[str, ...] = ()
+
+
+PRECISION_TIERS = ("fp32", "bf16", "sq8")
+
+_PRECISION_ALIASES = {
+    "": "fp32", "fp32": "fp32", "f32": "fp32", "float32": "fp32",
+    "bf16": "bf16", "bfloat16": "bf16",
+    "sq8": "sq8", "int8": "sq8", "uint8": "sq8",
+}
+
+
+def resolve_precision(parameter: IndexParameter) -> str:
+    """Effective precision tier: the parameter wins, "" means fp32 (the
+    JAX package's conf default). Only fp32 is ported; bf16/sq8 raise."""
+    p = (parameter.precision or "").strip().lower()
+    tier = _PRECISION_ALIASES.get(p)
+    if tier is None:
+        raise InvalidParameter(f"unknown precision tier {p!r} "
+                               f"(want one of {PRECISION_TIERS})")
+    if tier == "fp32" and parameter.dtype in ("bfloat16", "bf16"):
+        tier = "bf16"
+    if tier != "fp32" or parameter.dtype not in ("float32", "f32"):
+        raise NotSupported(
+            f"precision tier {tier} / dtype {parameter.dtype} is not ported "
+            "yet (fp32 only)"
+        )
+    return tier
+
+
+def check_ported_layouts() -> None:
+    """Raise NotSupported when a flag asks for the blocked mirror or the
+    pruned scans (kernels B3/B4, next slice)."""
+    names = unported_layouts_requested()
+    if names:
+        raise NotSupported(
+            f"{', '.join(names)} not ported yet (needs the pruned scans)"
+        )
+
+
+@dataclasses.dataclass
+class FilterSpec:
+    """Compiled filter: ranges ([lo, hi) id intervals, OR'd), include_ids
+    (whitelist) and exclude_ids (blacklist)."""
+
+    ranges: Optional[Sequence[Tuple[int, int]]] = None
+    include_ids: Optional[np.ndarray] = None
+    exclude_ids: Optional[np.ndarray] = None
+
+    def is_empty(self) -> bool:
+        return (
+            not self.ranges
+            and self.include_ids is None
+            and self.exclude_ids is None
+        )
+
+    def fingerprint(self) -> bytes:
+        """Stable content digest: the key of the IVF filter-mask cache."""
+        h = hashlib.blake2b(digest_size=16)
+        for lo, hi in self.ranges or ():
+            h.update(int(lo).to_bytes(8, "little", signed=True))
+            h.update(int(hi).to_bytes(8, "little", signed=True))
+        for tag, ids in ((b"i", self.include_ids), (b"x", self.exclude_ids)):
+            if ids is not None:
+                h.update(tag)
+                h.update(np.ascontiguousarray(
+                    np.asarray(ids, np.int64)
+                ).tobytes())
+        return h.digest()
+
+    def slot_mask(self, ids_by_slot: np.ndarray) -> np.ndarray:
+        """Compile against the host id-by-slot array [capacity] int64
+        (-1 = empty slot) -> bool mask [capacity]."""
+        mask = ids_by_slot >= 0
+        if self.ranges:
+            rmask = np.zeros_like(mask)
+            for lo, hi in self.ranges:
+                rmask |= (ids_by_slot >= lo) & (ids_by_slot < hi)
+            mask &= rmask
+        if self.include_ids is not None:
+            mask &= np.isin(ids_by_slot, np.asarray(self.include_ids, np.int64))
+        if self.exclude_ids is not None and len(self.exclude_ids):
+            mask &= ~np.isin(ids_by_slot, np.asarray(self.exclude_ids, np.int64))
+        return mask
+
+
+@dataclasses.dataclass
+class SearchResult:
+    """Per-query result; distances follow the wire convention (L2
+    ascending, IP/cosine descending)."""
+
+    ids: np.ndarray        # [k'] int64, no -1 entries
+    distances: np.ndarray  # [k'] float32
+
+
+def strip_invalid(ids: np.ndarray, distances: np.ndarray) -> SearchResult:
+    """Drop -1 (masked/padding) entries."""
+    keep = ids >= 0
+    return SearchResult(ids=ids[keep], distances=distances[keep])
+
+
+class VectorIndex(abc.ABC):
+    """Abstract ANN index owned per region (region_id == index id)."""
+
+    def __init__(self, index_id: int, parameter: IndexParameter):
+        self.id = index_id
+        self.parameter = parameter
+        self.apply_log_id: int = 0
+        self.snapshot_log_id: int = 0
+        self.write_count_since_save: int = 0
+        #: per-region serving-default overrides: {"nprobe": int}; a
+        #: request-pinned value always wins
+        self.tuning: dict = {}
+
+    def tuned(self, knob: str, fallback: int) -> int:
+        v = self.tuning.get(knob)
+        return int(v) if v else int(fallback)
+
+    @property
+    def dimension(self) -> int:
+        return self.parameter.dimension
+
+    @property
+    def metric(self) -> Metric:
+        return self.parameter.metric
+
+    @property
+    def index_type(self) -> IndexType:
+        return self.parameter.index_type
+
+    @abc.abstractmethod
+    def add(self, ids: np.ndarray, vectors: np.ndarray) -> None:
+        """Insert; error on duplicate id."""
+
+    @abc.abstractmethod
+    def upsert(self, ids: np.ndarray, vectors: np.ndarray) -> None:
+        """Insert-or-replace."""
+
+    @abc.abstractmethod
+    def delete(self, ids: np.ndarray) -> None:
+        """Remove ids (missing ids are ignored)."""
+
+    @abc.abstractmethod
+    def search(self, queries: np.ndarray, topk: int,
+               filter_spec: Optional[FilterSpec] = None
+               ) -> List[SearchResult]:
+        ...
+
+    def need_train(self) -> bool:
+        return False
+
+    def is_trained(self) -> bool:
+        return True
+
+    def train(self, vectors: Optional[np.ndarray] = None) -> None:  # noqa: B027
+        """No-op for non-trainable index types."""
+
+    @abc.abstractmethod
+    def save(self, path: str) -> None:
+        ...
+
+    @abc.abstractmethod
+    def load(self, path: str) -> None:
+        ...
+
+    @abc.abstractmethod
+    def get_count(self) -> int:
+        ...
+
+    def get_deleted_count(self) -> int:
+        return 0
+
+    @abc.abstractmethod
+    def get_memory_size(self) -> int:
+        ...
+
+    def need_to_rebuild(self) -> bool:
+        return False
+
+    def need_to_save(self, last_save_log_behind: int) -> bool:
+        return False

@@ -1,0 +1,73 @@
+"""Carry index state across from the JAX package.
+
+The JAX package's snapshot (``meta.json`` + ``flat.npz`` or
+``ivf_flat.npz`` holding ``ids``, ``vectors`` and, once trained,
+``centroids`` and ``assign``) is the interchange format: the port's
+``load`` reads it, and ``index_from_reference`` builds a port index from a
+snapshot directory or from the same arrays given as numpy. Rows go into
+slots in snapshot order, so both packages hold the same slots, centroids
+and bucket assignments and compute the same thing.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Mapping, Optional, Union
+
+import numpy as np
+
+from dingo_tpu_torch.index.base import (
+    IndexParameter,
+    IndexType,
+    InvalidParameter,
+)
+from dingo_tpu_torch.index.factory import new_index
+from dingo_tpu_torch.ops.distance import Metric
+
+
+def index_from_reference(source: Union[str, os.PathLike, Mapping],
+                         device=None,
+                         parameter: Optional[IndexParameter] = None,
+                         index_id: int = 0):
+    """Port index from a JAX snapshot directory, or from a mapping of numpy
+    arrays (``ids``, ``vectors`` and optionally ``centroids``/``assign``;
+    ``parameter`` describes the index, inferred when absent: IVF_FLAT when
+    centroids are given, else FLAT, L2). Rows are taken as stored (cosine
+    rows already normalized)."""
+    if isinstance(source, (str, os.PathLike)):
+        with open(os.path.join(source, "meta.json")) as f:
+            meta = json.load(f)
+        if parameter is None:
+            t = IndexType(meta["index_type"])
+            kw = {"ncentroids": int(meta["nlist"])} if "nlist" in meta else {}
+            parameter = IndexParameter(
+                index_type=t, dimension=int(meta["dimension"]),
+                metric=Metric(meta["metric"]), **kw,
+            )
+        index = new_index(index_id, parameter, device=device)
+        index.load(os.fspath(source))
+        return index
+
+    arrays = source
+    vectors = np.asarray(arrays["vectors"], np.float32)
+    centroids = arrays.get("centroids")
+    if parameter is None:
+        if centroids is not None:
+            parameter = IndexParameter(
+                index_type=IndexType.IVF_FLAT, dimension=vectors.shape[1],
+                ncentroids=len(centroids),
+            )
+        else:
+            parameter = IndexParameter(index_type=IndexType.FLAT,
+                                       dimension=vectors.shape[1])
+    index = new_index(index_id, parameter, device=device)
+    if parameter.index_type is IndexType.IVF_FLAT:
+        if centroids is not None and "assign" not in arrays:
+            raise InvalidParameter("centroids given without assign")
+        index.restore_arrays(arrays["ids"], vectors, centroids,
+                             arrays.get("assign"))
+    else:
+        index.restore_arrays(arrays["ids"], vectors)
+    index.apply_log_id = int(arrays.get("apply_log_id", 0))
+    return index

@@ -1,0 +1,330 @@
+"""TpuFlat: exact brute-force index (port of dingo_tpu/index/flat.py,
+fp32 float metrics).
+
+The whole search is one scan of the slot store: kernel B1 (fused distance
++ running top-k, no [b, capacity] score matrix) when the fused crossover
+fires for an L2/IP index with k <= B1's K_MAX, else the JAX package's own
+XLA arm (score matrix + masked top-k) as plain torch ops. Query batches
+pad to powers of two, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from dingo_tpu_torch.common.config import (
+    fused_kernel_enabled,
+    train_sample_rows,
+)
+from dingo_tpu_torch.common.device import resolve_device
+from dingo_tpu_torch.index.base import (
+    FilterSpec,
+    IndexParameter,
+    InvalidParameter,
+    NotSupported,
+    SearchResult,
+    VectorIndex,
+    check_ported_layouts,
+    resolve_precision,
+    strip_invalid,
+)
+from dingo_tpu_torch.index.slot_store import SlotStore, _next_pow2
+from dingo_tpu_torch.ops import kernel_topk
+from dingo_tpu_torch.ops.distance import (
+    Metric,
+    metric_ascending,
+    np_normalize,
+    score_matrix,
+    scores_to_distances,
+)
+from dingo_tpu_torch.ops.topk import begin_host_fetch, topk_scores
+
+
+def flat_search_plain(vecs, sqnorm, mask, queries, k: int, metric: Metric):
+    """The JAX package's XLA arm (flat.py:_flat_search_kernel): whole-store
+    score matrix + masked top-k -> (distances, slots)."""
+    scores = score_matrix(queries, vecs, metric, x_sqnorm=sqnorm,
+                          x_is_normalized=(metric is Metric.COSINE))
+    vals, slots = topk_scores(scores, k, valid=mask[None, :])
+    return scores_to_distances(vals, metric), slots
+
+
+#: searches that took the plain arm (crossover off, COSINE, or k > K_MAX)
+flat_search_plain.calls = 0
+
+
+def _resolve_train_cap(derived: int) -> int:
+    """Effective train-sample row cap: conf train_sample_rows meets the
+    caller's derived cap; 0 from conf = full corpus (lifts both)."""
+    conf = train_sample_rows()
+    if conf == 0:
+        return 0
+    if derived <= 0:
+        return conf
+    return min(conf, derived)
+
+
+def _pad_batch(q: np.ndarray) -> np.ndarray:
+    b = q.shape[0]
+    bb = _next_pow2(max(1, b))
+    if bb != b:
+        q = np.concatenate([q, np.zeros((bb - b,) + q.shape[1:], q.dtype)])
+    return q
+
+
+class _SlotStoreIndex(VectorIndex):
+    """Shared machinery for indexes whose rows live in a SlotStore."""
+
+    store: SlotStore
+    device: torch.device
+    _kernel_metric: Metric
+    _precision: str = "fp32"
+
+    def _prep_vectors(self, vectors: np.ndarray) -> np.ndarray:
+        vectors = np.asarray(vectors, np.float32)
+        if vectors.ndim != 2 or vectors.shape[1] != self.dimension:
+            raise InvalidParameter(
+                f"vector dim {vectors.shape} != {self.dimension}"
+            )
+        if self.metric is Metric.COSINE:
+            # stored normalized; search then runs plain IP
+            vectors = np_normalize(vectors)
+        return vectors
+
+    def _prep_queries(self, queries: np.ndarray) -> np.ndarray:
+        queries = np.asarray(queries, np.float32)
+        if queries.ndim == 1:
+            queries = queries[None, :]
+        if queries.shape[1] != self.dimension:
+            raise InvalidParameter(
+                f"query dim {queries.shape[1]} != {self.dimension}"
+            )
+        return queries
+
+    def _train_rows_device(self, derived_cap: int = 0) -> torch.Tensor:
+        """Live rows for implicit training, gathered on the device from
+        host-sampled slot indices (seeded by index id)."""
+        live = np.flatnonzero(self.store.ids_by_slot >= 0)
+        cap = _resolve_train_cap(derived_cap)
+        if cap and len(live) > cap:
+            sel = np.random.default_rng(self.id).choice(
+                len(live), cap, replace=False
+            )
+            live = np.sort(live[sel])
+        return self.store.rows_device(live)
+
+    # -- mutation ----------------------------------------------------------
+    def add(self, ids: np.ndarray, vectors: np.ndarray) -> None:
+        ids = np.asarray(ids, np.int64)
+        uniq, counts = np.unique(ids, return_counts=True)
+        if (counts > 1).any():
+            raise InvalidParameter(
+                f"duplicate ids within batch: {uniq[counts > 1][:5].tolist()}"
+            )
+        dup = [int(i) for i in ids if int(i) in self.store]
+        if dup:
+            raise InvalidParameter(f"duplicate ids {dup[:5]} (use upsert)")
+        self.upsert(ids, vectors)
+
+    def upsert(self, ids: np.ndarray, vectors: np.ndarray) -> None:
+        vectors = self._prep_vectors(vectors)
+        if len(ids) != len(vectors):
+            raise InvalidParameter("ids/vectors length mismatch")
+        self.store.put(np.asarray(ids, np.int64), vectors)
+        self.write_count_since_save += len(ids)
+
+    def delete(self, ids: np.ndarray) -> None:
+        slots = self.store.remove_slots(np.asarray(ids, np.int64))
+        self.write_count_since_save += int((slots >= 0).sum())
+
+    # -- search ------------------------------------------------------------
+    def search(self, queries: np.ndarray, topk: int,
+               filter_spec: Optional[FilterSpec] = None
+               ) -> List[SearchResult]:
+        return self.search_async(queries, topk, filter_spec)()
+
+    def search_async(self, queries: np.ndarray, topk: int,
+                     filter_spec: Optional[FilterSpec] = None
+                     ) -> Callable[[], List[SearchResult]]:
+        """Dispatch the search and return a thunk materializing results.
+        One host sync per reply: resolve() waits on one fetch group."""
+        queries = self._prep_queries(queries)
+        b = queries.shape[0]
+        qpad = torch.from_numpy(_pad_batch(queries)).to(self.device)
+        store = self.store
+        # lease BEFORE dispatch: result slots stay limbo-parked until
+        # resolve translates them
+        lease = store.begin_search()
+        try:
+            with store.device_lock:
+                if filter_spec is None or filter_spec.is_empty():
+                    mask = store.device_mask()
+                else:
+                    mask = torch.from_numpy(
+                        filter_spec.slot_mask(store.ids_by_slot)
+                    ).to(self.device)
+                dists, slots = self._run_search_kernel(qpad, mask, int(topk))
+        except Exception:
+            lease.release()
+            raise
+        fetch = begin_host_fetch(dists, slots)
+
+        def resolve() -> List[SearchResult]:
+            try:
+                dists_h, slots_h = fetch.get()
+                ids = store.ids_of_slots(slots_h[:b].astype(np.int64))
+                return [strip_invalid(i, d)
+                        for i, d in zip(ids, dists_h[:b])]
+            finally:
+                lease.release()
+
+        return resolve
+
+    def _run_search_kernel(self, qpad: torch.Tensor, mask: torch.Tensor,
+                           k: int):
+        """Crossover for the whole-store scan -> (dists, slots): kernel B1
+        when the fused crossover fired for L2/IP and k fits its lists,
+        else the XLA-equivalent plain arm."""
+        store = self.store
+        fused_on = (
+            fused_kernel_enabled(store.capacity, self.device)
+            and self._kernel_metric in (Metric.L2, Metric.INNER_PRODUCT)
+            and k <= kernel_topk.K_MAX
+        )
+        if fused_on:
+            vals, slots = kernel_topk.fused_topk(
+                qpad, store.vecs, store.sqnorm, mask, k,
+                ascending=metric_ascending(self._kernel_metric),
+            )
+            return scores_to_distances(vals, self._kernel_metric), slots
+        flat_search_plain.calls += 1
+        return flat_search_plain(store.vecs, store.sqnorm, mask, qpad, k,
+                                 self._kernel_metric)
+
+    # -- lifecycle ---------------------------------------------------------
+    def get_count(self) -> int:
+        return len(self.store)
+
+    def get_memory_size(self) -> int:
+        return self.store.memory_size()
+
+    def _save_meta(self) -> dict:
+        return {
+            "index_type": self.index_type.value,
+            "dimension": self.dimension,
+            "metric": self.metric.value,
+            "apply_log_id": self.apply_log_id,
+            "count": self.get_count(),
+            "precision": self._precision,
+            "blocked_layout": False,
+            "dim_block": 0,
+        }
+
+    def _check_meta(self, meta: dict) -> None:
+        """Snapshot compatibility. The JAX package's `integrity` digests
+        are ignored until that plane is ported."""
+        if meta["dimension"] != self.dimension:
+            raise InvalidParameter(
+                f"snapshot dimension {meta['dimension']} != {self.dimension}"
+            )
+        if meta["metric"] != self.metric.value:
+            raise InvalidParameter(
+                f"snapshot metric {meta['metric']} != {self.metric.value}"
+            )
+        if meta.get("precision") == "sq8":
+            raise NotSupported("sq8 snapshots are not ported yet")
+
+    def need_to_save(self, last_save_log_behind: int) -> bool:
+        return (
+            self.write_count_since_save >= 10000
+            or last_save_log_behind >= 10000000
+        )
+
+
+class TpuFlat(_SlotStoreIndex):
+    """Exact search; also the brute-force engine that serves a region while
+    its IVF is untrained. The name keeps the JAX package's, so a reader
+    finds the counterpart."""
+
+    def __init__(self, index_id: int, parameter: IndexParameter,
+                 device=None):
+        super().__init__(index_id, parameter)
+        if parameter.dimension <= 0:
+            raise InvalidParameter(f"dimension {parameter.dimension}")
+        if parameter.metric is Metric.HAMMING:
+            raise NotSupported("binary/hamming FLAT is not ported yet")
+        self._precision = resolve_precision(parameter)
+        check_ported_layouts()
+        self.device = resolve_device(device)
+        self.store = SlotStore(parameter.dimension, self.device)
+        self._kernel_metric = parameter.metric
+
+    def save(self, path: str) -> None:
+        os.makedirs(path, exist_ok=True)
+        snap = self.store.to_host()
+        np.savez(os.path.join(path, "flat.npz"), ids=snap["ids"],
+                 vectors=np.asarray(snap["vectors"], np.float32))
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump(self._save_meta(), f)
+
+    def load(self, path: str) -> None:
+        """Reads the JAX package's snapshot format as well as its own."""
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+        self._check_meta(meta)
+        data = np.load(os.path.join(path, "flat.npz"))
+        if "codes" in data.files:
+            raise NotSupported("sq8 snapshots are not ported yet")
+        self.restore_arrays(data["ids"], data["vectors"])
+        self.apply_log_id = meta["apply_log_id"]
+
+    def restore_arrays(self, ids, vectors) -> None:
+        """Install stored rows as a snapshot load does (cosine rows are
+        already normalized, so they go in as they are)."""
+        ids = np.asarray(ids, np.int64)
+        self.store = SlotStore(self.dimension, self.device,
+                               capacity=max(len(ids), 1))
+        if len(ids):
+            self.store.put(ids, vectors)
+        self.write_count_since_save = 0
+
+
+class TpuBruteforce(VectorIndex):
+    """Reference VectorIndexBruteforce: holds no data; search raises
+    NotSupported so the reader takes the scan + temporary FLAT path."""
+
+    def __init__(self, index_id: int, parameter: IndexParameter,
+                 device=None):
+        super().__init__(index_id, parameter)
+        self.device = resolve_device(device)
+
+    def add(self, ids, vectors):  # noqa: D102
+        pass
+
+    def upsert(self, ids, vectors):  # noqa: D102
+        pass
+
+    def delete(self, ids):  # noqa: D102
+        pass
+
+    def search(self, queries, topk, filter_spec=None):
+        raise NotSupported("BRUTEFORCE index has no in-memory search")
+
+    def save(self, path):
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump({"index_type": self.index_type.value}, f)
+
+    def load(self, path):
+        pass
+
+    def get_count(self) -> int:
+        return 0
+
+    def get_memory_size(self) -> int:
+        return 0

@@ -1,0 +1,546 @@
+"""TpuIvfFlat: inverted-file index (port of dingo_tpu/index/ivf_flat.py,
+fp32 tier, float metrics).
+
+  train  — Lloyd k-means on the device (ops/kmeans.py) over a sampled
+           subset, deterministic farthest-first init.
+  layout — rows live in a flat SlotStore; a bucketed view [B, cap_list, d]
+           of fixed-width spill buckets (ivf_layout.py) is maintained
+           incrementally: upserts append into free rows of the assigned
+           list's tail bucket, deletes flip rows invalid, and a deferred
+           compaction restores the dense layout.
+  search — [b, nlist] centroid scores -> top-nprobe coarse lists ->
+           virtual bucket probes -> kernel B2 (ops/kernel_ivf.py), which
+           reads only the probed buckets; the JAX package's XLA arm (a
+           per-rank gather + einsum + running top-k) serves k > 64 and the
+           crossover's off side.
+
+An untrained index raises NotTrained, the reader's brute-force contract.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from dingo_tpu_torch.common.config import FLAGS, ivf_kernel_enabled
+from dingo_tpu_torch.common.device import resolve_device
+from dingo_tpu_torch.index.base import (
+    FilterSpec,
+    IndexParameter,
+    InvalidParameter,
+    NotSupported,
+    NotTrained,
+    SearchResult,
+    VectorIndex,
+    check_ported_layouts,
+    resolve_precision,
+    strip_invalid,
+)
+from dingo_tpu_torch.index.flat import (
+    _SlotStoreIndex,
+    _pad_batch,
+    _resolve_train_cap,
+)
+from dingo_tpu_torch.index.ivf_layout import (
+    MutableIvfView,
+    expand_probes,
+    shape_bucket,
+)
+from dingo_tpu_torch.index.slot_store import SlotStore
+from dingo_tpu_torch.ops import kernel_ivf
+from dingo_tpu_torch.ops.distance import (
+    Metric,
+    metric_ascending,
+    np_normalize,
+    scores_to_distances,
+    squared_norms,
+)
+from dingo_tpu_torch.ops.kmeans import (
+    MAX_POINTS_PER_CENTROID,
+    kmeans_assign,
+    train_kmeans,
+)
+from dingo_tpu_torch.ops.scatter import (
+    MAX_SCATTER_BATCH,
+    pad_buckets,
+    scatter_bucket_update,
+)
+from dingo_tpu_torch.ops.topk import begin_host_fetch, merge_topk
+
+#: rows per chunk when (re)assigning the whole store after training
+ASSIGN_CHUNK = 1 << 18
+
+
+def coarse_probes(queries: torch.Tensor, centroids: torch.Tensor,
+                  c_sqnorm: torch.Tensor, nprobe: int) -> torch.Tensor:
+    """Top-nprobe coarse lists per query: [b, nprobe] int32. The coarse
+    quantizer is always L2 (on normalized data L2 orders like cosine)."""
+    d = (squared_norms(queries)[:, None] - 2.0 * (queries @ centroids.T)
+         + c_sqnorm[None, :])
+    return torch.topk(-d, nprobe, dim=1).indices.to(torch.int32)
+
+
+def ivf_scan_scores(buckets, bucket_sqnorm, bucket_valid, bucket_slot,
+                    probes, queries, k: int, metric: Metric):
+    """The JAX package's XLA arm: scan probe ranks with a running top-k.
+    Returns raw scores (descending-better) + slots [b, k]."""
+    b = queries.shape[0]
+    nprobe = probes.shape[1]
+    dev = queries.device
+    qsq = squared_norms(queries)
+    best_v = torch.full((b, k), -torch.inf, dtype=torch.float32, device=dev)
+    best_s = torch.full((b, k), -1, dtype=torch.int32, device=dev)
+    for r in range(nprobe):
+        lists_r = probes[:, r].long()
+        rank_ok = lists_r >= 0
+        lc = torch.where(rank_ok, lists_r, torch.zeros_like(lists_r))
+        dots = torch.einsum("bd,bcd->bc", queries, buckets[lc])
+        if metric is Metric.L2:
+            scores = -(qsq[:, None] - 2.0 * dots + bucket_sqnorm[lc])
+        else:   # IP / cosine (queries pre-normalized for cosine)
+            scores = dots
+        val = bucket_valid[lc] & rank_ok[:, None]
+        scores = torch.where(val, scores, torch.full_like(scores, -torch.inf))
+        vals_r, idx_r = torch.topk(scores, min(k, scores.shape[1]), dim=1)
+        slots_r = torch.gather(bucket_slot[lc], 1, idx_r)
+        slots_r = torch.where(torch.isneginf(vals_r),
+                              torch.full_like(slots_r, -1), slots_r)
+        best_v, best_s = merge_topk(best_v, best_s, vals_r, slots_r, k)
+    return best_v, best_s
+
+
+#: searches that took this arm (crossover off or k > 64)
+ivf_scan_scores.calls = 0
+
+
+def _filter_bucket_mask(slot_mask: torch.Tensor,
+                        bucket_slot: torch.Tensor) -> torch.Tensor:
+    """Expand a [capacity] slot mask to [B, cap_list] on the device."""
+    safe = torch.where(bucket_slot >= 0, bucket_slot,
+                       torch.zeros_like(bucket_slot)).long()
+    return slot_mask[safe] & (bucket_slot >= 0)
+
+
+#: filter-mask cache entries kept per index
+FILTER_CACHE_SIZE = 16
+
+
+class IvfViewMaintenance:
+    """Incremental bucketed-view lifecycle: append-in-place upserts,
+    tombstone deletes, deferred compaction, the filter-mask cache and
+    (k, nprobe) shape bucketing. The owning index implements
+    `_materialize_view_data` / `_scatter_view_data` for its data arrays."""
+
+    _view: Optional[MutableIvfView]
+    _view_dirty: bool
+
+    def _materialize_view_data(self, view: MutableIvfView) -> None:
+        raise NotImplementedError
+
+    def _scatter_view_data(self, upd, rows) -> None:
+        raise NotImplementedError
+
+    # -- view lifecycle ----------------------------------------------------
+    def _ensure_view(self) -> None:
+        """Hot-path entry: rebuild only when there is no usable view."""
+        if self._view is None or self._view_dirty:
+            self._rebuild_view()
+
+    def _rebuild_view(self) -> None:
+        """Full dense rebuild (build_layout + gather), all under one
+        device_lock hold so no write lands between snapshot and swap."""
+        with self.store.device_lock:
+            view = MutableIvfView.build(
+                self._assign_h, self.store.valid_h, self.nlist,
+                self.store.capacity, self.device,
+            )
+            self._materialize_view_data(view)
+            self._view = view
+            self._view_dirty = False
+            self._filter_cache.clear()
+        self.full_rebuilds += 1
+
+    def _invalidate_view(self) -> None:
+        with self.store.device_lock:
+            self._view_dirty = True
+            self._filter_cache.clear()
+
+    # -- incremental write path --------------------------------------------
+    def _view_apply_upsert(self, slots, assign, rows) -> None:
+        if len(slots) > MAX_SCATTER_BATCH:
+            # batch big enough to amortize a dense rebuild: defer it
+            self._invalidate_view()
+            return
+        # stage (host) + apply (device) under ONE hold: a concurrent search
+        # never sees staged host state ahead of the device arrays
+        with self.store.device_lock:
+            view = self._view
+            if view is None or self._view_dirty:
+                self._view_dirty = True
+                return
+            view.ensure_slot_capacity(self.store.capacity)
+            upd = view.stage_upsert(slots, np.asarray(assign))
+            if upd is None:
+                return
+            view.apply_device(upd)
+            self._scatter_view_data(upd, rows)
+
+    def _view_apply_delete(self, slots) -> None:
+        with self.store.device_lock:
+            view = self._view
+            if view is None or self._view_dirty:
+                self._view_dirty = True
+                return
+            upd = view.stage_delete(slots)
+            if upd is None:
+                return
+            view.apply_device(upd)
+
+    # -- compaction --------------------------------------------------------
+    def need_compact(self) -> bool:
+        v = self._view
+        if v is None:
+            return False
+        if self._view_dirty:
+            return True
+        return (
+            v.tombstone_ratio() >= FLAGS.get("ivf_compact_tombstone_ratio")
+            or v.spill_ratio() >= FLAGS.get("ivf_compact_spill_ratio")
+        )
+
+    def compact(self) -> None:
+        """Rebuild the dense layout now (O(N); keep it off the serving
+        path)."""
+        self._rebuild_view()
+
+    def view_stats(self) -> dict:
+        out = {"built": self._view is not None, "dirty": self._view_dirty}
+        if self._view is not None:
+            out.update(self._view.stats())
+        return out
+
+    # -- filter-mask cache -------------------------------------------------
+    def _prep_filter_mask(self, filter_spec: Optional[FilterSpec]):
+        """Host-side filter work done OUTSIDE the device lock; the in-lock
+        consumer revalidates against the live view version."""
+        if filter_spec is None or filter_spec.is_empty():
+            return None
+        view = self._view
+        fp = filter_spec.fingerprint()
+        ver = view.version if view is not None else -1
+        hit = self._filter_cache.get(fp)
+        if hit is not None and hit[0] == ver:
+            return (fp, ver, None)
+        return (fp, ver, filter_spec.slot_mask(self.store.ids_by_slot))
+
+    def _bucket_valid_for_filter(self, filter_spec: Optional[FilterSpec],
+                                 prep=None) -> torch.Tensor:
+        """Device validity mask for the scan; callers hold device_lock."""
+        view = self._view
+        if filter_spec is None or filter_spec.is_empty():
+            return view.bucket_valid
+        fp, ver, mask = prep if prep is not None else (
+            filter_spec.fingerprint(), view.version, None
+        )
+        hit = self._filter_cache.get(fp)
+        if hit is not None and hit[0] == view.version:
+            return hit[1]
+        if mask is None or ver != view.version:
+            mask = filter_spec.slot_mask(self.store.ids_by_slot)
+        bmask = _filter_bucket_mask(
+            torch.from_numpy(mask).to(self.device), view.bucket_slot
+        )
+        if len(self._filter_cache) >= FILTER_CACHE_SIZE:
+            stale = [k for k, (v, _) in self._filter_cache.items()
+                     if v != view.version]
+            for k in stale:
+                del self._filter_cache[k]
+            while len(self._filter_cache) >= FILTER_CACHE_SIZE:
+                self._filter_cache.pop(next(iter(self._filter_cache)))
+        self._filter_cache[fp] = (view.version, bmask)
+        return bmask
+
+    # -- shape bucketing ---------------------------------------------------
+    def _shape_buckets(self, topk: int, nprobe: int):
+        """(k_eff, nprobe_eff) on the {1, 1.5}x-pow2 ladder; results slice
+        back to topk."""
+        if not FLAGS.get("ivf_shape_bucketing"):
+            return topk, nprobe
+        return shape_bucket(topk), min(shape_bucket(nprobe), self.nlist)
+
+
+class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
+    def __init__(self, index_id: int, parameter: IndexParameter,
+                 device=None):
+        VectorIndex.__init__(self, index_id, parameter)
+        if parameter.dimension <= 0:
+            raise InvalidParameter(f"dimension {parameter.dimension}")
+        if parameter.ncentroids <= 0:
+            raise InvalidParameter(f"ncentroids {parameter.ncentroids}")
+        if parameter.metric is Metric.HAMMING:
+            raise NotSupported("binary IVF is not ported yet")
+        self._precision = resolve_precision(parameter)
+        check_ported_layouts()
+        self.device = resolve_device(device)
+        self._kernel_metric = parameter.metric
+        self.store = SlotStore(parameter.dimension, self.device)
+        self.nlist = parameter.ncentroids
+        self.centroids: Optional[torch.Tensor] = None     # [nlist, d]
+        self._c_sqnorm: Optional[torch.Tensor] = None
+        self._assign_h = np.full((self.store.capacity,), -1, np.int32)
+        self._view: Optional[MutableIvfView] = None
+        self._buckets: Optional[torch.Tensor] = None      # [alloc, cap, d]
+        self._bucket_sqnorm: Optional[torch.Tensor] = None
+        self._view_dirty = True
+        self._filter_cache: dict = {}
+        #: dense view rebuilds (first search after train/load, oversize
+        #: write batches, compaction)
+        self.full_rebuilds = 0
+
+    def _prep_queries(self, queries: np.ndarray) -> np.ndarray:
+        queries = super()._prep_queries(queries)
+        if self.metric is Metric.COSINE:
+            queries = np_normalize(queries)
+        return queries
+
+    def _grow_assign(self) -> None:
+        if self._assign_h.shape[0] < self.store.capacity:
+            grown = np.full((self.store.capacity,), -1, np.int32)
+            grown[: self._assign_h.shape[0]] = self._assign_h
+            self._assign_h = grown
+
+    # -- mutation: track assignments ---------------------------------------
+    def upsert(self, ids: np.ndarray, vectors: np.ndarray) -> None:
+        vectors = self._prep_vectors(vectors)
+        if len(ids) != len(vectors):
+            raise InvalidParameter("ids/vectors length mismatch")
+        slots = self.store.put(np.asarray(ids, np.int64), vectors)
+        self._grow_assign()
+        if self.is_trained():
+            rows = torch.from_numpy(vectors).to(self.device)
+            assign = kmeans_assign(rows, self.centroids).cpu().numpy()
+            self._assign_h[slots] = assign
+            if self._view is not None and not self._view_dirty:
+                self._view_apply_upsert(slots, assign, vectors)
+            else:
+                self._invalidate_view()
+        else:
+            self._view_dirty = True
+        self.write_count_since_save += len(ids)
+
+    def delete(self, ids: np.ndarray) -> None:
+        slots = self.store.remove_slots(np.asarray(ids, np.int64))
+        removed = int((slots >= 0).sum())
+        if removed:
+            if self._view is not None and not self._view_dirty:
+                self._view_apply_delete(slots[slots >= 0])
+            else:
+                self._invalidate_view()
+        self.write_count_since_save += removed
+
+    # -- training ----------------------------------------------------------
+    def need_train(self) -> bool:
+        return True
+
+    def is_trained(self) -> bool:
+        return self.centroids is not None
+
+    def train(self, vectors: Optional[np.ndarray] = None) -> None:
+        """Train the coarse quantizer; with no train set, sample the
+        stored rows on the device (only slot indices cross the bus)."""
+        if vectors is None:
+            dv = self._train_rows_device(MAX_POINTS_PER_CENTROID * self.nlist)
+            if int(dv.shape[0]) < self.nlist:
+                raise NotTrained(f"need >= {self.nlist} train vectors, "
+                                 f"have {int(dv.shape[0])}")
+            if self.metric is Metric.COSINE:
+                dv = dv * torch.rsqrt(torch.clamp_min(
+                    (dv * dv).sum(dim=1, keepdim=True), 1e-30))
+        else:
+            vectors = np.asarray(vectors, np.float32)
+            if len(vectors) < self.nlist:
+                raise NotTrained(f"need >= {self.nlist} train vectors, "
+                                 f"have {len(vectors)}")
+            if self.metric is Metric.COSINE:
+                vectors = np_normalize(vectors)
+            cap = _resolve_train_cap(MAX_POINTS_PER_CENTROID * self.nlist)
+            if cap and len(vectors) > cap:
+                sel = np.random.default_rng(self.id).choice(
+                    len(vectors), cap, replace=False
+                )
+                vectors = vectors[sel]
+            dv = torch.from_numpy(np.ascontiguousarray(vectors)).to(
+                self.device)
+        self.centroids, _ = train_kmeans(dv, k=self.nlist, iters=10,
+                                         seed=self.id)
+        self._c_sqnorm = squared_norms(self.centroids)
+        # (re)assign everything stored, in chunks of device rows
+        live = np.flatnonzero(self.store.ids_by_slot >= 0)
+        for lo in range(0, len(live), ASSIGN_CHUNK):
+            sl = live[lo:lo + ASSIGN_CHUNK]
+            self._assign_h[sl] = kmeans_assign(
+                self.store.rows_device(sl), self.centroids
+            ).cpu().numpy()
+        self._invalidate_view()
+        self.store.mutation_version += 1
+
+    # -- bucketed view data ------------------------------------------------
+    def _materialize_view_data(self, view: MutableIvfView) -> None:
+        """Dense gather of the whole store into bucket coordinates (caller
+        holds device_lock)."""
+        self._buckets = view.gather_rows(self.store.vecs)
+        self._bucket_sqnorm = view.gather_rows(self.store.sqnorm)
+
+    def _scatter_view_data(self, upd, rows) -> None:
+        """Apply a staged append batch to the data arrays in place (caller
+        holds device_lock)."""
+        if upd.grew_alloc is not None:
+            self._buckets = pad_buckets(self._buckets, upd.grew_alloc)
+            self._bucket_sqnorm = pad_buckets(self._bucket_sqnorm,
+                                              upd.grew_alloc)
+        if not upd.appended:
+            return
+        cap = self._view.cap_list
+        pos = np.asarray([p for p, _ in upd.appended], np.int64)
+        src = np.asarray([i for _, i in upd.appended], np.int64)
+        sel = np.asarray(rows, np.float32)[src]
+        sq = (sel ** 2).sum(axis=1)
+        scatter_bucket_update(self._buckets, pos // cap, pos % cap, sel)
+        scatter_bucket_update(self._bucket_sqnorm, pos // cap, pos % cap, sq)
+
+    # -- search -------------------------------------------------------------
+    def search(self, queries: np.ndarray, topk: int,
+               filter_spec: Optional[FilterSpec] = None,
+               nprobe: Optional[int] = None) -> List[SearchResult]:
+        return self.search_async(queries, topk, filter_spec, nprobe)()
+
+    def search_async(self, queries: np.ndarray, topk: int,
+                     filter_spec: Optional[FilterSpec] = None,
+                     nprobe: Optional[int] = None):
+        if not self.is_trained():
+            raise NotTrained("IVF_FLAT not trained")   # reader falls back
+        queries = self._prep_queries(queries)
+        self._ensure_view()
+        b = queries.shape[0]
+        topk = int(topk)
+        nprobe = min(
+            nprobe or self.tuned("nprobe", self.parameter.default_nprobe),
+            self.nlist,
+        )
+        k_eff, nprobe = self._shape_buckets(topk, nprobe)
+        qpad = torch.from_numpy(_pad_batch(queries)).to(self.device)
+        lease = self.store.begin_search()
+        try:
+            probes = coarse_probes(qpad, self.centroids, self._c_sqnorm,
+                                   nprobe)
+            fprep = self._prep_filter_mask(filter_spec)
+            # view snapshot + dispatch under the device lock: a concurrent
+            # write mutates the bucket arrays in place
+            with self.store.device_lock:
+                view = self._view
+                vprobes = expand_probes(probes, view.probe_table, nprobe,
+                                        view.max_spill)
+                # padded query rows probe nothing, so they cost no scan
+                vprobes[b:] = -1
+                valid = self._bucket_valid_for_filter(filter_spec, fprep)
+                kernel_ok = (
+                    ivf_kernel_enabled(self.dimension, self.device)
+                    and self.metric in (Metric.L2, Metric.INNER_PRODUCT,
+                                        Metric.COSINE)
+                    and k_eff <= kernel_ivf.K_MAX
+                )
+                if kernel_ok:
+                    vals, slots = kernel_ivf.ivf_list_topk(
+                        vprobes, qpad, self._buckets, self._bucket_sqnorm,
+                        valid, view.bucket_slot, k_eff,
+                        ascending=metric_ascending(self._kernel_metric),
+                    )
+                else:
+                    ivf_scan_scores.calls += 1
+                    vals, slots = ivf_scan_scores(
+                        self._buckets, self._bucket_sqnorm, valid,
+                        view.bucket_slot, vprobes, qpad, k_eff,
+                        self._kernel_metric,
+                    )
+                dists = scores_to_distances(vals, self._kernel_metric)
+        except Exception:
+            lease.release()
+            raise
+        store = self.store
+        fetch = begin_host_fetch(dists, slots)
+
+        def resolve() -> List[SearchResult]:
+            try:
+                dists_h, slots_h = fetch.get()
+                # shape bucketing may have run a larger k; slice back
+                ids = store.ids_of_slots(
+                    slots_h[:b, :topk].astype(np.int64))
+                return [strip_invalid(i, d)
+                        for i, d in zip(ids, dists_h[:b, :topk])]
+            finally:
+                lease.release()
+
+        return resolve
+
+    # -- lifecycle -----------------------------------------------------------
+    def save(self, path: str) -> None:
+        os.makedirs(path, exist_ok=True)
+        snap = self.store.to_host()
+        snap["vectors"] = np.asarray(snap["vectors"], np.float32)
+        extras = {}
+        if self.is_trained():
+            extras["centroids"] = self.centroids.cpu().numpy()
+            live = self.store.ids_by_slot >= 0
+            extras["assign"] = self._assign_h[np.flatnonzero(live)]
+        np.savez(os.path.join(path, "ivf_flat.npz"), **snap, **extras)
+        meta = self._save_meta()
+        meta["nlist"] = self.nlist
+        meta["trained"] = self.is_trained()
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump(meta, f)
+
+    def load(self, path: str) -> None:
+        """Reads the JAX package's snapshot format as well as its own."""
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+        self._check_meta(meta)
+        if meta["nlist"] != self.nlist:
+            raise InvalidParameter(
+                f"snapshot nlist {meta['nlist']} != {self.nlist}"
+            )
+        data = np.load(os.path.join(path, "ivf_flat.npz"))
+        if "codes" in data.files:
+            raise NotSupported("sq8 snapshots are not ported yet")
+        self.restore_arrays(
+            data["ids"], data["vectors"],
+            data["centroids"] if meta.get("trained") else None,
+            data["assign"] if meta.get("trained") else None,
+        )
+        self.apply_log_id = meta["apply_log_id"]
+
+    def restore_arrays(self, ids, vectors, centroids=None, assign=None
+                       ) -> None:
+        """Install rows (already prepped: cosine rows stay as stored),
+        centroids and per-row assignments, as a snapshot load does."""
+        ids = np.asarray(ids, np.int64)
+        self.store = SlotStore(self.dimension, self.device,
+                               capacity=max(len(ids), 1))
+        self._assign_h = np.full((self.store.capacity,), -1, np.int32)
+        self.centroids = None
+        self._c_sqnorm = None
+        slots = self.store.put(ids, vectors) if len(ids) \
+            else np.empty(0, np.int64)
+        self._grow_assign()
+        if centroids is not None:
+            self.centroids = torch.from_numpy(
+                np.array(centroids, np.float32)).to(self.device)
+            self._c_sqnorm = squared_norms(self.centroids)
+            self._assign_h[slots] = np.asarray(assign, np.int32)
+        self._view = None
+        self._view_dirty = True
+        self._filter_cache.clear()
+        self.write_count_since_save = 0

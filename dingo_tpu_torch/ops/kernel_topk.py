@@ -1,0 +1,113 @@
+"""Kernel B1: fused distance + running top-k (port of
+dingo_tpu/ops/pallas_topk.py::fused_topk).
+
+``fused_topk`` launches the CUDA kernel in ``csrc/fused_topk.cu`` for CUDA
+tensors and runs ``fused_topk_plain`` for CPU tensors; any other
+placement raises. The kernel holds its running lists in shared memory for
+k <= K_MAX; callers route larger k to the XLA-equivalent arm themselves
+(index/flat.py), so this wrapper refuses it.
+
+Bound on an H100 and design: see the note at the top of the CUDA source.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from dingo_tpu_torch.ops import cuda_build
+from dingo_tpu_torch.ops.topk import topk_scores
+
+#: largest k the kernel's shared-memory running lists hold
+K_MAX = 64
+#: rows per scan tile (a CTA's slot range is a multiple of it)
+ROWS_PER_TILE = 128
+#: queries per CTA tile
+QUERIES_PER_TILE = 64
+
+_fn = None
+
+
+def _launcher():
+    global _fn
+    if _fn is None:
+        lib = cuda_build.load("fused_topk")
+        fn = lib.dingo_fused_topk
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p] * 5)
+        _fn = (lib, fn)
+    return _fn
+
+
+def fused_topk_plain(q: torch.Tensor, x: torch.Tensor,
+                     x_sqnorm: torch.Tensor, valid: torch.Tensor, k: int,
+                     ascending: bool = True
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of B1: the same function through a [b, n]
+    score matrix. Returns (scores[b, k] f32, slots[b, k] i32)."""
+    q32 = q.to(torch.float32)
+    dots = q32 @ x.to(torch.float32).T
+    if ascending:   # L2: -(||q||^2 - 2 q.x + ||x||^2)
+        qsq = (q32 * q32).sum(dim=1)
+        scores = -((qsq[:, None] - 2.0 * dots) + x_sqnorm[None, :])
+    else:           # IP
+        scores = dots
+    return topk_scores(scores, k, valid=valid.to(torch.bool)[None, :])
+
+
+def split_rows(n: int, b: int, num_sms: int) -> int:
+    """Slot rows per CTA: about four CTAs per SM over the whole grid, in
+    whole scan tiles."""
+    tiles = -(-n // ROWS_PER_TILE)
+    qtiles = -(-b // QUERIES_PER_TILE)
+    nsplit = min(tiles, max(1, -(-4 * num_sms // qtiles)))
+    return -(-tiles // nsplit) * ROWS_PER_TILE
+
+
+def fused_topk(q: torch.Tensor, x: torch.Tensor, x_sqnorm: torch.Tensor,
+               valid: torch.Tensor, k: int, ascending: bool = True
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q[b, d] vs x[n, d] -> (scores[b, k] f32 'larger is better',
+    slots[b, k] i32, -1 where the score is -inf). valid: [n] bool."""
+    tensors = (q, x, x_sqnorm, valid)
+    if all(t.device.type == "cpu" for t in tensors):
+        return fused_topk_plain(q, x, x_sqnorm, valid, k, ascending)
+    if not cuda_build.same_cuda_device(*tensors):
+        raise ValueError("fused_topk: tensors must share one CUDA device")
+    b, d = q.shape
+    n = x.shape[0]
+    if not 1 <= k <= K_MAX:
+        raise ValueError(f"fused_topk: k={k} outside [1, {K_MAX}]")
+    if q.dtype != torch.float32 or x.dtype != torch.float32 \
+            or x_sqnorm.dtype != torch.float32:
+        raise TypeError("fused_topk: q, x and x_sqnorm must be float32")
+    if valid.dtype not in (torch.bool, torch.uint8):
+        raise TypeError("fused_topk: valid must be bool or uint8")
+    if x.dim() != 2 or x.shape[1] != d or x_sqnorm.shape != (n,) \
+            or valid.shape != (n,) or b < 1 or n < 1:
+        raise ValueError("fused_topk: shape mismatch")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("fused_topk: tensors must be contiguous")
+    dev = q.device
+    props = torch.cuda.get_device_properties(dev)
+    rows = split_rows(n, b, props.multi_processor_count)
+    nsplit = -(-n // rows)
+    cand_v = torch.empty((b, nsplit, k), dtype=torch.float32, device=dev)
+    cand_i = torch.empty((b, nsplit, k), dtype=torch.int32, device=dev)
+    out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    lib, fn = _launcher()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(q.data_ptr(), x.data_ptr(), x_sqnorm.data_ptr(),
+            valid.view(torch.uint8).data_ptr(), b, n, d, k, int(ascending),
+            rows, cand_v.data_ptr(), cand_i.data_ptr(), out_v.data_ptr(),
+            out_i.data_ptr(), stream)
+    cuda_build.check_launch(lib, rc, "fused_topk")
+    fused_topk.launches += 1
+    return out_v, out_i
+
+
+fused_topk.launches = 0

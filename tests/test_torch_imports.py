@@ -1,0 +1,74 @@
+"""The port stands alone: it imports without JAX or the JAX package, and its
+entry points run on the CUDA device unless told otherwise."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_BLOCKED_IMPORT = textwrap.dedent("""
+    import importlib, pkgutil, sys
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib", "dingo_tpu"):
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import dingo_tpu_torch
+    names = [m.name for m in pkgutil.walk_packages(
+        dingo_tpu_torch.__path__, prefix="dingo_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    import chip_smoke  # the on-card smoke script imports nothing of JAX either
+    bad = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "jaxlib", "dingo_tpu")]
+    assert not bad, bad
+    print(len(names))
+""")
+
+
+def test_port_imports_with_jax_and_reference_blocked():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15
+
+
+def test_new_index_without_device_raises_when_no_cuda(monkeypatch):
+    from dingo_tpu_torch.common.device import DeviceUnavailable
+    from dingo_tpu_torch.index.base import IndexParameter, IndexType
+    from dingo_tpu_torch.index.factory import new_index
+    from dingo_tpu_torch.index.wrapper import VectorIndexWrapper
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for t in (IndexType.FLAT, IndexType.IVF_FLAT, IndexType.BRUTEFORCE):
+        param = IndexParameter(index_type=t, dimension=8, ncentroids=4)
+        with pytest.raises(DeviceUnavailable):
+            new_index(1, param)
+        with pytest.raises(DeviceUnavailable):
+            new_index(1, param, device="cuda")
+        with pytest.raises(DeviceUnavailable):
+            VectorIndexWrapper(1, param).build_own()
+        assert new_index(1, param, device="cpu") is not None
+
+
+def test_kernel_wrappers_refuse_mixed_devices():
+    """A wrapper runs its plain version only for CPU tensors; anything
+    else must go to the kernel or raise, never silently to the CPU."""
+    from dingo_tpu_torch.ops.kernel_topk import fused_topk
+
+    q = torch.zeros((2, 4))
+    x = torch.zeros((8, 4), device="meta")
+    with pytest.raises(ValueError):
+        fused_topk(q, x, torch.zeros(8), torch.ones(8, dtype=torch.bool), 2)
