@@ -4,15 +4,29 @@
     python3 chip_smoke.py            # full width: 1M x 768, nlist 1024
     python3 chip_smoke.py --n 131072 --nlist 128   # a quicker, smaller run
 
-Builds the port's CUDA kernels from ``dingo_tpu_torch/csrc`` (one nvcc per
-source, in parallel), then serves an IVF_FLAT region the way the Index
-role does: raft-ordered adds through VectorIndexWrapper, a brute-force
-FLAT search while the region is untrained (kernel B1), training, IVF
-searches at several nprobe (kernel B2), an in-place upsert and delete.
-Every kernel is held against its plain PyTorch version on the card, and
-the launches each serving path made are counted. Data is BASELINE.json
-config 2 made with bench.py's recipe (seed 7, n // 1000 Gaussian centers
-+ 0.35 noise, queries = stored rows + 0.05 noise).
+Builds the port's four CUDA kernels from ``dingo_tpu_torch/csrc`` (one
+nvcc per source, in parallel):
+
+  B1 fused_topk         csrc/fused_topk.cu         FLAT scan, pruning off
+  B2 ivf_list_topk      csrc/ivf_topk.cu           IVF scan, pruning off
+  B3 ivf_pruned_topk    csrc/ivf_pruned_topk.cu    IVF scan, pruned (default)
+  B4 pruned_fused_topk  csrc/pruned_fused_topk.cu  FLAT scan over the
+                                                   blocked mirror (default)
+
+then serves an IVF_FLAT region the way the Index role does: raft-ordered
+adds through VectorIndexWrapper, a brute-force FLAT search while the
+region is untrained (B4 by default; B1 through a FLAT store built without
+the blocked mirror), training, IVF searches at several nprobe (B3 by
+default; B2 with ivf_prune_scan off), pipelined searches on both routes,
+an in-place upsert and delete on the pruned routes. Every kernel is held
+against its plain PyTorch version on the card (B3/B4 for L2 and IP, the
+in-bucket refresh on and off), and the launches each serving path made
+are counted. Timings are medians over ROUNDS rounds in which the routes
+(pipelined searches) or the four kernels take turns, so a pruned reading
+and its unpruned one come from the same card and minute. Data is
+BASELINE.json config 2 made with bench.py's recipe
+(seed 7, n // 1000 Gaussian centers + 0.35 noise, queries = stored rows +
+0.05 noise).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check exits
 nonzero before it. Imports nothing of JAX or of the JAX package.
@@ -38,6 +52,9 @@ RTOL, ATOL = 1e-4, 1e-3
 #: agree within the f32 rounding of a distance computed as
 #: ||q||^2 - 2 q.x + ||x||^2 at these magnitudes
 TIE_RTOL = 1e-4
+#: rounds of each timing, the routes or kernels compared alternating in
+#: each round; the median and the spread are reported
+ROUNDS = 5
 
 
 class SmokeFailure(Exception):
@@ -141,12 +158,70 @@ def time_ms(fn, torch, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def median_spread(xs) -> tuple:
+    """(median, min, max) of a list of readings."""
+    return float(np.median(xs)), float(min(xs)), float(max(xs))
+
+
+def spread_text(xs) -> str:
+    med, lo, hi = median_spread(xs)
+    return f"median {med:.4f} ms (min {lo:.4f}, max {hi:.4f}, {len(xs)} rounds)"
+
+
+def pipelined_ms(wrapper, queries, k, nprobe, reps=20) -> float:
+    """Host ms per batch over `reps` search_async dispatches resolved
+    after the last one (one host sync per reply)."""
+    import torch
+
+    for _ in range(3):
+        wrapper.search_async(queries, k, nprobe=nprobe)()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    thunks = [wrapper.search_async(queries, k, nprobe=nprobe)
+              for _ in range(reps)]
+    for th in thunks:
+        th()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def stats_ok(ks, ps) -> bool:
+    """Pruned kernel vs plain stats [b, 4]: lanes 1 and 3 equal; 0 <=
+    lane0 <= lane1 and lane2 <= lane3 (how much a kernel prunes depends on
+    the order it walks the candidates)."""
+    ks, ps = ks.cpu().numpy(), ps.cpu().numpy()
+    return bool(np.array_equal(ks[:, 1], ps[:, 1])
+                and np.array_equal(ks[:, 3], ps[:, 3])
+                and (ks[:, 0] >= 0).all() and (ks[:, 0] <= ks[:, 1]).all()
+                and (ks[:, 2] >= 0).all() and (ks[:, 2] <= ks[:, 3]).all())
+
+
+def pruned_fraction(stats) -> float:
+    """1 - scanned pairs / total pairs over a [b, 4] stats block."""
+    s = stats.double().sum(0).cpu().numpy()
+    return float(1.0 - s[0] / s[1]) if s[1] > 0 else 0.0
+
+
+def set_flags(flags, **kw) -> dict:
+    saved = {f: flags.get(f) for f in kw}
+    for f, v in kw.items():
+        flags.set(f, v)
+    return saved
+
+
+def bound_of(nbytes: float, ops: float):
+    """(bound ms, "bytes" or "operations") on the published peaks."""
+    t_b, t_o = nbytes / PEAK_BYTES, ops / PEAK_F32_FLOPS
+    return max(t_b, t_o) * 1e3, ("operations" if t_o > t_b else "bytes")
+
+
 def run(args) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from dingo_tpu_torch.common.config import FLAGS
+    from dingo_tpu_torch.common.metrics import METRICS
     from dingo_tpu_torch.index.base import (
         IndexParameter,
         IndexType,
@@ -160,8 +235,19 @@ def run(args) -> int:
     )
     from dingo_tpu_torch.index.ivf_layout import expand_probes, shape_bucket
     from dingo_tpu_torch.index.wrapper import VectorIndexWrapper
-    from dingo_tpu_torch.ops import cuda_build, kernel_ivf, kernel_topk
+    from dingo_tpu_torch.ops import (
+        cuda_build,
+        kernel_ivf,
+        kernel_ivf_pruned,
+        kernel_topk,
+        kernel_topk_pruned,
+    )
+    from dingo_tpu_torch.ops.blocked import query_prefix_sqnorms
     from dingo_tpu_torch.ops.distance import Metric
+
+    b1, b2 = kernel_topk.fused_topk, kernel_ivf.ivf_list_topk
+    b3, b4 = kernel_ivf_pruned.ivf_pruned_topk, kernel_topk_pruned.\
+        pruned_fused_topk
 
     t_start = time.perf_counter()
     card = card_line()
@@ -173,8 +259,9 @@ def run(args) -> int:
     # -- build ---------------------------------------------------------------
     t0 = time.perf_counter()
     cuda_build.build()
-    kernel_topk._launcher()
-    kernel_ivf._launcher()
+    for mod in (kernel_topk, kernel_ivf, kernel_ivf_pruned,
+                kernel_topk_pruned):
+        mod._launcher()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in cuda_build.build_logs.items():
         for line in log.splitlines():
@@ -205,20 +292,28 @@ def run(args) -> int:
         wrapper.add(np.arange(lo, hi, dtype=np.int64), x[lo:hi], log_id)
     torch.cuda.synchronize()
     print(f"ingest {n} rows in {log_id} raft adds: "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{time.perf_counter() - t0:.1f} s (blocked mirror "
+          f"{index.store.vecs_blk is not None})", flush=True)
     check(index.get_count() == n, f"wrapper holds {n} rows")
     wrapper.add(np.asarray([n + 777], np.int64), x[:1], log_id)
     check(index.get_count() == n and (n + 777) not in index.store
           and wrapper.apply_log_id == log_id, "replayed log id ignored")
 
-    # -- untrained: the reader's brute-force arm (B1) --------------------------
-    flat = TpuFlat(1, IndexParameter(index_type=IndexType.FLAT, dimension=d,
-                                     metric=Metric.L2), device=dev)
-    flat.store.reserve(n)
-    for lo in range(0, n, 65536):
-        flat.upsert(np.arange(lo, min(n, lo + 65536), dtype=np.int64),
-                    x[lo:min(n, lo + 65536)])
-    kernel_topk.fused_topk.launches = 0
+    def flat_store(index_id):
+        f = TpuFlat(index_id, IndexParameter(
+            index_type=IndexType.FLAT, dimension=d, metric=Metric.L2),
+            device=dev)
+        f.store.reserve(n)
+        for lo in range(0, n, 65536):
+            f.upsert(np.arange(lo, min(n, lo + 65536), dtype=np.int64),
+                     x[lo:min(n, lo + 65536)])
+        return f
+
+    # -- untrained: the reader's brute-force arm, pruned by default (B4) -----
+    flat = flat_store(2)
+    check(flat.store.vecs_blk is not None,
+          "FLAT store keeps the blocked mirror by default on the card")
+    b4.launches = 0
     flat_search_plain.calls = 0
     try:
         wrapper.search(queries, k)
@@ -226,15 +321,38 @@ def run(args) -> int:
     except (NotTrained, NotSupported):
         res = flat.search(queries, k)
     torch.cuda.synchronize()
-    b1_launches = kernel_topk.fused_topk.launches
-    b1_plain_calls = flat_search_plain.calls
-    print(f"untrained path: fused_topk launches {b1_launches}, plain-arm "
-          f"searches {b1_plain_calls}", flush=True)
-    check(b1_launches > 0, "untrained search ran kernel B1")
+    b4_launches = b4.launches
+    b4_plain_calls = flat_search_plain.calls
+    b4_serving_frac = METRICS.gauge("ivf.pruned_dim_fraction",
+                                    region_id=2).get()
+    print(f"untrained path (pruned): pruned_fused_topk launches "
+          f"{b4_launches}, plain-arm searches {b4_plain_calls}, "
+          f"ivf.pruned_dim_fraction {b4_serving_frac:.4f}", flush=True)
+    check(b4_launches > 0, "untrained search ran kernel B4")
     check(same_modulo_ties(x, queries, [r.ids for r in res], gt),
-          "brute-force ids == numpy exact top-10 modulo ties")
+          "B4 brute-force ids == numpy exact top-10 modulo ties")
 
-    # -- train + IVF search (B2) -----------------------------------------------
+    # -- the unpruned FLAT arm (B1): a store built without the mirror -------
+    saved = set_flags(FLAGS, vector_blocked_layout=False)
+    try:
+        flat1 = flat_store(3)
+    finally:
+        for f_, v_ in saved.items():
+            FLAGS.set(f_, v_)
+    check(flat1.store.vecs_blk is None, "FLAT store without the mirror")
+    b1.launches = 0
+    flat_search_plain.calls = 0
+    res = flat1.search(queries, k)
+    torch.cuda.synchronize()
+    b1_launches = b1.launches
+    b1_plain_calls = flat_search_plain.calls
+    print(f"unpruned FLAT path: fused_topk launches {b1_launches}, "
+          f"plain-arm searches {b1_plain_calls}", flush=True)
+    check(b1_launches > 0, "unpruned FLAT search ran kernel B1")
+    check(same_modulo_ties(x, queries, [r.ids for r in res], gt),
+          "B1 brute-force ids == numpy exact top-10 modulo ties")
+
+    # -- train + IVF search, pruned by default (B3) ---------------------------
     t0 = time.perf_counter()
     index.train()
     torch.cuda.synchronize()
@@ -245,29 +363,93 @@ def run(args) -> int:
     torch.cuda.synchronize()
     print(f"view build: {time.perf_counter() - t0:.1f} s; "
           f"{json.dumps(index.view_stats())}", flush=True)
-    kernel_ivf.ivf_list_topk.launches = 0
+    check(index._bucket_bsq is not None,
+          "IVF view carries per-block norms (pruned route)")
+    nprobes = (16, 32, 64)
+
+    def ivf_searches(tag):
+        out, rec = {}, {}
+        for nprobe in nprobes:
+            out[nprobe] = wrapper.search(queries, k, nprobe=nprobe)
+            hits = sum(len(set(r.ids.tolist()) & set(g.tolist()))
+                       for r, g in zip(out[nprobe], gt))
+            rec[nprobe] = hits / (len(gt) * k)
+            print(f"{tag} recall@{k} nprobe={nprobe}: {rec[nprobe]:.4f}",
+                  flush=True)
+        torch.cuda.synchronize()
+        return out, rec
+
+    b3.launches = 0
     ivf_scan_scores.calls = 0
-    recall = {}
-    for nprobe in (16, 32, 64):
-        res = wrapper.search(queries, k, nprobe=nprobe)
-        hits = sum(len(set(r.ids.tolist()) & set(g.tolist()))
-                   for r, g in zip(res, gt))
-        recall[nprobe] = hits / (len(gt) * k)
-        print(f"recall@{k} nprobe={nprobe}: {recall[nprobe]:.4f}", flush=True)
-    torch.cuda.synchronize()
-    b2_launches = kernel_ivf.ivf_list_topk.launches
-    b2_plain_calls = ivf_scan_scores.calls
-    print(f"trained path: ivf_list_topk launches {b2_launches}, plain-arm "
-          f"searches {b2_plain_calls}", flush=True)
+    res_b3, recall = ivf_searches("pruned")
+    b3_launches = b3.launches
+    b3_plain_calls = ivf_scan_scores.calls
+    b3_serving_frac = METRICS.gauge("ivf.pruned_dim_fraction",
+                                    region_id=1).get()
+    print(f"trained path (pruned): ivf_pruned_topk launches {b3_launches}, "
+          f"plain-arm searches {b3_plain_calls}, ivf.pruned_dim_fraction "
+          f"{b3_serving_frac:.4f}", flush=True)
+    check(b3_launches > 0, "trained search ran kernel B3")
+    check(recall[64] >= 0.95, "recall@10 >= 0.95 at nprobe=64 (B3)")
+
+    # -- the unpruned IVF route (B2): ivf_prune_scan off, view rebuilt ------
+    saved = set_flags(FLAGS, ivf_prune_scan=False)
+    try:
+        index.compact()                  # the flip lands at a rebuild
+        check(index._bucket_bsq is None, "unpruned view has no block norms")
+        b2.launches = 0
+        ivf_scan_scores.calls = 0
+        res_b2, recall_b2 = ivf_searches("unpruned")
+        b2_launches = b2.launches
+        b2_plain_calls = ivf_scan_scores.calls
+    finally:
+        for f_, v_ in saved.items():
+            FLAGS.set(f_, v_)
+    print(f"trained path (unpruned): ivf_list_topk launches {b2_launches}, "
+          f"plain-arm searches {b2_plain_calls}", flush=True)
     check(b2_launches > 0, "trained search ran kernel B2")
-    check(recall[64] >= 0.95, "recall@10 >= 0.95 at nprobe=64")
+    check(recall_b2[64] >= 0.95, "recall@10 >= 0.95 at nprobe=64 (B2)")
+    for nprobe in nprobes:
+        check(same_modulo_ties(x, queries,
+                               [r.ids for r in res_b3[nprobe]],
+                               [r.ids for r in res_b2[nprobe]]),
+              f"B3 ids == B2 ids modulo ties at nprobe={nprobe}")
+
+    # -- pipelined serving cost: both routes alternated within this call -----
+    pipe = {True: [], False: []}
+    for r in range(ROUNDS):
+        for on in ((True, False) if r % 2 == 0 else (False, True)):
+            saved = set_flags(FLAGS, ivf_prune_scan=on)
+            try:
+                index.compact()
+                if (index._bucket_bsq is not None) != on:
+                    raise SmokeFailure(f"rebuild with ivf_prune_scan={on} "
+                                       "took the other route")
+                kern = b3 if on else b2
+                before = kern.launches
+                pipe[on].append(pipelined_ms(wrapper, queries, k, 32))
+                if kern.launches == before:
+                    raise SmokeFailure("pipelined search missed its kernel")
+            finally:
+                for f_, v_ in saved.items():
+                    FLAGS.set(f_, v_)
+    for on, tag in ((True, "pruned, B3"), (False, "unpruned, B2")):
+        med = median_spread(pipe[on])[0]
+        print(f"[{card}] pipelined IVF search ({tag}) b={batch} k={k} "
+              f"nprobe=32 via search_async x20: {spread_text(pipe[on])} per "
+              f"batch ({batch / med * 1e3:.0f} QPS at the median); readings "
+              f"{[round(v, 4) for v in pipe[on]]}", flush=True)
+    print(f"[{card}] pipelined pruned / unpruned, median of the per-round "
+          f"ratios: {np.median(np.divide(pipe[True], pipe[False])):.4f}",
+          flush=True)
+    index.compact()                      # back to the pruned view
+    check(index._bucket_bsq is not None, "pruned view rebuilt")
 
     # -- each kernel against its plain version, at the path's shapes ---------
     qpad = torch.from_numpy(queries).to(dev)
-    fstore = flat.store
+    fstore = flat1.store
     fmask = fstore.device_mask()
-    kv, ki = kernel_topk.fused_topk(qpad, fstore.vecs, fstore.sqnorm, fmask,
-                                    k)
+    kv, ki = b1(qpad, fstore.vecs, fstore.sqnorm, fmask, k)
     pv, pi = kernel_topk.fused_topk_plain(qpad, fstore.vecs, fstore.sqnorm,
                                           fmask, k)
     b1_ok, b1_err = kernel_parity(kv, ki, pv, pi)
@@ -281,42 +463,99 @@ def run(args) -> int:
                             view.max_spill)
     b2_args = (vprobes, qpad, index._buckets, index._bucket_sqnorm,
                view.bucket_valid, view.bucket_slot, k_eff)
-    kv, ki = kernel_ivf.ivf_list_topk(*b2_args)
+    kv, ki = b2(*b2_args)
     pv, pi = kernel_ivf.ivf_list_topk_plain(*b2_args)
     b2_ok, b2_err = kernel_parity(kv, ki, pv, pi)
     check(b2_ok, f"B2 kernel == plain (max abs err {b2_err:.3g})")
 
-    # -- incremental upsert + delete through the wrapper ----------------------
+    dblk = d // index._bucket_bsq.shape[1]
+    qpsq = query_prefix_sqnorms(qpad, dblk)
+    pstore = flat.store
+    pmask = pstore.device_mask()
+
+    def b3_args(ascending, inbucket):
+        return (vprobes, qpad, qpsq, index._buckets, index._bucket_bsq,
+                index._bucket_sqnorm, view.bucket_valid, view.bucket_slot,
+                k_eff, ascending, 1, inbucket)
+
+    def b4_args(ascending, inbucket):
+        return (qpad, pstore.vecs_blk, pstore.bsq_blk, pstore.sqnorm, pmask,
+                k, ascending, 1, inbucket)
+
+    pruned = {}
+    for name, kern, plain, mk in (
+            ("B3", b3, kernel_ivf_pruned.ivf_pruned_topk_plain, b3_args),
+            ("B4", b4, kernel_topk_pruned.pruned_fused_topk_plain, b4_args)):
+        ok_all, err_all = True, 0.0
+        for metric_name, ascending in (("L2", True), ("IP", False)):
+            for inbucket in (True, False):
+                a_ = mk(ascending, inbucket)
+                kv, ki, ks = kern(*a_)
+                pv, pi, ps = plain(*a_)
+                ok, err = kernel_parity(kv, ki, pv, pi)
+                ok = ok and stats_ok(ks, ps)
+                kf, pf = pruned_fraction(ks), pruned_fraction(ps)
+                print(f"{name} {metric_name} inbucket={int(inbucket)}: "
+                      f"pruned fraction kernel {kf:.4f}, plain {pf:.4f}; "
+                      f"max abs err {err:.3g}", flush=True)
+                check(ok, f"{name} {metric_name} inbucket={int(inbucket)} "
+                          "kernel == plain (ids, scores, stats lanes)")
+                ok_all, err_all = ok_all and ok, max(err_all, err)
+                if ascending and inbucket:
+                    pruned[name] = (kf, pf, ks)
+        pruned[name] += (ok_all, err_all)
+
+    # -- incremental upsert + delete on the pruned routes ---------------------
     new_ids = np.arange(n, n + len(extra), dtype=np.int64)
     rebuilds = index.full_rebuilds
+    view = index._view
     log_id += 1
     wrapper.add(new_ids, extra, log_id)
     check(index._view is view and not index._view_dirty
           and index.full_rebuilds == rebuilds,
           f"upsert of {len(extra)} rows applied in place (no view rebuild)")
+    b3_before = b3.launches
     res = wrapper.search(extra[:batch], k, nprobe=32)
-    check(all(len(r.ids) and r.ids[0] == i
-              for r, i in zip(res, new_ids[:batch])),
-          "upserted rows come back as their own nearest neighbour")
+    check(b3.launches > b3_before and all(
+        len(r.ids) and r.ids[0] == i for r, i in zip(res, new_ids[:batch])),
+          "upserted rows come back as their own nearest neighbour (B3)")
     log_id += 1
     wrapper.delete(new_ids, log_id)
     res = wrapper.search(extra[:batch], k, nprobe=32)
     check(index.get_count() == n and not any(
-        (r.ids >= n).any() for r in res), "deleted rows are gone")
+        (r.ids >= n).any() for r in res), "deleted rows are gone (B3)")
+    flat.upsert(new_ids, extra)
+    b4_before = b4.launches
+    res = flat.search(extra[:batch], k)
+    check(b4.launches > b4_before and all(
+        len(r.ids) and r.ids[0] == i for r, i in zip(res, new_ids[:batch])),
+          "upserted rows come back as their own nearest neighbour (B4)")
+    flat.delete(new_ids)
+    res = flat.search(extra[:batch], k)
+    check(flat.get_count() == n and not any(
+        (r.ids >= n).any() for r in res), "deleted rows are gone (B4)")
 
-    # -- timings ---------------------------------------------------------------
-    b1_ms = time_ms(lambda: kernel_topk.fused_topk(
-        qpad, fstore.vecs, fstore.sqnorm, fmask, k), torch)
+    # -- timings: the four kernels alternated in each round -------------------
+    timed = {
+        "B1": lambda: b1(qpad, fstore.vecs, fstore.sqnorm, fmask, k),
+        "B4": lambda: b4(*b4_args(True, True)),
+        "B2": lambda: b2(*b2_args),
+        "B3": lambda: b3(*b3_args(True, True)),
+    }
+    reads = {name: [] for name in timed}
+    order = list(timed)
+    for r in range(ROUNDS):
+        for name in order[r % 4:] + order[:r % 4]:
+            reads[name].append(time_ms(timed[name], torch))
+    b1_ms, b2_ms, b3_ms, b4_ms = (median_spread(reads[nm])[0]
+                                  for nm in ("B1", "B2", "B3", "B4"))
     b1_plain_ms = time_ms(lambda: kernel_topk.fused_topk_plain(
         qpad, fstore.vecs, fstore.sqnorm, fmask, k), torch, iters=5)
     nrow = fstore.capacity
     b1_bytes = batch * d * 4 + nrow * (d * 4 + 4 + 1) + batch * k * 8
     b1_ops = 2.0 * batch * nrow * d
-    b1_bound = max(b1_bytes / PEAK_BYTES, b1_ops / PEAK_F32_FLOPS) * 1e3
-    b1_by = "operations" if b1_ops / PEAK_F32_FLOPS > b1_bytes / PEAK_BYTES \
-        else "bytes"
+    b1_bound, b1_by = bound_of(b1_bytes, b1_ops)
 
-    b2_ms = time_ms(lambda: kernel_ivf.ivf_list_topk(*b2_args), torch)
     b2_plain_ms = time_ms(lambda: kernel_ivf.ivf_list_topk_plain(*b2_args),
                           torch, iters=5)
     vp = vprobes.cpu().numpy()
@@ -326,47 +565,102 @@ def run(args) -> int:
     b2_bytes = (nbuck * cap * (d * 4 + 4 + 1 + 4) + batch * d * 4
                 + vp.size * 4 + batch * k_eff * 8)
     b2_ops = 2.0 * npairs * cap * d
-    b2_bound = max(b2_bytes / PEAK_BYTES, b2_ops / PEAK_F32_FLOPS) * 1e3
-    b2_by = "operations" if b2_ops / PEAK_F32_FLOPS > b2_bytes / PEAK_BYTES \
-        else "bytes"
+    b2_bound, b2_by = bound_of(b2_bytes, b2_ops)
+
+    # pruned bounds: the unpruned work times a scanned fraction (lane0 /
+    # lane1 of the L2 runs above), plus the metadata no pruning skips. The
+    # function needs no more than the smaller of the kernel's and the
+    # plain version's fractions (both measured on these inputs), so
+    # bound_ms uses that one; the bound at the kernel's own fraction is
+    # printed beside it.
+    nblk = d // dblk
+
+    def b3_bound_at(frac):
+        nbytes = (nbuck * cap * d * 4 * frac
+                  + nbuck * cap * (4 + 1 + 4 + nblk * 4)
+                  + batch * (d + nblk) * 4 + vp.size * 4
+                  + batch * k_eff * 8)
+        return bound_of(nbytes, 2.0 * npairs * cap * d * frac)
+
+    prow = pstore.capacity
+
+    def b4_bound_at(frac):
+        nbytes = (prow * d * 4 * frac + prow * (nblk * 4 + 4 + 1)
+                  + batch * (d + nblk) * 4 + batch * k * 8)
+        return bound_of(nbytes, 2.0 * batch * prow * d * frac)
+
+    b3_kfrac, b3_pfrac = 1.0 - pruned["B3"][0], 1.0 - pruned["B3"][1]
+    b3_frac = min(b3_kfrac, b3_pfrac)
+    b3_plain_ms = time_ms(lambda: kernel_ivf_pruned.ivf_pruned_topk_plain(
+        *b3_args(True, True)), torch, iters=3, warmup=1)
+    b3_bound, b3_by = b3_bound_at(b3_frac)
+    b3_kbound = b3_bound_at(b3_kfrac)[0]
+
+    b4_kfrac, b4_pfrac = 1.0 - pruned["B4"][0], 1.0 - pruned["B4"][1]
+    b4_frac = min(b4_kfrac, b4_pfrac)
+    b4_plain_ms = time_ms(lambda: kernel_topk_pruned.pruned_fused_topk_plain(
+        *b4_args(True, True)), torch, iters=3, warmup=1)
+    b4_bound, b4_by = b4_bound_at(b4_frac)
+    b4_kbound = b4_bound_at(b4_kfrac)[0]
+
     print(f"[{card}] B1 fused_topk b={batch} n={nrow} d={d} k={k}: "
-          f"{b1_ms:.4f} ms, plain {b1_plain_ms:.4f} ms, bound "
+          f"{spread_text(reads['B1'])}, plain {b1_plain_ms:.4f} ms, bound "
           f"{b1_bound:.4f} ms ({b1_by})", flush=True)
     print(f"[{card}] B2 ivf_list_topk b={batch} budget={vp.shape[1]} "
           f"cap={cap} d={d} k={k_eff} distinct buckets={nbuck}: "
-          f"{b2_ms:.4f} ms, plain {b2_plain_ms:.4f} ms, bound "
+          f"{spread_text(reads['B2'])}, plain {b2_plain_ms:.4f} ms, bound "
           f"{b2_bound:.4f} ms ({b2_by})", flush=True)
+    print(f"[{card}] B3 ivf_pruned_topk L2 (same shapes, dblk={dblk}, "
+          f"scanned fraction kernel {b3_kfrac:.4f}, plain {b3_pfrac:.4f}): "
+          f"{spread_text(reads['B3'])}, plain {b3_plain_ms:.4f} ms, bound "
+          f"{b3_bound:.4f} ms ({b3_by}; {b3_kbound:.4f} ms at the kernel's "
+          f"own fraction)", flush=True)
+    print(f"[{card}] B4 pruned_fused_topk L2 b={batch} n={prow} d={d} "
+          f"dblk={dblk} k={k} (scanned fraction kernel {b4_kfrac:.4f}, "
+          f"plain {b4_pfrac:.4f}): {spread_text(reads['B4'])}, plain "
+          f"{b4_plain_ms:.4f} ms, bound {b4_bound:.4f} ms ({b4_by}; "
+          f"{b4_kbound:.4f} ms at the kernel's own fraction)", flush=True)
+    for new, old in (("B4", "B1"), ("B3", "B2")):
+        ratios = np.divide(reads[new], reads[old])
+        print(f"[{card}] {new} / {old} (pruned / unpruned kernel), per-round "
+              f"ratio median {np.median(ratios):.4f} (min {ratios.min():.4f}"
+              f", max {ratios.max():.4f})", flush=True)
 
-    reps = 20
-    for _ in range(3):
-        wrapper.search_async(queries, k, nprobe=32)()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    thunks = [wrapper.search_async(queries, k, nprobe=32)
-              for _ in range(reps)]
-    for th in thunks:
-        th()
-    pipe_ms = (time.perf_counter() - t0) * 1e3 / reps
-    print(f"[{card}] pipelined IVF search b={batch} k={k} nprobe=32 via "
-          f"search_async x{reps}: {pipe_ms:.4f} ms/batch "
-          f"({batch / pipe_ms * 1e3:.0f} QPS)", flush=True)
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bound,
+              by, ok, plain_calls, frac=None):
+        e = {"name": name, "route": "cuda",
+             "source": f"dingo_tpu_torch/csrc/{source}",
+             "replaces": replaces, "launches": launches,
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound, "bound_by": by, "library_ms": None,
+             "parity": ok, "plain_arm_searches": plain_calls}
+        if frac is not None:
+            e["pruned_fraction"], e["plain_pruned_fraction"] = frac
+        return e
 
     kernels = [
-        {"name": "fused_topk", "route": "cuda",
-         "source": "dingo_tpu_torch/csrc/fused_topk.cu",
-         "replaces": "dingo_tpu/ops/pallas_topk.py:106",
-         "launches": b1_launches, "max_abs_err": b1_err, "ms": b1_ms,
-         "plain_ms": b1_plain_ms, "bound_ms": b1_bound, "bound_by": b1_by,
-         "library_ms": None, "parity": b1_ok,
-         "plain_arm_searches": b1_plain_calls},
-        {"name": "ivf_list_topk", "route": "cuda",
-         "source": "dingo_tpu_torch/csrc/ivf_topk.cu",
-         "replaces": "dingo_tpu/ops/pallas_ivf.py:100",
-         "launches": b2_launches, "max_abs_err": b2_err, "ms": b2_ms,
-         "plain_ms": b2_plain_ms, "bound_ms": b2_bound, "bound_by": b2_by,
-         "library_ms": None, "parity": b2_ok,
-         "plain_arm_searches": b2_plain_calls},
+        entry("fused_topk", "fused_topk.cu",
+              "dingo_tpu/ops/pallas_topk.py:106", b1_launches, b1_err, b1_ms,
+              b1_plain_ms, b1_bound, b1_by, b1_ok, b1_plain_calls),
+        entry("ivf_list_topk", "ivf_topk.cu",
+              "dingo_tpu/ops/pallas_ivf.py:100", b2_launches, b2_err, b2_ms,
+              b2_plain_ms, b2_bound, b2_by, b2_ok, b2_plain_calls),
+        entry("ivf_pruned_topk", "ivf_pruned_topk.cu",
+              "dingo_tpu/ops/pallas_ivf.py:381", b3_launches,
+              pruned["B3"][4], b3_ms, b3_plain_ms, b3_bound, b3_by,
+              pruned["B3"][3], b3_plain_calls, pruned["B3"][:2]),
+        entry("pruned_fused_topk", "pruned_fused_topk.cu",
+              "dingo_tpu/ops/pallas_topk.py:318", b4_launches,
+              pruned["B4"][4], b4_ms, b4_plain_ms, b4_bound, b4_by,
+              pruned["B4"][3], b4_plain_calls, pruned["B4"][:2]),
     ]
+    for e, nm in zip(kernels, ("B1", "B2", "B3", "B4")):
+        _, e["ms_min"], e["ms_max"] = median_spread(reads[nm])
+    print(f"[{card}] serving-path ivf.pruned_dim_fraction: IVF (B3) "
+          f"{b3_serving_frac:.4f}, FLAT (B4) {b4_serving_frac:.4f}",
+          flush=True)
+    print(f"[{card}] peak device memory: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,6 @@
 """Flag registry for the port: a copy of dingo_tpu's ``FlagRegistry`` with
-only the flags the IVF_FLAT/FLAT serving path reads.
+only the flags the IVF_FLAT/FLAT serving path reads (the pruned scans
+included).
 
 Crossovers that JAX resolved against ``jax.default_backend()`` resolve
 here against the device the index lives on: "auto" turns the hand-written
@@ -65,12 +66,35 @@ FLAGS.define("use_pallas_ivf_search", "auto", mutable=True,
                    "kernel (B2; reads only probed buckets). 'auto' enables "
                    "it for CUDA-resident indexes with dimension >= 256; "
                    "True/False force")
-FLAGS.define("vector_blocked_layout", "false", mutable=True,
-             help_="dimension-blocked scan mirror: not ported yet, setting "
-                   "it on raises NotSupported")
-FLAGS.define("ivf_prune_scan", "false", mutable=True,
-             help_="early-pruning scan kernels: not ported yet, setting it "
-                   "on raises NotSupported")
+FLAGS.define("vector_blocked_layout", "auto", mutable=True,
+             help_="maintain a dimension-blocked ([n_blocks, capacity, "
+                   "block_d]) scan mirror + per-block norms in the slot "
+                   "store so FLAT searches can run the pruned kernel (B4). "
+                   "'auto' = on for CUDA-resident stores, off on the CPU "
+                   "(the mirror costs one more copy of the rows in device "
+                   "memory); decided when a store is built; True/False "
+                   "force")
+FLAGS.define("ivf_prune_scan", "auto", mutable=True,
+             help_="use the early-pruning dimension-blocked scan kernels "
+                   "(B3 for IVF_FLAT, B4 for FLAT over the blocked mirror) "
+                   "wherever the kernel crossover fired and the index has "
+                   "blocked metadata. 'auto' = on; False forces the "
+                   "non-pruning kernels (B1/B2). An IVF flip takes effect "
+                   "at the next view rebuild")
+FLAGS.define("ivf_dim_block", 128, mutable=True,
+             help_="dimension-block width of the vertical scan layout "
+                   "(per-block partial distances let the pruning kernels "
+                   "drop candidates that cannot beat the running k-th "
+                   "best); an index only builds blocked metadata when its "
+                   "dimension is a multiple with >= 2 blocks")
+FLAGS.define("ivf_prune_check_interval", 1, mutable=True,
+             help_="pruned-scan kernels re-evaluate the partial-distance "
+                   "bound every N dimension blocks (1 = every block)")
+FLAGS.define("ivf_prune_inbucket_bound", True, mutable=True,
+             help_="pruned-scan kernels refresh the k-th-best bound between "
+                   "dimension blocks inside a bucket/row block from the "
+                   "candidates' own suffix-norm lower bounds, not only "
+                   "from shortlist merges")
 FLAGS.define("ivf_shape_bucketing", True, mutable=True,
              help_="round (topk, nprobe) up to the {1,1.5}x-pow2 ladder; "
                    "results are sliced back to the requested topk")
@@ -112,12 +136,23 @@ def ivf_kernel_enabled(dimension: int, device: torch.device) -> bool:
     return v
 
 
-def unported_layouts_requested() -> list:
-    """Names of the set flags whose layouts this slice does not carry (the
-    blocked mirror and the pruned scans, kernels B3/B4). The index layer
-    raises NotSupported for them, never reroutes silently."""
-    return [n for n in ("vector_blocked_layout", "ivf_prune_scan")
-            if _parse_tri(FLAGS.get(n))]
+def prune_scan_enabled() -> bool:
+    """Tri-state ivf_prune_scan: 'auto' = on (the pruned kernels are only
+    reachable where the kernel crossover already fired and the index has
+    blocked metadata, so there is no separate device condition)."""
+    v = _parse_tri(FLAGS.get("ivf_prune_scan"))
+    return True if v is None else v
+
+
+def blocked_layout_enabled(device: torch.device) -> bool:
+    """Tri-state vector_blocked_layout: 'auto' keeps the blocked FLAT scan
+    mirror on CUDA-resident stores only (it duplicates the rows in device
+    memory; on the CPU no crossover routes to the kernel that reads it
+    unless forced, as in the JAX package off the TPU)."""
+    v = _parse_tri(FLAGS.get("vector_blocked_layout"))
+    if v is None:
+        return torch.device(device).type == "cuda"
+    return v
 
 
 def train_sample_rows() -> int:

@@ -31,7 +31,8 @@ __device__ __forceinline__ void list_init(float* vals, int* ids, int k) {
 }
 
 // Called by all 32 lanes of a warp with the same (v, id); requires
-// v > vals[k - 1].
+// v > vals[k - 1]. ids may be null: a value-only list, as the pruned
+// scans' selection of the k-th largest lower bound.
 __device__ __forceinline__ void warp_insert(float* vals, int* ids, int k,
                                             float v, int id) {
   const int lane = threadIdx.x & 31;
@@ -39,15 +40,68 @@ __device__ __forceinline__ void warp_insert(float* vals, int* ids, int k,
   float a = 0.f, b = 0.f;
   int ia = -1, ib = -1;
   bool ga = false, gb = false;
-  if (i0 < k) { a = vals[i0]; ia = ids[i0]; ga = a >= v; }
-  if (i1 < k) { b = vals[i1]; ib = ids[i1]; gb = b >= v; }
+  if (i0 < k) { a = vals[i0]; ia = ids ? ids[i0] : -1; ga = a >= v; }
+  if (i1 < k) { b = vals[i1]; ib = ids ? ids[i1] : -1; gb = b >= v; }
   const int p = __popc(__ballot_sync(FULL_MASK, ga)) +
                 __popc(__ballot_sync(FULL_MASK, gb));
   __syncwarp();
-  if (i0 < k && i0 >= p && i0 + 1 < k) { vals[i0 + 1] = a; ids[i0 + 1] = ia; }
-  if (i1 < k && i1 >= p && i1 + 1 < k) { vals[i1 + 1] = b; ids[i1 + 1] = ib; }
-  if (lane == 0) { vals[p] = v; ids[p] = id; }
+  if (i0 < k && i0 >= p && i0 + 1 < k) {
+    vals[i0 + 1] = a;
+    if (ids) ids[i0 + 1] = ia;
+  }
+  if (i1 < k && i1 >= p && i1 + 1 < k) {
+    vals[i1 + 1] = b;
+    if (ids) ids[i1 + 1] = ib;
+  }
+  if (lane == 0) {
+    vals[p] = v;
+    if (ids) ids[p] = id;
+  }
   __syncwarp();
+}
+
+// Bounds of the pruned scans (B3, B4) for one candidate after some
+// dimension block: cum = partial dot, xps = the row's prefix norm and
+// xsq its total norm, qp = the query's prefix norm, qtail = ||q||^2 - qp.
+//   ub: L2 -(qp - 2 cum + xps) (the remaining blocks add >= 0 to the
+//       distance); IP cum + sqrt(qtail xtail) (Cauchy-Schwarz);
+//   lb: L2 -(partial + (|q_tail| + |x_tail|)^2) (triangle inequality);
+//       IP cum - sqrt(qtail xtail); shaved by 1e-5 |lb| + 1e-6 so f32
+//       rounding stays on the conservative side.
+struct Bounds {
+  float ub, lb;
+};
+
+__device__ __forceinline__ Bounds bounds_of(float cum, float xps, float xsq,
+                                            float qp, float qtail,
+                                            int ascending) {
+  const float xtail = fmaxf(xsq - xps, 0.f);
+  Bounds r;
+  if (ascending) {
+    const float partial = (qp - 2.0f * cum) + xps;
+    const float tail = sqrtf(qtail) + sqrtf(xtail);
+    r.ub = -partial;
+    r.lb = -(partial + tail * tail);
+  } else {
+    const float s = sqrtf(qtail * xtail);
+    r.ub = cum + s;
+    r.lb = cum - s;
+  }
+  r.lb = r.lb - 1e-5f * fabsf(r.lb) - 1e-6f;
+  return r;
+}
+
+// Order-preserving int image of a float (and its inverse): a > b as floats
+// iff ord_of(a) > ord_of(b) as ints, so atomicMax on the image keeps a
+// running float maximum. The pruned scans share each query's k-th best
+// across CTAs this way: any partial list's k-th best is at most the final
+// one, so it is always a valid prune threshold.
+__device__ __forceinline__ int ord_of(float f) {
+  const int i = __float_as_int(f);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+__device__ __forceinline__ float float_of(int i) {
+  return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
 }
 
 __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {

@@ -15,7 +15,6 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from dingo_tpu_torch.common.config import unported_layouts_requested
 from dingo_tpu_torch.ops.distance import Metric
 
 
@@ -96,16 +95,6 @@ def resolve_precision(parameter: IndexParameter) -> str:
             "yet (fp32 only)"
         )
     return tier
-
-
-def check_ported_layouts() -> None:
-    """Raise NotSupported when a flag asks for the blocked mirror or the
-    pruned scans (kernels B3/B4, next slice)."""
-    names = unported_layouts_requested()
-    if names:
-        raise NotSupported(
-            f"{', '.join(names)} not ported yet (needs the pruned scans)"
-        )
 
 
 @dataclasses.dataclass

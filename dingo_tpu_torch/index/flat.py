@@ -1,11 +1,19 @@
 """TpuFlat: exact brute-force index (port of dingo_tpu/index/flat.py,
 fp32 float metrics).
 
-The whole search is one scan of the slot store: kernel B1 (fused distance
-+ running top-k, no [b, capacity] score matrix) when the fused crossover
-fires for an L2/IP index with k <= B1's K_MAX, else the JAX package's own
-XLA arm (score matrix + masked top-k) as plain torch ops. Query batches
-pad to powers of two, as in the JAX package.
+The whole search is one scan of the slot store, by the first arm that
+applies to an L2/IP index with k <= the kernels' K_MAX when the fused
+crossover fired:
+
+  * kernel B4 (ops/kernel_topk_pruned.py) when the store keeps the
+    dimension-blocked mirror and ivf_prune_scan is on: partial distances
+    per dimension block, candidates that cannot beat the running k-th best
+    stop scanning; its stats lanes feed the ivf.pruned_* metrics;
+  * kernel B1 (ops/kernel_topk.py) otherwise: fused distance + running
+    top-k, no [b, capacity] score matrix;
+
+else the JAX package's own XLA arm (score matrix + masked top-k) as plain
+torch ops. Query batches pad to powers of two, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,9 +27,11 @@ import torch
 
 from dingo_tpu_torch.common.config import (
     fused_kernel_enabled,
+    prune_scan_enabled,
     train_sample_rows,
 )
 from dingo_tpu_torch.common.device import resolve_device
+from dingo_tpu_torch.common.metrics import METRICS
 from dingo_tpu_torch.index.base import (
     FilterSpec,
     IndexParameter,
@@ -29,12 +39,11 @@ from dingo_tpu_torch.index.base import (
     NotSupported,
     SearchResult,
     VectorIndex,
-    check_ported_layouts,
     resolve_precision,
     strip_invalid,
 )
 from dingo_tpu_torch.index.slot_store import SlotStore, _next_pow2
-from dingo_tpu_torch.ops import kernel_topk
+from dingo_tpu_torch.ops import kernel_topk, kernel_topk_pruned
 from dingo_tpu_torch.ops.distance import (
     Metric,
     metric_ascending,
@@ -118,6 +127,21 @@ class _SlotStoreIndex(VectorIndex):
             live = np.sort(live[sel])
         return self.store.rows_device(live)
 
+    def _note_prune_stats(self, stats_h) -> None:
+        """Fold a pruned-scan stats block ([b, 4] host array: scanned
+        pairs, total pairs, full scans, candidates) into the metrics.
+        Called from resolve(), so the hot path never synchronizes for
+        it."""
+        sums = np.asarray(stats_h, np.float64).sum(axis=0)
+        scanned, total, full, cand = (float(x) for x in sums[:4])
+        if total > 0:
+            METRICS.gauge(
+                "ivf.pruned_dim_fraction", region_id=self.id
+            ).set(max(0.0, 1.0 - scanned / total))
+        METRICS.counter("ivf.pruned_candidates", region_id=self.id).add(
+            int(max(0.0, cand - full))
+        )
+
     # -- mutation ----------------------------------------------------------
     def add(self, ids: np.ndarray, vectors: np.ndarray) -> None:
         ids = np.asarray(ids, np.int64)
@@ -168,15 +192,20 @@ class _SlotStoreIndex(VectorIndex):
                     mask = torch.from_numpy(
                         filter_spec.slot_mask(store.ids_by_slot)
                     ).to(self.device)
-                dists, slots = self._run_search_kernel(qpad, mask, int(topk))
+                dists, slots, stats = self._run_search_kernel(
+                    qpad, mask, int(topk))
         except Exception:
             lease.release()
             raise
-        fetch = begin_host_fetch(dists, slots)
+        # one D2H group for the whole reply, the prune stats included
+        fetch = begin_host_fetch(dists, slots, stats)
 
         def resolve() -> List[SearchResult]:
             try:
-                dists_h, slots_h = fetch.get()
+                fetched = fetch.get()
+                dists_h, slots_h = fetched[0], fetched[1]
+                if stats is not None:
+                    self._note_prune_stats(fetched[2][:b])
                 ids = store.ids_of_slots(slots_h[:b].astype(np.int64))
                 return [strip_invalid(i, d)
                         for i, d in zip(ids, dists_h[:b])]
@@ -187,8 +216,10 @@ class _SlotStoreIndex(VectorIndex):
 
     def _run_search_kernel(self, qpad: torch.Tensor, mask: torch.Tensor,
                            k: int):
-        """Crossover for the whole-store scan -> (dists, slots): kernel B1
-        when the fused crossover fired for L2/IP and k fits its lists,
+        """Crossover for the whole-store scan -> (dists, slots,
+        prune_stats_or_None): kernel B4 when the fused crossover fired for
+        L2/IP, k fits the kernels' lists, the store keeps the blocked
+        mirror and pruning is on; kernel B1 when only the first two hold;
         else the XLA-equivalent plain arm."""
         store = self.store
         fused_on = (
@@ -196,15 +227,24 @@ class _SlotStoreIndex(VectorIndex):
             and self._kernel_metric in (Metric.L2, Metric.INNER_PRODUCT)
             and k <= kernel_topk.K_MAX
         )
+        ascending = metric_ascending(self._kernel_metric)
+        if fused_on and store.vecs_blk is not None and prune_scan_enabled():
+            vals, slots, stats = kernel_topk_pruned.pruned_fused_search(
+                qpad, store.vecs_blk, store.bsq_blk, store.sqnorm, mask, k,
+                ascending=ascending,
+            )
+            return scores_to_distances(vals, self._kernel_metric), slots, \
+                stats
         if fused_on:
             vals, slots = kernel_topk.fused_topk(
-                qpad, store.vecs, store.sqnorm, mask, k,
-                ascending=metric_ascending(self._kernel_metric),
+                qpad, store.vecs, store.sqnorm, mask, k, ascending=ascending,
             )
-            return scores_to_distances(vals, self._kernel_metric), slots
+            return scores_to_distances(vals, self._kernel_metric), slots, \
+                None
         flat_search_plain.calls += 1
-        return flat_search_plain(store.vecs, store.sqnorm, mask, qpad, k,
-                                 self._kernel_metric)
+        dists, slots = flat_search_plain(store.vecs, store.sqnorm, mask,
+                                         qpad, k, self._kernel_metric)
+        return dists, slots, None
 
     # -- lifecycle ---------------------------------------------------------
     def get_count(self) -> int:
@@ -221,8 +261,10 @@ class _SlotStoreIndex(VectorIndex):
             "apply_log_id": self.apply_log_id,
             "count": self.get_count(),
             "precision": self._precision,
-            "blocked_layout": False,
-            "dim_block": 0,
+            # scan-layout metadata, informational: rows persist flat and
+            # the blocked mirror is rebuilt at load from the flag
+            "blocked_layout": self.store.vecs_blk is not None,
+            "dim_block": int(self.store.dim_block or 0),
         }
 
     def _check_meta(self, meta: dict) -> None:
@@ -259,7 +301,6 @@ class TpuFlat(_SlotStoreIndex):
         if parameter.metric is Metric.HAMMING:
             raise NotSupported("binary/hamming FLAT is not ported yet")
         self._precision = resolve_precision(parameter)
-        check_ported_layouts()
         self.device = resolve_device(device)
         self.store = SlotStore(parameter.dimension, self.device)
         self._kernel_metric = parameter.metric

@@ -9,9 +9,12 @@ fp32 tier, float metrics).
            list's tail bucket, deletes flip rows invalid, and a deferred
            compaction restores the dense layout.
   search — [b, nlist] centroid scores -> top-nprobe coarse lists ->
-           virtual bucket probes -> kernel B2 (ops/kernel_ivf.py), which
-           reads only the probed buckets; the JAX package's XLA arm (a
-           per-rank gather + einsum + running top-k) serves k > 64 and the
+           virtual bucket probes -> kernel B3 (ops/kernel_ivf_pruned.py),
+           the dimension-blocked early-pruning scan, when the view carries
+           per-block norms (_bucket_bsq: ivf_prune_scan on and a dimension
+           that blocks), else kernel B2 (ops/kernel_ivf.py); both read only
+           the probed buckets. The JAX package's XLA arm (a per-rank
+           gather + einsum + running top-k) serves k > 64 and the
            crossover's off side.
 
 An untrained index raises NotTrained, the reader's brute-force contract.
@@ -26,7 +29,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from dingo_tpu_torch.common.config import FLAGS, ivf_kernel_enabled
+from dingo_tpu_torch.common.config import (
+    FLAGS,
+    ivf_kernel_enabled,
+    prune_scan_enabled,
+)
 from dingo_tpu_torch.common.device import resolve_device
 from dingo_tpu_torch.index.base import (
     FilterSpec,
@@ -36,7 +43,6 @@ from dingo_tpu_torch.index.base import (
     NotTrained,
     SearchResult,
     VectorIndex,
-    check_ported_layouts,
     resolve_precision,
     strip_invalid,
 )
@@ -51,7 +57,12 @@ from dingo_tpu_torch.index.ivf_layout import (
     shape_bucket,
 )
 from dingo_tpu_torch.index.slot_store import SlotStore
-from dingo_tpu_torch.ops import kernel_ivf
+from dingo_tpu_torch.ops import kernel_ivf, kernel_ivf_pruned
+from dingo_tpu_torch.ops.blocked import (
+    block_sqnorms,
+    bucket_block_sqnorms,
+    resolve_dim_block,
+)
 from dingo_tpu_torch.ops.distance import (
     Metric,
     metric_ascending,
@@ -67,6 +78,7 @@ from dingo_tpu_torch.ops.kmeans import (
 from dingo_tpu_torch.ops.scatter import (
     MAX_SCATTER_BATCH,
     pad_buckets,
+    scatter_bucket_dim_update,
     scatter_bucket_update,
 )
 from dingo_tpu_torch.ops.topk import begin_host_fetch, merge_topk
@@ -284,7 +296,6 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
         if parameter.metric is Metric.HAMMING:
             raise NotSupported("binary IVF is not ported yet")
         self._precision = resolve_precision(parameter)
-        check_ported_layouts()
         self.device = resolve_device(device)
         self._kernel_metric = parameter.metric
         self.store = SlotStore(parameter.dimension, self.device)
@@ -295,6 +306,8 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
         self._view: Optional[MutableIvfView] = None
         self._buckets: Optional[torch.Tensor] = None      # [alloc, cap, d]
         self._bucket_sqnorm: Optional[torch.Tensor] = None
+        #: [alloc, nblk, cap_list] per-block norms for the pruned scan
+        self._bucket_bsq: Optional[torch.Tensor] = None
         self._view_dirty = True
         self._filter_cache: dict = {}
         #: dense view rebuilds (first search after train/load, oversize
@@ -389,11 +402,30 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
         self.store.mutation_version += 1
 
     # -- bucketed view data ------------------------------------------------
+    def _prune_dim_block(self) -> Optional[int]:
+        """Dimension-block width the pruned scan would use for this index,
+        or None when pruning cannot apply (kernel crossover or flag off, or
+        a dimension that does not block). Read at each view rebuild, so a
+        flag flip takes effect at the next one."""
+        if not ivf_kernel_enabled(self.dimension, self.device):
+            return None
+        if not prune_scan_enabled():
+            return None
+        if self.metric not in (Metric.L2, Metric.INNER_PRODUCT,
+                               Metric.COSINE):
+            return None
+        return resolve_dim_block(self.dimension)
+
     def _materialize_view_data(self, view: MutableIvfView) -> None:
-        """Dense gather of the whole store into bucket coordinates (caller
+        """Dense gather of the whole store into bucket coordinates, plus
+        the pruning metadata when the pruned route will read it (caller
         holds device_lock)."""
         self._buckets = view.gather_rows(self.store.vecs)
         self._bucket_sqnorm = view.gather_rows(self.store.sqnorm)
+        self._bucket_bsq = None
+        dblk = self._prune_dim_block()
+        if dblk:
+            self._bucket_bsq = bucket_block_sqnorms(self._buckets, dblk)
 
     def _scatter_view_data(self, upd, rows) -> None:
         """Apply a staged append batch to the data arrays in place (caller
@@ -402,6 +434,9 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
             self._buckets = pad_buckets(self._buckets, upd.grew_alloc)
             self._bucket_sqnorm = pad_buckets(self._bucket_sqnorm,
                                               upd.grew_alloc)
+            if self._bucket_bsq is not None:
+                self._bucket_bsq = pad_buckets(self._bucket_bsq,
+                                               upd.grew_alloc)
         if not upd.appended:
             return
         cap = self._view.cap_list
@@ -411,6 +446,11 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
         sq = (sel ** 2).sum(axis=1)
         scatter_bucket_update(self._buckets, pos // cap, pos % cap, sel)
         scatter_bucket_update(self._bucket_sqnorm, pos // cap, pos % cap, sq)
+        if self._bucket_bsq is not None:
+            dblk = self.dimension // self._bucket_bsq.shape[1]
+            bsq_rows = block_sqnorms(torch.from_numpy(sel), dblk).T
+            scatter_bucket_dim_update(self._bucket_bsq, pos // cap,
+                                      pos % cap, bsq_rows)
 
     # -- search -------------------------------------------------------------
     def search(self, queries: np.ndarray, topk: int,
@@ -453,7 +493,18 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
                                         Metric.COSINE)
                     and k_eff <= kernel_ivf.K_MAX
                 )
-                if kernel_ok:
+                stats = None
+                if kernel_ok and self._bucket_bsq is not None:
+                    # dimension-blocked early-pruning scan: partial
+                    # distances per block, candidates that cannot beat
+                    # the running k-th best stop scanning
+                    vals, slots, stats = kernel_ivf_pruned.ivf_pruned_search(
+                        vprobes, qpad, self._buckets, self._bucket_bsq,
+                        self._bucket_sqnorm, valid, view.bucket_slot, k_eff,
+                        self.dimension // self._bucket_bsq.shape[1],
+                        ascending=metric_ascending(self._kernel_metric),
+                    )
+                elif kernel_ok:
                     vals, slots = kernel_ivf.ivf_list_topk(
                         vprobes, qpad, self._buckets, self._bucket_sqnorm,
                         valid, view.bucket_slot, k_eff,
@@ -471,11 +522,15 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
             lease.release()
             raise
         store = self.store
-        fetch = begin_host_fetch(dists, slots)
+        # one D2H group for the whole reply, the prune stats included
+        fetch = begin_host_fetch(dists, slots, stats)
 
         def resolve() -> List[SearchResult]:
             try:
-                dists_h, slots_h = fetch.get()
+                fetched = fetch.get()
+                dists_h, slots_h = fetched[0], fetched[1]
+                if stats is not None:
+                    self._note_prune_stats(fetched[2][:b])
                 # shape bucketing may have run a larger k; slice back
                 ids = store.ids_of_slots(
                     slots_h[:b, :topk].astype(np.int64))

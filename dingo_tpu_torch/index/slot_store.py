@@ -9,6 +9,9 @@
                 assignment per contiguous slot run (fresh appends are one
                 run, free slots are handed out ascending); the JAX package
                 needed donated dynamic_update_slice programs for the same.
+  blocked     — optional dimension-blocked mirror for the pruned FLAT scan
+                (kernel B4): vecs_blk[nblk, capacity, dblk] plus per-block
+                norms bsq_blk[nblk, capacity], written in the same slot runs.
 
 Capacity grows by doubling. Deletes are host tombstones; slots freed while
 searches are in flight park in limbo until the last lease ends, so an async
@@ -23,6 +26,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from dingo_tpu_torch.common.config import blocked_layout_enabled
+from dingo_tpu_torch.ops.blocked import (
+    block_sqnorms,
+    resolve_dim_block,
+    to_blocked,
+)
+
 MIN_CAPACITY = 4096
 
 
@@ -32,11 +42,31 @@ def _next_pow2(n: int) -> int:
 
 class SlotStore:
     def __init__(self, dim: int, device: torch.device,
-                 capacity: int = MIN_CAPACITY):
+                 capacity: int = MIN_CAPACITY,
+                 blocked: Optional[bool] = None):
         self.dim = dim
         self.device = torch.device(device)
         self.dtype = torch.float32
         self.capacity = max(MIN_CAPACITY, _next_pow2(capacity))
+        # dimension-blocked scan mirror, decided once here (flag
+        # vector_blocked_layout, or `blocked` forces); None when off or
+        # when the dimension does not block
+        self.dim_block: Optional[int] = None
+        self.nblk = 0
+        self.vecs_blk: Optional[torch.Tensor] = None
+        self.bsq_blk: Optional[torch.Tensor] = None
+        if blocked is None:
+            blocked = blocked_layout_enabled(self.device)
+        if blocked and self._blocked_dtype_ok():
+            self.dim_block = resolve_dim_block(dim)
+            if self.dim_block:
+                self.nblk = dim // self.dim_block
+                self.vecs_blk = torch.zeros(
+                    (self.nblk, self.capacity, self.dim_block),
+                    dtype=self.dtype, device=self.device)
+                self.bsq_blk = torch.zeros((self.nblk, self.capacity),
+                                           dtype=torch.float32,
+                                           device=self.device)
         #: bumped by put/remove/growth; keys caches of the slot<->id map
         self.mutation_version = 0
         self.vecs = torch.zeros((self.capacity, dim), dtype=self.dtype,
@@ -82,8 +112,17 @@ class SlotStore:
                 self.device)
         return self._dmask
 
+    def _blocked_dtype_ok(self) -> bool:
+        """Tiers whose scan kernel reads a blocked mirror: f32 rows (the
+        only tier ported)."""
+        return self.dtype == torch.float32
+
     def memory_size(self) -> int:
-        return self.capacity * (self.dim * 4 + 8 + 4 + 1)
+        size = self.capacity * (self.dim * 4 + 8 + 4 + 1)
+        if self.vecs_blk is not None:
+            # blocked scan mirror: one more copy of the rows + block norms
+            size += self.capacity * (self.dim * 4 + self.nblk * 4)
+        return size
 
     def reserve(self, capacity: int) -> None:
         """Pre-size the device arrays (bulk ingest grows once)."""
@@ -116,12 +155,18 @@ class SlotStore:
         row_sq = (rows * rows).sum(dim=1)
         run_starts = np.flatnonzero(np.diff(sslots) != 1) + 1
         with self.device_lock:
+            if self.vecs_blk is not None:
+                rows_blk = to_blocked(rows, self.dim_block)
+                row_bsq = block_sqnorms(rows, self.dim_block)
             for lo, hi in zip(np.concatenate([[0], run_starts]),
                               np.concatenate([run_starts, [n]])):
                 lo, hi = int(lo), int(hi)
                 s0 = int(sslots[lo])
                 self.vecs[s0:s0 + hi - lo] = rows[lo:hi]
                 self.sqnorm[s0:s0 + hi - lo] = row_sq[lo:hi]
+                if self.vecs_blk is not None:
+                    self.vecs_blk[:, s0:s0 + hi - lo] = rows_blk[:, lo:hi]
+                    self.bsq_blk[:, s0:s0 + hi - lo] = row_bsq[:, lo:hi]
         self.valid_h[slots] = True
         self._dmask = None
         self.mutation_version += 1
@@ -167,6 +212,13 @@ class SlotStore:
                 (pad, self.dim))])
             self.sqnorm = torch.cat([self.sqnorm, self.sqnorm.new_zeros(
                 (pad,))])
+            if self.vecs_blk is not None:
+                self.vecs_blk = torch.cat(
+                    [self.vecs_blk, self.vecs_blk.new_zeros(
+                        (self.nblk, pad, self.dim_block))], dim=1)
+                self.bsq_blk = torch.cat(
+                    [self.bsq_blk, self.bsq_blk.new_zeros((self.nblk, pad))],
+                    dim=1)
         self.ids_by_slot = np.concatenate(
             [self.ids_by_slot, np.full((pad,), -1, np.int64)]
         )
@@ -197,8 +249,10 @@ class SlotStore:
     @classmethod
     def from_host(cls, dim: int, device, ids: np.ndarray,
                   vectors: np.ndarray,
-                  capacity: Optional[int] = None) -> "SlotStore":
-        store = cls(dim, device, capacity or max(MIN_CAPACITY, len(ids)))
+                  capacity: Optional[int] = None,
+                  blocked: Optional[bool] = None) -> "SlotStore":
+        store = cls(dim, device, capacity or max(MIN_CAPACITY, len(ids)),
+                    blocked=blocked)
         if len(ids):
             store.put(np.asarray(ids, np.int64), vectors)
         return store

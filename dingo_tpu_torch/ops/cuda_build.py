@@ -25,7 +25,9 @@ BUILD_DIR = REPO_ROOT / "build" / "dingo_tpu_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 #: kernel library name -> its source file under csrc/
-SOURCES = {"fused_topk": "fused_topk.cu", "ivf_topk": "ivf_topk.cu"}
+SOURCES = {"fused_topk": "fused_topk.cu", "ivf_topk": "ivf_topk.cu",
+           "ivf_pruned_topk": "ivf_pruned_topk.cu",
+           "pruned_fused_topk": "pruned_fused_topk.cu"}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

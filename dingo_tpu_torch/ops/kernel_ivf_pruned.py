@@ -1,0 +1,295 @@
+"""Kernel B3: dimension-blocked early-pruning IVF list scan (port of
+dingo_tpu/ops/pallas_ivf.py::ivf_pruned_topk and ivf_pruned_search).
+
+``ivf_pruned_topk`` launches the CUDA kernel in
+``csrc/ivf_pruned_topk.cu`` for CUDA tensors and runs
+``ivf_pruned_topk_plain`` for CPU tensors; any other placement raises.
+k <= K_MAX (the JAX package's own gate, ivf_flat.py:885).
+
+The plain version walks the JAX kernel's own order step by step (probe
+ranks in order for each query, dimension blocks innermost, the prune
+check every `check_every` blocks, the in-bucket refresh with its
+1e-5 |lb| + 1e-6 shave), so its results and stats lanes are the JAX
+package's. ``scan_unit_plain`` is that per-bucket step; B4's plain version
+reuses it per row block.
+
+Stats lanes per query: 0 = candidate-block pairs scanned, 1 = pairs
+total, 2 = candidates scanned to the last block, 3 = candidates
+considered. The kernel may walk candidates in another order, so it may
+prune more or less: lanes 1 and 3 always equal the plain version's, and
+0 <= lane0 <= lane1, lane2 <= lane3.
+
+Bound on an H100 and design: see the note at the top of the CUDA source.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import struct
+from typing import Callable, Tuple
+
+import torch
+
+from dingo_tpu_torch.ops import cuda_build
+from dingo_tpu_torch.ops.blocked import query_prefix_sqnorms
+from dingo_tpu_torch.ops.kernel_ivf import K_MAX, _pad_rows
+
+NEG_INF = float("-inf")
+
+_fn = None
+
+
+def ord_neg_inf() -> int:
+    """The kernels' order-preserving int image of -inf (csrc
+    topk_common.cuh ord_of): the start value of each query's shared
+    k-th best."""
+    i = struct.unpack("<i", struct.pack("<f", NEG_INF))[0]
+    return i if i >= 0 else i ^ 0x7FFFFFFF
+
+
+def _launcher():
+    global _fn
+    if _fn is None:
+        lib = cuda_build.load("ivf_pruned_topk")
+        fn = lib.dingo_ivf_pruned_topk
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 12
+                       + [ctypes.c_void_p] * 7)
+        _fn = (lib, fn)
+    return _fn
+
+
+def _stable_topk(vals: torch.Tensor, ids: torch.Tensor, k: int):
+    """Top k per row, ties to the earlier column (the JAX kernels'
+    max/argmax rounds); rows shorter than k pad with (-inf, -1)."""
+    b, c = vals.shape
+    if c < k:
+        vals = torch.cat([vals, vals.new_full((b, k - c), NEG_INF)], dim=1)
+        ids = torch.cat([ids, ids.new_full((b, k - c), -1)], dim=1)
+    order = torch.sort(vals, dim=1, descending=True, stable=True).indices
+    order = order[:, :k]
+    return torch.gather(vals, 1, order), torch.gather(ids, 1, order)
+
+
+def scan_unit_plain(q: torch.Tensor, qsq: torch.Tensor, qpsq: torch.Tensor,
+                    x_block: Callable[[int], torch.Tensor],
+                    bsq: torch.Tensor, xsq: torch.Tensor,
+                    alive: torch.Tensor, ids: torch.Tensor,
+                    best_v: torch.Tensor, best_i: torch.Tensor,
+                    stats: torch.Tensor, k: int, ascending: bool,
+                    check_every: int, inbucket: bool):
+    """One pruned scan unit (a probed bucket in B3, a row block in B4) for
+    every query at once, in the JAX kernels' step order.
+
+    q [b, d] f32, qsq [b], qpsq [b, nblk]; x_block(jb) -> [u, C, dblk] rows
+    of block jb (u = b per-query buckets, or 1 shared rows); bsq [u, nblk,
+    C]; xsq [u, C]; alive [b, C] f32 (1 = a candidate of this unit); ids
+    [u, C] i32. Adds to stats [b, 4] in place; returns the new running
+    (best_v, best_i) [b, k]."""
+    b, c = alive.shape
+    nblk = qpsq.shape[1]
+    dblk = q.shape[1] // nblk
+    nvalid = alive.sum(dim=1)
+    stats[:, 1] += nvalid * nblk
+    stats[:, 3] += nvalid
+    cum = torch.zeros((b, c), dtype=torch.float32, device=q.device)
+    xpsq = torch.zeros(xsq.shape, dtype=torch.float32, device=q.device)
+    for jb in range(nblk):
+        nalive = alive.sum(dim=1)
+        stats[:, 0] += nalive
+        if jb == nblk - 1:
+            stats[:, 2] += nalive
+        if not bool((nalive > 0.5).any()):
+            break      # nothing alive: no later block computes either
+        qj = q[:, jb * dblk:(jb + 1) * dblk]
+        x = x_block(jb).to(torch.float32)
+        if x.shape[0] == 1:
+            dots = qj @ x[0].T
+        else:
+            dots = torch.einsum("bd,bcd->bc", qj, x)
+        cum = cum + dots
+        xpsq = xpsq + bsq[:, jb]
+        bound = best_v[:, k - 1:k]                  # running k-th best
+        qpsq_j = qpsq[:, jb:jb + 1]
+        qtail = torch.clamp_min(qsq[:, None] - qpsq_j, 0.0)
+        xtail = torch.clamp_min(xsq - xpsq, 0.0)
+        if ascending:
+            partial = qpsq_j - 2.0 * cum + xpsq
+            ub = -partial
+            final = ub
+        else:
+            ub = cum + torch.sqrt(qtail * xtail)
+            final = cum
+        if jb < nblk - 1 and (jb + 1) % check_every == 0:
+            bnd = bound
+            if inbucket:
+                if ascending:
+                    tail = torch.sqrt(qtail) + torch.sqrt(xtail)
+                    lb = -(partial + tail * tail)
+                else:
+                    lb = cum - torch.sqrt(qtail * xtail)
+                lb = lb - 1e-5 * torch.abs(lb) - 1e-6    # f32 safety shave
+                lb = torch.where(alive > 0.5, lb,
+                                 torch.full_like(lb, NEG_INF))
+                if c >= k:
+                    lb_k = torch.topk(lb, k, dim=1).values[:, k - 1:k]
+                    bnd = torch.maximum(bnd, lb_k)
+            alive = torch.where(ub < bnd, torch.zeros_like(alive), alive)
+        if jb == nblk - 1:
+            scores = torch.where(alive > 0.5, final,
+                                 torch.full_like(final, NEG_INF))
+            blk_v, blk_i = _stable_topk(scores, ids.expand(b, c), k)
+            best_v, best_i = _stable_topk(torch.cat([best_v, blk_v], 1),
+                                          torch.cat([best_i, blk_i], 1), k)
+    return best_v, best_i
+
+
+def ivf_pruned_topk_plain(vprobes: torch.Tensor, queries: torch.Tensor,
+                          qpsq: torch.Tensor, buckets: torch.Tensor,
+                          bucket_bsq: torch.Tensor,
+                          bucket_sqnorm: torch.Tensor,
+                          bucket_valid: torch.Tensor,
+                          bucket_slot: torch.Tensor, k: int,
+                          ascending: bool = True, check_every: int = 1,
+                          inbucket: bool = True
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """Plain PyTorch version of B3 -> (scores[b, k], slots[b, k],
+    stats[b, 4] f32)."""
+    b, budget = vprobes.shape
+    nb, cap, d = buckets.shape
+    nblk = qpsq.shape[1]
+    dblk = d // nblk
+    dev = queries.device
+    q32 = queries.to(torch.float32)
+    qsq = (q32 * q32).sum(dim=1)
+    best_v = torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev)
+    best_i = torch.full((b, k), -1, dtype=torch.int32, device=dev)
+    stats = torch.zeros((b, 4), dtype=torch.float32, device=dev)
+    for r in range(budget):
+        lists = vprobes[:, r].long()
+        ok = (lists >= 0) & (lists < nb)
+        if not bool(ok.any()):
+            continue
+        lc = torch.where(ok, lists, torch.zeros_like(lists))
+        rows = buckets[lc]                                # [b, cap, d]
+        alive = (bucket_valid[lc].to(torch.bool) & ok[:, None]).to(
+            torch.float32)
+        best_v, best_i = scan_unit_plain(
+            q32, qsq, qpsq,
+            lambda jb: rows[:, :, jb * dblk:(jb + 1) * dblk],
+            bucket_bsq[lc], bucket_sqnorm[lc], alive,
+            bucket_slot[lc].to(torch.int32), best_v, best_i, stats, k,
+            ascending, check_every, inbucket)
+    best_i = torch.where(torch.isneginf(best_v),
+                         torch.full_like(best_i, -1), best_i)
+    return best_v, best_i, stats
+
+
+def ranks_per_cta(b: int, budget: int, num_sms: int) -> int:
+    """Consecutive probe ranks per CTA: about eight CTAs per SM over the
+    grid, each walking as many ranks as that leaves (its running top-k
+    carries its threshold from bucket to bucket)."""
+    groups = min(budget, max(1, -(-8 * num_sms // max(1, b))))
+    return -(-budget // groups)
+
+
+def ivf_pruned_topk(vprobes: torch.Tensor, queries: torch.Tensor,
+                    qpsq: torch.Tensor, buckets: torch.Tensor,
+                    bucket_bsq: torch.Tensor, bucket_sqnorm: torch.Tensor,
+                    bucket_valid: torch.Tensor, bucket_slot: torch.Tensor,
+                    k: int, ascending: bool = True, check_every: int = 1,
+                    inbucket: bool = True
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Early-pruning probed-bucket scan -> (scores[b, k] f32 'larger is
+    better', slots[b, k] i32 with -1 where the score is -inf, stats[b, 4]
+    f32).
+
+    vprobes[b, budget] i32 (-1 = padded rank); queries[b, d] f32;
+    qpsq[b, nblk] f32 inclusive per-block prefix norms; buckets[B, cap, d]
+    f32; bucket_bsq[B, nblk, cap] f32; bucket_sqnorm[B, cap] f32;
+    bucket_valid[B, cap] bool; bucket_slot[B, cap] i32."""
+    tensors = (vprobes, queries, qpsq, buckets, bucket_bsq, bucket_sqnorm,
+               bucket_valid, bucket_slot)
+    if all(t.device.type == "cpu" for t in tensors):
+        return ivf_pruned_topk_plain(*tensors, k, ascending, check_every,
+                                     inbucket)
+    if not cuda_build.same_cuda_device(*tensors):
+        raise ValueError("ivf_pruned_topk: tensors must share one CUDA "
+                         "device")
+    b, budget = vprobes.shape
+    nb, cap, d = buckets.shape
+    nblk = qpsq.shape[1] if qpsq.dim() == 2 else 0
+    if not 1 <= k <= K_MAX:
+        raise ValueError(f"ivf_pruned_topk: k={k} outside [1, {K_MAX}]")
+    if vprobes.dtype != torch.int32 or bucket_slot.dtype != torch.int32:
+        raise TypeError("ivf_pruned_topk: vprobes and bucket_slot must be "
+                        "int32")
+    if any(t.dtype != torch.float32 for t in (queries, qpsq, buckets,
+                                               bucket_bsq, bucket_sqnorm)):
+        raise TypeError("ivf_pruned_topk: queries, qpsq, buckets, "
+                        "bucket_bsq and bucket_sqnorm must be float32")
+    if bucket_valid.dtype not in (torch.bool, torch.uint8):
+        raise TypeError("ivf_pruned_topk: bucket_valid must be bool or "
+                        "uint8")
+    if nblk < 1 or d % nblk or queries.shape != (b, d) \
+            or qpsq.shape != (b, nblk) \
+            or bucket_bsq.shape != (nb, nblk, cap) \
+            or bucket_sqnorm.shape != (nb, cap) \
+            or bucket_valid.shape != (nb, cap) \
+            or bucket_slot.shape != (nb, cap) or b < 1 or budget < 1 \
+            or check_every < 1:
+        raise ValueError("ivf_pruned_topk: shape mismatch")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("ivf_pruned_topk: tensors must be contiguous")
+    dblk = d // nblk
+    dev = queries.device
+    rpc = ranks_per_cta(b, budget,
+                        torch.cuda.get_device_properties(dev)
+                        .multi_processor_count)
+    groups = -(-budget // rpc)
+    vec4 = d % 4 == 0 and dblk % 4 == 0 and buckets.data_ptr() % 16 == 0
+    thr = torch.full((b,), ord_neg_inf(), dtype=torch.int32, device=dev)
+    stats = torch.zeros((b, 4), dtype=torch.int32, device=dev)
+    cand_v = torch.empty((b, groups, k), dtype=torch.float32, device=dev)
+    cand_i = torch.empty((b, groups, k), dtype=torch.int32, device=dev)
+    out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    lib, fn = _launcher()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(vprobes.data_ptr(), queries.data_ptr(), qpsq.data_ptr(),
+            buckets.data_ptr(), bucket_bsq.data_ptr(),
+            bucket_sqnorm.data_ptr(),
+            bucket_valid.view(torch.uint8).data_ptr(),
+            bucket_slot.data_ptr(), b, budget, nb, cap, d, dblk, k,
+            int(ascending), int(check_every), int(inbucket), rpc, int(vec4),
+            thr.data_ptr(), stats.data_ptr(), cand_v.data_ptr(),
+            cand_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), stream)
+    cuda_build.check_launch(lib, rc, "ivf_pruned_topk")
+    ivf_pruned_topk.launches += 1
+    return out_v, out_i, stats.to(torch.float32)
+
+
+ivf_pruned_topk.launches = 0
+
+
+def ivf_pruned_search(vprobes: torch.Tensor, queries: torch.Tensor,
+                      buckets: torch.Tensor, bucket_bsq: torch.Tensor,
+                      bucket_sqnorm: torch.Tensor,
+                      bucket_valid: torch.Tensor, bucket_slot: torch.Tensor,
+                      k: int, dim_block: int, ascending: bool = True):
+    """The index's entry to B3: pads the per-query arrays to the
+    ROW_BLOCK multiple (padded rows probe nothing), computes the query
+    prefix norms, reads check_every and the in-bucket refresh from the
+    flags -> (scores[b, k], slots[b, k], stats[b, 4])."""
+    from dingo_tpu_torch.common.config import FLAGS
+
+    b = queries.shape[0]
+    queries, vprobes = _pad_rows(queries, vprobes)
+    qpsq = query_prefix_sqnorms(queries, dim_block)
+    check = max(1, int(FLAGS.get("ivf_prune_check_interval")))
+    vals, slots, stats = ivf_pruned_topk(
+        vprobes.contiguous(), queries.contiguous(), qpsq, buckets,
+        bucket_bsq, bucket_sqnorm, bucket_valid, bucket_slot, k, ascending,
+        check, bool(FLAGS.get("ivf_prune_inbucket_bound")))
+    return vals[:b], slots[:b], stats[:b]

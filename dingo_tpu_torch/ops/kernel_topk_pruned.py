@@ -1,0 +1,161 @@
+"""Kernel B4: dimension-blocked early-pruning scan over the FLAT store's
+blocked mirror (port of dingo_tpu/ops/pallas_topk.py::pruned_fused_topk
+and pruned_fused_search).
+
+``pruned_fused_topk`` launches the CUDA kernel in
+``csrc/pruned_fused_topk.cu`` for CUDA tensors and runs
+``pruned_fused_topk_plain`` for CPU tensors; any other placement raises.
+k <= K_MAX; callers route larger k to the XLA-equivalent arm themselves
+(index/flat.py).
+
+The plain version walks the JAX kernel's order: row blocks of `block`
+slots in order, dimension blocks innermost, with the per-unit step of B3
+(kernel_ivf_pruned.scan_unit_plain), so its stats lanes are the JAX
+package's. The kernel splits the slot range across CTAs, so it prunes in
+another order: lanes 1 and 3 equal the plain version's, lanes 0 and 2
+only keep 0 <= lane0 <= lane1 and lane2 <= lane3.
+
+Bound on an H100 and design: see the note at the top of the CUDA source.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from dingo_tpu_torch.ops import cuda_build
+from dingo_tpu_torch.ops.blocked import query_prefix_sqnorms
+from dingo_tpu_torch.ops.kernel_ivf_pruned import (
+    NEG_INF,
+    ord_neg_inf,
+    scan_unit_plain,
+)
+from dingo_tpu_torch.ops.kernel_topk import K_MAX, split_rows
+
+#: the JAX package's row block (pallas_topk.pruned_fused_search default)
+BLOCK = 2048
+
+_fn = None
+
+
+def _launcher():
+    global _fn
+    if _fn is None:
+        lib = cuda_build.load("pruned_fused_topk")
+        fn = lib.dingo_pruned_fused_topk
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+                       + [ctypes.c_void_p] * 7)
+        _fn = (lib, fn)
+    return _fn
+
+
+def pruned_fused_topk_plain(q: torch.Tensor, x_blk: torch.Tensor,
+                            bsq_blk: torch.Tensor, x_sqnorm: torch.Tensor,
+                            valid: torch.Tensor, k: int,
+                            ascending: bool = True, check_every: int = 1,
+                            inbucket: bool = True, block: int = BLOCK
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Plain PyTorch version of B4 -> (scores[b, k], slots[b, k],
+    stats[b, 4] f32). n must be a multiple of `block`."""
+    nblk, n, dblk = x_blk.shape
+    if n % block:
+        raise ValueError(f"n={n} not a multiple of block={block}")
+    b = q.shape[0]
+    dev = q.device
+    q32 = q.to(torch.float32)
+    qsq = (q32 * q32).sum(dim=1)
+    qpsq = query_prefix_sqnorms(q32, dblk)
+    best_v = torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev)
+    best_i = torch.full((b, k), -1, dtype=torch.int32, device=dev)
+    stats = torch.zeros((b, 4), dtype=torch.float32, device=dev)
+    gidx = torch.arange(n, dtype=torch.int32, device=dev)
+    vf = valid.to(torch.float32)
+    for j0 in range(0, n, block):
+        sl = slice(j0, j0 + block)
+        alive = vf[sl][None, :].expand(b, block).clone()
+        best_v, best_i = scan_unit_plain(
+            q32, qsq, qpsq, lambda jb: x_blk[jb, sl][None],
+            bsq_blk[:, sl][None], x_sqnorm[sl][None], alive, gidx[sl][None],
+            best_v, best_i, stats, k, ascending, check_every, inbucket)
+    best_i = torch.where(torch.isneginf(best_v),
+                         torch.full_like(best_i, -1), best_i)
+    return best_v, best_i, stats
+
+
+def pruned_fused_topk(q: torch.Tensor, x_blk: torch.Tensor,
+                      bsq_blk: torch.Tensor, x_sqnorm: torch.Tensor,
+                      valid: torch.Tensor, k: int, ascending: bool = True,
+                      check_every: int = 1, inbucket: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q[b, d] against the blocked mirror x_blk[nblk, n, dblk] (with
+    bsq_blk[nblk, n], x_sqnorm[n], valid[n] bool) -> (scores[b, k] f32
+    'larger is better', slots[b, k] i32 with -1 where the score is -inf,
+    stats[b, 4] f32). On the CPU the plain version walks row blocks of
+    BLOCK slots, clamped to the mirror's capacity (a power of two >= 4096,
+    so the clamp divides it) as pallas_topk.pruned_fused_search does."""
+    tensors = (q, x_blk, bsq_blk, x_sqnorm, valid)
+    if all(t.device.type == "cpu" for t in tensors):
+        return pruned_fused_topk_plain(q, x_blk, bsq_blk, x_sqnorm, valid,
+                                       k, ascending, check_every, inbucket,
+                                       min(BLOCK, x_blk.shape[1]))
+    if not cuda_build.same_cuda_device(*tensors):
+        raise ValueError("pruned_fused_topk: tensors must share one CUDA "
+                         "device")
+    b, d = q.shape
+    nblk, n, dblk = x_blk.shape
+    if not 1 <= k <= K_MAX:
+        raise ValueError(f"pruned_fused_topk: k={k} outside [1, {K_MAX}]")
+    if any(t.dtype != torch.float32 for t in (q, x_blk, bsq_blk, x_sqnorm)):
+        raise TypeError("pruned_fused_topk: q, x_blk, bsq_blk and x_sqnorm "
+                        "must be float32")
+    if valid.dtype not in (torch.bool, torch.uint8):
+        raise TypeError("pruned_fused_topk: valid must be bool or uint8")
+    if nblk * dblk != d or bsq_blk.shape != (nblk, n) \
+            or x_sqnorm.shape != (n,) or valid.shape != (n,) or b < 1 \
+            or n < 1 or check_every < 1:
+        raise ValueError("pruned_fused_topk: shape mismatch")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("pruned_fused_topk: tensors must be contiguous")
+    dev = q.device
+    qpsq = query_prefix_sqnorms(q, dblk).contiguous()
+    rows = split_rows(n, b, torch.cuda.get_device_properties(dev)
+                      .multi_processor_count)
+    nsplit = -(-n // rows)
+    thr = torch.full((b,), ord_neg_inf(), dtype=torch.int32, device=dev)
+    stats = torch.zeros((b, 4), dtype=torch.int32, device=dev)
+    cand_v = torch.empty((b, nsplit, k), dtype=torch.float32, device=dev)
+    cand_i = torch.empty((b, nsplit, k), dtype=torch.int32, device=dev)
+    out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    lib, fn = _launcher()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(q.data_ptr(), qpsq.data_ptr(), x_blk.data_ptr(),
+            bsq_blk.data_ptr(), x_sqnorm.data_ptr(),
+            valid.view(torch.uint8).data_ptr(), b, n, d, dblk, k,
+            int(ascending), int(check_every), int(inbucket), rows,
+            thr.data_ptr(), stats.data_ptr(), cand_v.data_ptr(),
+            cand_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), stream)
+    cuda_build.check_launch(lib, rc, "pruned_fused_topk")
+    pruned_fused_topk.launches += 1
+    return out_v, out_i, stats.to(torch.float32)
+
+
+pruned_fused_topk.launches = 0
+
+
+def pruned_fused_search(q: torch.Tensor, x_blk: torch.Tensor,
+                        bsq_blk: torch.Tensor, x_sqnorm: torch.Tensor,
+                        valid: torch.Tensor, k: int,
+                        ascending: bool = True):
+    """The index's entry to B4 over the blocked store mirror:
+    check_every and the in-bucket refresh come from the flags."""
+    from dingo_tpu_torch.common.config import FLAGS
+
+    check = max(1, int(FLAGS.get("ivf_prune_check_interval")))
+    return pruned_fused_topk(
+        q, x_blk, bsq_blk, x_sqnorm, valid, k, ascending, check,
+        bool(FLAGS.get("ivf_prune_inbucket_bound")))

@@ -33,6 +33,15 @@ def scatter_bucket_update(dst: torch.Tensor, b_idx, r_idx, vals
     return dst
 
 
+def scatter_bucket_dim_update(dst: torch.Tensor, b_idx, r_idx, vals
+                              ) -> torch.Tensor:
+    """dst[b_idx[i], :, r_idx[i]] = vals[i] in place on a dimension-blocked
+    [A, n_blocks, cap] view array (one row touches every block; vals is
+    [n, n_blocks]); returns dst."""
+    scatter_bucket_update(dst.permute(0, 2, 1), b_idx, r_idx, vals)
+    return dst
+
+
 def pad_buckets(arr: torch.Tensor, new_b: int, fill=0) -> torch.Tensor:
     """Grow a [B, ...] tensor to [new_b, ...] (spill-bucket allocation
     outran the physical allocation); growth is rare (alloc ladder)."""

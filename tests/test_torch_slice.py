@@ -207,15 +207,27 @@ def test_unported_features_raise_not_supported():
     for t in (TType.IVF_PQ, TType.HNSW, TType.BINARY_FLAT):
         with pytest.raises(NotSupported):
             new_index(1, TParam(index_type=t, dimension=8), device="cpu")
-    for flag in ("vector_blocked_layout", "ivf_prune_scan"):
-        saved = TFLAGS.get(flag)
-        try:
-            TFLAGS.set(flag, "true")
+    # the pruned routes carry the fp32 tier only: bf16 and sq8 still raise
+    saved = {f: TFLAGS.get(f)
+             for f in ("vector_blocked_layout", "ivf_prune_scan")}
+    try:
+        TFLAGS.set("vector_blocked_layout", "true")
+        TFLAGS.set("ivf_prune_scan", "true")
+        for kw in ({"precision": "bf16"}, {"precision": "sq8"}):
             with pytest.raises(NotSupported):
-                new_index(1, TParam(index_type=TType.FLAT, dimension=8),
-                          device="cpu")
-        finally:
-            TFLAGS.set(flag, saved)
+                new_index(1, TParam(index_type=TType.FLAT, dimension=256,
+                                    **kw), device="cpu")
+    finally:
+        for f, v in saved.items():
+            TFLAGS.set(f, v)
+    import json
+    import tempfile
+    with tempfile.TemporaryDirectory() as snap:
+        with open(f"{snap}/meta.json", "w") as f:
+            json.dump({"index_type": "flat", "dimension": 8, "metric": "l2",
+                       "apply_log_id": 0, "precision": "sq8"}, f)
+        with pytest.raises(NotSupported):
+            index_from_reference(snap, device="cpu")
 
 
 def test_ivf_compaction_keeps_results(kernels_on):
