@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # full width: 1M x 768, nlist 1024
     python3 chip_smoke.py --n 131072 --nlist 128   # a quicker, smaller run
 
-Builds the port's four CUDA kernels from ``dingo_tpu_torch/csrc`` (one
+Builds the port's five CUDA kernels from ``dingo_tpu_torch/csrc`` (one
 nvcc per source, in parallel):
 
   B1 fused_topk         csrc/fused_topk.cu         FLAT scan, pruning off
@@ -12,21 +12,28 @@ nvcc per source, in parallel):
   B3 ivf_pruned_topk    csrc/ivf_pruned_topk.cu    IVF scan, pruned (default)
   B4 pruned_fused_topk  csrc/pruned_fused_topk.cu  FLAT scan over the
                                                    blocked mirror (default)
+  B5 ivf_pq_adc_topk    csrc/ivf_pq_adc_topk.cu    IVF_PQ Quick-ADC scan
 
 then serves an IVF_FLAT region the way the Index role does: raft-ordered
 adds through VectorIndexWrapper, a brute-force FLAT search while the
 region is untrained (B4 by default; B1 through a FLAT store built without
 the blocked mirror), training, IVF searches at several nprobe (B3 by
 default; B2 with ivf_prune_scan off), pipelined searches on both routes,
-an in-place upsert and delete on the pruned routes. Every kernel is held
-against its plain PyTorch version on the card (B3/B4 for L2 and IP, the
-in-bucket refresh on and off), and the launches each serving path made
-are counted. Timings are medians over ROUNDS rounds in which the routes
-(pipelined searches) or the four kernels take turns, so a pruned reading
-and its unpruned one come from the same card and minute. Data is
-BASELINE.json config 2 made with bench.py's recipe
-(seed 7, n // 1000 Gaussian centers + 0.35 noise, queries = stored rows +
-0.05 noise).
+an in-place upsert and delete on the pruned routes. Then an IVF_PQ region
+at BASELINE.json config 3's widths (m 96, nbits 8) over the same rows:
+exact while untrained, trained, B5 at rerank factor 6 (k 10 x 6 = 60, under
+B5's ceiling of 64) against the XLA arm, the two crossovers that send a
+search to the XLA arm (factor 8; a [b, nprobe, m, 256] table over 256 MiB
+at nprobe 64), pipelined searches on both arms, in-place writes, and a
+host_vectors index carried across with the same codes. Every kernel is
+held against its plain PyTorch version on the card (B3/B4 for L2 and IP,
+the in-bucket refresh on and off; B5 with spill buckets, a filter and
+fewer valid rows than k), and the launches each serving path made are
+counted. Timings are medians over ROUNDS rounds in which the routes
+(pipelined searches) or the five kernels take turns, so two readings that
+are compared come from the same card and minute. Data is BASELINE.json
+config 2 made with bench.py's recipe (seed 7, n // 1000 Gaussian centers +
+0.35 noise, queries = stored rows + 0.05 noise).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check exits
 nonzero before it. Imports nothing of JAX or of the JAX package.
@@ -35,6 +42,7 @@ nonzero before it. Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -55,6 +63,8 @@ TIE_RTOL = 1e-4
 #: rounds of each timing, the routes or kernels compared alternating in
 #: each round; the median and the spread are reported
 ROUNDS = 5
+#: IVF_PQ subspaces: BASELINE.json config 3 (768 dims -> 8 per subspace)
+PQ_M = 96
 
 
 class SmokeFailure(Exception):
@@ -168,19 +178,26 @@ def spread_text(xs) -> str:
     return f"median {med:.4f} ms (min {lo:.4f}, max {hi:.4f}, {len(xs)} rounds)"
 
 
+def pipelined_window(wrapper, queries, k, nprobe, reps=20):
+    """One window of `reps` search_async dispatches resolved after the
+    last one (one host sync per reply), as a callable."""
+    def run_window():
+        thunks = [wrapper.search_async(queries, k, nprobe=nprobe)
+                  for _ in range(reps)]
+        for th in thunks:
+            th()
+    return run_window
+
+
 def pipelined_ms(wrapper, queries, k, nprobe, reps=20) -> float:
-    """Host ms per batch over `reps` search_async dispatches resolved
-    after the last one (one host sync per reply)."""
+    """Host ms per batch over one pipelined window, after warm-up."""
     import torch
 
     for _ in range(3):
         wrapper.search_async(queries, k, nprobe=nprobe)()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    thunks = [wrapper.search_async(queries, k, nprobe=nprobe)
-              for _ in range(reps)]
-    for th in thunks:
-        th()
+    pipelined_window(wrapper, queries, k, nprobe, reps)()
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
@@ -214,6 +231,358 @@ def bound_of(nbytes: float, ops: float):
     return max(t_b, t_o) * 1e3, ("operations" if t_o > t_b else "bytes")
 
 
+def timed_calls(module, name, spent: list):
+    """Swap module.name for a wrapper that adds its synchronized host time
+    to spent; returns the original (restore it with setattr)."""
+    import torch
+
+    orig = getattr(module, name)
+
+    def wrapper(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*a, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    setattr(module, name, wrapper)
+    return orig
+
+
+def recall_at(res, gt, k) -> float:
+    hits = sum(len(set(r.ids.tolist()) & set(g.tolist()))
+               for r, g in zip(res, gt))
+    return hits / (len(gt) * k)
+
+
+def device_profile(fn, top: int = 8) -> str:
+    """Run fn once under torch.profiler and describe the card's side of it:
+    the device time of the `top` heaviest kernels (and copies), and the
+    device's busy share (union of their intervals) of the window's wall
+    time, profiler overhead included."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        s_, e_ = e.time_range.start, e.time_range.end
+        spans.append((s_, e_))
+        tot, cnt = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + (e_ - s_) / 1e3, cnt + 1)
+    if not spans:
+        return f"wall {wall_ms:.2f} ms; device time not measured (the " \
+               "profiler saw no device events)"
+    busy, lo, hi = 0.0, None, None
+    for s_, e_ in sorted(spans):
+        if hi is None or s_ > hi:
+            busy += 0.0 if hi is None else hi - lo
+            lo, hi = s_, e_
+        else:
+            hi = max(hi, e_)
+    busy = (busy + hi - lo) / 1e3
+    heavy = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    rows = "; ".join(f"{name[:60]} {ms:.3f} ms x{cnt}"
+                     for name, (ms, cnt) in heavy)
+    return (f"wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
+            f"({busy / wall_ms:.1%}); by device time: {rows}")
+
+
+def ivf_pq_phase(x, queries, extra, gt, nlist, m, card) -> dict:
+    """Serve an IVF_PQ region at BASELINE config 3's widths (d 768, m 96,
+    nbits 8, k 10, batch 64) over the smoke's rows: exact while untrained,
+    then the B5 route (rerank factor 6) against the XLA arm, the
+    crossovers, pipelined timing, in-place writes, and a host_vectors
+    index carried across with the same codes. Returns what the kernel
+    comparison and the report need."""
+    import torch
+
+    from dingo_tpu_torch.common.config import FLAGS
+    from dingo_tpu_torch.index import ivf_pq
+    from dingo_tpu_torch.index.base import (
+        FilterSpec,
+        IndexParameter,
+        IndexType,
+    )
+    from dingo_tpu_torch.index.flat import flat_search_plain
+    from dingo_tpu_torch.index.factory import new_index
+    from dingo_tpu_torch.index.ivf_flat import coarse_probes
+    from dingo_tpu_torch.index.ivf_layout import (
+        MutableIvfView,
+        expand_probes_ranked,
+    )
+    from dingo_tpu_torch.index.wrapper import VectorIndexWrapper
+    from dingo_tpu_torch.ops import kernel_pq
+    from dingo_tpu_torch.ops.distance import Metric
+
+    b5 = kernel_pq.ivf_pq_adc_topk
+    xla = ivf_pq._ivfpq_scan_kernel
+    n, d = x.shape
+    batch, k = len(queries), gt.shape[1]
+    dev = torch.device("cuda")
+    param = IndexParameter(index_type=IndexType.IVF_PQ, dimension=d,
+                           metric=Metric.L2, ncentroids=nlist, nsubvector=m,
+                           default_nprobe=32)
+    wrapper = VectorIndexWrapper(11, param, device=dev)
+    wrapper.set_own(wrapper.build_own())
+    index = wrapper.own_index
+    index.store.reserve(n)
+    t0 = time.perf_counter()
+    log_id = 0
+    for lo in range(0, n, 65536):
+        log_id += 1
+        wrapper.add(np.arange(lo, min(n, lo + 65536), dtype=np.int64),
+                    x[lo:lo + 65536], log_id)
+    torch.cuda.synchronize()
+    print(f"IVF_PQ ingest {n} rows in {log_id} raft adds: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(index.get_count() == n, f"IVF_PQ wrapper holds {n} rows")
+
+    # -- untrained: the hybrid contract, an exact whole-store scan ---------
+    before = flat_search_plain.calls
+    res = wrapper.search(queries, k)
+    check(flat_search_plain.calls == before + 1
+          and same_modulo_ties(x, queries, [r.ids for r in res], gt),
+          "untrained IVF_PQ search is exact (ids == numpy top-10 modulo "
+          "ties)")
+
+    # -- train: coarse fit, m PQ fits, assign + encode of every row ---------
+    coarse_s, pq_s = [], []
+    orig_km = timed_calls(ivf_pq, "train_kmeans", coarse_s)
+    orig_pq = timed_calls(ivf_pq, "pq_train", pq_s)
+    try:
+        t0 = time.perf_counter()
+        index.train()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        ivf_pq.train_kmeans, ivf_pq.pq_train = orig_km, orig_pq
+    print(f"IVF_PQ train: {total:.1f} s = coarse fit (nlist {nlist}) "
+          f"{sum(coarse_s):.1f} s + {m} PQ fits {sum(pq_s):.1f} s + assign "
+          f"and encode of {n} rows {total - sum(coarse_s) - sum(pq_s):.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    index.search(queries[:1], k, nprobe=16)          # builds the code view
+    torch.cuda.synchronize()
+    print(f"IVF_PQ view build: {time.perf_counter() - t0:.1f} s; "
+          f"{json.dumps(index.view_stats())}", flush=True)
+
+    def searches(tag, nprobes, **flags):
+        saved = set_flags(FLAGS, **flags)
+        try:
+            out = {np_: wrapper.search(queries, k, nprobe=np_)
+                   for np_ in nprobes}
+            torch.cuda.synchronize()
+        finally:
+            for f_, v_ in saved.items():
+                FLAGS.set(f_, v_)
+        for np_, r in out.items():
+            print(f"IVF_PQ {tag} recall@{k} nprobe={np_}: "
+                  f"{recall_at(r, gt, k):.4f}", flush=True)
+        return out
+
+    # -- the main path: the B5 route (k 10 x factor 6 = 60 <= 64) ----------
+    b5.launches = 0
+    xla.calls = 0
+    res_b5 = searches("B5 route (factor 6)", (16, 32),
+                      ivfpq_rerank_factor=6)
+    b5_launches, b5_xla_calls = b5.launches, xla.calls
+    print(f"IVF_PQ B5 route: ivf_pq_adc_topk launches {b5_launches}, "
+          f"XLA-arm searches {b5_xla_calls}", flush=True)
+    check(b5_launches > 0 and b5_xla_calls == 0,
+          "IVF_PQ searches at factor 6 ran kernel B5, not the XLA arm")
+    check(all(len(r.ids) == k and np.isfinite(r.distances).all()
+              for rs in res_b5.values() for r in rs)
+          and all(int(r.ids[0]) == int(g[0])
+                  for r, g in zip(res_b5[32], gt)),
+          "B5 route: k finite results, top-1 == exact top-1 at nprobe 32")
+
+    # -- the same searches on the XLA arm (kernel forced off) ---------------
+    before = (b5.launches, xla.calls)
+    res_xla = searches("XLA arm (kernel off, factor 6)", (16, 32),
+                       ivfpq_rerank_factor=6, use_pallas_ivf_search=False)
+    check(b5.launches == before[0] and xla.calls == before[1] + 2,
+          "use_pallas_ivf_search=False takes the XLA arm")
+    for np_ in (16, 32):
+        a, b_ = res_b5[np_], res_xla[np_]
+        check(same_modulo_ties(x, queries, [r.ids for r in a],
+                               [r.ids for r in b_])
+              and all(np.allclose(np.sort(r1.distances),
+                                  np.sort(r2.distances), rtol=RTOL,
+                                  atol=ATOL) for r1, r2 in zip(a, b_)),
+              f"B5 route == XLA arm (ids modulo ties, distances) at "
+              f"nprobe={np_}")
+
+    # -- the crossovers: kprime 80 > 64, and a table over 256 MiB -----------
+    for tag, nprobe_, factor in (("factor 8", 32, 8),
+                                 ("nprobe 64 (table 402 MB)", 64, 6)):
+        before = (b5.launches, xla.calls)
+        searches(f"crossover {tag}", (nprobe_,), ivfpq_rerank_factor=factor)
+        check(b5.launches == before[0] and xla.calls == before[1] + 1,
+              f"crossover {tag} takes the XLA arm, as in the JAX package")
+
+    # -- pipelined serving cost: the B5 route against the XLA arm ----------
+    pipe = {True: [], False: []}
+    for r in range(ROUNDS):
+        for on in ((True, False) if r % 2 == 0 else (False, True)):
+            saved = set_flags(FLAGS, ivfpq_rerank_factor=6,
+                              use_pallas_ivf_search=on)
+            try:
+                before = b5.launches
+                pipe[on].append(pipelined_ms(wrapper, queries, k, 32))
+                if (b5.launches > before) != on:
+                    raise SmokeFailure("pipelined IVF_PQ search took the "
+                                       "other arm")
+            finally:
+                for f_, v_ in saved.items():
+                    FLAGS.set(f_, v_)
+    for on, tag in ((True, "B5 route"), (False, "XLA arm")):
+        med = median_spread(pipe[on])[0]
+        print(f"[{card}] pipelined IVF_PQ search ({tag}) b={batch} k={k} "
+              f"nprobe=32 factor 6 via search_async x20: "
+              f"{spread_text(pipe[on])} per batch ({batch / med * 1e3:.0f} "
+              f"QPS at the median); readings "
+              f"{[round(v, 4) for v in pipe[on]]}", flush=True)
+    print(f"[{card}] pipelined IVF_PQ B5 route / XLA arm, median of the "
+          f"per-round ratios: "
+          f"{np.median(np.divide(pipe[True], pipe[False])):.4f}", flush=True)
+    saved = set_flags(FLAGS, ivfpq_rerank_factor=6)
+    try:
+        print(f"[{card}] profile, pipelined IVF_PQ B5 route x20: "
+              + device_profile(pipelined_window(wrapper, queries, k, 32)),
+              flush=True)
+    finally:
+        for f_, v_ in saved.items():
+            FLAGS.set(f_, v_)
+
+    # -- in-place writes through B5 ----------------------------------------
+    saved = set_flags(FLAGS, ivfpq_rerank_factor=6)
+    try:
+        new_ids = np.arange(n, n + len(extra), dtype=np.int64)
+        rebuilds, view = index.full_rebuilds, index._view
+        log_id += 1
+        wrapper.add(new_ids, extra, log_id)
+        check(index._view is view and not index._view_dirty
+              and index.full_rebuilds == rebuilds,
+              f"IVF_PQ upsert of {len(extra)} rows applied in place")
+        before = b5.launches
+        res = wrapper.search(extra[:batch], k, nprobe=32)
+        check(b5.launches > before and all(
+            len(r.ids) and r.ids[0] == i
+            for r, i in zip(res, new_ids[:batch])),
+              "upserted rows come back as their own nearest neighbour (B5)")
+        log_id += 1
+        wrapper.delete(new_ids, log_id)
+        res = wrapper.search(extra[:batch], k, nprobe=32)
+        check(index.get_count() == n and not any(
+            (r.ids >= n).any() for r in res), "deleted rows are gone (B5)")
+
+        # -- host_vectors: the same codes, rerank from host rows --------------
+        host = new_index(12, dataclasses.replace(param, host_vectors=True),
+                         device=dev)
+        t0 = time.perf_counter()
+        slots = index.store.slots_of(np.arange(n))
+        host.restore_arrays(np.arange(n), x, index.centroids.cpu().numpy(),
+                            index.codebooks.cpu().numpy(),
+                            index._codes[torch.from_numpy(slots).to(dev)]
+                            .cpu().numpy(), index._assign_h[slots])
+        print(f"host_vectors IVF_PQ carried across: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        before = b5.launches
+        hres = host.search(queries, k, nprobe=32)
+        check(b5.launches > before, "host_vectors IVF_PQ search ran B5")
+        check(same_modulo_ties(x, queries, [r.ids for r in hres],
+                               [r.ids for r in res_b5[32]]),
+              "host_vectors IVF_PQ (B5 + host rerank) ids == the device "
+              "store's modulo ties")
+    finally:
+        for f_, v_ in saved.items():
+            FLAGS.set(f_, v_)
+    del host
+
+    # -- B5 against its plain version at the path's shapes ------------------
+    qpad = torch.from_numpy(queries).to(dev)
+    nprobe_t = 32
+    kk = k * 6
+    view = index._view
+    probes = coarse_probes(qpad, index.centroids, index._c_sqnorm, nprobe_t)
+    lut_all = ivf_pq._ivfpq_adc_lut(qpad, index.centroids, probes,
+                                    index.codebooks)
+
+    def b5_args(v, codes, valid):
+        vprobes, coarse_pos = expand_probes_ranked(
+            probes, v.probe_table, nprobe_t, v.max_spill)
+        return (vprobes, coarse_pos.contiguous(), lut_all, codes, valid,
+                v.bucket_slot, kk)
+
+    def shared_tables(a) -> int:
+        vp_, cp_ = a[0].cpu().numpy(), a[1].cpu().numpy()
+        return int(((cp_[:, 1:] == cp_[:, :-1]) & (vp_[:, 1:] >= 0)).sum())
+
+    # a view of the same rows at half the bucket width: every list longer
+    # than cap / 2 spills, so its buckets share their rank's table
+    with index.store.device_lock:
+        filtered = index._bucket_valid_for_filter(FilterSpec(
+            ranges=[(0, n // 2)], exclude_ids=np.arange(0, n, 7)))
+        sparse = index._bucket_valid_for_filter(FilterSpec(
+            include_ids=np.arange(0, n, n // 20)))
+        half = MutableIvfView.build(index._assign_h, index.store.valid_h,
+                                    nlist, index.store.capacity, dev,
+                                    cap_hint=view.cap_list // 2)
+        half_codes = half.gather_rows(index._codes)
+    path_args = b5_args(view, index._code_buckets, view.bucket_valid)
+    half_args = b5_args(half, half_codes, half.bucket_valid)
+    check(shared_tables(half_args) > 0,
+          "the half-width view's probes include spill buckets that share "
+          "a table")
+    ok_all, err_all = True, 0.0
+    for tag, a_ in (
+            (f"the path's view ({shared_tables(path_args)} probes share "
+             "their rank's table)", path_args),
+            (f"spill buckets, cap {half.cap_list} "
+             f"({shared_tables(half_args)} probes share their rank's "
+             "table)", half_args),
+            ("filtered bucket_valid", path_args[:4] + (filtered,)
+             + path_args[5:]),
+            ("fewer valid rows than k", path_args[:4] + (sparse,)
+             + path_args[5:])):
+        kv, ki = b5(*a_)
+        pv, pi = kernel_pq.ivf_pq_adc_topk_plain(*a_)
+        ok, err = kernel_parity(kv, ki, pv, pi)
+        if a_[4] is sparse:
+            ok = ok and bool((ki[:, 30:] == -1).all())
+        check(ok, f"B5 kernel == plain, {tag} (max abs err {err:.3g})")
+        ok_all, err_all = ok_all and ok, max(err_all, err)
+    del half, half_codes
+    vp = path_args[0].cpu().numpy()
+    cpn = path_args[1].cpu().numpy()
+
+    # bound: the distinct (query, coarse rank) tables the live probes read
+    # plus the distinct probed buckets' codes, valid flags and slots
+    live = vp >= 0
+    ntables = len(np.unique(np.stack([np.broadcast_to(
+        np.arange(batch)[:, None], vp.shape)[live], cpn[live]]), axis=1).T)
+    nbuck = len(np.unique(vp[live]))
+    cap = view.cap_list
+    nbytes = (ntables * m * index.ksub * 4 + nbuck * cap * (m + 1 + 4)
+              + vp.size * 8 + batch * kk * 8)
+    bound, by = bound_of(nbytes, float(live.sum()) * cap * m)
+    return {"args": path_args, "launches": b5_launches,
+            "xla_calls": b5_xla_calls, "ok": ok_all, "err": err_all,
+            "bound": bound, "by": by,
+            "shape": f"b={batch} budget={vp.shape[1]} cap={cap} m={m} "
+                     f"k={kk} tables={ntables} distinct buckets={nbuck}"}
+
+
 def run(args) -> int:
     import torch
 
@@ -239,6 +608,7 @@ def run(args) -> int:
         cuda_build,
         kernel_ivf,
         kernel_ivf_pruned,
+        kernel_pq,
         kernel_topk,
         kernel_topk_pruned,
     )
@@ -260,7 +630,7 @@ def run(args) -> int:
     t0 = time.perf_counter()
     cuda_build.build()
     for mod in (kernel_topk, kernel_ivf, kernel_ivf_pruned,
-                kernel_topk_pruned):
+                kernel_topk_pruned, kernel_pq):
         mod._launcher()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in cuda_build.build_logs.items():
@@ -371,9 +741,7 @@ def run(args) -> int:
         out, rec = {}, {}
         for nprobe in nprobes:
             out[nprobe] = wrapper.search(queries, k, nprobe=nprobe)
-            hits = sum(len(set(r.ids.tolist()) & set(g.tolist()))
-                       for r, g in zip(out[nprobe], gt))
-            rec[nprobe] = hits / (len(gt) * k)
+            rec[nprobe] = recall_at(out[nprobe], gt, k)
             print(f"{tag} recall@{k} nprobe={nprobe}: {rec[nprobe]:.4f}",
                   flush=True)
         torch.cuda.synchronize()
@@ -444,6 +812,9 @@ def run(args) -> int:
           flush=True)
     index.compact()                      # back to the pruned view
     check(index._bucket_bsq is not None, "pruned view rebuilt")
+    print(f"[{card}] profile, pipelined IVF search (pruned, B3) x20: "
+          + device_profile(pipelined_window(wrapper, queries, k, 32)),
+          flush=True)
 
     # -- each kernel against its plain version, at the path's shapes ---------
     qpad = torch.from_numpy(queries).to(dev)
@@ -535,17 +906,34 @@ def run(args) -> int:
     check(flat.get_count() == n and not any(
         (r.ids >= n).any() for r in res), "deleted rows are gone (B4)")
 
-    # -- timings: the four kernels alternated in each round -------------------
+    # -- IVF_PQ at BASELINE config 3's widths: the B5 route ------------------
+    pq = ivf_pq_phase(x, queries, extra, gt, nlist, PQ_M, card)
+    # B5 on the same probes at B2's k, and with codes whose lookups hit 32
+    # distinct banks per warp: what the k 60 inserts and the random-code
+    # bank conflicts cost
+    nbk, capk, mk = pq["args"][3].shape
+    rows_ = torch.arange(capk, device=dev)[:, None] * 7
+    cols_ = torch.arange(mk, device=dev)[None, :] * 13
+    bank_free = ((rows_ + cols_) % 256).to(torch.uint8).expand(
+        nbk, capk, mk).contiguous()
+    b5_k12 = pq["args"][:6] + (shape_bucket(k),)
+    b5_bank_free = pq["args"][:3] + (bank_free,) + pq["args"][4:]
+
+    # -- timings: the five kernels alternated in each round -------------------
     timed = {
         "B1": lambda: b1(qpad, fstore.vecs, fstore.sqnorm, fmask, k),
         "B4": lambda: b4(*b4_args(True, True)),
         "B2": lambda: b2(*b2_args),
         "B3": lambda: b3(*b3_args(True, True)),
+        "B5": lambda: kernel_pq.ivf_pq_adc_topk(*pq["args"]),
+        "B5 k=12": lambda: kernel_pq.ivf_pq_adc_topk(*b5_k12),
+        "B5 bank-free codes": lambda: kernel_pq.ivf_pq_adc_topk(
+            *b5_bank_free),
     }
     reads = {name: [] for name in timed}
     order = list(timed)
     for r in range(ROUNDS):
-        for name in order[r % 4:] + order[:r % 4]:
+        for name in order[r % len(order):] + order[:r % len(order)]:
             reads[name].append(time_ms(timed[name], torch))
     b1_ms, b2_ms, b3_ms, b4_ms = (median_spread(reads[nm])[0]
                                   for nm in ("B1", "B2", "B3", "B4"))
@@ -620,6 +1008,17 @@ def run(args) -> int:
           f"plain {b4_pfrac:.4f}): {spread_text(reads['B4'])}, plain "
           f"{b4_plain_ms:.4f} ms, bound {b4_bound:.4f} ms ({b4_by}; "
           f"{b4_kbound:.4f} ms at the kernel's own fraction)", flush=True)
+    b5_plain_ms = time_ms(lambda: kernel_pq.ivf_pq_adc_topk_plain(
+        *pq["args"]), torch, iters=3, warmup=1)
+    print(f"[{card}] B5 ivf_pq_adc_topk {pq['shape']}: "
+          f"{spread_text(reads['B5'])}, plain {b5_plain_ms:.4f} ms, bound "
+          f"{pq['bound']:.4f} ms ({pq['by']}); launches on the IVF_PQ path "
+          f"{pq['launches']}", flush=True)
+    for tag in ("B5 k=12", "B5 bank-free codes"):
+        ratios = np.divide(reads[tag], reads["B5"])
+        print(f"[{card}] {tag} (same probes and tables): "
+              f"{spread_text(reads[tag])}; per-round ratio to B5 at k "
+              f"{pq['args'][6]} median {np.median(ratios):.4f}", flush=True)
     for new, old in (("B4", "B1"), ("B3", "B2")):
         ratios = np.divide(reads[new], reads[old])
         print(f"[{card}] {new} / {old} (pruned / unpruned kernel), per-round "
@@ -653,8 +1052,12 @@ def run(args) -> int:
               "dingo_tpu/ops/pallas_topk.py:318", b4_launches,
               pruned["B4"][4], b4_ms, b4_plain_ms, b4_bound, b4_by,
               pruned["B4"][3], b4_plain_calls, pruned["B4"][:2]),
+        entry("ivf_pq_adc_topk", "ivf_pq_adc_topk.cu",
+              "dingo_tpu/ops/pallas_pq.py:100", pq["launches"], pq["err"],
+              median_spread(reads["B5"])[0], b5_plain_ms, pq["bound"],
+              pq["by"], pq["ok"], pq["xla_calls"]),
     ]
-    for e, nm in zip(kernels, ("B1", "B2", "B3", "B4")):
+    for e, nm in zip(kernels, ("B1", "B2", "B3", "B4", "B5")):
         _, e["ms_min"], e["ms_max"] = median_spread(reads[nm])
     print(f"[{card}] serving-path ivf.pruned_dim_fraction: IVF (B3) "
           f"{b3_serving_frac:.4f}, FLAT (B4) {b4_serving_frac:.4f}",

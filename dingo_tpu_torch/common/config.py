@@ -1,6 +1,6 @@
 """Flag registry for the port: a copy of dingo_tpu's ``FlagRegistry`` with
-only the flags the IVF_FLAT/FLAT serving path reads (the pruned scans
-included).
+only the flags the FLAT, IVF_FLAT and IVF_PQ serving paths read (the
+pruned scans included).
 
 Crossovers that JAX resolved against ``jax.default_backend()`` resolve
 here against the device the index lives on: "auto" turns the hand-written
@@ -104,6 +104,11 @@ FLAGS.define("ivf_compact_tombstone_ratio", 0.25, mutable=True,
 FLAGS.define("ivf_compact_spill_ratio", 0.5, mutable=True,
              help_="compact once incremental appends allocated this many "
                    "extra spill buckets relative to the dense build")
+FLAGS.define("ivfpq_rerank_factor", 8, mutable=True,
+             help_="IVF_PQ reranks topk*factor ADC candidates exactly (on "
+                   "the device for a device store, from host rows at "
+                   "resolve for host_vectors); 1 disables. The fused ADC "
+                   "kernel (B5) serves only max(topk*factor, k) <= 64")
 FLAGS.define("train_sample_rows", 65536, mutable=True,
              help_="train-sample row cap for k-means (0 = full corpus, "
                    "lifting derived caps too)")
@@ -129,7 +134,8 @@ def fused_kernel_enabled(capacity: int, device: torch.device) -> bool:
 
 
 def ivf_kernel_enabled(dimension: int, device: torch.device) -> bool:
-    """use_pallas_ivf_search crossover for trained IVF_FLAT searches."""
+    """use_pallas_ivf_search crossover for trained IVF_FLAT and IVF_PQ
+    searches (kernels B2/B3 and B5)."""
     v = _parse_tri(FLAGS.get("use_pallas_ivf_search"))
     if v is None:
         return device.type == "cuda" and dimension >= 256

@@ -79,9 +79,9 @@ _PRECISION_ALIASES = {
 }
 
 
-def resolve_precision(parameter: IndexParameter) -> str:
-    """Effective precision tier: the parameter wins, "" means fp32 (the
-    JAX package's conf default). Only fp32 is ported; bf16/sq8 raise."""
+def precision_tier(parameter: IndexParameter) -> str:
+    """Requested precision tier: the parameter wins, "" means fp32 (the
+    JAX package's conf default), a bf16 dtype means bf16."""
     p = (parameter.precision or "").strip().lower()
     tier = _PRECISION_ALIASES.get(p)
     if tier is None:
@@ -89,6 +89,12 @@ def resolve_precision(parameter: IndexParameter) -> str:
                                f"(want one of {PRECISION_TIERS})")
     if tier == "fp32" and parameter.dtype in ("bfloat16", "bf16"):
         tier = "bf16"
+    return tier
+
+
+def resolve_precision(parameter: IndexParameter) -> str:
+    """Effective precision tier. Only fp32 is ported; bf16/sq8 raise."""
+    tier = precision_tier(parameter)
     if tier != "fp32" or parameter.dtype not in ("float32", "f32"):
         raise NotSupported(
             f"precision tier {tier} / dtype {parameter.dtype} is not ported "

@@ -1,12 +1,15 @@
 """Carry index state across from the JAX package.
 
-The JAX package's snapshot (``meta.json`` + ``flat.npz`` or
-``ivf_flat.npz`` holding ``ids``, ``vectors`` and, once trained,
-``centroids`` and ``assign``) is the interchange format: the port's
-``load`` reads it, and ``index_from_reference`` builds a port index from a
-snapshot directory or from the same arrays given as numpy. Rows go into
-slots in snapshot order, so both packages hold the same slots, centroids
-and bucket assignments and compute the same thing.
+The JAX package's snapshot (``meta.json`` + ``flat.npz``, ``ivf_flat.npz``
+or ``ivf_pq.npz`` holding ``ids``, ``vectors`` and, once trained,
+``centroids`` plus ``assign`` (IVF_FLAT) or ``codebooks`` (IVF_PQ)) is the
+interchange format: the port's ``load`` reads it, and
+``index_from_reference`` builds a port index from a snapshot directory or
+from the same arrays given as numpy. Rows go into slots in snapshot order,
+so both packages hold the same slots, centroids and bucket assignments and
+compute the same thing. An IVF_PQ snapshot re-encodes its rows at load, as
+the JAX package's load does; a mapping may carry the reference's exact
+``codes`` and ``assign`` instead.
 """
 
 from __future__ import annotations
@@ -31,9 +34,11 @@ def index_from_reference(source: Union[str, os.PathLike, Mapping],
                          parameter: Optional[IndexParameter] = None,
                          index_id: int = 0):
     """Port index from a JAX snapshot directory, or from a mapping of numpy
-    arrays (``ids``, ``vectors`` and optionally ``centroids``/``assign``;
-    ``parameter`` describes the index, inferred when absent: IVF_FLAT when
-    centroids are given, else FLAT, L2). Rows are taken as stored (cosine
+    arrays (``ids``, ``vectors`` and optionally ``centroids`` with
+    ``assign`` for IVF_FLAT, or ``centroids``, ``codebooks`` and optionally
+    ``codes``/``assign`` for IVF_PQ; ``parameter`` describes the index,
+    inferred when absent: IVF_PQ when codebooks are given, IVF_FLAT when
+    only centroids are, else FLAT, L2). Rows are taken as stored (cosine
     rows already normalized)."""
     if isinstance(source, (str, os.PathLike)):
         with open(os.path.join(source, "meta.json")) as f:
@@ -41,6 +46,8 @@ def index_from_reference(source: Union[str, os.PathLike, Mapping],
         if parameter is None:
             t = IndexType(meta["index_type"])
             kw = {"ncentroids": int(meta["nlist"])} if "nlist" in meta else {}
+            if "m" in meta:
+                kw["nsubvector"] = int(meta["m"])
             parameter = IndexParameter(
                 index_type=t, dimension=int(meta["dimension"]),
                 metric=Metric(meta["metric"]), **kw,
@@ -52,8 +59,14 @@ def index_from_reference(source: Union[str, os.PathLike, Mapping],
     arrays = source
     vectors = np.asarray(arrays["vectors"], np.float32)
     centroids = arrays.get("centroids")
+    codebooks = arrays.get("codebooks")
     if parameter is None:
-        if centroids is not None:
+        if codebooks is not None:
+            parameter = IndexParameter(
+                index_type=IndexType.IVF_PQ, dimension=vectors.shape[1],
+                ncentroids=len(centroids), nsubvector=len(codebooks),
+            )
+        elif centroids is not None:
             parameter = IndexParameter(
                 index_type=IndexType.IVF_FLAT, dimension=vectors.shape[1],
                 ncentroids=len(centroids),
@@ -67,6 +80,9 @@ def index_from_reference(source: Union[str, os.PathLike, Mapping],
             raise InvalidParameter("centroids given without assign")
         index.restore_arrays(arrays["ids"], vectors, centroids,
                              arrays.get("assign"))
+    elif parameter.index_type is IndexType.IVF_PQ:
+        index.restore_arrays(arrays["ids"], vectors, centroids, codebooks,
+                             arrays.get("codes"), arrays.get("assign"))
     else:
         index.restore_arrays(arrays["ids"], vectors)
     index.apply_log_id = int(arrays.get("apply_log_id", 0))

@@ -1,5 +1,6 @@
-"""Index factory (port of dingo_tpu/index/factory.py): FLAT, BRUTEFORCE and
-IVF_FLAT. Every other type raises NotSupported until it is ported."""
+"""Index factory (port of dingo_tpu/index/factory.py): FLAT, BRUTEFORCE,
+IVF_FLAT and IVF_PQ. Every other type raises NotSupported until it is
+ported."""
 
 from __future__ import annotations
 
@@ -28,4 +29,8 @@ def new_index(index_id: int, parameter: IndexParameter,
         from dingo_tpu_torch.index.ivf_flat import TpuIvfFlat
 
         return TpuIvfFlat(index_id, parameter, device=device)
+    if t is IndexType.IVF_PQ:
+        from dingo_tpu_torch.index.ivf_pq import TpuIvfPq
+
+        return TpuIvfPq(index_id, parameter, device=device)
     raise NotSupported(f"index type {t} is not ported yet")

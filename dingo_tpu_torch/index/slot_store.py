@@ -12,6 +12,8 @@
   blocked     — optional dimension-blocked mirror for the pruned FLAT scan
                 (kernel B4): vecs_blk[nblk, capacity, dblk] plus per-block
                 norms bsq_blk[nblk, capacity], written in the same slot runs.
+  host        — HostSlotStore keeps the same bookkeeping with rows and
+                norms in numpy (IVF_PQ with host_vectors).
 
 Capacity grows by doubling. Deletes are host tombstones; slots freed while
 searches are in flight park in limbo until the last lease ends, so an async
@@ -69,10 +71,7 @@ class SlotStore:
                                            device=self.device)
         #: bumped by put/remove/growth; keys caches of the slot<->id map
         self.mutation_version = 0
-        self.vecs = torch.zeros((self.capacity, dim), dtype=self.dtype,
-                                device=self.device)
-        self.sqnorm = torch.zeros((self.capacity,), dtype=torch.float32,
-                                  device=self.device)
+        self.vecs, self.sqnorm = self._alloc_storage(self.capacity)
         self.ids_by_slot = np.full((self.capacity,), -1, np.int64)
         self.valid_h = np.zeros((self.capacity,), np.bool_)
         self._dmask: Optional[torch.Tensor] = None
@@ -129,6 +128,33 @@ class SlotStore:
         if capacity > self.capacity:
             self._grow(capacity)
 
+    # -- row storage (HostSlotStore keeps it in numpy) ---------------------
+    def _alloc_storage(self, capacity: int):
+        return (torch.zeros((capacity, self.dim), dtype=self.dtype,
+                            device=self.device),
+                torch.zeros((capacity,), dtype=torch.float32,
+                            device=self.device))
+
+    def _grow_storage(self, pad: int):
+        return (torch.cat([self.vecs, self.vecs.new_zeros((pad, self.dim))]),
+                torch.cat([self.sqnorm, self.sqnorm.new_zeros((pad,))]))
+
+    def _write_runs(self, runs, rows_h: np.ndarray) -> None:
+        """Write rows sorted by slot; runs = [(lo, hi, first slot)] of
+        contiguous slots, one slice assignment each."""
+        rows = torch.from_numpy(rows_h).to(self.device)
+        row_sq = (rows * rows).sum(dim=1)
+        with self.device_lock:
+            if self.vecs_blk is not None:
+                rows_blk = to_blocked(rows, self.dim_block)
+                row_bsq = block_sqnorms(rows, self.dim_block)
+            for lo, hi, s0 in runs:
+                self.vecs[s0:s0 + hi - lo] = rows[lo:hi]
+                self.sqnorm[s0:s0 + hi - lo] = row_sq[lo:hi]
+                if self.vecs_blk is not None:
+                    self.vecs_blk[:, s0:s0 + hi - lo] = rows_blk[:, lo:hi]
+                    self.bsq_blk[:, s0:s0 + hi - lo] = row_bsq[:, lo:hi]
+
     # -- mutation ----------------------------------------------------------
     def put(self, ids: np.ndarray, vectors: np.ndarray) -> np.ndarray:
         """Insert/replace rows; returns the assigned slots."""
@@ -150,23 +176,11 @@ class SlotStore:
         vectors = np.asarray(vectors, np.float32)
         order = np.argsort(slots, kind="stable")
         sslots = slots[order]
-        rows = torch.from_numpy(np.ascontiguousarray(vectors[order])).to(
-            self.device)
-        row_sq = (rows * rows).sum(dim=1)
         run_starts = np.flatnonzero(np.diff(sslots) != 1) + 1
-        with self.device_lock:
-            if self.vecs_blk is not None:
-                rows_blk = to_blocked(rows, self.dim_block)
-                row_bsq = block_sqnorms(rows, self.dim_block)
-            for lo, hi in zip(np.concatenate([[0], run_starts]),
-                              np.concatenate([run_starts, [n]])):
-                lo, hi = int(lo), int(hi)
-                s0 = int(sslots[lo])
-                self.vecs[s0:s0 + hi - lo] = rows[lo:hi]
-                self.sqnorm[s0:s0 + hi - lo] = row_sq[lo:hi]
-                if self.vecs_blk is not None:
-                    self.vecs_blk[:, s0:s0 + hi - lo] = rows_blk[:, lo:hi]
-                    self.bsq_blk[:, s0:s0 + hi - lo] = row_bsq[:, lo:hi]
+        runs = [(int(lo), int(hi), int(sslots[lo])) for lo, hi in zip(
+            np.concatenate([[0], run_starts]),
+            np.concatenate([run_starts, [n]]))]
+        self._write_runs(runs, np.ascontiguousarray(vectors[order]))
         self.valid_h[slots] = True
         self._dmask = None
         self.mutation_version += 1
@@ -208,10 +222,7 @@ class SlotStore:
         new_capacity = _next_pow2(new_capacity)
         pad = new_capacity - self.capacity
         with self.device_lock:
-            self.vecs = torch.cat([self.vecs, self.vecs.new_zeros(
-                (pad, self.dim))])
-            self.sqnorm = torch.cat([self.sqnorm, self.sqnorm.new_zeros(
-                (pad,))])
+            self.vecs, self.sqnorm = self._grow_storage(pad)
             if self.vecs_blk is not None:
                 self.vecs_blk = torch.cat(
                     [self.vecs_blk, self.vecs_blk.new_zeros(
@@ -256,6 +267,46 @@ class SlotStore:
         if len(ids):
             store.put(np.asarray(ids, np.int64), vectors)
         return store
+
+
+class HostSlotStore(SlotStore):
+    """SlotStore whose rows and norms live in host memory (numpy), for an
+    index whose search never reads full rows from the device (IVF_PQ with
+    host_vectors: it scans codes and reranks from host rows at resolve).
+    Bookkeeping is SlotStore's; `device` is where rows_device uploads.
+    fp32 only, and never a blocked mirror."""
+
+    def _blocked_dtype_ok(self) -> bool:
+        return False
+
+    def _alloc_storage(self, capacity: int):
+        return (np.zeros((capacity, self.dim), np.float32),
+                np.zeros((capacity,), np.float32))
+
+    def _grow_storage(self, pad: int):
+        return (np.concatenate([self.vecs, np.zeros((pad, self.dim),
+                                                    np.float32)]),
+                np.concatenate([self.sqnorm, np.zeros((pad,), np.float32)]))
+
+    def _write_runs(self, runs, rows_h: np.ndarray) -> None:
+        sq = (rows_h * rows_h).sum(axis=1)
+        with self.device_lock:
+            for lo, hi, s0 in runs:
+                self.vecs[s0:s0 + hi - lo] = rows_h[lo:hi]
+                self.sqnorm[s0:s0 + hi - lo] = sq[lo:hi]
+
+    def rows_device(self, slots: np.ndarray) -> torch.Tensor:
+        # the host gather is the upload
+        rows = self.vecs[np.asarray(slots, np.int64)]
+        return torch.from_numpy(rows).to(self.device)
+
+    def to_host(self) -> dict:
+        live = np.flatnonzero(self.ids_by_slot >= 0)
+        return {"ids": self.ids_by_slot[live], "vectors": self.vecs[live]}
+
+    def memory_size(self) -> int:
+        # host bytes; the device holds only the owner's codes and centroids
+        return int(self.vecs.nbytes + self.sqnorm.nbytes)
 
 
 class SearchLease:

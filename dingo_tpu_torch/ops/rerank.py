@@ -1,0 +1,72 @@
+"""Device-resident exact rerank of approximate shortlists (port of the fp32
+``exact_rerank_device`` in dingo_tpu/ops/rerank.py).
+
+IVF_PQ's device store keeps every row on the card, so the ADC shortlist is
+reranked right after the scan, in the same stream: one gather of the
+candidates' rows, one batched product, one top-k. Nothing waits on the
+host, and the result joins the reply's single fetch group. Scores follow
+the JAX package's formulas (the cosine epsilon included); outputs are in
+the wire distance convention, so the rerank drops in after any scan.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dingo_tpu_torch.ops.distance import (
+    Metric,
+    scores_to_distances,
+    squared_norms,
+)
+
+
+def _scores_from_rows(rows: torch.Tensor, c_sq: torch.Tensor,
+                      queries: torch.Tensor, metric: Metric) -> torch.Tensor:
+    """'Larger is better' scores [b, k'] of candidate rows [b, k', d] (f32)
+    with their cached norms c_sq [b, k'] (unused for IP)."""
+    qd = queries.to(torch.float32)
+    dots = torch.einsum("bd,bkd->bk", qd, rows.to(torch.float32))
+    if metric is Metric.L2:
+        return -(squared_norms(qd)[:, None] - 2.0 * dots + c_sq)
+    if metric is Metric.COSINE:
+        return dots * torch.rsqrt(torch.clamp_min(c_sq, 1e-30))
+    return dots
+
+
+def _exact_candidate_scores(vecs: torch.Tensor, sqnorm: torch.Tensor,
+                            queries: torch.Tensor, rows: torch.Tensor,
+                            metric: Metric) -> torch.Tensor:
+    """Exact scores [b, k'] for candidate row indices [b, k'] into vecs
+    (callers clamp negatives to 0 first)."""
+    idx = rows.long()
+    return _scores_from_rows(vecs[idx], sqnorm[idx], queries, metric)
+
+
+def _topk_epilogue(scores: torch.Tensor, cand_slots: torch.Tensor, k: int,
+                   metric: Metric):
+    """Mask padding, top-k over the shortlist, -1 the empty winners, pad
+    out to k, convert to wire distances."""
+    scores = torch.where(cand_slots >= 0, scores,
+                         torch.full_like(scores, -torch.inf))
+    kk = min(k, int(cand_slots.shape[1]))
+    vals, pos = torch.topk(scores, kk, dim=1)
+    slots = torch.gather(cand_slots, 1, pos)
+    slots = torch.where(torch.isneginf(vals), torch.full_like(slots, -1),
+                        slots)
+    if kk < k:
+        b = vals.shape[0]
+        vals = torch.cat([vals, vals.new_full((b, k - kk), -torch.inf)], 1)
+        slots = torch.cat([slots, slots.new_full((b, k - kk), -1)], 1)
+    return scores_to_distances(vals, metric), slots
+
+
+def exact_rerank_device(vecs: torch.Tensor, sqnorm: torch.Tensor,
+                        queries: torch.Tensor, cand_slots: torch.Tensor,
+                        k: int, metric: Metric):
+    """Exact top-k over the candidate slots [b, k'] (-1 pad), rows gathered
+    on the device from the store arrays vecs [capacity, d] / sqnorm
+    [capacity]. Returns (wire distances [b, k], slots [b, k])."""
+    safe = torch.where(cand_slots >= 0, cand_slots,
+                       torch.zeros_like(cand_slots))
+    scores = _exact_candidate_scores(vecs, sqnorm, queries, safe, metric)
+    return _topk_epilogue(scores, cand_slots, k, metric)

@@ -1,9 +1,10 @@
-"""Kernels B1-B4 against their plain versions on the CUDA device, over
+"""Kernels B1-B5 against their plain versions on the CUDA device, over
 the edge cases the serving shapes do not reach: several query tiles, k up
 to K_MAX, ragged row counts, masks, padded ranks, a dimension that is not
 a multiple of 4 (the kernels' scalar-load path), dimension blocks that are
 not a multiple of the SGEMM depth, both prune bounds and the in-bucket
-refresh on and off.
+refresh on and off; for B5, subspace counts that take each code-load width
+and spill buckets that share a table.
 
 Marked ``gpu``: on a machine without a CUDA device each test skips (the
 decision is made inside the test). Run on the card with
@@ -267,3 +268,99 @@ def test_flat_index_serves_through_pruned_kernel_on_device():
     assert kernel_topk_pruned.pruned_fused_topk.launches == b4_before + 1
     assert kernel_topk.fused_topk.launches == b1_before + 1
     assert [r.ids.tolist() for r in a] == [r.ids.tolist() for r in b]
+
+
+@pytest.mark.parametrize("m,ksub,cap,k,spill", [
+    (96, 256, 1024, 60, True),     # the serving shape: 16-byte code loads
+    (96, 256, 1024, 10, False),
+    (8, 256, 64, 10, True),        # 8-byte code loads
+    (8, 256, 1024, 60, False),
+    (12, 256, 100, 33, True),      # 4-byte loads, cap not a multiple of 256
+    (6, 16, 50, 64, True),         # byte loads, small ksub, k = K_MAX
+])
+def test_ivf_pq_adc_topk_kernel_matches_plain(m, ksub, cap, k, spill):
+    """B5 against its plain version: spill buckets that share a rank's
+    table through coarse_pos, a filtered validity mask, padded ranks, a
+    query that probes nothing and one with fewer valid rows than k."""
+    from dingo_tpu_torch.ops import kernel_pq
+
+    dev = _cuda()
+    g = torch.Generator(device="cpu").manual_seed(m + cap + k)
+    nb, b, nprobe = 40, 16, 4
+    lut = 5.0 * torch.rand((b, nprobe, m, ksub), generator=g)
+    codes = torch.randint(0, ksub, (nb, cap, m), generator=g,
+                          dtype=torch.uint8)
+    valid = torch.rand((nb, cap), generator=g) < 0.8       # a filter
+    slot = torch.randperm(nb * cap, generator=g).reshape(nb, cap).to(
+        torch.int32)
+    budget = 7 if spill else nprobe
+    vp = torch.randint(0, nb, (b, budget), generator=g, dtype=torch.int32)
+    pos = [0, 0, 1, 2, 2, 2, 3] if spill else list(range(nprobe))
+    cp = torch.tensor(pos, dtype=torch.int32).repeat(b, 1)
+    vp[2, 3:] = -1                         # padded ranks
+    vp[5] = -1                             # a query that probes nothing
+    vp[7, 1:] = -1                         # one bucket, 3 valid rows
+    valid[vp[7, 0]] = False
+    valid[vp[7, 0], :3] = True
+    args = [t.to(dev) for t in (vp, cp, lut, codes, valid, slot)] + [k]
+    before = kernel_pq.ivf_pq_adc_topk.launches
+    kv, ks = kernel_pq.ivf_pq_adc_topk(*args)
+    assert kernel_pq.ivf_pq_adc_topk.launches == before + 1
+    pv, ps = kernel_pq.ivf_pq_adc_topk_plain(*args)
+    torch.cuda.synchronize()
+    assert (ks[5] == -1).all() and (ks[7, 3:] == -1).all()
+    _assert_parity(kv, ks, pv, ps)
+
+
+def test_ivf_pq_index_serves_through_b5_on_device():
+    """An IVF_PQ index on the device routes topk 10 at rerank factor 6
+    through B5 (kprime 60 <= 64), and at factor 8 through the XLA arm;
+    both rerank exactly, so they agree on ids, as does the host-row store
+    carried across with the same codes."""
+    from dingo_tpu_torch.index import ivf_pq
+    from dingo_tpu_torch.index.base import IndexParameter, IndexType
+    from dingo_tpu_torch.index.factory import new_index
+    from dingo_tpu_torch.ops import kernel_pq
+
+    _cuda()
+    rng = np.random.default_rng(2)
+    centers = rng.standard_normal((32, 256), dtype=np.float32)
+    x = (centers[rng.integers(0, 32, 6000)] + 0.3 * rng.standard_normal(
+        (6000, 256), dtype=np.float32)).astype(np.float32)
+    param = IndexParameter(index_type=IndexType.IVF_PQ, dimension=256,
+                           ncentroids=16, nsubvector=32)
+    idx = new_index(4, param)
+    idx.upsert(np.arange(6000), x)
+    idx.train()
+    saved = _flags(ivfpq_rerank_factor=6)
+    try:
+        b5, xla = kernel_pq.ivf_pq_adc_topk.launches, \
+            ivf_pq._ivfpq_scan_kernel.calls
+        fused = idx.search(x[:8], 10, nprobe=8)
+        assert kernel_pq.ivf_pq_adc_topk.launches == b5 + 1
+        assert ivf_pq._ivfpq_scan_kernel.calls == xla
+        assert [int(r.ids[0]) for r in fused] == list(range(8))
+        host = new_index(5, IndexParameter(
+            index_type=IndexType.IVF_PQ, dimension=256, ncentroids=16,
+            nsubvector=32, host_vectors=True))
+        slots = idx.store.slots_of(np.arange(6000))
+        host.restore_arrays(np.arange(6000), x, idx.centroids.cpu().numpy(),
+                            idx.codebooks.cpu().numpy(),
+                            idx._codes[torch.from_numpy(slots).cuda()]
+                            .cpu().numpy(), idx._assign_h[slots])
+        hres = host.search(x[:8], 10, nprobe=8)
+        assert kernel_pq.ivf_pq_adc_topk.launches == b5 + 2
+        assert [r.ids.tolist() for r in hres] == \
+            [r.ids.tolist() for r in fused]
+    finally:
+        _restore(saved)
+    saved = _flags(use_pallas_ivf_search=False, ivfpq_rerank_factor=6)
+    try:
+        plain = idx.search(x[:8], 10, nprobe=8)
+        assert ivf_pq._ivfpq_scan_kernel.calls == xla + 1
+    finally:
+        _restore(saved)
+    assert [r.ids.tolist() for r in plain] == [r.ids.tolist() for r in fused]
+    for a, b in zip(plain, fused):
+        np.testing.assert_allclose(a.distances, b.distances, rtol=RTOL,
+                                   atol=ATOL)

@@ -204,9 +204,19 @@ def test_unported_features_raise_not_supported():
         with pytest.raises(NotSupported):
             new_index(1, TParam(index_type=TType.IVF_FLAT, dimension=8,
                                 **kw), device="cpu")
-    for t in (TType.IVF_PQ, TType.HNSW, TType.BINARY_FLAT):
+    for t in (TType.HNSW, TType.BINARY_FLAT):
         with pytest.raises(NotSupported):
             new_index(1, TParam(index_type=t, dimension=8), device="cpu")
+    # IVF_PQ carries the fp32 store only; sq8 is invalid for it, as in the
+    # JAX package (its codes are already quantized)
+    for kw in ({"precision": "bf16"}, {"dtype": "bfloat16"}):
+        with pytest.raises(NotSupported):
+            new_index(1, TParam(index_type=TType.IVF_PQ, dimension=8,
+                                nsubvector=4, **kw), device="cpu")
+    from dingo_tpu_torch.index.base import InvalidParameter
+    with pytest.raises(InvalidParameter):
+        new_index(1, TParam(index_type=TType.IVF_PQ, dimension=8,
+                            nsubvector=4, precision="sq8"), device="cpu")
     # the pruned routes carry the fp32 tier only: bf16 and sq8 still raise
     saved = {f: TFLAGS.get(f)
              for f in ("vector_blocked_layout", "ivf_prune_scan")}
