@@ -4,14 +4,18 @@
     python3 chip_smoke.py            # full width: 1M x 768, nlist 1024
     python3 chip_smoke.py --n 131072 --nlist 128   # a quicker, smaller run
 
-Builds the port's five CUDA kernels from ``dingo_tpu_torch/csrc`` (one
-nvcc per source, in parallel):
+Builds the port's five CUDA kernel libraries from ``dingo_tpu_torch/csrc``
+(one nvcc per source, in parallel), eleven arms in all:
 
   B1 fused_topk         csrc/fused_topk.cu         FLAT scan, pruning off
+                                                   (f32, bf16 rows)
   B2 ivf_list_topk      csrc/ivf_topk.cu           IVF scan, pruning off
-  B3 ivf_pruned_topk    csrc/ivf_pruned_topk.cu    IVF scan, pruned (default)
-  B4 pruned_fused_topk  csrc/pruned_fused_topk.cu  FLAT scan over the
-                                                   blocked mirror (default)
+                                                   (f32, bf16 rows)
+  B3 ivf_pruned_topk    csrc/ivf_pruned_topk.cu    IVF scan, pruned, the
+                                                   default (f32, bf16, sq8)
+  B4 pruned_fused_topk  csrc/pruned_fused_topk.cu  FLAT scan over the blocked
+                                                   mirror, the default (f32,
+                                                   bf16, sq8)
   B5 ivf_pq_adc_topk    csrc/ivf_pq_adc_topk.cu    IVF_PQ Quick-ADC scan
 
 then serves an IVF_FLAT region the way the Index role does: raft-ordered
@@ -25,7 +29,15 @@ exact while untrained, trained, B5 at rerank factor 6 (k 10 x 6 = 60, under
 B5's ceiling of 64) against the XLA arm, the two crossovers that send a
 search to the XLA arm (factor 8; a [b, nprobe, m, 256] table over 256 MiB
 at nprobe 64), pipelined searches on both arms, in-place writes, and a
-host_vectors index carried across with the same codes. Every kernel is
+host_vectors index carried across with the same codes. Then the bf16 and
+sq8 precision tiers on the same rows (the fp32 FLAT and IVF_PQ state
+released first): per tier a FLAT index searched untrained (B4's arm of the
+tier; B1-bf16 or sq8's plain arm with pruning off) and an IVF_FLAT region
+at nprobe 16/32/64 (B3's arm; B2-bf16 or sq8's plain arm with pruning
+off), recall against the JAX package's gates, a rerank cache over every
+row, in-place writes on every route, device bytes beside fp32's,
+pipelined timing with fp32 and both tiers taking turns, a profile of the
+sq8 route, and five kernel-vs-plain cases per arm. Every kernel is
 held against its plain PyTorch version on the card (B3/B4 for L2 and IP,
 the in-bucket refresh on and off; B5 with spill buckets, a filter and
 fewer valid rows than k), and the launches each serving path made are
@@ -51,8 +63,9 @@ import time
 import numpy as np
 
 #: published H100 SXM peaks (NVIDIA data sheet): f32 without tensor cores,
-#: and HBM3 bandwidth
+#: dense bf16 on the tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 #: kernel-vs-plain tolerance: f32 sums land in a different order
 RTOL, ATOL = 1e-4, 1e-3
@@ -65,6 +78,23 @@ TIE_RTOL = 1e-4
 ROUNDS = 5
 #: IVF_PQ subspaces: BASELINE.json config 3 (768 dims -> 8 per subspace)
 PQ_M = 96
+#: the precision tiers of the tier phase
+TIERS = ("bf16", "sq8")
+#: each tier arm's name on the kernels line, its source and the TPU kernel
+#: (and dtype arm) it replaces
+ARM_NAMES = {"B1-bf16": "fused_topk_bf16", "B2-bf16": "ivf_list_topk_bf16",
+             "B3-bf16": "ivf_pruned_topk_bf16",
+             "B3-sq8": "ivf_pruned_topk_sq8",
+             "B4-bf16": "pruned_fused_topk_bf16",
+             "B4-sq8": "pruned_fused_topk_sq8"}
+ARM_SOURCES = {"B1": "fused_topk.cu", "B2": "ivf_topk.cu",
+               "B3": "ivf_pruned_topk.cu", "B4": "pruned_fused_topk.cu"}
+ARM_REPLACES = {"B1-bf16": "dingo_tpu/ops/pallas_topk.py:67",
+                "B2-bf16": "dingo_tpu/ops/pallas_ivf.py:65",
+                "B3-bf16": "dingo_tpu/ops/pallas_ivf.py:305",
+                "B3-sq8": "dingo_tpu/ops/pallas_ivf.py:296",
+                "B4-bf16": "dingo_tpu/ops/pallas_topk.py:244",
+                "B4-sq8": "dingo_tpu/ops/pallas_topk.py:235"}
 
 
 class SmokeFailure(Exception):
@@ -225,9 +255,10 @@ def set_flags(flags, **kw) -> dict:
     return saved
 
 
-def bound_of(nbytes: float, ops: float):
-    """(bound ms, "bytes" or "operations") on the published peaks."""
-    t_b, t_o = nbytes / PEAK_BYTES, ops / PEAK_F32_FLOPS
+def bound_of(nbytes: float, ops: float, peak: float = PEAK_F32_FLOPS):
+    """(bound ms, "bytes" or "operations") on the published peaks (`peak`:
+    the operation rate of the operands' type)."""
+    t_b, t_o = nbytes / PEAK_BYTES, ops / peak
     return max(t_b, t_o) * 1e3, ("operations" if t_o > t_b else "bytes")
 
 
@@ -412,15 +443,41 @@ def ivf_pq_phase(x, queries, extra, gt, nlist, m, card) -> dict:
                        ivfpq_rerank_factor=6, use_pallas_ivf_search=False)
     check(b5.launches == before[0] and xla.calls == before[1] + 2,
           "use_pallas_ivf_search=False takes the XLA arm")
+    # the exact rerank reads each arm's 60-long ADC shortlist. The arms sum
+    # a row's lookups in another order, so where ADC scores near-tie at
+    # rank 60 they may keep different rows, and that query's final top-10
+    # may differ. The shortlists (the scans without the rerank) must agree
+    # modulo ADC ties, and the final lists wherever the shortlists hold
+    # the same rows
+    kprime = 6 * k
+    short = {}
+    for arm, flags in (("B5", {}), ("XLA", {"use_pallas_ivf_search": False})):
+        saved = set_flags(FLAGS, ivfpq_rerank_factor=1, **flags)
+        try:
+            short[arm] = {np_: wrapper.search(queries, kprime, nprobe=np_)
+                          for np_ in (16, 32)}
+        finally:
+            for f_, v_ in saved.items():
+                FLAGS.set(f_, v_)
     for np_ in (16, 32):
+        sa, sb = short["B5"][np_], short["XLA"][np_]
+        check(same_tier_results(sa, sb),
+              f"B5 route == XLA arm ADC shortlists (k {kprime}, ids modulo "
+              f"ADC ties) at nprobe={np_}")
+        same_rows = [set(r1.ids.tolist()) == set(r2.ids.tolist())
+                     for r1, r2 in zip(sa, sb)]
+        print(f"IVF_PQ nprobe={np_}: {len(same_rows) - sum(same_rows)} of "
+              f"{batch} shortlists differ by ADC ties at rank {kprime}",
+              flush=True)
         a, b_ = res_b5[np_], res_xla[np_]
-        check(same_modulo_ties(x, queries, [r.ids for r in a],
-                               [r.ids for r in b_])
-              and all(np.allclose(np.sort(r1.distances),
-                                  np.sort(r2.distances), rtol=RTOL,
-                                  atol=ATOL) for r1, r2 in zip(a, b_)),
+        check(all(same_modulo_ties(x, queries[i:i + 1], [a[i].ids],
+                                   [b_[i].ids])
+                  and np.allclose(np.sort(a[i].distances),
+                                  np.sort(b_[i].distances), rtol=RTOL,
+                                  atol=ATOL)
+                  for i in range(batch) if same_rows[i]),
               f"B5 route == XLA arm (ids modulo ties, distances) at "
-              f"nprobe={np_}")
+              f"nprobe={np_} wherever the shortlists hold the same rows")
 
     # -- the crossovers: kprime 80 > 64, and a table over 256 MiB -----------
     for tag, nprobe_, factor in (("factor 8", 32, 8),
@@ -583,6 +640,540 @@ def ivf_pq_phase(x, queries, extra, gt, nlist, m, card) -> dict:
                      f"k={kk} tables={ntables} distinct buckets={nbuck}"}
 
 
+def same_tier_results(a, b) -> bool:
+    """Two result lists of one tier agree modulo ties of that tier's own
+    distances: every id that only one list holds sits at (within
+    RTOL/ATOL of) the other list's k-th distance, and the distances agree
+    position by position."""
+    for ra, rb in zip(a, b):
+        if len(ra.ids) != len(rb.ids) or not np.allclose(
+                ra.distances, rb.distances, rtol=RTOL, atol=ATOL):
+            return False
+        for r1, r2 in ((ra, rb), (rb, ra)):
+            extra = set(r1.ids.tolist()) - set(r2.ids.tolist())
+            for i in extra:
+                dist = r1.distances[list(r1.ids).index(i)]
+                if not np.isclose(dist, r2.distances[-1], rtol=RTOL,
+                                  atol=ATOL):
+                    return False
+    return True
+
+
+def tier_phase(x, queries, extra, gt, nlist, card, fp32) -> list:
+    """The bf16 and sq8 precision tiers at full width on the smoke's rows:
+    for each tier a FLAT index searched before training (B4's arm of the
+    tier by default; B1-bf16, or sq8's plain arm, with pruning off) and an
+    IVF_FLAT region served through the wrapper at nprobe 16/32/64 (B3's arm
+    by default; B2-bf16 or sq8's plain arm with pruning off), recall
+    against the numpy exact top-10 and the JAX package's gates, the cached
+    rerank, in-place writes on every route, device bytes beside fp32's,
+    pipelined timing with fp32 and the tiers taking turns, a profile of the
+    sq8 IVF route, and each arm against its plain version. Returns the six
+    arms' entries of the kernels line."""
+    import torch
+
+    from dingo_tpu_torch.common.config import FLAGS
+    from dingo_tpu_torch.index.base import IndexParameter, IndexType
+    from dingo_tpu_torch.index.flat import (
+        TpuFlat,
+        flat_search_plain,
+        sq_flat_search_plain,
+    )
+    from dingo_tpu_torch.index.ivf_flat import coarse_probes, ivf_scan_scores
+    from dingo_tpu_torch.index.ivf_layout import expand_probes, shape_bucket
+    from dingo_tpu_torch.index.wrapper import VectorIndexWrapper
+    from dingo_tpu_torch.ops import (
+        kernel_ivf,
+        kernel_ivf_pruned,
+        kernel_topk,
+        kernel_topk_pruned,
+    )
+    from dingo_tpu_torch.ops.blocked import (
+        block_sqnorms,
+        bucket_block_sqnorms,
+        query_prefix_sqnorms,
+        to_blocked,
+    )
+    from dingo_tpu_torch.ops.distance import Metric
+
+    b1, b2 = kernel_topk.fused_topk, kernel_ivf.ivf_list_topk
+    b3, b4 = kernel_ivf_pruned.ivf_pruned_topk, \
+        kernel_topk_pruned.pruned_fused_topk
+    n, d = x.shape
+    batch, k = len(queries), gt.shape[1]
+    dev = torch.device("cuda")
+    nprobes = (16, 32, 64)
+    launches, plain_calls, state = {}, {}, {}
+
+    def ingest_flat(index_id, tier):
+        f = TpuFlat(index_id, IndexParameter(
+            index_type=IndexType.FLAT, dimension=d, metric=Metric.L2,
+            precision=tier), device=dev)
+        f.store.reserve(n)
+        for lo in range(0, n, 65536):
+            f.upsert(np.arange(lo, min(n, lo + 65536), dtype=np.int64),
+                     x[lo:lo + 65536])
+        return f
+
+    def ingest_ivf(index_id, tier):
+        w = VectorIndexWrapper(index_id, IndexParameter(
+            index_type=IndexType.IVF_FLAT, dimension=d, metric=Metric.L2,
+            ncentroids=nlist, default_nprobe=32, precision=tier), device=dev)
+        w.set_own(w.build_own())
+        w.own_index.store.reserve(n)
+        for i, lo in enumerate(range(0, n, 65536)):
+            w.add(np.arange(lo, min(n, lo + 65536), dtype=np.int64),
+                  x[lo:lo + 65536], i + 1)
+        w.own_index.train()
+        w.own_index.search(queries[:1], k, nprobe=16)    # builds the view
+        return w
+
+    def route_flags(pruned):
+        return set_flags(FLAGS, ivf_prune_scan=pruned)
+
+    def restore(saved):
+        for f_, v_ in saved.items():
+            FLAGS.set(f_, v_)
+
+    for ti, tier in enumerate(TIERS):
+        ctr = f"launches_{tier}"
+        plain_flat = sq_flat_search_plain if tier == "sq8" \
+            else flat_search_plain
+        # -- FLAT, the untrained region's brute-force arm -------------------
+        t0 = time.perf_counter()
+        flat = ingest_flat(40 + ti, tier)
+        torch.cuda.synchronize()
+        st = flat.store
+        print(f"{tier} FLAT ingest {n} rows: {time.perf_counter() - t0:.1f}"
+              f" s (rows {st.vecs.dtype}, mirror "
+              f"{None if st.vecs_blk is None else st.vecs_blk.dtype})",
+              flush=True)
+        check(st.vecs_blk is not None and st.vecs_blk.dtype == st.vecs.dtype,
+              f"{tier} FLAT keeps the blocked mirror in its row dtype")
+        setattr(b4, ctr, 0)
+        plain_flat.calls = 0
+        res_b4 = flat.search(queries, k)
+        torch.cuda.synchronize()
+        launches[f"B4-{tier}"] = getattr(b4, ctr)
+        check(launches[f"B4-{tier}"] > 0 and plain_flat.calls == 0,
+              f"{tier} FLAT search ran B4's {tier} arm")
+        r_b4 = recall_at(res_b4, gt, k)
+        saved = route_flags(False)
+        try:
+            if tier == "bf16":
+                setattr(b1, ctr, 0)
+            plain_flat.calls = 0
+            res_un = flat.search(queries, k)
+            torch.cuda.synchronize()
+            if tier == "bf16":
+                launches["B1-bf16"] = b1.launches_bf16
+                plain_calls["B1-bf16"] = plain_flat.calls
+            else:
+                plain_calls["B4-sq8"] = plain_flat.calls
+        finally:
+            restore(saved)
+        r_un = recall_at(res_un, gt, k)
+        saved = set_flags(FLAGS, use_pallas_fused_search=False)
+        try:
+            res_plain = flat.search(queries, k)       # the plain arm
+        finally:
+            restore(saved)
+        r_plain = recall_at(res_plain, gt, k)
+        print(f"{tier} FLAT recall@{k}: pruned (B4-{tier}) {r_b4:.4f}, "
+              f"unpruned ({'B1-bf16' if tier == 'bf16' else 'plain arm'}) "
+              f"{r_un:.4f}, plain arm {r_plain:.4f}; fp32 FLAT is exact",
+              flush=True)
+        if tier == "bf16":
+            check(launches["B1-bf16"] > 0 and plain_calls["B1-bf16"] == 0,
+                  "bf16 FLAT search with pruning off ran B1's bf16 arm")
+            check(same_tier_results(res_b4, res_plain),
+                  "bf16 FLAT pruned (B4) ids == plain-arm ids modulo ties")
+        else:
+            check(plain_calls["B4-sq8"] > 0,
+                  "sq8 FLAT search with pruning off took the plain arm")
+            check(r_b4 >= 0.995 * r_plain,
+                  "sq8 FLAT pruned recall >= 0.995 x the plain arm's")
+        check(min(r_b4, r_un) >= 1.0 - 0.05,
+              f"{tier} FLAT recall@{k} within 0.05 of fp32's (1.0)")
+
+        # -- IVF_FLAT through the wrapper -----------------------------------
+        t0 = time.perf_counter()
+        w = ingest_ivf(50 + ti, tier)
+        torch.cuda.synchronize()
+        ivf = w.own_index
+        print(f"{tier} IVF_FLAT ingest + train + view: "
+              f"{time.perf_counter() - t0:.1f} s (view {ivf._buckets.dtype}"
+              f", block norms {ivf._bucket_bsq is not None})", flush=True)
+        check(ivf._bucket_bsq is not None
+              and ivf._buckets.dtype == ivf.store.vecs.dtype,
+              f"{tier} IVF view keeps the store dtype, with block norms")
+        setattr(b3, ctr, 0)
+        ivf_scan_scores.calls = 0
+        res3 = {p: w.search(queries, k, nprobe=p) for p in nprobes}
+        torch.cuda.synchronize()
+        launches[f"B3-{tier}"] = getattr(b3, ctr)
+        plain_calls[f"B3-{tier}"] = ivf_scan_scores.calls
+        check(launches[f"B3-{tier}"] > 0 and ivf_scan_scores.calls == 0,
+              f"{tier} IVF searches ran B3's {tier} arm")
+        saved = route_flags(False)
+        try:
+            ivf.compact()
+            check(ivf._bucket_bsq is None, f"{tier} unpruned view")
+            if tier == "bf16":
+                setattr(b2, ctr, 0)
+            ivf_scan_scores.calls = 0
+            res_u = {p: w.search(queries, k, nprobe=p) for p in nprobes}
+            torch.cuda.synchronize()
+            if tier == "bf16":
+                launches["B2-bf16"] = b2.launches_bf16
+                plain_calls["B2-bf16"] = ivf_scan_scores.calls
+                check(launches["B2-bf16"] > 0
+                      and ivf_scan_scores.calls == 0,
+                      "bf16 IVF searches with pruning off ran B2's bf16 arm")
+            else:
+                check(ivf_scan_scores.calls == len(nprobes),
+                      "sq8 IVF searches with pruning off took the plain arm")
+        finally:
+            restore(saved)
+        ivf.compact()
+        for p in nprobes:
+            r3, ru = recall_at(res3[p], gt, k), recall_at(res_u[p], gt, k)
+            rf = fp32["recall"][p]
+            print(f"{tier} IVF recall@{k} nprobe={p}: pruned (B3-{tier}) "
+                  f"{r3:.4f}, unpruned "
+                  f"({'B2-bf16' if tier == 'bf16' else 'plain arm'}) "
+                  f"{ru:.4f}; fp32 {rf:.4f}", flush=True)
+            check(min(r3, ru) >= rf - 0.05,
+                  f"{tier} IVF recall@{k} within 0.05 of fp32's at "
+                  f"nprobe={p}")
+            if tier == "bf16":
+                check(same_tier_results(res3[p], res_u[p]),
+                      f"bf16 IVF pruned (B3) ids == unpruned (B2) ids "
+                      f"modulo ties at nprobe={p}")
+            else:
+                check(r3 >= 0.995 * ru,
+                      f"sq8 IVF pruned recall >= 0.995 x the plain arm's "
+                      f"at nprobe={p}")
+
+        # -- device bytes: store + mirror + view, beside fp32's -------------
+        nbytes = ivf.get_device_memory_size()
+        ratio = fp32["bytes"] / nbytes
+        print(f"[{card}] {tier} IVF_FLAT device bytes (store + mirror + "
+              f"view + centroids): {nbytes / 2**30:.3f} GiB against fp32's "
+              f"{fp32['bytes'] / 2**30:.3f} GiB: {ratio:.3f}x smaller; "
+              f"FLAT {flat.get_device_memory_size() / 2**30:.3f} GiB",
+              flush=True)
+        check(ratio >= (3.5 if tier == "sq8" else 1.8),
+              f"{tier} device bytes >= {3.5 if tier == 'sq8' else 1.8}x "
+              "smaller than fp32's")
+
+        # -- in-place upserts and deletes, visible on every route -----------
+        new_ids = np.arange(n, n + len(extra), dtype=np.int64)
+        rebuilds, view = ivf.full_rebuilds, ivf._view
+        w.add(new_ids, extra, w.apply_log_id + 1)
+        flat.upsert(new_ids, extra)
+        check(ivf._view is view and not ivf._view_dirty
+              and ivf.full_rebuilds == rebuilds,
+              f"{tier} IVF upsert of {len(extra)} rows applied in place")
+
+        def routes_see(ids_ok, tag):
+            for pruned in (True, False):
+                saved = route_flags(pruned)
+                try:
+                    ivf.compact()
+                    got = [w.search(extra[:batch], k, nprobe=32),
+                           flat.search(extra[:batch], k)]
+                finally:
+                    restore(saved)
+                for name, res in zip(("IVF", "FLAT"), got):
+                    check(ids_ok(res), f"{tier} {name} "
+                          f"{'pruned' if pruned else 'unpruned'} route: "
+                          f"{tag}")
+            ivf.compact()
+
+        routes_see(lambda res: all(len(r.ids) and r.ids[0] == i for r, i in
+                                   zip(res, new_ids[:batch])),
+                   "upserted rows come back as their own nearest neighbour")
+        w.delete(new_ids, w.apply_log_id + 1)
+        flat.delete(new_ids)
+        routes_see(lambda res: not any((r.ids >= n).any() for r in res),
+                   "deleted rows are gone")
+        check(ivf.get_count() == n and flat.get_count() == n,
+              f"{tier} counts back to {n}")
+        state[tier] = {"flat": flat, "wrapper": w, "res": res3}
+
+    # -- the cached rerank: a cache over every row, factor 4 ---------------
+    saved = set_flags(FLAGS, rerank_cache_rows=n, quantized_rerank_factor=4)
+    try:
+        for ti, tier in enumerate(TIERS):
+            t0 = time.perf_counter()
+            fr = ingest_flat(60 + ti, tier)
+            wr = ingest_ivf(70 + ti, tier)
+            torch.cuda.synchronize()
+            check(len(fr._rerank_cache) == n
+                  and len(wr.own_index._rerank_cache) == n,
+                  f"{tier} rerank caches hold every row")
+            before = getattr(b4, f"launches_{tier}")
+            rf = fr.search(queries, k)
+            ri = wr.search(queries, k, nprobe=32)
+            torch.cuda.synchronize()
+            check(getattr(b4, f"launches_{tier}") > before,
+                  f"{tier} reranked FLAT scanned with B4 (k' 40)")
+            r_ivf, r_ivf0 = recall_at(ri, gt, k), recall_at(
+                state[tier]["res"][32], gt, k)
+            print(f"{tier} cached rerank (factor 4, cache {n} rows, "
+                  f"{time.perf_counter() - t0:.1f} s with ingest): FLAT "
+                  f"recall@{k} {recall_at(rf, gt, k):.4f}; IVF nprobe=32 "
+                  f"{r_ivf:.4f} (without the rerank {r_ivf0:.4f})",
+                  flush=True)
+            check(same_modulo_ties(x, queries, [r.ids for r in rf], gt),
+                  f"{tier} FLAT with the cached rerank == fp32 exact ids "
+                  "modulo ties")
+            check(r_ivf >= r_ivf0,
+                  f"{tier} IVF cached rerank recall >= the scan's own")
+            del fr, wr
+            torch.cuda.empty_cache()
+    finally:
+        for f_, v_ in saved.items():
+            FLAGS.set(f_, v_)
+
+    # -- pipelined serving cost, fp32 / bf16 / sq8 taking turns ------------
+    wrappers = {"fp32": fp32["wrapper"], "bf16": state["bf16"]["wrapper"],
+                "sq8": state["sq8"]["wrapper"]}
+    b3_ctr = {"fp32": "launches", "bf16": "launches_bf16",
+              "sq8": "launches_sq8"}
+    pipe = {t: [] for t in wrappers}
+    order = list(wrappers)
+    for r in range(ROUNDS):
+        for tier in order[r % 3:] + order[:r % 3]:
+            before = getattr(b3, b3_ctr[tier])
+            pipe[tier].append(pipelined_ms(wrappers[tier], queries, k, 32))
+            if getattr(b3, b3_ctr[tier]) == before:
+                raise SmokeFailure(f"pipelined {tier} search missed B3")
+    for tier in order:
+        med = median_spread(pipe[tier])[0]
+        print(f"[{card}] pipelined IVF search, {tier} tier (default route, "
+              f"B3{'' if tier == 'fp32' else '-' + tier}) b={batch} k={k} "
+              f"nprobe=32 via search_async x20: {spread_text(pipe[tier])} "
+              f"per batch ({batch / med * 1e3:.0f} QPS at the median); "
+              f"readings {[round(v, 4) for v in pipe[tier]]}", flush=True)
+    for tier in TIERS:
+        print(f"[{card}] pipelined {tier} / fp32, median of the per-round "
+              f"ratios: "
+              f"{np.median(np.divide(pipe[tier], pipe['fp32'])):.4f}",
+              flush=True)
+    print(f"[{card}] profile, pipelined IVF search (sq8, B3-sq8) x20: "
+          + device_profile(pipelined_window(wrappers["sq8"], queries, k, 32)),
+          flush=True)
+
+    # -- each arm against its plain version, at the path's shapes ----------
+    qpad = torch.from_numpy(queries).to(dev)
+    k_eff = shape_bucket(k)
+    rng = np.random.default_rng(11)
+    arms = {}
+    for tier in TIERS:
+        fst = state[tier]["flat"].store
+        ivf = state[tier]["wrapper"].own_index
+        view = ivf._view
+        codec = ({"sq_vmin": fst.sq_vmin_d, "sq_scale": fst.sq_scale_d}
+                 if tier == "sq8" else {})
+        icodec = ({"sq_vmin": ivf.store.sq_vmin_d,
+                   "sq_scale": ivf.store.sq_scale_d}
+                  if tier == "sq8" else {})
+        fmask = fst.device_mask()
+        filt = fmask & torch.from_numpy(rng.random(fst.capacity) < 0.5).to(
+            dev)
+        few = torch.zeros_like(fmask)
+        few[torch.nonzero(fmask)[:5, 0]] = True
+        probes = coarse_probes(qpad, ivf.centroids, ivf._c_sqnorm, 32)
+        vprobes = expand_probes(probes, view.probe_table, 32, view.max_spill)
+        dblk = d // ivf._bucket_bsq.shape[1]
+        qpsq = query_prefix_sqnorms(qpad, dblk)
+        bfilt = view.bucket_valid & torch.from_numpy(
+            rng.random(tuple(view.bucket_valid.shape)) < 0.5).to(dev)
+        bfew = torch.zeros_like(view.bucket_valid)
+        live = torch.nonzero(view.bucket_valid)[:5]
+        bfew[live[:, 0], live[:, 1]] = True
+        # a small case whose width forces the scalar loads: d 100 and
+        # dimension blocks of 20 (not multiples of 8 or 16)
+        sd, sdb = 100, 20
+        srows = fst.vecs[:4096, :sd].contiguous()
+        if tier == "sq8":
+            scodec = {"sq_vmin": fst.sq_vmin_d[:sd].contiguous(),
+                      "sq_scale": fst.sq_scale_d[:sd].contiguous()}
+            sf32 = (srows.to(torch.float32) * scodec["sq_scale"]
+                    + scodec["sq_vmin"])
+        else:
+            scodec = {}
+            sf32 = srows.to(torch.float32)
+        sq_small = qpad[:8, :sd].contiguous()
+        svalid = torch.ones(4096, dtype=torch.bool, device=dev)
+        sbk = srows.reshape(32, 128, sd)
+        sbk32 = sf32.reshape(32, 128, sd)
+        svp = torch.from_numpy(rng.integers(0, 32, (8, 6)).astype(
+            np.int32)).to(dev)
+        sslot = torch.arange(4096, dtype=torch.int32, device=dev).reshape(
+            32, 128)
+        cases = {}
+        cases[f"B4-{tier}"] = (b4, kernel_topk_pruned.pruned_fused_topk_plain,
+                               [("L2", (qpad, fst.vecs_blk, fst.bsq_blk,
+                                        fst.sqnorm, fmask, k, True, 1, True),
+                                 codec),
+                                ("IP", (qpad, fst.vecs_blk, fst.bsq_blk,
+                                        fst.sqnorm, fmask, k, False, 1,
+                                        True), codec),
+                                ("filter", (qpad, fst.vecs_blk, fst.bsq_blk,
+                                            fst.sqnorm, filt, k, True, 1,
+                                            True), codec),
+                                ("fewer valid rows than k",
+                                 (qpad, fst.vecs_blk, fst.bsq_blk,
+                                  fst.sqnorm, few, k, True, 1, True), codec),
+                                ("d 100, dblk 20: scalar loads",
+                                 (sq_small, to_blocked(srows, sdb),
+                                  block_sqnorms(sf32, sdb),
+                                  (sf32 * sf32).sum(1), svalid, k, True, 1,
+                                  True), scodec)])
+        b3_args = (vprobes, qpad, qpsq, ivf._buckets, ivf._bucket_bsq,
+                   ivf._bucket_sqnorm)
+        cases[f"B3-{tier}"] = (b3, kernel_ivf_pruned.ivf_pruned_topk_plain,
+                               [("L2", b3_args + (view.bucket_valid,
+                                                  view.bucket_slot, k_eff,
+                                                  True, 1, True), icodec),
+                                ("IP", b3_args + (view.bucket_valid,
+                                                  view.bucket_slot, k_eff,
+                                                  False, 1, True), icodec),
+                                ("filter", b3_args + (bfilt,
+                                                      view.bucket_slot,
+                                                      k_eff, True, 1, True),
+                                 icodec),
+                                ("fewer valid rows than k",
+                                 b3_args + (bfew, view.bucket_slot, k_eff,
+                                            True, 1, True), icodec),
+                                ("d 100, dblk 20: scalar loads",
+                                 (svp, sq_small,
+                                  query_prefix_sqnorms(sq_small, sdb), sbk,
+                                  bucket_block_sqnorms(sbk32, sdb),
+                                  (sbk32 * sbk32).sum(-1),
+                                  torch.ones((32, 128), dtype=torch.bool,
+                                             device=dev), sslot, k_eff,
+                                  True, 1, True), scodec)])
+        if tier == "bf16":
+            cases["B1-bf16"] = (b1, kernel_topk.fused_topk_plain, [
+                ("L2", (qpad, fst.vecs, fst.sqnorm, fmask, k, True), {}),
+                ("IP", (qpad, fst.vecs, fst.sqnorm, fmask, k, False), {}),
+                ("filter", (qpad, fst.vecs, fst.sqnorm, filt, k, True), {}),
+                ("fewer valid rows than k",
+                 (qpad, fst.vecs, fst.sqnorm, few, k, True), {}),
+                ("d 100: scalar loads", (sq_small, srows,
+                                         (sf32 * sf32).sum(1), svalid, k,
+                                         True), {})])
+            b2_args = (vprobes, qpad, ivf._buckets, ivf._bucket_sqnorm)
+            cases["B2-bf16"] = (b2, kernel_ivf.ivf_list_topk_plain, [
+                ("L2", b2_args + (view.bucket_valid, view.bucket_slot,
+                                  k_eff, True), {}),
+                ("IP", b2_args + (view.bucket_valid, view.bucket_slot,
+                                  k_eff, False), {}),
+                ("filter", b2_args + (bfilt, view.bucket_slot, k_eff,
+                                      True), {}),
+                ("fewer valid rows than k",
+                 b2_args + (bfew, view.bucket_slot, k_eff, True), {}),
+                ("d 100: scalar loads", (svp, sq_small, sbk,
+                                         (sbk32 * sbk32).sum(-1),
+                                         torch.ones((32, 128),
+                                                    dtype=torch.bool,
+                                                    device=dev), sslot,
+                                         k_eff, True), {})])
+        for name, (kern, plain, cs) in cases.items():
+            ok_all, err_all, frac = True, 0.0, None
+            for tag, a_, kw in cs:
+                kout = kern(*a_, **kw)
+                pout = plain(*a_, **kw)
+                ok, err = kernel_parity(kout[0], kout[1], pout[0], pout[1])
+                if len(kout) == 3:
+                    ok = ok and stats_ok(kout[2], pout[2])
+                    if tag == "L2":
+                        frac = (pruned_fraction(kout[2]),
+                                pruned_fraction(pout[2]))
+                check(ok, f"{name} kernel == plain, {tag} (max abs err "
+                          f"{err:.3g})")
+                ok_all, err_all = ok_all and ok, max(err_all, err)
+            arms[name] = {"ok": ok_all, "err": err_all, "frac": frac,
+                          "run": (kern, cs[0][1], cs[0][2]),
+                          "plain": (plain, cs[0][1], cs[0][2])}
+
+    # -- timings: the six arms alternating in each round --------------------
+    names = list(arms)
+    reads = {nm: [] for nm in names}
+    for r in range(ROUNDS):
+        for nm in names[r % len(names):] + names[:r % len(names)]:
+            kern, a_, kw = arms[nm]["run"]
+            reads[nm].append(time_ms(lambda: kern(*a_, **kw), torch))
+    entries = []
+    for nm in names:
+        plain, a_, kw = arms[nm]["plain"]
+        slow = nm.startswith(("B3", "B4"))
+        plain_ms = time_ms(lambda: plain(*a_, **kw), torch,
+                           iters=3 if slow else 5, warmup=1 if slow else 2)
+        bound, by, shape = tier_bound(nm, a_, arms[nm]["frac"], batch, d)
+        med, lo, hi = median_spread(reads[nm])
+        print(f"[{card}] {nm} {shape}: {spread_text(reads[nm])}, plain "
+              f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by})"
+              + ("" if arms[nm]["frac"] is None else
+                 f"; pruned fraction kernel {arms[nm]['frac'][0]:.4f}, "
+                 f"plain {arms[nm]['frac'][1]:.4f}"), flush=True)
+        e = {"name": ARM_NAMES[nm], "route": "cuda",
+             "source": f"dingo_tpu_torch/csrc/{ARM_SOURCES[nm[:2]]}",
+             "replaces": ARM_REPLACES[nm], "launches": launches[nm],
+             "max_abs_err": arms[nm]["err"], "ms": med, "plain_ms": plain_ms,
+             "bound_ms": bound, "bound_by": by, "library_ms": None,
+             "parity": arms[nm]["ok"],
+             "plain_arm_searches": plain_calls.get(nm, 0),
+             "ms_min": lo, "ms_max": hi}
+        if arms[nm]["frac"] is not None:
+            e["pruned_fraction"], e["plain_pruned_fraction"] = \
+                arms[nm]["frac"]
+        entries.append(e)
+    return entries
+
+
+def tier_bound(name, a_, frac, batch, d):
+    """(bound ms, "bytes"/"operations", shape text) of one tier arm on its
+    timed inputs: each input byte read once (the pruned arms: row bytes
+    times the smaller scanned fraction of kernel and plain version, plus
+    the metadata no pruning skips), each output written once; the f32
+    FMAs of the f32-query arms on the f32 peak, the bf16 x bf16 products
+    of B4-bf16 and the sq8 arms on the bf16 tensor-core peak."""
+    bf16_ops = name in ("B4-bf16", "B4-sq8", "B3-sq8")
+    peak = PEAK_BF16_FLOPS if bf16_ops else PEAK_F32_FLOPS
+    f = 1.0 if frac is None else max(0.0, 1.0 - max(frac))
+    if name.startswith(("B1", "B4")):
+        q, x = a_[0], a_[1]
+        n = int(x.shape[1]) if x.dim() == 3 else int(x.shape[0])
+        k = int(a_[5] if name.startswith("B4") else a_[4])
+        item = x.element_size()
+        nblk = int(x.shape[0]) if x.dim() == 3 else 0
+        nbytes = (n * d * item * f + n * (4 + 1 + 4 * nblk)
+                  + batch * (d + nblk) * 4 + batch * k * 8)
+        ops = 2.0 * batch * n * d * f
+        shape = f"b={batch} n={n} d={d} k={k}"
+    else:
+        vp = a_[0].cpu().numpy()
+        buckets = a_[3] if name.startswith("B3") else a_[2]
+        cap, item = int(buckets.shape[1]), buckets.element_size()
+        k = int(a_[8] if name.startswith("B3") else a_[6])
+        nbuck = len(np.unique(vp[vp >= 0]))
+        npairs = int((vp >= 0).sum())
+        nblk = int(a_[4].shape[1]) if name.startswith("B3") else 0
+        nbytes = (nbuck * cap * d * item * f
+                  + nbuck * cap * (4 + 1 + 4 + 4 * nblk)
+                  + batch * (d + nblk) * 4 + vp.size * 4 + batch * k * 8)
+        ops = 2.0 * npairs * cap * d * f
+        shape = (f"b={batch} budget={vp.shape[1]} cap={cap} d={d} k={k} "
+                 f"distinct buckets={nbuck}")
+    bound, by = bound_of(nbytes, ops, peak)
+    return bound, by, shape
+
+
 def run(args) -> int:
     import torch
 
@@ -630,8 +1221,10 @@ def run(args) -> int:
     t0 = time.perf_counter()
     cuda_build.build()
     for mod in (kernel_topk, kernel_ivf, kernel_ivf_pruned,
-                kernel_topk_pruned, kernel_pq):
-        mod._launcher()
+                kernel_topk_pruned):
+        for dtype in mod.ARMS:       # every arm's entry point resolves
+            mod._launcher(dtype)
+    kernel_pq._launcher()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in cuda_build.build_logs.items():
         for line in log.splitlines():
@@ -1025,6 +1618,23 @@ def run(args) -> int:
               f"ratio median {np.median(ratios):.4f} (min {ratios.min():.4f}"
               f", max {ratios.max():.4f})", flush=True)
 
+    # -- the precision tiers: release the fp32 FLAT stores and the IVF_PQ
+    # state first (their peaks would add up); the fp32 IVF_FLAT region
+    # stays, for the tiers' device-bytes and pipelined comparisons --------
+    flat = flat1 = fstore = pstore = fmask = pmask = timed = None
+    pq["args"] = b5_k12 = b5_bank_free = bank_free = None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    peak_fp32 = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    index.compact()               # the dense view, as the tiers' are built
+    t0 = time.perf_counter()
+    tier_entries = tier_phase(x, queries, extra, gt, nlist, card, {
+        "wrapper": wrapper, "recall": recall,
+        "bytes": index.get_device_memory_size()})
+    print(f"tier phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    tiers = {e["name"]: e for e in tier_entries}
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound,
               by, ok, plain_calls, frac=None):
         e = {"name": name, "route": "cuda",
@@ -1059,10 +1669,18 @@ def run(args) -> int:
     ]
     for e, nm in zip(kernels, ("B1", "B2", "B3", "B4", "B5")):
         _, e["ms_min"], e["ms_max"] = median_spread(reads[nm])
+    # every arm, B1-B4 each followed by its tier arms
+    kernels = (kernels[:1] + [tiers["fused_topk_bf16"]] + kernels[1:2]
+               + [tiers["ivf_list_topk_bf16"]] + kernels[2:3]
+               + [tiers["ivf_pruned_topk_bf16"], tiers["ivf_pruned_topk_sq8"]]
+               + kernels[3:4] + [tiers["pruned_fused_topk_bf16"],
+                                 tiers["pruned_fused_topk_sq8"]]
+               + kernels[4:])
     print(f"[{card}] serving-path ivf.pruned_dim_fraction: IVF (B3) "
           f"{b3_serving_frac:.4f}, FLAT (B4) {b4_serving_frac:.4f}",
           flush=True)
-    print(f"[{card}] peak device memory: "
+    print(f"[{card}] peak device memory: fp32 and IVF_PQ phases "
+          f"{peak_fp32 / 2**30:.2f} GiB, tier phase "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)

@@ -1,6 +1,6 @@
 """Flag registry for the port: a copy of dingo_tpu's ``FlagRegistry`` with
 only the flags the FLAT, IVF_FLAT and IVF_PQ serving paths read (the
-pruned scans included).
+pruned scans and the bf16/sq8 precision tiers included).
 
 Crossovers that JAX resolved against ``jax.default_backend()`` resolve
 here against the device the index lives on: "auto" turns the hand-written
@@ -109,6 +109,24 @@ FLAGS.define("ivfpq_rerank_factor", 8, mutable=True,
                    "the device for a device store, from host rows at "
                    "resolve for host_vectors); 1 disables. The fused ADC "
                    "kernel (B5) serves only max(topk*factor, k) <= 64")
+FLAGS.define("vector_precision", "fp32", mutable=True,
+             help_="default precision tier of float FLAT/IVF_FLAT indexes "
+                   "whose parameter leaves precision unset: 'fp32', 'bf16' "
+                   "(bf16 rows, f32 accumulation; half the row bytes) or "
+                   "'sq8' (uint8 scalar-quantized rows decoded in the scan, "
+                   "f32 accumulation; a quarter of the row bytes)")
+FLAGS.define("rerank_cache_rows", 0, mutable=True,
+             help_="rows of the device exact-rerank cache of each bf16/sq8 "
+                   "index (0 = no cache). Cached rows rerank the quantized "
+                   "shortlist on the device; uncached candidates keep "
+                   "their quantized score")
+FLAGS.define("rerank_cache_dtype", "float32", mutable=True,
+             help_="dtype of the rerank cache rows: 'float32' (exact) or "
+                   "'bfloat16' (half the cache bytes)")
+FLAGS.define("quantized_rerank_factor", 4, mutable=True,
+             help_="bf16/sq8 searches with a non-empty rerank cache scan "
+                   "topk*factor candidates and rerank them exactly on the "
+                   "device (1 disables the stage)")
 FLAGS.define("train_sample_rows", 65536, mutable=True,
              help_="train-sample row cap for k-means (0 = full corpus, "
                    "lifting derived caps too)")

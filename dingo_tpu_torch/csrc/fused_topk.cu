@@ -1,7 +1,9 @@
 // Kernel B1: fused distance + running top-k over a whole slot store.
 //
-// Replaces dingo_tpu/ops/pallas_topk.py::fused_topk (body _fused_kernel).
-// Computes, for q[b, d] against x[n, d] (f32), the k best "larger is
+// Replaces dingo_tpu/ops/pallas_topk.py::fused_topk (body _fused_kernel) in
+// both of its row arms: f32 rows, and bf16 rows widened exactly to f32 as
+// they load (pallas_topk.py:67; the query stays f32, f32 products).
+// Computes, for q[b, d] against x[n, d], the k best "larger is
 // better" scores (L2: -(||q||^2 - 2 q.x + ||x||^2); IP: q.x) over rows whose
 // valid byte is set, and their slots (-1 where the score is -inf). It never
 // writes a [b, n] score matrix.
@@ -11,6 +13,10 @@
 // f32 (non tensor core) peak, while the 3.2 GB of rows take 0.96 ms at
 // 3.35 TB/s: operations bound it. The fp32 tier must stay true fp32
 // (the JAX package pins Precision.HIGHEST), so TF32 tensor cores are out.
+// The bf16 arm halves the row bytes (1.6 GB, 0.48 ms) and keeps the same
+// f32 FMAs, so it is further inside the operations bound; its rows load as
+// 8 bf16 values (16 bytes) per thread and tile step where d is a multiple
+// of 8.
 //
 // Design: the TPU streams blocks through one core in order and carries the
 // running best from grid step to step. Hopper runs blocks in parallel, so
@@ -35,27 +41,24 @@ constexpr int THREADS = 256;  // 16 x 16 thread grid, 4 x 8 outputs each
 constexpr int QS_LD = BQ + 4; // padded leading dims (float4-aligned)
 constexpr int XS_LD = BN + 4;
 constexpr int S_LD = BN + 1;
+static_assert(THREADS == dingo::TILE_THREADS && BK == dingo::TILE_BK &&
+                  BN * BK == 8 * THREADS,
+              "the row tile loader's shape");
 
-__device__ __forceinline__ void load_step(
-    const float* __restrict__ q, const float* __restrict__ x, int b, int d,
-    int row_hi, int q0, int r0, int k0, int tid, float (&pq)[4],
-    float (&px)[8]) {
+__device__ __forceinline__ void load_q(const float* __restrict__ q, int b,
+                                       int d, int q0, int k0, int tid,
+                                       float (&pq)[4]) {
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
     const int e = tid + THREADS * t, qq = e / BK, kk = e % BK;
     const int qg = q0 + qq, c = k0 + kk;
     pq[t] = (qg < b && c < d) ? q[(size_t)qg * d + c] : 0.f;
   }
-#pragma unroll
-  for (int t = 0; t < 8; ++t) {
-    const int e = tid + THREADS * t, rr = e / BK, kk = e % BK;
-    const int row = r0 + rr, c = k0 + kk;
-    px[t] = (row < row_hi && c < d) ? x[(size_t)row * d + c] : 0.f;
-  }
 }
 
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(THREADS, 2)
-fused_scan_kernel(const float* __restrict__ q, const float* __restrict__ x,
+fused_scan_kernel(const float* __restrict__ q, const T* __restrict__ x,
                   const float* __restrict__ xsq,
                   const unsigned char* __restrict__ valid, int b, int n,
                   int d, int k, int ascending, int rows_per_split,
@@ -102,22 +105,23 @@ fused_scan_kernel(const float* __restrict__ q, const float* __restrict__ x,
       for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
     // register staging of the next BK step: 4 query and 8 row elements
+    using Tile = dingo::RowTile<T, VEC>;
+    const dingo::Codec none{nullptr, nullptr};
     float pq[4], px[8];
-    load_step(q, x, b, d, row_hi, q0, r0, 0, tid, pq, px);
+    load_q(q, b, d, q0, 0, tid, pq);
+    Tile::load(x, d, row_hi, r0, 0, 0, none, tid, px);
     for (int s = 0; s < nsteps; ++s) {
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
         const int e = tid + THREADS * t;
         Qs[(e % BK) * QS_LD + e / BK] = pq[t];
       }
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        const int e = tid + THREADS * t;
-        Xs[(e % BK) * XS_LD + e / BK] = px[t];
-      }
+      Tile::store(Xs, XS_LD, tid, px);
       __syncthreads();
-      if (s + 1 < nsteps)
-        load_step(q, x, b, d, row_hi, q0, r0, (s + 1) * BK, tid, pq, px);
+      if (s + 1 < nsteps) {
+        load_q(q, b, d, q0, (s + 1) * BK, tid, pq);
+        Tile::load(x, d, row_hi, r0, (s + 1) * BK, 0, none, tid, px);
+      }
 #pragma unroll
       for (int kk = 0; kk < BK; ++kk) {
         const float4 a = *reinterpret_cast<const float4*>(
@@ -195,6 +199,31 @@ size_t scan_smem_bytes(int k) {
          (sizeof(float) + sizeof(int)) * (size_t)BQ * k;
 }
 
+template <typename T>
+int launch(const float* q, const T* x, const float* xsq,
+           const unsigned char* valid, int b, int n, int d, int k,
+           int ascending, int rows_per_split, int vec, float* cand_v,
+           int* cand_i, float* out_v, int* out_i, void* stream) {
+  if (k < 1 || k > dingo::K_MAX || rows_per_split % BN != 0 || n < 1 ||
+      b < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const size_t smem = scan_smem_bytes(k);
+  auto kernel = vec ? fused_scan_kernel<T, true> : fused_scan_kernel<T, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nsplit = (n + rows_per_split - 1) / rows_per_split;
+  dim3 grid(nsplit, (b + BQ - 1) / BQ);
+  kernel<<<grid, THREADS, smem, st>>>(q, x, xsq, valid, b, n, d, k, ascending,
+                                      rows_per_split, cand_v, cand_i);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dingo::merge_candidates<256><<<b, 256, 0, st>>>(cand_v, cand_i,
+                                                  nsplit * k, k, out_v, out_i);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -203,32 +232,28 @@ const char* dingo_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// q[b,d], x[n,d], xsq[n] f32; valid[n] bytes (nonzero = live).
-// cand_v/cand_i: [b, nsplit, k] scratch, nsplit = ceil(n / rows_per_split);
-// out_v/out_i: [b, k]. Returns cudaGetLastError() after both launches.
+// q[b,d] f32; x[n,d] f32 (dingo_fused_topk) or bf16 (dingo_fused_topk_bf16);
+// xsq[n] f32; valid[n] bytes (nonzero = live). cand_v/cand_i: [b, nsplit,
+// k] scratch, nsplit = ceil(n / rows_per_split); out_v/out_i: [b, k].
+// vec (bf16 only) = d a multiple of 8 and 16-byte aligned rows. Returns
+// cudaGetLastError() after both launches.
 int dingo_fused_topk(const float* q, const float* x, const float* xsq,
                      const unsigned char* valid, int b, int n, int d, int k,
-                     int ascending, int rows_per_split, float* cand_v,
-                     int* cand_i, float* out_v, int* out_i, void* stream) {
-  if (k < 1 || k > dingo::K_MAX || rows_per_split % BN != 0 || n < 1 ||
-      b < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const size_t smem = scan_smem_bytes(k);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int nsplit = (n + rows_per_split - 1) / rows_per_split;
-  dim3 grid(nsplit, (b + BQ - 1) / BQ);
-  fused_scan_kernel<<<grid, THREADS, smem, st>>>(
-      q, x, xsq, valid, b, n, d, k, ascending, rows_per_split, cand_v,
-      cand_i);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dingo::merge_candidates<256><<<b, 256, 0, st>>>(cand_v, cand_i,
-                                                  nsplit * k, k, out_v, out_i);
-  return (int)cudaGetLastError();
+                     int ascending, int rows_per_split, int vec,
+                     float* cand_v, int* cand_i, float* out_v, int* out_i,
+                     void* stream) {
+  return launch(q, x, xsq, valid, b, n, d, k, ascending, rows_per_split, vec,
+                cand_v, cand_i, out_v, out_i, stream);
+}
+
+int dingo_fused_topk_bf16(const float* q, const __nv_bfloat16* x,
+                          const float* xsq, const unsigned char* valid, int b,
+                          int n, int d, int k, int ascending,
+                          int rows_per_split, int vec, float* cand_v,
+                          int* cand_i, float* out_v, int* out_i,
+                          void* stream) {
+  return launch(q, x, xsq, valid, b, n, d, k, ascending, rows_per_split, vec,
+                cand_v, cand_i, out_v, out_i, stream);
 }
 
 }  // extern "C"

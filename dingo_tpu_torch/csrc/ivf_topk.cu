@@ -1,8 +1,10 @@
 // Kernel B2: IVF probed-bucket scan + running top-k.
 //
-// Replaces dingo_tpu/ops/pallas_ivf.py::ivf_list_topk (body _ivf_kernel).
-// For each query and each of its `budget` virtual probes (bucket ids, -1 =
-// padded rank, skipped), scans the bucket's [cap, d] rows and keeps the k
+// Replaces dingo_tpu/ops/pallas_ivf.py::ivf_list_topk (body _ivf_kernel),
+// in both of its row arms: f32 rows, and bf16 rows widened to f32 as they
+// load (pallas_ivf.py:65, the query stays f32, f32 products). For each
+// query and each of its `budget` virtual probes (bucket ids, -1 = padded
+// rank, skipped), scans the bucket's [cap, d] rows and keeps the k
 // best "larger is better" scores (L2: -(||q||^2 - 2 q.x + ||x||^2); IP: q.x)
 // over valid rows, with their slots; -1 where the score is -inf. k <= 64.
 //
@@ -10,6 +12,10 @@
 // (2 FLOP per 4 bytes read), so bytes bound it: at b = 64, nprobe = 32,
 // cap = 1024, d = 768 each probe reads a 3 MB bucket, and the least time is
 // the bytes of the distinct buckets the batch probes over 3.35 TB/s.
+// bf16 arm: the rows halve to 1.5 MB a bucket, so the byte bound halves;
+// the FMAs stay the same f32 ones, 8 per 16-byte load instead of 4 (1 FLOP
+// per byte read, far under the card's ~20 f32 FLOP per byte of HBM), so
+// bytes still bound the arm.
 //
 // Design: the TPU's scalar prefetch picks the bucket a grid step DMAs; here
 // each CTA reads its own bucket id from vprobes. One CTA per (query, probe
@@ -30,11 +36,11 @@ constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
 constexpr int ROWS = 4;   // rows per warp step
 
-template <bool VEC4>
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(THREADS)
 ivf_scan_kernel(const int* __restrict__ vprobes,
                 const float* __restrict__ queries,
-                const float* __restrict__ buckets,
+                const T* __restrict__ buckets,
                 const float* __restrict__ bucket_sqnorm,
                 const unsigned char* __restrict__ bucket_valid,
                 const int* __restrict__ bucket_slot, int budget, int nbuckets,
@@ -79,34 +85,14 @@ ivf_scan_kernel(const int* __restrict__ vprobes,
   float thr = -CUDART_INF_F;
   for (int row0 = warp * ROWS; row0 < cap; row0 += NWARPS * ROWS) {
     float acc[ROWS];
+    const T* rowp[ROWS];
 #pragma unroll
-    for (int t = 0; t < ROWS; ++t) acc[t] = 0.f;
-    if (VEC4) {
-      const int d4 = d >> 2;
-      const float4* q4 = reinterpret_cast<const float4*>(qs);
-      for (int c = lane; c < d4; c += 32) {
-        const float4 qv = q4[c];
-#pragma unroll
-        for (int t = 0; t < ROWS; ++t) {
-          if (row0 + t < cap) {
-            const float4 xv = reinterpret_cast<const float4*>(
-                buckets + (bbase + row0 + t) * d)[c];
-            acc[t] = fmaf(qv.x, xv.x, acc[t]);
-            acc[t] = fmaf(qv.y, xv.y, acc[t]);
-            acc[t] = fmaf(qv.z, xv.z, acc[t]);
-            acc[t] = fmaf(qv.w, xv.w, acc[t]);
-          }
-        }
-      }
-    } else {
-      for (int c = lane; c < d; c += 32) {
-        const float qv = qs[c];
-#pragma unroll
-        for (int t = 0; t < ROWS; ++t)
-          if (row0 + t < cap)
-            acc[t] = fmaf(qv, buckets[(bbase + row0 + t) * d + c], acc[t]);
-      }
+    for (int t = 0; t < ROWS; ++t) {
+      acc[t] = 0.f;
+      rowp[t] = row0 + t < cap ? buckets + (bbase + row0 + t) * d : nullptr;
     }
+    dingo::group_row_dots<T, VEC, ROWS, 32>(rowp, qs, d, 0,
+                                            dingo::Codec{}, lane, acc);
 #pragma unroll
     for (int t = 0; t < ROWS; ++t)
       for (int off = 16; off > 0; off >>= 1)
@@ -145,6 +131,31 @@ ivf_scan_kernel(const int* __restrict__ vprobes,
   }
 }
 
+template <typename T>
+int launch(const int* vprobes, const float* queries, const T* buckets,
+           const float* bucket_sqnorm, const unsigned char* bucket_valid,
+           const int* bucket_slot, int b, int budget, int nbuckets, int cap,
+           int d, int k, int ascending, int vec, float* cand_v, int* cand_i,
+           float* out_v, int* out_i, void* stream) {
+  if (k < 1 || k > dingo::K_MAX || b < 1 || budget < 1 || cap < 1 || d < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const size_t smem = sizeof(float) * (size_t)((d + 3) & ~3) +
+                      (sizeof(float) + sizeof(int)) * (size_t)NWARPS * k;
+  auto kernel = vec ? ivf_scan_kernel<T, true> : ivf_scan_kernel<T, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(budget, b), THREADS, smem, st>>>(
+      vprobes, queries, buckets, bucket_sqnorm, bucket_valid, bucket_slot,
+      budget, nbuckets, cap, d, k, ascending, cand_v, cand_i);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dingo::merge_candidates<256><<<b, 256, 0, st>>>(cand_v, cand_i,
+                                                  budget * k, k, out_v, out_i);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -153,47 +164,37 @@ const char* dingo_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// vprobes[b, budget] i32; queries[b, d] f32; buckets[nbuckets, cap, d] f32;
+// vprobes[b, budget] i32; queries[b, d] f32; buckets[nbuckets, cap, d] f32
+// (dingo_ivf_list_topk) or bf16 (dingo_ivf_list_topk_bf16);
 // bucket_sqnorm[nbuckets, cap] f32; bucket_valid[nbuckets, cap] bytes;
 // bucket_slot[nbuckets, cap] i32. cand_v/cand_i: [b, budget, k] scratch;
-// out_v/out_i: [b, k]. vec4 = d % 4 == 0 and 16-byte aligned rows.
-// Returns cudaGetLastError() after both launches.
+// out_v/out_i: [b, k]. vec = d a multiple of 4 (f32) or 8 (bf16) with
+// 16-byte aligned rows and queries. Returns cudaGetLastError() after both
+// launches.
 int dingo_ivf_list_topk(const int* vprobes, const float* queries,
                         const float* buckets, const float* bucket_sqnorm,
                         const unsigned char* bucket_valid,
                         const int* bucket_slot, int b, int budget,
                         int nbuckets, int cap, int d, int k, int ascending,
-                        int vec4, float* cand_v, int* cand_i, float* out_v,
+                        int vec, float* cand_v, int* cand_i, float* out_v,
                         int* out_i, void* stream) {
-  if (k < 1 || k > dingo::K_MAX || b < 1 || budget < 1 || cap < 1 || d < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(float) * (size_t)((d + 3) & ~3) +
-                      (sizeof(float) + sizeof(int)) * (size_t)NWARPS * k;
-  cudaError_t err;
-  dim3 grid(budget, b);
-  if (vec4) {
-    err = cudaFuncSetAttribute(ivf_scan_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    ivf_scan_kernel<true><<<grid, THREADS, smem, st>>>(
-        vprobes, queries, buckets, bucket_sqnorm, bucket_valid, bucket_slot,
-        budget, nbuckets, cap, d, k, ascending, cand_v, cand_i);
-  } else {
-    err = cudaFuncSetAttribute(ivf_scan_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    ivf_scan_kernel<false><<<grid, THREADS, smem, st>>>(
-        vprobes, queries, buckets, bucket_sqnorm, bucket_valid, bucket_slot,
-        budget, nbuckets, cap, d, k, ascending, cand_v, cand_i);
-  }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dingo::merge_candidates<256><<<b, 256, 0, st>>>(cand_v, cand_i,
-                                                  budget * k, k, out_v, out_i);
-  return (int)cudaGetLastError();
+  return launch(vprobes, queries, buckets, bucket_sqnorm, bucket_valid,
+                bucket_slot, b, budget, nbuckets, cap, d, k, ascending, vec,
+                cand_v, cand_i, out_v, out_i, stream);
+}
+
+int dingo_ivf_list_topk_bf16(const int* vprobes, const float* queries,
+                             const __nv_bfloat16* buckets,
+                             const float* bucket_sqnorm,
+                             const unsigned char* bucket_valid,
+                             const int* bucket_slot, int b, int budget,
+                             int nbuckets, int cap, int d, int k,
+                             int ascending, int vec, float* cand_v,
+                             int* cand_i, float* out_v, int* out_i,
+                             void* stream) {
+  return launch(vprobes, queries, buckets, bucket_sqnorm, bucket_valid,
+                bucket_slot, b, budget, nbuckets, cap, d, k, ascending, vec,
+                cand_v, cand_i, out_v, out_i, stream);
 }
 
 }  // extern "C"

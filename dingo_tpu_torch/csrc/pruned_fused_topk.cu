@@ -2,7 +2,15 @@
 // blocked mirror.
 //
 // Replaces dingo_tpu/ops/pallas_topk.py::pruned_fused_topk (body
-// _pruned_fused_kernel), fp32 rows. q[b, d] against the mirror
+// _pruned_fused_kernel) in its three row arms (pallas_topk.py:235-251):
+//   f32   rows and query f32;
+//   bf16  rows widened exactly to f32, the query rounded to bf16: the
+//         bf16 x bf16 products of the TPU's bf16 matmul, each exact in f32,
+//         summed by f32 FMAs (only the summation order differs);
+//   sq8   uint8 codes decoded per element (code * scale + vmin in f32,
+//         rounded to bf16), the query rounded to bf16, f32 accumulation.
+// Norms, bounds and stats stay f32 (the store keeps the norms of what the
+// arm accumulates). q[b, d] against the mirror
 // x_blk[nblk, n, dblk] (block j of row r at x_blk[j, r, :]) with per-block
 // norms bsq_blk[nblk, n], total norms xsq[n] and valid[n]: the k best
 // "larger is better" scores over valid rows, their slots (-1 where the
@@ -12,7 +20,12 @@
 // What bounds it on an H100: the same 2 b n d f32 FMAs as B1 where nothing
 // prunes (operations: 1.54 ms at b = 64, n = 2^20, d = 768 on the 67 TFLOP/s
 // f32 peak), cut by the scanned fraction where whole row tiles die, plus
-// the mirror bytes of the blocks still read.
+// the mirror bytes of the blocks still read. The bf16 and sq8 arms halve
+// and quarter those row bytes and keep the FMAs, so they are further
+// inside the operations bound; the sq8 decode adds a multiply, an add and
+// a rounding per loaded element (per row tile and step, not per query).
+// bf16 rows load 8 values (16 bytes) and codes 8 (8 bytes) per thread and
+// tile step where dblk is a multiple of 8 (bf16) or 16 (sq8).
 //
 // Design: B1's. Each CTA owns a contiguous slot range and a 64-query tile
 // and walks its range in 128-row tiles. Per tile it keeps the [64, 128]
@@ -34,6 +47,8 @@
 // each list's k-th best is published across CTAs (atomicMax on its ordered
 // int image). A second pass merges the CTAs' candidates, as in B1.
 
+#include <type_traits>
+
 #include "topk_common.cuh"
 
 namespace {
@@ -46,22 +61,21 @@ constexpr int QS_LD = BQ + 4;
 constexpr int XS_LD = BN + 4;
 constexpr int S_LD = BN + 1;
 constexpr int C_LD = BN + 4;  // running dots, float4-aligned rows
+static_assert(THREADS == dingo::TILE_THREADS && BK == dingo::TILE_BK &&
+                  BN * BK == 8 * THREADS,
+              "the row tile loader's shape");
 
-__device__ __forceinline__ void load_step(
-    const float* __restrict__ q, int qld, const float* __restrict__ x,
-    int ncols, int b, int row_hi, int q0, int r0, int k0, int tid,
-    float (&pq)[4], float (&px)[8]) {
+// One BK step of the query tile; the arms that pair bf16 operands round it.
+template <bool ROUND>
+__device__ __forceinline__ void load_q(const float* __restrict__ q, int qld,
+                                       int ncols, int b, int q0, int k0,
+                                       int tid, float (&pq)[4]) {
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
     const int e = tid + THREADS * t, qq = e / BK, kk = e % BK;
     const int qg = q0 + qq, c = k0 + kk;
-    pq[t] = (qg < b && c < ncols) ? q[(size_t)qg * qld + c] : 0.f;
-  }
-#pragma unroll
-  for (int t = 0; t < 8; ++t) {
-    const int e = tid + THREADS * t, rr = e / BK, kk = e % BK;
-    const int row = r0 + rr, c = k0 + kk;
-    px[t] = (row < row_hi && c < ncols) ? x[(size_t)row * ncols + c] : 0.f;
+    const float v = (qg < b && c < ncols) ? q[(size_t)qg * qld + c] : 0.f;
+    pq[t] = ROUND ? dingo::round_bf16(v) : v;
   }
 }
 
@@ -69,10 +83,11 @@ __device__ __forceinline__ int row_of(int tr, int j) {
   return (j < 4) ? tr * 4 + j : 64 + tr * 4 + (j - 4);
 }
 
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(THREADS, 2)
 pruned_scan_kernel(const float* __restrict__ q,
                    const float* __restrict__ qpsq,
-                   const float* __restrict__ xb,
+                   const T* __restrict__ xb, dingo::Codec codec,
                    const float* __restrict__ bsq,
                    const float* __restrict__ xsq,
                    const unsigned char* __restrict__ valid, int b, int n,
@@ -162,30 +177,32 @@ pruned_scan_kernel(const float* __restrict__ q,
                                  : 0.f;
 
       // this block's dots
+      constexpr bool kRoundQ = !std::is_same<T, float>::value;
+      using Tile = dingo::RowTile<T, VEC>;
       const float* qj = q + (size_t)jb * dblk;
-      const float* xj = xb + (size_t)jb * n * dblk;
+      const T* xj = xb + (size_t)jb * n * dblk;
+      const int col_off = jb * dblk;
       float acc[4][8];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
       float pq[4], px[8];
-      load_step(qj, d, xj, dblk, b, row_hi, q0, r0, 0, tid, pq, px);
+      load_q<kRoundQ>(qj, d, dblk, b, q0, 0, tid, pq);
+      Tile::load(xj, dblk, row_hi, r0, 0, col_off, codec, tid, px);
       for (int s = 0; s < nsteps; ++s) {
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
           const int e = tid + THREADS * t;
           Qs[(e % BK) * QS_LD + e / BK] = pq[t];
         }
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const int e = tid + THREADS * t;
-          Xs[(e % BK) * XS_LD + e / BK] = px[t];
-        }
+        Tile::store(Xs, XS_LD, tid, px);
         __syncthreads();
-        if (s + 1 < nsteps)
-          load_step(qj, d, xj, dblk, b, row_hi, q0, r0, (s + 1) * BK, tid,
-                    pq, px);
+        if (s + 1 < nsteps) {
+          load_q<kRoundQ>(qj, d, dblk, b, q0, (s + 1) * BK, tid, pq);
+          Tile::load(xj, dblk, row_hi, r0, (s + 1) * BK, col_off, codec, tid,
+                     px);
+        }
 #pragma unroll
         for (int kk = 0; kk < BK; ++kk) {
           const float4 a = *reinterpret_cast<const float4*>(
@@ -355,6 +372,36 @@ size_t scan_smem_bytes(int k) {
          sizeof(int) * BQ * 4;
 }
 
+template <typename T>
+int launch(const float* q, const float* qpsq, const T* x_blk,
+           dingo::Codec codec, const float* bsq_blk, const float* xsq,
+           const unsigned char* valid, int b, int n, int d, int dblk, int k,
+           int ascending, int check_every, int inbucket, int rows_per_split,
+           int vec, int* thr_shared, int* stats, float* cand_v, int* cand_i,
+           float* out_v, int* out_i, void* stream) {
+  if (k < 1 || k > dingo::K_MAX || rows_per_split % BN != 0 || n < 1 ||
+      b < 1 || dblk < 1 || d % dblk != 0 || check_every < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const size_t smem = scan_smem_bytes(k);
+  auto kernel =
+      vec ? pruned_scan_kernel<T, true> : pruned_scan_kernel<T, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nsplit = (n + rows_per_split - 1) / rows_per_split;
+  dim3 grid(nsplit, (b + BQ - 1) / BQ);
+  kernel<<<grid, THREADS, smem, st>>>(
+      q, qpsq, x_blk, codec, bsq_blk, xsq, valid, b, n, d, dblk, k,
+      ascending, check_every, inbucket, rows_per_split, thr_shared, stats,
+      cand_v, cand_i);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dingo::merge_candidates<256><<<b, 256, 0, st>>>(cand_v, cand_i,
+                                                  nsplit * k, k, out_v, out_i);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -363,40 +410,37 @@ const char* dingo_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// q[b, d] f32; qpsq[b, nblk] f32 inclusive per-block prefix norms;
-// x_blk[nblk, n, dblk] f32; bsq_blk[nblk, n] f32; xsq[n] f32; valid[n]
+// q[b, d] f32; qpsq[b, nblk] f32 inclusive per-block prefix norms (of the
+// f32 query); x_blk[nblk, n, dblk] f32, bf16 (_bf16) or uint8 codes with
+// vmin/scale [d] f32 (_sq8); bsq_blk[nblk, n] f32; xsq[n] f32; valid[n]
 // bytes. thr_shared[b] i32 holds ord_of(-inf) on entry; stats[b, 4] i32
 // zeros. cand_v/cand_i: [b, nsplit, k] scratch, nsplit = ceil(n /
-// rows_per_split); out_v/out_i: [b, k]. Returns cudaGetLastError() after
-// both launches.
-int dingo_pruned_fused_topk(const float* q, const float* qpsq,
-                            const float* x_blk, const float* bsq_blk,
-                            const float* xsq, const unsigned char* valid,
-                            int b, int n, int d, int dblk, int k,
-                            int ascending, int check_every, int inbucket,
-                            int rows_per_split, int* thr_shared, int* stats,
-                            float* cand_v, int* cand_i, float* out_v,
-                            int* out_i, void* stream) {
-  if (k < 1 || k > dingo::K_MAX || rows_per_split % BN != 0 || n < 1 ||
-      b < 1 || dblk < 1 || d % dblk != 0 || check_every < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const size_t smem = scan_smem_bytes(k);
-  cudaError_t err = cudaFuncSetAttribute(
-      pruned_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int nsplit = (n + rows_per_split - 1) / rows_per_split;
-  dim3 grid(nsplit, (b + BQ - 1) / BQ);
-  pruned_scan_kernel<<<grid, THREADS, smem, st>>>(
-      q, qpsq, x_blk, bsq_blk, xsq, valid, b, n, d, dblk, k, ascending,
-      check_every, inbucket, rows_per_split, thr_shared, stats, cand_v,
-      cand_i);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dingo::merge_candidates<256><<<b, 256, 0, st>>>(cand_v, cand_i,
-                                                  nsplit * k, k, out_v, out_i);
-  return (int)cudaGetLastError();
+// rows_per_split); out_v/out_i: [b, k]. vec (bf16, sq8) = dblk a multiple
+// of 8 (bf16) or 16 (sq8) and a 16-byte aligned mirror. Returns
+// cudaGetLastError() after both launches.
+#define DINGO_B4_ARGS                                                       \
+  const float *q, const float *qpsq, const float *bsq_blk,                 \
+      const float *xsq, const unsigned char *valid, int b, int n, int d,   \
+      int dblk, int k, int ascending, int check_every, int inbucket,       \
+      int rows_per_split, int vec, int *thr_shared, int *stats,            \
+      float *cand_v, int *cand_i, float *out_v, int *out_i, void *stream
+#define DINGO_B4_PASS(x_blk, codec)                                         \
+  launch(q, qpsq, x_blk, codec, bsq_blk, xsq, valid, b, n, d, dblk, k,     \
+         ascending, check_every, inbucket, rows_per_split, vec, thr_shared, \
+         stats, cand_v, cand_i, out_v, out_i, stream)
+
+int dingo_pruned_fused_topk(const float* x_blk, DINGO_B4_ARGS) {
+  return DINGO_B4_PASS(x_blk, (dingo::Codec{nullptr, nullptr}));
+}
+
+int dingo_pruned_fused_topk_bf16(const __nv_bfloat16* x_blk,
+                                 DINGO_B4_ARGS) {
+  return DINGO_B4_PASS(x_blk, (dingo::Codec{nullptr, nullptr}));
+}
+
+int dingo_pruned_fused_topk_sq8(const uint8_t* x_blk, const float* vmin,
+                                const float* scale, DINGO_B4_ARGS) {
+  return DINGO_B4_PASS(x_blk, (dingo::Codec{vmin, scale}));
 }
 
 }  // extern "C"

@@ -80,9 +80,14 @@ _PRECISION_ALIASES = {
 
 
 def precision_tier(parameter: IndexParameter) -> str:
-    """Requested precision tier: the parameter wins, "" means fp32 (the
-    JAX package's conf default), a bf16 dtype means bf16."""
+    """Effective precision tier: the parameter wins, else the
+    vector_precision flag; a legacy bf16 dtype means bf16 (the JAX
+    package's resolve_precision)."""
     p = (parameter.precision or "").strip().lower()
+    if not p:
+        from dingo_tpu_torch.common.config import FLAGS
+
+        p = str(FLAGS.get("vector_precision")).strip().lower()
     tier = _PRECISION_ALIASES.get(p)
     if tier is None:
         raise InvalidParameter(f"unknown precision tier {p!r} "
@@ -93,14 +98,42 @@ def precision_tier(parameter: IndexParameter) -> str:
 
 
 def resolve_precision(parameter: IndexParameter) -> str:
-    """Effective precision tier. Only fp32 is ported; bf16/sq8 raise."""
+    """Effective precision tier of a float index (fp32, bf16 or sq8)."""
     tier = precision_tier(parameter)
-    if tier != "fp32" or parameter.dtype not in ("float32", "f32"):
-        raise NotSupported(
-            f"precision tier {tier} / dtype {parameter.dtype} is not ported "
-            "yet (fp32 only)"
-        )
+    if parameter.dtype not in ("float32", "f32", "bfloat16", "bf16"):
+        raise NotSupported(f"storage dtype {parameter.dtype} is not ported")
     return tier
+
+
+def tensor_bytes(root) -> int:
+    """Bytes of the distinct torch tensors reachable from an index: its
+    own attributes and those of the port's objects it holds (store, view,
+    rerank cache), through dicts, lists and tuples. The port's counterpart
+    of the JAX package's live_device_bytes."""
+    import torch
+
+    seen_obj, seen_mem, total = set(), set(), 0
+    stack = [root]
+    while stack:
+        obj = stack.pop()
+        if isinstance(obj, torch.Tensor):
+            st = obj.untyped_storage()
+            key = (obj.device, st.data_ptr())
+            if key not in seen_mem:
+                seen_mem.add(key)
+                total += st.nbytes()
+            continue
+        if id(obj) in seen_obj:
+            continue
+        seen_obj.add(id(obj))
+        if isinstance(obj, dict):
+            stack.extend(obj.values())
+        elif isinstance(obj, (list, tuple)):
+            stack.extend(obj)
+        elif type(obj).__module__.startswith("dingo_tpu_torch"):
+            stack.extend(vars(obj).values() if hasattr(obj, "__dict__")
+                         else ())
+    return total
 
 
 @dataclasses.dataclass
@@ -234,6 +267,11 @@ class VectorIndex(abc.ABC):
 
     def get_deleted_count(self) -> int:
         return 0
+
+    def get_device_memory_size(self) -> int:
+        """Bytes of the tensors this index holds (the device bytes of an
+        index on the card)."""
+        return tensor_bytes(self)
 
     @abc.abstractmethod
     def get_memory_size(self) -> int:

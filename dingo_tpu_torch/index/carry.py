@@ -1,10 +1,11 @@
 """Carry index state across from the JAX package.
 
 The JAX package's snapshot (``meta.json`` + ``flat.npz``, ``ivf_flat.npz``
-or ``ivf_pq.npz`` holding ``ids``, ``vectors`` and, once trained,
+or ``ivf_pq.npz`` holding ``ids``, ``vectors`` (an sq8 index: ``codes``
+with its codec ``sq_vmin``/``sq_scale`` instead) and, once trained,
 ``centroids`` plus ``assign`` (IVF_FLAT) or ``codebooks`` (IVF_PQ)) is the
-interchange format: the port's ``load`` reads it, and
-``index_from_reference`` builds a port index from a snapshot directory or
+interchange format, and the snapshot's precision tier carries over: the
+port's ``load`` reads it, and ``index_from_reference`` builds a port index from a snapshot directory or
 from the same arrays given as numpy. Rows go into slots in snapshot order,
 so both packages hold the same slots, centroids and bucket assignments and
 compute the same thing. An IVF_PQ snapshot re-encodes its rows at load, as
@@ -27,6 +28,7 @@ from dingo_tpu_torch.index.base import (
 )
 from dingo_tpu_torch.index.factory import new_index
 from dingo_tpu_torch.ops.distance import Metric
+from dingo_tpu_torch.ops.sq import SqParams
 
 
 def index_from_reference(source: Union[str, os.PathLike, Mapping],
@@ -36,10 +38,12 @@ def index_from_reference(source: Union[str, os.PathLike, Mapping],
     """Port index from a JAX snapshot directory, or from a mapping of numpy
     arrays (``ids``, ``vectors`` and optionally ``centroids`` with
     ``assign`` for IVF_FLAT, or ``centroids``, ``codebooks`` and optionally
-    ``codes``/``assign`` for IVF_PQ; ``parameter`` describes the index,
-    inferred when absent: IVF_PQ when codebooks are given, IVF_FLAT when
-    only centroids are, else FLAT, L2). Rows are taken as stored (cosine
-    rows already normalized)."""
+    ``codes``/``assign`` for IVF_PQ; an sq8 FLAT/IVF_FLAT gives ``codes``,
+    ``sq_vmin`` and ``sq_scale`` in place of ``vectors``; ``parameter``
+    describes the index, inferred when absent: IVF_PQ when codebooks are
+    given, IVF_FLAT when only centroids are, else FLAT, L2, in the
+    snapshot's tier: its ``precision`` entry, sq8 for codes, else fp32).
+    Rows are taken as stored (cosine rows already normalized)."""
     if isinstance(source, (str, os.PathLike)):
         with open(os.path.join(source, "meta.json")) as f:
             meta = json.load(f)
@@ -50,40 +54,52 @@ def index_from_reference(source: Union[str, os.PathLike, Mapping],
                 kw["nsubvector"] = int(meta["m"])
             parameter = IndexParameter(
                 index_type=t, dimension=int(meta["dimension"]),
-                metric=Metric(meta["metric"]), **kw,
+                metric=Metric(meta["metric"]),
+                precision=meta.get("precision") or "fp32", **kw,
             )
         index = new_index(index_id, parameter, device=device)
         index.load(os.fspath(source))
         return index
 
     arrays = source
-    vectors = np.asarray(arrays["vectors"], np.float32)
     centroids = arrays.get("centroids")
     codebooks = arrays.get("codebooks")
+    sq_codes = codebooks is None and "codes" in arrays
+    if sq_codes:
+        rows = {"codes": np.asarray(arrays["codes"], np.uint8),
+                "sq_params": SqParams(
+                    np.asarray(arrays["sq_vmin"], np.float32),
+                    np.asarray(arrays["sq_scale"], np.float32))}
+        dim = rows["codes"].shape[1]
+    else:
+        rows = {"vectors": np.asarray(arrays["vectors"], np.float32)}
+        dim = rows["vectors"].shape[1]
     if parameter is None:
+        tier = "sq8" if sq_codes else "fp32"
         if codebooks is not None:
             parameter = IndexParameter(
-                index_type=IndexType.IVF_PQ, dimension=vectors.shape[1],
+                index_type=IndexType.IVF_PQ, dimension=dim,
                 ncentroids=len(centroids), nsubvector=len(codebooks),
             )
         elif centroids is not None:
             parameter = IndexParameter(
-                index_type=IndexType.IVF_FLAT, dimension=vectors.shape[1],
-                ncentroids=len(centroids),
+                index_type=IndexType.IVF_FLAT, dimension=dim,
+                ncentroids=len(centroids), precision=tier,
             )
         else:
             parameter = IndexParameter(index_type=IndexType.FLAT,
-                                       dimension=vectors.shape[1])
+                                       dimension=dim, precision=tier)
     index = new_index(index_id, parameter, device=device)
     if parameter.index_type is IndexType.IVF_FLAT:
         if centroids is not None and "assign" not in arrays:
             raise InvalidParameter("centroids given without assign")
-        index.restore_arrays(arrays["ids"], vectors, centroids,
-                             arrays.get("assign"))
+        index.restore_arrays(arrays["ids"], centroids=centroids,
+                             assign=arrays.get("assign"), **rows)
     elif parameter.index_type is IndexType.IVF_PQ:
-        index.restore_arrays(arrays["ids"], vectors, centroids, codebooks,
-                             arrays.get("codes"), arrays.get("assign"))
+        index.restore_arrays(arrays["ids"], rows["vectors"], centroids,
+                             codebooks, arrays.get("codes"),
+                             arrays.get("assign"))
     else:
-        index.restore_arrays(arrays["ids"], vectors)
+        index.restore_arrays(arrays["ids"], **rows)
     index.apply_log_id = int(arrays.get("apply_log_id", 0))
     return index

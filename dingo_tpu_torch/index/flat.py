@@ -1,5 +1,5 @@
-"""TpuFlat: exact brute-force index (port of dingo_tpu/index/flat.py,
-fp32 float metrics).
+"""TpuFlat: exact brute-force index (port of dingo_tpu/index/flat.py, float
+metrics, in the fp32, bf16 and sq8 precision tiers).
 
 The whole search is one scan of the slot store, by the first arm that
 applies to an L2/IP index with k <= the kernels' K_MAX when the fused
@@ -8,12 +8,19 @@ crossover fired:
   * kernel B4 (ops/kernel_topk_pruned.py) when the store keeps the
     dimension-blocked mirror and ivf_prune_scan is on: partial distances
     per dimension block, candidates that cannot beat the running k-th best
-    stop scanning; its stats lanes feed the ivf.pruned_* metrics;
-  * kernel B1 (ops/kernel_topk.py) otherwise: fused distance + running
-    top-k, no [b, capacity] score matrix;
+    stop scanning; its stats lanes feed the ivf.pruned_* metrics. Each tier
+    has its arm (f32, bf16 rows with a bf16 query, sq8 codes decoded);
+  * kernel B1 (ops/kernel_topk.py) otherwise, for f32 and bf16 rows:
+    fused distance + running top-k, no [b, capacity] score matrix;
 
 else the JAX package's own XLA arm (score matrix + masked top-k) as plain
-torch ops. Query batches pad to powers of two, as in the JAX package.
+torch ops: flat_search_plain for float rows, sq_flat_search_plain for
+codes (an empty, untrained sq8 store scans with an identity codec). Query
+batches pad to powers of two, as in the JAX package.
+
+The bf16/sq8 tiers may rerank: with a rerank cache (rerank_cache_rows > 0)
+a search scans topk * quantized_rerank_factor candidates and reranks them
+on the device, exactly for the cached ones (index/rerank_cache.py).
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import numpy as np
 import torch
 
 from dingo_tpu_torch.common.config import (
+    FLAGS,
     fused_kernel_enabled,
     prune_scan_enabled,
     train_sample_rows,
@@ -42,7 +50,8 @@ from dingo_tpu_torch.index.base import (
     resolve_precision,
     strip_invalid,
 )
-from dingo_tpu_torch.index.slot_store import SlotStore, _next_pow2
+from dingo_tpu_torch.index.rerank_cache import DeviceRerankCache
+from dingo_tpu_torch.index.slot_store import SlotStore, SqSlotStore, _next_pow2
 from dingo_tpu_torch.ops import kernel_topk, kernel_topk_pruned
 from dingo_tpu_torch.ops.distance import (
     Metric,
@@ -51,6 +60,8 @@ from dingo_tpu_torch.ops.distance import (
     score_matrix,
     scores_to_distances,
 )
+from dingo_tpu_torch.ops.rerank import cached_rerank_device
+from dingo_tpu_torch.ops.sq import SqParams, sq_score_matrix
 from dingo_tpu_torch.ops.topk import begin_host_fetch, topk_scores
 
 
@@ -65,6 +76,33 @@ def flat_search_plain(vecs, sqnorm, mask, queries, k: int, metric: Metric):
 
 #: searches that took the plain arm (crossover off, COSINE, or k > K_MAX)
 flat_search_plain.calls = 0
+
+
+def sq_flat_search_plain(codes, vmin, scale, sqnorm, mask, queries, k: int,
+                         metric: Metric):
+    """The JAX package's sq8 XLA arm (flat.py:_sq_flat_search_kernel):
+    decode-on-the-fly bf16 scores over the codes + masked top-k ->
+    (distances, slots)."""
+    scores = sq_score_matrix(queries, codes, vmin, scale, metric,
+                             x_sqnorm=sqnorm)
+    vals, slots = topk_scores(scores, k, valid=mask[None, :])
+    return scores_to_distances(vals, metric), slots
+
+
+#: sq8 searches that took the plain arm (crossover or pruning off, COSINE,
+#: k > K_MAX, or an untrained store)
+sq_flat_search_plain.calls = 0
+
+
+def _new_tier_store(precision: str, dim: int, device,
+                    capacity: int = 0) -> SlotStore:
+    """SlotStore of a precision tier: fp32 and bf16 are row dtypes of the
+    float store, sq8 is the quantizing store."""
+    kw = {"capacity": capacity} if capacity else {}
+    if precision == "sq8":
+        return SqSlotStore(dim, device, **kw)
+    dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+    return SlotStore(dim, device, dtype=dtype, **kw)
 
 
 def _resolve_train_cap(derived: int) -> int:
@@ -93,6 +131,50 @@ class _SlotStoreIndex(VectorIndex):
     device: torch.device
     _kernel_metric: Metric
     _precision: str = "fp32"
+    #: bounded device row cache for the exact rerank of quantized tiers
+    _rerank_cache: Optional[DeviceRerankCache] = None
+
+    # -- precision tier and rerank stage -----------------------------------
+    def _init_precision(self, tier: str) -> None:
+        """Record the tier and, for bf16/sq8 with rerank_cache_rows > 0,
+        attach a fresh rerank cache. Call after self.store exists: the
+        cache shares its lock."""
+        self._precision = tier
+        self._rerank_cache = None
+        rows = int(FLAGS.get("rerank_cache_rows"))
+        if tier in ("bf16", "sq8") and rows > 0:
+            dtype = getattr(torch, str(FLAGS.get("rerank_cache_dtype")))
+            self._rerank_cache = DeviceRerankCache(
+                self.dimension, rows, self.device, dtype=dtype,
+                device_lock=self.store.device_lock)
+
+    def _offer_rerank(self, slots, vectors) -> None:
+        if self._rerank_cache is not None:
+            self._rerank_cache.offer(slots, vectors)
+
+    def _invalidate_rerank(self, slots) -> None:
+        if self._rerank_cache is not None:
+            self._rerank_cache.invalidate(slots[slots >= 0])
+
+    def _rerank_shortlist(self, topk: int) -> Optional[int]:
+        """k' to over-fetch for the rerank stage, or None when the stage
+        is off (fp32 tier, no cache, an empty cache, or factor <= 1)."""
+        cache = self._rerank_cache
+        if cache is None or not len(cache):
+            return None
+        factor = self.tuned("rerank_factor",
+                            int(FLAGS.get("quantized_rerank_factor")))
+        if factor <= 1:
+            return None
+        return topk * factor
+
+    def _dispatch_rerank(self, qpad, dists, slots, topk: int):
+        """Rerank the quantized shortlist against the cache; the caller
+        holds store.device_lock (the cache's lock too)."""
+        cache = self._rerank_cache
+        return cached_rerank_device(
+            cache.vecs, cache.sqnorm, cache.device_map(self.store.capacity),
+            dists, slots, qpad, k=topk, metric=self.metric)
 
     def _prep_vectors(self, vectors: np.ndarray) -> np.ndarray:
         vectors = np.asarray(vectors, np.float32)
@@ -159,11 +241,13 @@ class _SlotStoreIndex(VectorIndex):
         vectors = self._prep_vectors(vectors)
         if len(ids) != len(vectors):
             raise InvalidParameter("ids/vectors length mismatch")
-        self.store.put(np.asarray(ids, np.int64), vectors)
+        slots = self.store.put(np.asarray(ids, np.int64), vectors)
+        self._offer_rerank(slots, vectors)
         self.write_count_since_save += len(ids)
 
     def delete(self, ids: np.ndarray) -> None:
         slots = self.store.remove_slots(np.asarray(ids, np.int64))
+        self._invalidate_rerank(slots)
         self.write_count_since_save += int((slots >= 0).sum())
 
     # -- search ------------------------------------------------------------
@@ -192,8 +276,14 @@ class _SlotStoreIndex(VectorIndex):
                     mask = torch.from_numpy(
                         filter_spec.slot_mask(store.ids_by_slot)
                     ).to(self.device)
+                kprime = self._rerank_shortlist(int(topk))
                 dists, slots, stats = self._run_search_kernel(
-                    qpad, mask, int(topk))
+                    qpad, mask, kprime or int(topk))
+                if kprime is not None:
+                    # exact rerank of the quantized shortlist, under the
+                    # same lock (the cache shares it), still asynchronous
+                    dists, slots = self._dispatch_rerank(
+                        qpad, dists, slots, int(topk))
         except Exception:
             lease.release()
             raise
@@ -217,18 +307,36 @@ class _SlotStoreIndex(VectorIndex):
     def _run_search_kernel(self, qpad: torch.Tensor, mask: torch.Tensor,
                            k: int):
         """Crossover for the whole-store scan -> (dists, slots,
-        prune_stats_or_None): kernel B4 when the fused crossover fired for
-        L2/IP, k fits the kernels' lists, the store keeps the blocked
-        mirror and pruning is on; kernel B1 when only the first two hold;
-        else the XLA-equivalent plain arm."""
+        prune_stats_or_None): kernel B4 (the tier's arm) when the fused
+        crossover fired for L2/IP, k fits the kernels' lists, the store
+        keeps the blocked mirror and pruning is on; kernel B1 for float
+        rows when only the first two hold; else the plain arm of the
+        tier."""
         store = self.store
         fused_on = (
             fused_kernel_enabled(store.capacity, self.device)
             and self._kernel_metric in (Metric.L2, Metric.INNER_PRODUCT)
             and k <= kernel_topk.K_MAX
         )
+        pruned_on = fused_on and store.vecs_blk is not None \
+            and prune_scan_enabled()
         ascending = metric_ascending(self._kernel_metric)
-        if fused_on and store.vecs_blk is not None and prune_scan_enabled():
+        if self._precision == "sq8":
+            # an empty untrained store scans on the plain arm with an
+            # identity codec (codec_device)
+            vmin, scale = store.codec_device()
+            if pruned_on and store.sq_params is not None:
+                vals, slots, stats = kernel_topk_pruned.pruned_fused_search(
+                    qpad, store.vecs_blk, store.bsq_blk, store.sqnorm, mask,
+                    k, ascending=ascending, sq_vmin=vmin, sq_scale=scale)
+                return scores_to_distances(vals, self._kernel_metric), \
+                    slots, stats
+            sq_flat_search_plain.calls += 1
+            dists, slots = sq_flat_search_plain(
+                store.vecs, vmin, scale, store.sqnorm, mask, qpad, k,
+                self._kernel_metric)
+            return dists, slots, None
+        if pruned_on:
             vals, slots, stats = kernel_topk_pruned.pruned_fused_search(
                 qpad, store.vecs_blk, store.bsq_blk, store.sqnorm, mask, k,
                 ascending=ascending,
@@ -268,8 +376,12 @@ class _SlotStoreIndex(VectorIndex):
         }
 
     def _check_meta(self, meta: dict) -> None:
-        """Snapshot compatibility. The JAX package's `integrity` digests
-        are ignored until that plane is ported."""
+        """Snapshot compatibility. fp32 and bf16 snapshots share the f32
+        row format and load across that flip (rows re-cast into the new
+        store); sq8 holds codes and its codec, so crossing it raises.
+        Snapshots without a precision key load under any tier. The JAX
+        package's `integrity` digests are ignored until that plane is
+        ported."""
         if meta["dimension"] != self.dimension:
             raise InvalidParameter(
                 f"snapshot dimension {meta['dimension']} != {self.dimension}"
@@ -278,8 +390,54 @@ class _SlotStoreIndex(VectorIndex):
             raise InvalidParameter(
                 f"snapshot metric {meta['metric']} != {self.metric.value}"
             )
-        if meta.get("precision") == "sq8":
-            raise NotSupported("sq8 snapshots are not ported yet")
+        snap_p = meta.get("precision")
+        if snap_p is not None and snap_p != self._precision \
+                and "sq8" in (snap_p, self._precision):
+            raise InvalidParameter(
+                f"snapshot precision {snap_p} != {self._precision}")
+
+    def _restore_store(self, ids, vectors=None, codes=None,
+                       sq_params: Optional[SqParams] = None) -> np.ndarray:
+        """A fresh tier store (and rerank cache) holding the restored
+        rows: f32 rows, or the sq8 codes with their codec put back
+        bit-exactly. Returns the rows' slots."""
+        ids = np.asarray(ids, np.int64)
+        self.store = _new_tier_store(self._precision, self.dimension,
+                                     self.device, capacity=max(len(ids), 1))
+        self._init_precision(self._precision)
+        if codes is not None:
+            if self._precision != "sq8":
+                raise InvalidParameter("sq8 codes given to a "
+                                       f"{self._precision} index")
+            self.store.set_params(sq_params)
+            if len(ids):
+                return self.store.put_codes(ids, codes)
+        elif len(ids):
+            return self.store.put(ids, vectors)
+        return np.empty(0, np.int64)
+
+    def _save_rows(self) -> dict:
+        """The snapshot's row arrays: an sq8 store's codes with its codec
+        (1 byte a dimension, restored bit-exactly), else f32 rows."""
+        if self._precision == "sq8" and self.store.sq_params is not None:
+            snap = self.store.codes_to_host()
+            snap["sq_vmin"] = self.store.sq_params.vmin
+            snap["sq_scale"] = self.store.sq_params.scale
+            return snap
+        snap = self.store.to_host()
+        snap["vectors"] = np.asarray(snap["vectors"], np.float32)
+        return snap
+
+    @staticmethod
+    def _snapshot_rows(data) -> dict:
+        """restore keyword arguments from snapshot arrays (npz or a
+        mapping): vectors, or codes with their codec."""
+        if "codes" in data:
+            return {"codes": np.asarray(data["codes"], np.uint8),
+                    "sq_params": SqParams(
+                        np.asarray(data["sq_vmin"], np.float32),
+                        np.asarray(data["sq_scale"], np.float32))}
+        return {"vectors": data["vectors"]}
 
     def need_to_save(self, last_save_log_behind: int) -> bool:
         return (
@@ -300,16 +458,22 @@ class TpuFlat(_SlotStoreIndex):
             raise InvalidParameter(f"dimension {parameter.dimension}")
         if parameter.metric is Metric.HAMMING:
             raise NotSupported("binary/hamming FLAT is not ported yet")
-        self._precision = resolve_precision(parameter)
         self.device = resolve_device(device)
-        self.store = SlotStore(parameter.dimension, self.device)
+        tier = resolve_precision(parameter)
+        self.store = _new_tier_store(tier, parameter.dimension, self.device)
+        self._init_precision(tier)
         self._kernel_metric = parameter.metric
+
+    def train(self, vectors: Optional[np.ndarray] = None) -> None:
+        """FLAT needs no training, but the sq8 tier installs its codec
+        from an explicit train set given before ingest (otherwise the
+        first write batch trains it). need_train() stays False."""
+        if self._precision == "sq8" and vectors is not None:
+            self.store.maybe_train(self._prep_vectors(vectors))
 
     def save(self, path: str) -> None:
         os.makedirs(path, exist_ok=True)
-        snap = self.store.to_host()
-        np.savez(os.path.join(path, "flat.npz"), ids=snap["ids"],
-                 vectors=np.asarray(snap["vectors"], np.float32))
+        np.savez(os.path.join(path, "flat.npz"), **self._save_rows())
         with open(os.path.join(path, "meta.json"), "w") as f:
             json.dump(self._save_meta(), f)
 
@@ -319,19 +483,15 @@ class TpuFlat(_SlotStoreIndex):
             meta = json.load(f)
         self._check_meta(meta)
         data = np.load(os.path.join(path, "flat.npz"))
-        if "codes" in data.files:
-            raise NotSupported("sq8 snapshots are not ported yet")
-        self.restore_arrays(data["ids"], data["vectors"])
+        self.restore_arrays(data["ids"], **self._snapshot_rows(data))
         self.apply_log_id = meta["apply_log_id"]
 
-    def restore_arrays(self, ids, vectors) -> None:
+    def restore_arrays(self, ids, vectors=None, codes=None,
+                       sq_params: Optional[SqParams] = None) -> None:
         """Install stored rows as a snapshot load does (cosine rows are
-        already normalized, so they go in as they are)."""
-        ids = np.asarray(ids, np.int64)
-        self.store = SlotStore(self.dimension, self.device,
-                               capacity=max(len(ids), 1))
-        if len(ids):
-            self.store.put(ids, vectors)
+        already normalized, so they go in as they are), or an sq8 store's
+        codes with their codec."""
+        self._restore_store(ids, vectors, codes, sq_params)
         self.write_count_since_save = 0
 
 

@@ -1,5 +1,5 @@
 """TpuIvfFlat: inverted-file index (port of dingo_tpu/index/ivf_flat.py,
-fp32 tier, float metrics).
+float metrics, in the fp32, bf16 and sq8 precision tiers).
 
   train  — Lloyd k-means on the device (ops/kmeans.py) over a sampled
            subset, deterministic farthest-first init.
@@ -16,6 +16,12 @@ fp32 tier, float metrics).
            the probed buckets. The JAX package's XLA arm (a per-rank
            gather + einsum + running top-k) serves k > 64 and the
            crossover's off side.
+  tiers  — the view keeps the store's dtype: bf16 rows (B3/B2 widen them,
+           the query stays f32) or sq8 codes with norms of their f32
+           decode (B3 decodes them; unpruned sq8 and sq8 + COSINE take the
+           plain arm, ivf_scan_scores with the codec). With a rerank cache
+           the scan over-fetches max(topk, topk * factor) and the
+           shortlist is reranked on the device under the same lock.
 
 An untrained index raises NotTrained, the reader's brute-force contract.
 """
@@ -48,6 +54,7 @@ from dingo_tpu_torch.index.base import (
 )
 from dingo_tpu_torch.index.flat import (
     _SlotStoreIndex,
+    _new_tier_store,
     _pad_batch,
     _resolve_train_cap,
 )
@@ -56,7 +63,6 @@ from dingo_tpu_torch.index.ivf_layout import (
     expand_probes,
     shape_bucket,
 )
-from dingo_tpu_torch.index.slot_store import SlotStore
 from dingo_tpu_torch.ops import kernel_ivf, kernel_ivf_pruned
 from dingo_tpu_torch.ops.blocked import (
     block_sqnorms,
@@ -81,6 +87,7 @@ from dingo_tpu_torch.ops.scatter import (
     scatter_bucket_dim_update,
     scatter_bucket_update,
 )
+from dingo_tpu_torch.ops.sq import sq_bucket_scores, sq_decode_device
 from dingo_tpu_torch.ops.topk import begin_host_fetch, merge_topk
 
 #: rows per chunk when (re)assigning the whole store after training
@@ -97,9 +104,13 @@ def coarse_probes(queries: torch.Tensor, centroids: torch.Tensor,
 
 
 def ivf_scan_scores(buckets, bucket_sqnorm, bucket_valid, bucket_slot,
-                    probes, queries, k: int, metric: Metric):
+                    probes, queries, k: int, metric: Metric,
+                    sq_vmin=None, sq_scale=None):
     """The JAX package's XLA arm: scan probe ranks with a running top-k.
-    Returns raw scores (descending-better) + slots [b, k]."""
+    Float buckets (bf16 widens exactly) score against the f32 query; code
+    buckets (sq_vmin/sq_scale given) decode on the fly and score as the
+    JAX package's sq_bucket_scores. Returns raw scores (descending-better)
+    + slots [b, k]."""
     b = queries.shape[0]
     nprobe = probes.shape[1]
     dev = queries.device
@@ -110,11 +121,17 @@ def ivf_scan_scores(buckets, bucket_sqnorm, bucket_valid, bucket_slot,
         lists_r = probes[:, r].long()
         rank_ok = lists_r >= 0
         lc = torch.where(rank_ok, lists_r, torch.zeros_like(lists_r))
-        dots = torch.einsum("bd,bcd->bc", queries, buckets[lc])
-        if metric is Metric.L2:
-            scores = -(qsq[:, None] - 2.0 * dots + bucket_sqnorm[lc])
-        else:   # IP / cosine (queries pre-normalized for cosine)
-            scores = dots
+        if sq_vmin is not None:
+            scores = sq_bucket_scores(queries, buckets[lc],
+                                      bucket_sqnorm[lc], sq_vmin, sq_scale,
+                                      metric)
+        else:
+            dots = torch.einsum("bd,bcd->bc", queries,
+                                buckets[lc].to(torch.float32))
+            if metric is Metric.L2:
+                scores = -(qsq[:, None] - 2.0 * dots + bucket_sqnorm[lc])
+            else:   # IP / cosine (queries pre-normalized for cosine)
+                scores = dots
         val = bucket_valid[lc] & rank_ok[:, None]
         scores = torch.where(val, scores, torch.full_like(scores, -torch.inf))
         vals_r, idx_r = torch.topk(scores, min(k, scores.shape[1]), dim=1)
@@ -125,7 +142,8 @@ def ivf_scan_scores(buckets, bucket_sqnorm, bucket_valid, bucket_slot,
     return best_v, best_s
 
 
-#: searches that took this arm (crossover off or k > 64)
+#: searches that took this arm (crossover off, k > 64, unpruned sq8 or
+#: sq8 + COSINE)
 ivf_scan_scores.calls = 0
 
 
@@ -295,10 +313,11 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
             raise InvalidParameter(f"ncentroids {parameter.ncentroids}")
         if parameter.metric is Metric.HAMMING:
             raise NotSupported("binary IVF is not ported yet")
-        self._precision = resolve_precision(parameter)
         self.device = resolve_device(device)
         self._kernel_metric = parameter.metric
-        self.store = SlotStore(parameter.dimension, self.device)
+        tier = resolve_precision(parameter)
+        self.store = _new_tier_store(tier, parameter.dimension, self.device)
+        self._init_precision(tier)
         self.nlist = parameter.ncentroids
         self.centroids: Optional[torch.Tensor] = None     # [nlist, d]
         self._c_sqnorm: Optional[torch.Tensor] = None
@@ -332,6 +351,7 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
         if len(ids) != len(vectors):
             raise InvalidParameter("ids/vectors length mismatch")
         slots = self.store.put(np.asarray(ids, np.int64), vectors)
+        self._offer_rerank(slots, vectors)
         self._grow_assign()
         if self.is_trained():
             rows = torch.from_numpy(vectors).to(self.device)
@@ -348,6 +368,7 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
     def delete(self, ids: np.ndarray) -> None:
         slots = self.store.remove_slots(np.asarray(ids, np.int64))
         removed = int((slots >= 0).sum())
+        self._invalidate_rerank(slots)
         if removed:
             if self._view is not None and not self._view_dirty:
                 self._view_apply_delete(slots[slots >= 0])
@@ -374,6 +395,10 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
                 dv = dv * torch.rsqrt(torch.clamp_min(
                     (dv * dv).sum(dim=1, keepdim=True), 1e-30))
         else:
+            if self._precision == "sq8":
+                # an explicit train set reaches the codec before any
+                # encode: min/max of the true distribution
+                self.store.maybe_train(self._prep_vectors(vectors))
             vectors = np.asarray(vectors, np.float32)
             if len(vectors) < self.nlist:
                 raise NotTrained(f"need >= {self.nlist} train vectors, "
@@ -404,9 +429,10 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
     # -- bucketed view data ------------------------------------------------
     def _prune_dim_block(self) -> Optional[int]:
         """Dimension-block width the pruned scan would use for this index,
-        or None when pruning cannot apply (kernel crossover or flag off, or
-        a dimension that does not block). Read at each view rebuild, so a
-        flag flip takes effect at the next one."""
+        or None when pruning cannot apply (kernel crossover or flag off;
+        sq8 + COSINE, whose plain arm divides by the decoded norm and the
+        kernel does not; or a dimension that does not block). Read at each
+        view rebuild, so a flag flip takes effect at the next one."""
         if not ivf_kernel_enabled(self.dimension, self.device):
             return None
         if not prune_scan_enabled():
@@ -414,18 +440,26 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
         if self.metric not in (Metric.L2, Metric.INNER_PRODUCT,
                                Metric.COSINE):
             return None
+        if self._precision == "sq8" and self.metric is Metric.COSINE:
+            return None
         return resolve_dim_block(self.dimension)
 
     def _materialize_view_data(self, view: MutableIvfView) -> None:
-        """Dense gather of the whole store into bucket coordinates, plus
-        the pruning metadata when the pruned route will read it (caller
-        holds device_lock)."""
+        """Dense gather of the whole store into bucket coordinates, in the
+        store's dtype (bf16 rows stay 2 bytes on every device; codes stay
+        codes), plus the pruning metadata when the pruned route will read
+        it: per-block norms of what the scan accumulates, the f32 decode
+        for codes (caller holds device_lock)."""
         self._buckets = view.gather_rows(self.store.vecs)
         self._bucket_sqnorm = view.gather_rows(self.store.sqnorm)
         self._bucket_bsq = None
         dblk = self._prune_dim_block()
         if dblk:
-            self._bucket_bsq = bucket_block_sqnorms(self._buckets, dblk)
+            data = self._buckets
+            if self._precision == "sq8":
+                data = sq_decode_device(data, *self.store.codec_device(),
+                                        torch.float32)
+            self._bucket_bsq = bucket_block_sqnorms(data, dblk)
 
     def _scatter_view_data(self, upd, rows) -> None:
         """Apply a staged append batch to the data arrays in place (caller
@@ -443,12 +477,22 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
         pos = np.asarray([p for p, _ in upd.appended], np.int64)
         src = np.asarray([i for _, i in upd.appended], np.int64)
         sel = np.asarray(rows, np.float32)[src]
-        sq = (sel ** 2).sum(axis=1)
+        if self._precision == "sq8":
+            # the view mirrors the store: codes, with norms of their decode
+            sel = self.store.encode(sel)
+            norm_rows = self.store.decode(sel)
+        elif self._precision == "bf16":
+            # norms of the bf16 rows the scan reads (the store's rule)
+            norm_rows = torch.from_numpy(sel).to(torch.bfloat16).to(
+                torch.float32).numpy()
+        else:
+            norm_rows = sel
+        sq = (norm_rows ** 2).sum(axis=1)
         scatter_bucket_update(self._buckets, pos // cap, pos % cap, sel)
         scatter_bucket_update(self._bucket_sqnorm, pos // cap, pos % cap, sq)
         if self._bucket_bsq is not None:
             dblk = self.dimension // self._bucket_bsq.shape[1]
-            bsq_rows = block_sqnorms(torch.from_numpy(sel), dblk).T
+            bsq_rows = block_sqnorms(torch.from_numpy(norm_rows), dblk).T
             scatter_bucket_dim_update(self._bucket_bsq, pos // cap,
                                       pos % cap, bsq_rows)
 
@@ -471,7 +515,8 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
             nprobe or self.tuned("nprobe", self.parameter.default_nprobe),
             self.nlist,
         )
-        k_eff, nprobe = self._shape_buckets(topk, nprobe)
+        kprime = self._rerank_shortlist(topk)
+        k_eff, nprobe = self._shape_buckets(max(topk, kprime or 0), nprobe)
         qpad = torch.from_numpy(_pad_batch(queries)).to(self.device)
         lease = self.store.begin_search()
         try:
@@ -494,6 +539,8 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
                     and k_eff <= kernel_ivf.K_MAX
                 )
                 stats = None
+                sq = self._precision == "sq8"
+                codec = self.store.codec_device() if sq else (None, None)
                 if kernel_ok and self._bucket_bsq is not None:
                     # dimension-blocked early-pruning scan: partial
                     # distances per block, candidates that cannot beat
@@ -503,8 +550,9 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
                         self._bucket_sqnorm, valid, view.bucket_slot, k_eff,
                         self.dimension // self._bucket_bsq.shape[1],
                         ascending=metric_ascending(self._kernel_metric),
+                        sq_vmin=codec[0], sq_scale=codec[1],
                     )
-                elif kernel_ok:
+                elif kernel_ok and not sq:
                     vals, slots = kernel_ivf.ivf_list_topk(
                         vprobes, qpad, self._buckets, self._bucket_sqnorm,
                         valid, view.bucket_slot, k_eff,
@@ -515,9 +563,14 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
                     vals, slots = ivf_scan_scores(
                         self._buckets, self._bucket_sqnorm, valid,
                         view.bucket_slot, vprobes, qpad, k_eff,
-                        self._kernel_metric,
+                        self._kernel_metric, *codec,
                     )
                 dists = scores_to_distances(vals, self._kernel_metric)
+                if kprime is not None:
+                    # exact rerank of the quantized shortlist, under the
+                    # same lock (the cache shares it), still asynchronous
+                    dists, slots = self._dispatch_rerank(qpad, dists, slots,
+                                                         topk)
         except Exception:
             lease.release()
             raise
@@ -544,8 +597,7 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
     # -- lifecycle -----------------------------------------------------------
     def save(self, path: str) -> None:
         os.makedirs(path, exist_ok=True)
-        snap = self.store.to_host()
-        snap["vectors"] = np.asarray(snap["vectors"], np.float32)
+        snap = self._save_rows()
         extras = {}
         if self.is_trained():
             extras["centroids"] = self.centroids.cpu().numpy()
@@ -568,27 +620,24 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
                 f"snapshot nlist {meta['nlist']} != {self.nlist}"
             )
         data = np.load(os.path.join(path, "ivf_flat.npz"))
-        if "codes" in data.files:
-            raise NotSupported("sq8 snapshots are not ported yet")
+        trained = bool(meta.get("trained"))
         self.restore_arrays(
-            data["ids"], data["vectors"],
-            data["centroids"] if meta.get("trained") else None,
-            data["assign"] if meta.get("trained") else None,
+            data["ids"],
+            centroids=data["centroids"] if trained else None,
+            assign=data["assign"] if trained else None,
+            **self._snapshot_rows(data),
         )
         self.apply_log_id = meta["apply_log_id"]
 
-    def restore_arrays(self, ids, vectors, centroids=None, assign=None
-                       ) -> None:
-        """Install rows (already prepped: cosine rows stay as stored),
-        centroids and per-row assignments, as a snapshot load does."""
-        ids = np.asarray(ids, np.int64)
-        self.store = SlotStore(self.dimension, self.device,
-                               capacity=max(len(ids), 1))
+    def restore_arrays(self, ids, vectors=None, centroids=None, assign=None,
+                       codes=None, sq_params=None) -> None:
+        """Install rows (already prepped: cosine rows stay as stored) or an
+        sq8 store's codes with their codec, centroids and per-row
+        assignments, as a snapshot load does."""
+        slots = self._restore_store(ids, vectors, codes, sq_params)
         self._assign_h = np.full((self.store.capacity,), -1, np.int32)
         self.centroids = None
         self._c_sqnorm = None
-        slots = self.store.put(ids, vectors) if len(ids) \
-            else np.empty(0, np.int64)
         self._grow_assign()
         if centroids is not None:
             self.centroids = torch.from_numpy(

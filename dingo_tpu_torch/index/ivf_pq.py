@@ -18,8 +18,10 @@ fp32 store tier).
   fallback — untrained: exact whole-store scan (the hybrid contract; NOT an
              error, unlike IVF_FLAT).
 
-The bf16 store tier raises NotSupported; sq8 is InvalidParameter, as in the
-JAX package (the codes are already quantized).
+The bf16 precision tier stores the rows (device or host) as bf16, which the
+untrained exact scan and the reranks read; the ADC scan (B5) never reads
+them. sq8 is InvalidParameter, as in the JAX package (the codes are already
+quantized).
 """
 
 from __future__ import annotations
@@ -88,22 +90,25 @@ ENCODE_CHUNK = 131072
 LUT_BUDGET_BYTES = 256 * 1024 * 1024
 
 
-def _chunked_host_scan(vecs_h: np.ndarray, sqnorm_h: np.ndarray,
-                       mask_h: np.ndarray, qpad: torch.Tensor, k: int,
-                       metric: Metric):
+def _chunked_host_scan(store: HostSlotStore, mask_h: np.ndarray,
+                       qpad: torch.Tensor, k: int, metric: Metric):
     """Exact scan streaming host chunks through the whole-store arm with a
     running top-k merge (the untrained arm of a host store; slots stay
     global). Returns (wire distances, slots)."""
     b, dev = qpad.shape[0], qpad.device
+    sqnorm_h = store.sqnorm
     best_v = torch.full((b, k), -torch.inf, dtype=torch.float32, device=dev)
     best_s = torch.full((b, k), -1, dtype=torch.int32, device=dev)
     asc = metric_ascending(metric)
-    for i in range(0, vecs_h.shape[0], HOST_SCAN_CHUNK):
-        hi = min(vecs_h.shape[0], i + HOST_SCAN_CHUNK)
+    for i in range(0, store.vecs.shape[0], HOST_SCAN_CHUNK):
+        hi = min(store.vecs.shape[0], i + HOST_SCAN_CHUNK)
         if not mask_h[i:hi].any():
             continue
+        # bf16 rows go to the plain arm as bf16, as on a device store
+        rows = torch.from_numpy(store.host_rows(slice(i, hi))).to(
+            store.dtype)
         d, sl = flat_search_plain(
-            torch.from_numpy(np.ascontiguousarray(vecs_h[i:hi])).to(dev),
+            rows.to(dev),
             torch.from_numpy(np.ascontiguousarray(sqnorm_h[i:hi])).to(dev),
             torch.from_numpy(np.ascontiguousarray(mask_h[i:hi])).to(dev),
             qpad, k, metric)
@@ -123,8 +128,8 @@ def _exact_rerank_host(store: HostSlotStore, queries: torch.Tensor,
     b, kprime = cand_slots.shape
     dev = queries.device
     flat_idx = np.where(cand_slots >= 0, cand_slots, 0).reshape(-1)
-    rows = torch.from_numpy(store.vecs[flat_idx].reshape(b, kprime, -1)).to(
-        dev)
+    rows = torch.from_numpy(store.host_rows(flat_idx).reshape(
+        b, kprime, -1)).to(dev)
     qd = queries.to(torch.float32)
     dots = torch.einsum("bd,bkd->bk", qd, rows)
     if metric is Metric.L2:
@@ -266,10 +271,14 @@ class TpuIvfPq(IvfViewMaintenance, _SlotStoreIndex):
         self.full_rebuilds = 0
 
     def _new_store(self, capacity: int) -> SlotStore:
+        dtype = torch.bfloat16 if self._precision == "bf16" \
+            else torch.float32
         if self.parameter.host_vectors:
-            return HostSlotStore(self.dimension, self.device, capacity)
+            return HostSlotStore(self.dimension, self.device, capacity,
+                                 dtype=dtype)
         # no IVF_PQ path reads the blocked FLAT mirror
-        return SlotStore(self.dimension, self.device, capacity, blocked=False)
+        return SlotStore(self.dimension, self.device, capacity, blocked=False,
+                         dtype=dtype)
 
     def _prep_queries(self, queries: np.ndarray) -> np.ndarray:
         queries = super()._prep_queries(queries)
@@ -434,8 +443,7 @@ class TpuIvfPq(IvfViewMaintenance, _SlotStoreIndex):
                     mask_h = (filter_spec.slot_mask(store.ids_by_slot)
                               if filtered else store.valid_h)
                     dists, slots = _chunked_host_scan(
-                        store.vecs, store.sqnorm, mask_h, qpad, topk,
-                        self.metric)
+                        store, mask_h, qpad, topk, self.metric)
                 else:
                     mask = (torch.from_numpy(filter_spec.slot_mask(
                         store.ids_by_slot)).to(self.device)

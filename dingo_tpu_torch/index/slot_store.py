@@ -1,19 +1,24 @@
-"""Device-resident slot store: the IndexIDMap2 equivalent (port of the fp32
-``SlotStore`` in dingo_tpu/index/slot_store.py).
+"""Device-resident slot store: the IndexIDMap2 equivalent (port of
+``SlotStore``, ``SqSlotStore`` and ``HostSlotStore`` in
+dingo_tpu/index/slot_store.py).
 
   host side   — ids_by_slot int64[capacity] (-1 = empty) + dict id->slot +
                 free-slot list + validity bitmap. 64-bit external ids never
                 go on the device; kernels work in slot space.
-  device side — vecs[capacity, d] and sqnorm[capacity] f32 (cached
-                ||x||^2) as torch tensors. Writes land in place, one slice
+  device side — vecs[capacity, d] in the tier's dtype (f32, bf16, or uint8
+                codes in SqSlotStore) and sqnorm[capacity] f32, the norms of
+                what the scans accumulate: the stored bf16 rows, or the f32
+                decode of the codes. Writes land in place, one slice
                 assignment per contiguous slot run (fresh appends are one
                 run, free slots are handed out ascending); the JAX package
                 needed donated dynamic_update_slice programs for the same.
   blocked     — optional dimension-blocked mirror for the pruned FLAT scan
-                (kernel B4): vecs_blk[nblk, capacity, dblk] plus per-block
-                norms bsq_blk[nblk, capacity], written in the same slot runs.
+                (kernel B4): vecs_blk[nblk, capacity, dblk] in the store's
+                dtype plus per-block norms bsq_blk[nblk, capacity] f32 (of
+                the same values as sqnorm), written in the same slot runs.
   host        — HostSlotStore keeps the same bookkeeping with rows and
-                norms in numpy (IVF_PQ with host_vectors).
+                norms in numpy (IVF_PQ with host_vectors; bf16 rows as
+                their uint16 bit patterns).
 
 Capacity grows by doubling. Deletes are host tombstones; slots freed while
 searches are in flight park in limbo until the last lease ends, so an async
@@ -34,6 +39,13 @@ from dingo_tpu_torch.ops.blocked import (
     resolve_dim_block,
     to_blocked,
 )
+from dingo_tpu_torch.ops.sq import (
+    SqParams,
+    sq_decode,
+    sq_decode_device,
+    sq_encode,
+    sq_train,
+)
 
 MIN_CAPACITY = 4096
 
@@ -42,13 +54,20 @@ def _next_pow2(n: int) -> int:
     return 1 << max(0, (int(n) - 1)).bit_length()
 
 
+#: row dtypes of the float stores (SqSlotStore holds uint8 codes)
+FLOAT_DTYPES = (torch.float32, torch.bfloat16)
+
+
 class SlotStore:
     def __init__(self, dim: int, device: torch.device,
                  capacity: int = MIN_CAPACITY,
-                 blocked: Optional[bool] = None):
+                 blocked: Optional[bool] = None,
+                 dtype: torch.dtype = torch.float32):
         self.dim = dim
         self.device = torch.device(device)
-        self.dtype = torch.float32
+        if dtype not in self._row_dtypes():
+            raise ValueError(f"{type(self).__name__} does not store {dtype}")
+        self.dtype = dtype
         self.capacity = max(MIN_CAPACITY, _next_pow2(capacity))
         # dimension-blocked scan mirror, decided once here (flag
         # vector_blocked_layout, or `blocked` forces); None when off or
@@ -111,16 +130,20 @@ class SlotStore:
                 self.device)
         return self._dmask
 
+    def _row_dtypes(self):
+        return FLOAT_DTYPES
+
     def _blocked_dtype_ok(self) -> bool:
-        """Tiers whose scan kernel reads a blocked mirror: f32 rows (the
-        only tier ported)."""
-        return self.dtype == torch.float32
+        """Tiers whose scan kernel (B4) reads a blocked mirror: f32, bf16
+        and sq8 codes (SqSlotStore), all of them."""
+        return True
 
     def memory_size(self) -> int:
-        size = self.capacity * (self.dim * 4 + 8 + 4 + 1)
+        itemsize = torch.empty((), dtype=self.dtype).element_size()
+        size = self.capacity * (self.dim * itemsize + 8 + 4 + 1)
         if self.vecs_blk is not None:
             # blocked scan mirror: one more copy of the rows + block norms
-            size += self.capacity * (self.dim * 4 + self.nblk * 4)
+            size += self.capacity * (self.dim * itemsize + self.nblk * 4)
         return size
 
     def reserve(self, capacity: int) -> None:
@@ -139,15 +162,25 @@ class SlotStore:
         return (torch.cat([self.vecs, self.vecs.new_zeros((pad, self.dim))]),
                 torch.cat([self.sqnorm, self.sqnorm.new_zeros((pad,))]))
 
+    def _stored_rows(self, rows_h: np.ndarray):
+        """(rows as the device stores them, the f32 values the scans
+        accumulate) for a batch of prepped rows: f32 rows as they are,
+        bf16 rows rounded (their norms are those of the rounded rows, the
+        JAX package's stored-row convention)."""
+        rows = torch.from_numpy(np.ascontiguousarray(
+            rows_h, np.float32)).to(self.device)
+        stored = rows.to(self.dtype)
+        return stored, stored.to(torch.float32)
+
     def _write_runs(self, runs, rows_h: np.ndarray) -> None:
         """Write rows sorted by slot; runs = [(lo, hi, first slot)] of
         contiguous slots, one slice assignment each."""
-        rows = torch.from_numpy(rows_h).to(self.device)
-        row_sq = (rows * rows).sum(dim=1)
+        rows, rows32 = self._stored_rows(rows_h)
+        row_sq = (rows32 * rows32).sum(dim=1)
         with self.device_lock:
             if self.vecs_blk is not None:
                 rows_blk = to_blocked(rows, self.dim_block)
-                row_bsq = block_sqnorms(rows, self.dim_block)
+                row_bsq = block_sqnorms(rows32, self.dim_block)
             for lo, hi, s0 in runs:
                 self.vecs[s0:s0 + hi - lo] = rows[lo:hi]
                 self.sqnorm[s0:s0 + hi - lo] = row_sq[lo:hi]
@@ -173,7 +206,7 @@ class SlotStore:
                 self._id_to_slot[vid] = s
                 self.ids_by_slot[s] = vid
             slots[i] = s
-        vectors = np.asarray(vectors, np.float32)
+        vectors = np.asarray(vectors)
         order = np.argsort(slots, kind="stable")
         sslots = slots[order]
         run_starts = np.flatnonzero(np.diff(sslots) != 1) + 1
@@ -247,15 +280,19 @@ class SlotStore:
         slot indices cross to the device, the rows never leave it)."""
         idx = torch.as_tensor(np.asarray(slots, np.int64), device=self.device)
         with self.device_lock:
-            return self.vecs[idx]
+            return self.vecs[idx].to(torch.float32)
 
-    def to_host(self) -> dict:
-        """Compacted host snapshot {ids, vectors} of live rows (save path)."""
+    def _live_rows(self):
         live = np.flatnonzero(self.ids_by_slot >= 0)
         idx = torch.as_tensor(live, device=self.device)
         with self.device_lock:
-            vecs_h = self.vecs[idx].cpu().numpy()
-        return {"ids": self.ids_by_slot[live], "vectors": vecs_h}
+            return self.ids_by_slot[live], self.vecs[idx]
+
+    def to_host(self) -> dict:
+        """Compacted host snapshot {ids, vectors (f32)} of live rows (save
+        path; bf16 rows widen exactly)."""
+        ids, rows = self._live_rows()
+        return {"ids": ids, "vectors": rows.to(torch.float32).cpu().numpy()}
 
     @classmethod
     def from_host(cls, dim: int, device, ids: np.ndarray,
@@ -269,40 +306,174 @@ class SlotStore:
         return store
 
 
+class SqSlotStore(SlotStore):
+    """SlotStore whose device rows are SQ8 codes (uint8, 1 byte a
+    dimension; ops/sq.py codec).
+
+    The contract stays float: put() takes f32 rows and encodes them,
+    rows_device() and to_host() decode, so training and the exact paths
+    above run unchanged. Only the scans read the codes (vecs, plus the
+    codec on the device as sq_vmin_d / sq_scale_d). sqnorm and the blocked
+    norms are those of the f32 decode. The codec trains on the first write
+    batch unless maybe_train() or set_params() installed one first (an
+    explicit train set, a snapshot)."""
+
+    def __init__(self, dim: int, device: torch.device,
+                 capacity: int = MIN_CAPACITY,
+                 blocked: Optional[bool] = None):
+        super().__init__(dim, device, capacity, blocked, dtype=torch.uint8)
+        self.sq_params: Optional[SqParams] = None
+        self._sq_vmin_d: Optional[torch.Tensor] = None
+        self._sq_scale_d: Optional[torch.Tensor] = None
+
+    def _row_dtypes(self):
+        return (torch.uint8,)
+
+    # -- codec lifecycle ---------------------------------------------------
+    def set_params(self, params: SqParams) -> None:
+        if self.sq_params is not None and len(self):
+            raise RuntimeError(
+                "cannot swap SQ params under live codes (re-ingest instead)")
+        self.sq_params = params
+        self._sq_vmin_d = None
+        self._sq_scale_d = None
+
+    def maybe_train(self, rows: np.ndarray) -> None:
+        """Install params trained on `rows` when none exist yet."""
+        if self.sq_params is None and len(rows):
+            self.set_params(sq_train(np.asarray(rows, np.float32)))
+
+    @property
+    def sq_vmin_d(self) -> torch.Tensor:
+        if self._sq_vmin_d is None:
+            self._sq_vmin_d = torch.from_numpy(
+                self.sq_params.vmin.copy()).to(self.device)
+        return self._sq_vmin_d
+
+    @property
+    def sq_scale_d(self) -> torch.Tensor:
+        if self._sq_scale_d is None:
+            self._sq_scale_d = torch.from_numpy(
+                self.sq_params.scale.copy()).to(self.device)
+        return self._sq_scale_d
+
+    def codec_device(self):
+        """(vmin, scale) on the device; an identity codec while the store
+        is untrained (then it is empty: nothing valid to scan, and the
+        first real write still trains it)."""
+        if self.sq_params is None:
+            vmin = torch.zeros((self.dim,), dtype=torch.float32,
+                               device=self.device)
+            return vmin, torch.ones_like(vmin)
+        return self.sq_vmin_d, self.sq_scale_d
+
+    def encode(self, rows: np.ndarray) -> np.ndarray:
+        return sq_encode(rows, self.sq_params)
+
+    def decode(self, codes: np.ndarray) -> np.ndarray:
+        return sq_decode(codes, self.sq_params)
+
+    # -- float-facing writes, code-facing storage -------------------------
+    def put(self, ids: np.ndarray, vectors: np.ndarray) -> np.ndarray:
+        self.maybe_train(vectors)
+        return super().put(ids, self.encode(np.asarray(vectors, np.float32)))
+
+    def put_codes(self, ids: np.ndarray, codes: np.ndarray) -> np.ndarray:
+        """Raw-code ingest (snapshot load): a saved code array goes back
+        bit-exactly."""
+        if self.sq_params is None:
+            raise RuntimeError("set_params before put_codes")
+        return super().put(ids, np.asarray(codes, np.uint8))
+
+    def _stored_rows(self, rows_h: np.ndarray):
+        # rows_h are codes here; the norms describe their f32 decode
+        codes = np.ascontiguousarray(rows_h, np.uint8)
+        deq = torch.from_numpy(self.decode(codes)).to(self.device)
+        return torch.from_numpy(codes).to(self.device), deq
+
+    def rows_device(self, slots: np.ndarray) -> torch.Tensor:
+        idx = torch.as_tensor(np.asarray(slots, np.int64), device=self.device)
+        with self.device_lock:
+            codes = self.vecs[idx]
+            if self.sq_params is None:   # no writes yet: nothing to decode
+                return codes.to(torch.float32)
+            return sq_decode_device(codes, self.sq_vmin_d, self.sq_scale_d,
+                                    torch.float32)
+
+    def to_host(self) -> dict:
+        """Decoded f32 snapshot of live rows; codes_to_host() is the
+        compact persistence form."""
+        ids, codes = self._live_rows()
+        codes = codes.cpu().numpy()
+        if self.sq_params is None:   # no write ever happened: empty
+            return {"ids": ids, "vectors": codes.astype(np.float32)}
+        return {"ids": ids, "vectors": self.decode(codes)}
+
+    def codes_to_host(self) -> dict:
+        """Compacted {ids, codes} of live rows (save path; 1 byte a
+        dimension)."""
+        ids, codes = self._live_rows()
+        return {"ids": ids, "codes": codes.cpu().numpy()}
+
+
 class HostSlotStore(SlotStore):
     """SlotStore whose rows and norms live in host memory (numpy), for an
     index whose search never reads full rows from the device (IVF_PQ with
     host_vectors: it scans codes and reranks from host rows at resolve).
     Bookkeeping is SlotStore's; `device` is where rows_device uploads.
-    fp32 only, and never a blocked mirror."""
+    f32 rows, or bf16 rows kept as their uint16 bit patterns; never a
+    blocked mirror."""
 
     def _blocked_dtype_ok(self) -> bool:
         return False
 
+    def _np_dtype(self):
+        return np.uint16 if self.dtype == torch.bfloat16 else np.float32
+
     def _alloc_storage(self, capacity: int):
-        return (np.zeros((capacity, self.dim), np.float32),
+        return (np.zeros((capacity, self.dim), self._np_dtype()),
                 np.zeros((capacity,), np.float32))
 
     def _grow_storage(self, pad: int):
         return (np.concatenate([self.vecs, np.zeros((pad, self.dim),
-                                                    np.float32)]),
+                                                    self.vecs.dtype)]),
                 np.concatenate([self.sqnorm, np.zeros((pad,), np.float32)]))
 
+    def host_rows(self, idx) -> np.ndarray:
+        """f32 rows at `idx` (a slice or slot indices); bf16 rows widen
+        exactly from their bit patterns."""
+        rows = self.vecs[idx]
+        if rows.dtype == np.uint16:
+            rows = (rows.astype(np.uint32) << 16).view(np.float32)
+        return np.ascontiguousarray(rows, np.float32)
+
     def _write_runs(self, runs, rows_h: np.ndarray) -> None:
-        sq = (rows_h * rows_h).sum(axis=1)
+        stored, rows32 = self._stored_rows(rows_h)
+        if self.dtype == torch.bfloat16:
+            stored = stored.view(torch.int16).numpy().view(np.uint16)
+        else:
+            stored = stored.numpy()
+        rows32 = rows32.numpy()
+        sq = (rows32 * rows32).sum(axis=1)
         with self.device_lock:
             for lo, hi, s0 in runs:
-                self.vecs[s0:s0 + hi - lo] = rows_h[lo:hi]
+                self.vecs[s0:s0 + hi - lo] = stored[lo:hi]
                 self.sqnorm[s0:s0 + hi - lo] = sq[lo:hi]
+
+    def _stored_rows(self, rows_h: np.ndarray):
+        rows = torch.from_numpy(np.ascontiguousarray(rows_h, np.float32))
+        stored = rows.to(self.dtype)
+        return stored, stored.to(torch.float32)
 
     def rows_device(self, slots: np.ndarray) -> torch.Tensor:
         # the host gather is the upload
-        rows = self.vecs[np.asarray(slots, np.int64)]
-        return torch.from_numpy(rows).to(self.device)
+        return torch.from_numpy(
+            self.host_rows(np.asarray(slots, np.int64))).to(self.device)
 
     def to_host(self) -> dict:
         live = np.flatnonzero(self.ids_by_slot >= 0)
-        return {"ids": self.ids_by_slot[live], "vectors": self.vecs[live]}
+        return {"ids": self.ids_by_slot[live],
+                "vectors": self.host_rows(live)}
 
     def memory_size(self) -> int:
         # host bytes; the device holds only the owner's codes and centroids

@@ -1,5 +1,5 @@
-"""Batched distances on torch tensors (port of dingo_tpu/ops/distance.py,
-fp32 tier only).
+"""Batched distances on torch tensors (port of dingo_tpu/ops/distance.py;
+f32 rows, and bf16 rows paired with a bf16-rounded query).
 
     L2sqr(q, x)  = ||q||^2 - 2 q.x + ||x||^2
     IP(q, x)     =  q.x
@@ -42,8 +42,13 @@ def squared_norms(x: torch.Tensor) -> torch.Tensor:
 
 
 def _dot(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """[b, d] @ [n, d]^T in f32."""
-    return q.to(torch.float32) @ x.to(torch.float32).T
+    """[b, d] @ [n, d]^T accumulated in f32. bf16 rows pair with the query
+    rounded to bf16, as the JAX package's bf16 matmul does; a bf16 x bf16
+    product is exact in f32, so only the summation order can differ."""
+    q = q.to(torch.float32)
+    if x.dtype == torch.bfloat16:
+        q = q.to(torch.bfloat16).to(torch.float32)
+    return q @ x.to(torch.float32).T
 
 
 def pairwise_l2sqr(q: torch.Tensor, x: torch.Tensor,

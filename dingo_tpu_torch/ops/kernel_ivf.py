@@ -1,10 +1,14 @@
 """Kernel B2: IVF probed-bucket scan + running top-k (port of
-dingo_tpu/ops/pallas_ivf.py::ivf_list_topk).
+dingo_tpu/ops/pallas_ivf.py::ivf_list_topk), in its two row arms:
 
-``ivf_list_topk`` launches the CUDA kernel in ``csrc/ivf_topk.cu`` for
-CUDA tensors and runs ``ivf_list_topk_plain`` for CPU tensors; any other
-placement raises. k <= K_MAX (the JAX package's own gate,
-ivf_flat.py:885, is k <= 64).
+  f32   buckets f32 (``ivf_list_topk.launches``);
+  bf16  buckets bf16 widened exactly to f32, query f32, f32 products
+        (pallas_ivf.py:65; ``ivf_list_topk.launches_bf16``).
+
+``ivf_list_topk`` launches the arm of the buckets' dtype in
+``csrc/ivf_topk.cu`` for CUDA tensors and runs ``ivf_list_topk_plain``
+(the same arm) for CPU tensors; any other placement raises. k <= K_MAX
+(the JAX package's own gate, ivf_flat.py:885, is k <= 64).
 
 Bound on an H100 and design: see the note at the top of the CUDA source.
 """
@@ -24,19 +28,22 @@ K_MAX = 64
 #: callers that pad batches the same way
 ROW_BLOCK = 8
 
-_fn = None
+#: bucket dtype -> (C entry point, launch counter attribute)
+ARMS = {torch.float32: ("dingo_ivf_list_topk", "launches"),
+        torch.bfloat16: ("dingo_ivf_list_topk_bf16", "launches_bf16")}
+
+_fns: dict = {}
 
 
-def _launcher():
-    global _fn
-    if _fn is None:
+def _launcher(dtype: torch.dtype = torch.float32):
+    if dtype not in _fns:
         lib = cuda_build.load("ivf_topk")
-        fn = lib.dingo_ivf_list_topk
+        fn = getattr(lib, ARMS[dtype][0])
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p] * 5)
-        _fn = (lib, fn)
-    return _fn
+        _fns[dtype] = (lib, fn)
+    return _fns[dtype]
 
 
 def _pad_rows(queries: torch.Tensor, vprobes: torch.Tensor):
@@ -57,8 +64,9 @@ def ivf_list_topk_plain(vprobes: torch.Tensor, queries: torch.Tensor,
                         bucket_slot: torch.Tensor, k: int,
                         ascending: bool = True
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of B2: gathers each probe rank's buckets and
-    scores them, then one top-k over all probed rows."""
+    """Plain PyTorch version of B2, both arms: gathers each probe rank's
+    buckets (bf16 rows widen exactly; the query stays f32) and scores
+    them, then one top-k over all probed rows."""
     b, budget = vprobes.shape
     cap = buckets.shape[1]
     q32 = queries.to(torch.float32)
@@ -96,8 +104,8 @@ def ivf_list_topk(vprobes: torch.Tensor, queries: torch.Tensor,
     slots[b, k] i32, -1 where fewer than k valid rows were probed).
 
     vprobes[b, budget] i32 (-1 = padded rank); queries[b, d] f32;
-    buckets[B, cap, d] f32; bucket_sqnorm[B, cap] f32; bucket_valid
-    [B, cap] bool; bucket_slot[B, cap] i32."""
+    buckets[B, cap, d] f32 or bf16; bucket_sqnorm[B, cap] f32;
+    bucket_valid [B, cap] bool; bucket_slot[B, cap] i32."""
     tensors = (vprobes, queries, buckets, bucket_sqnorm, bucket_valid,
                bucket_slot)
     if all(t.device.type == "cpu" for t in tensors):
@@ -111,10 +119,10 @@ def ivf_list_topk(vprobes: torch.Tensor, queries: torch.Tensor,
         raise ValueError(f"ivf_list_topk: k={k} outside [1, {K_MAX}]")
     if vprobes.dtype != torch.int32 or bucket_slot.dtype != torch.int32:
         raise TypeError("ivf_list_topk: vprobes and bucket_slot must be int32")
-    if queries.dtype != torch.float32 or buckets.dtype != torch.float32 \
+    if queries.dtype != torch.float32 or buckets.dtype not in ARMS \
             or bucket_sqnorm.dtype != torch.float32:
-        raise TypeError("ivf_list_topk: queries, buckets and bucket_sqnorm "
-                        "must be float32")
+        raise TypeError("ivf_list_topk: queries and bucket_sqnorm must be "
+                        "float32, buckets float32 or bfloat16")
     if bucket_valid.dtype not in (torch.bool, torch.uint8):
         raise TypeError("ivf_list_topk: bucket_valid must be bool or uint8")
     if queries.shape != (b, d) or bucket_sqnorm.shape != (nb, cap) \
@@ -124,22 +132,25 @@ def ivf_list_topk(vprobes: torch.Tensor, queries: torch.Tensor,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ivf_list_topk: tensors must be contiguous")
     dev = queries.device
-    vec4 = d % 4 == 0 and queries.data_ptr() % 16 == 0 \
+    # 16 bytes per lane and load: 4 f32 or 8 bf16 values
+    vec = d % (16 // buckets.element_size()) == 0 \
         and buckets.data_ptr() % 16 == 0
     cand_v = torch.empty((b, budget, k), dtype=torch.float32, device=dev)
     cand_i = torch.empty((b, budget, k), dtype=torch.int32, device=dev)
     out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
-    lib, fn = _launcher()
+    lib, fn = _launcher(buckets.dtype)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(vprobes.data_ptr(), queries.data_ptr(), buckets.data_ptr(),
             bucket_sqnorm.data_ptr(), bucket_valid.view(torch.uint8).data_ptr(),
             bucket_slot.data_ptr(), b, budget, nb, cap, d, k, int(ascending),
-            int(vec4), cand_v.data_ptr(), cand_i.data_ptr(), out_v.data_ptr(),
+            int(vec), cand_v.data_ptr(), cand_i.data_ptr(), out_v.data_ptr(),
             out_i.data_ptr(), stream)
     cuda_build.check_launch(lib, rc, "ivf_list_topk")
-    ivf_list_topk.launches += 1
+    counter = ARMS[buckets.dtype][1]
+    setattr(ivf_list_topk, counter, getattr(ivf_list_topk, counter) + 1)
     return out_v, out_i
 
 
 ivf_list_topk.launches = 0
+ivf_list_topk.launches_bf16 = 0

@@ -1,17 +1,27 @@
 """Kernel B3: dimension-blocked early-pruning IVF list scan (port of
-dingo_tpu/ops/pallas_ivf.py::ivf_pruned_topk and ivf_pruned_search).
+dingo_tpu/ops/pallas_ivf.py::ivf_pruned_topk and ivf_pruned_search), in
+its three row arms (pallas_ivf.py:296-310):
 
-``ivf_pruned_topk`` launches the CUDA kernel in
-``csrc/ivf_pruned_topk.cu`` for CUDA tensors and runs
-``ivf_pruned_topk_plain`` for CPU tensors; any other placement raises.
-k <= K_MAX (the JAX package's own gate, ivf_flat.py:885).
+  f32   buckets f32, query f32 (``ivf_pruned_topk.launches``);
+  bf16  buckets bf16 widened exactly to f32, query f32
+        (``ivf_pruned_topk.launches_bf16``);
+  sq8   uint8 codes with the codec vmin/scale [d]: decoded in f32
+        (code * scale + vmin), rounded to bf16; the query rounded to
+        bf16; f32 accumulation (``ivf_pruned_topk.launches_sq8``).
+
+Norms, bounds and stats are f32 in every arm. ``ivf_pruned_topk`` launches
+the arm of the buckets' dtype in ``csrc/ivf_pruned_topk.cu`` for CUDA
+tensors and runs ``ivf_pruned_topk_plain`` (the same arm) for CPU tensors;
+any other placement raises. k <= K_MAX (the JAX package's own gate,
+ivf_flat.py:885).
 
 The plain version walks the JAX kernel's own order step by step (probe
 ranks in order for each query, dimension blocks innermost, the prune
 check every `check_every` blocks, the in-bucket refresh with its
 1e-5 |lb| + 1e-6 shave), so its results and stats lanes are the JAX
 package's. ``scan_unit_plain`` is that per-bucket step; B4's plain version
-reuses it per row block.
+reuses it per row block. Each arm's operands go into it already in the
+form the arm multiplies (``arm_query``, ``arm_rows``).
 
 Stats lanes per query: 0 = candidate-block pairs scanned, 1 = pairs
 total, 2 = candidates scanned to the last block, 3 = candidates
@@ -33,10 +43,40 @@ import torch
 from dingo_tpu_torch.ops import cuda_build
 from dingo_tpu_torch.ops.blocked import query_prefix_sqnorms
 from dingo_tpu_torch.ops.kernel_ivf import K_MAX, _pad_rows
+from dingo_tpu_torch.ops.sq import sq_decode_device
 
 NEG_INF = float("-inf")
 
-_fn = None
+#: bucket dtype -> (C entry point, launch counter attribute)
+ARMS = {torch.float32: ("dingo_ivf_pruned_topk", "launches"),
+        torch.bfloat16: ("dingo_ivf_pruned_topk_bf16", "launches_bf16"),
+        torch.uint8: ("dingo_ivf_pruned_topk_sq8", "launches_sq8")}
+
+_fns: dict = {}
+
+
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """f32 values rounded to bf16 (nearest, ties to even), back in f32."""
+    return t.to(torch.float32).to(torch.bfloat16).to(torch.float32)
+
+
+def arm_query(q32: torch.Tensor, round_q: bool) -> torch.Tensor:
+    """The query as an arm multiplies it: f32, or rounded to bf16 where
+    the arm pairs bf16 operands (sq8 in B3; bf16 and sq8 in B4). Its norms
+    stay those of the f32 query."""
+    return round_bf16(q32) if round_q else q32
+
+
+def arm_rows(x: torch.Tensor, col0: int, sq_vmin=None, sq_scale=None
+             ) -> torch.Tensor:
+    """Rows (or a dimension block of them starting at column col0) as an
+    arm multiplies them, in f32: f32 and bf16 rows exactly, sq8 codes
+    decoded in f32 and rounded to bf16."""
+    if x.dtype == torch.uint8:
+        w = x.shape[-1]
+        return sq_decode_device(x, sq_vmin[col0:col0 + w],
+                                sq_scale[col0:col0 + w]).to(torch.float32)
+    return x.to(torch.float32)
 
 
 def ord_neg_inf() -> int:
@@ -47,16 +87,16 @@ def ord_neg_inf() -> int:
     return i if i >= 0 else i ^ 0x7FFFFFFF
 
 
-def _launcher():
-    global _fn
-    if _fn is None:
+def _launcher(dtype: torch.dtype = torch.float32):
+    if dtype not in _fns:
         lib = cuda_build.load("ivf_pruned_topk")
-        fn = lib.dingo_ivf_pruned_topk
+        fn = getattr(lib, ARMS[dtype][0])
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 12
-                       + [ctypes.c_void_p] * 7)
-        _fn = (lib, fn)
-    return _fn
+        codec = 2 if dtype == torch.uint8 else 0
+        fn.argtypes = ([ctypes.c_void_p] * (1 + codec + 7)
+                       + [ctypes.c_int] * 12 + [ctypes.c_void_p] * 7)
+        _fns[dtype] = (lib, fn)
+    return _fns[dtype]
 
 
 def _stable_topk(vals: torch.Tensor, ids: torch.Tensor, k: int):
@@ -81,8 +121,10 @@ def scan_unit_plain(q: torch.Tensor, qsq: torch.Tensor, qpsq: torch.Tensor,
     """One pruned scan unit (a probed bucket in B3, a row block in B4) for
     every query at once, in the JAX kernels' step order.
 
-    q [b, d] f32, qsq [b], qpsq [b, nblk]; x_block(jb) -> [u, C, dblk] rows
-    of block jb (u = b per-query buckets, or 1 shared rows); bsq [u, nblk,
+    q [b, d] f32 as the arm multiplies it (arm_query), qsq [b] and qpsq
+    [b, nblk] of the f32 query; x_block(jb) -> [u, C, dblk] rows of block
+    jb as the arm multiplies them (arm_rows; u = b per-query buckets, or 1
+    shared rows); bsq [u, nblk,
     C]; xsq [u, C]; alive [b, C] f32 (1 = a candidate of this unit); ids
     [u, C] i32. Adds to stats [b, 4] in place; returns the new running
     (best_v, best_i) [b, k]."""
@@ -151,11 +193,11 @@ def ivf_pruned_topk_plain(vprobes: torch.Tensor, queries: torch.Tensor,
                           bucket_valid: torch.Tensor,
                           bucket_slot: torch.Tensor, k: int,
                           ascending: bool = True, check_every: int = 1,
-                          inbucket: bool = True
+                          inbucket: bool = True, sq_vmin=None, sq_scale=None
                           ) -> Tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
-    """Plain PyTorch version of B3 -> (scores[b, k], slots[b, k],
-    stats[b, 4] f32)."""
+    """Plain PyTorch version of B3, every arm (the buckets' dtype picks
+    it) -> (scores[b, k], slots[b, k], stats[b, 4] f32)."""
     b, budget = vprobes.shape
     nb, cap, d = buckets.shape
     nblk = qpsq.shape[1]
@@ -163,6 +205,7 @@ def ivf_pruned_topk_plain(vprobes: torch.Tensor, queries: torch.Tensor,
     dev = queries.device
     q32 = queries.to(torch.float32)
     qsq = (q32 * q32).sum(dim=1)
+    qdot = arm_query(q32, buckets.dtype == torch.uint8)
     best_v = torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev)
     best_i = torch.full((b, k), -1, dtype=torch.int32, device=dev)
     stats = torch.zeros((b, 4), dtype=torch.float32, device=dev)
@@ -176,8 +219,9 @@ def ivf_pruned_topk_plain(vprobes: torch.Tensor, queries: torch.Tensor,
         alive = (bucket_valid[lc].to(torch.bool) & ok[:, None]).to(
             torch.float32)
         best_v, best_i = scan_unit_plain(
-            q32, qsq, qpsq,
-            lambda jb: rows[:, :, jb * dblk:(jb + 1) * dblk],
+            qdot, qsq, qpsq,
+            lambda jb: arm_rows(rows[:, :, jb * dblk:(jb + 1) * dblk],
+                                jb * dblk, sq_vmin, sq_scale),
             bucket_bsq[lc], bucket_sqnorm[lc], alive,
             bucket_slot[lc].to(torch.int32), best_v, best_i, stats, k,
             ascending, check_every, inbucket)
@@ -199,21 +243,28 @@ def ivf_pruned_topk(vprobes: torch.Tensor, queries: torch.Tensor,
                     bucket_bsq: torch.Tensor, bucket_sqnorm: torch.Tensor,
                     bucket_valid: torch.Tensor, bucket_slot: torch.Tensor,
                     k: int, ascending: bool = True, check_every: int = 1,
-                    inbucket: bool = True
+                    inbucket: bool = True, sq_vmin=None, sq_scale=None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Early-pruning probed-bucket scan -> (scores[b, k] f32 'larger is
     better', slots[b, k] i32 with -1 where the score is -inf, stats[b, 4]
     f32).
 
     vprobes[b, budget] i32 (-1 = padded rank); queries[b, d] f32;
-    qpsq[b, nblk] f32 inclusive per-block prefix norms; buckets[B, cap, d]
-    f32; bucket_bsq[B, nblk, cap] f32; bucket_sqnorm[B, cap] f32;
-    bucket_valid[B, cap] bool; bucket_slot[B, cap] i32."""
+    qpsq[b, nblk] f32 inclusive per-block prefix norms (of the f32
+    queries); buckets[B, cap, d] f32, bf16, or uint8 codes with sq_vmin /
+    sq_scale [d] f32; bucket_bsq[B, nblk, cap] f32 and bucket_sqnorm[B,
+    cap] f32, the norms of what the arm accumulates (the f32 decode for
+    codes); bucket_valid[B, cap] bool; bucket_slot[B, cap] i32."""
+    sq = buckets.dtype == torch.uint8
+    if sq and (sq_vmin is None or sq_scale is None):
+        raise ValueError("ivf_pruned_topk: uint8 buckets need sq_vmin and "
+                         "sq_scale")
     tensors = (vprobes, queries, qpsq, buckets, bucket_bsq, bucket_sqnorm,
-               bucket_valid, bucket_slot)
+               bucket_valid, bucket_slot) + ((sq_vmin, sq_scale) if sq
+                                             else ())
     if all(t.device.type == "cpu" for t in tensors):
-        return ivf_pruned_topk_plain(*tensors, k, ascending, check_every,
-                                     inbucket)
+        return ivf_pruned_topk_plain(*tensors[:8], k, ascending, check_every,
+                                     inbucket, sq_vmin, sq_scale)
     if not cuda_build.same_cuda_device(*tensors):
         raise ValueError("ivf_pruned_topk: tensors must share one CUDA "
                          "device")
@@ -225,10 +276,13 @@ def ivf_pruned_topk(vprobes: torch.Tensor, queries: torch.Tensor,
     if vprobes.dtype != torch.int32 or bucket_slot.dtype != torch.int32:
         raise TypeError("ivf_pruned_topk: vprobes and bucket_slot must be "
                         "int32")
-    if any(t.dtype != torch.float32 for t in (queries, qpsq, buckets,
-                                               bucket_bsq, bucket_sqnorm)):
-        raise TypeError("ivf_pruned_topk: queries, qpsq, buckets, "
-                        "bucket_bsq and bucket_sqnorm must be float32")
+    if buckets.dtype not in ARMS or any(
+            t.dtype != torch.float32 for t in (queries, qpsq, bucket_bsq,
+                                               bucket_sqnorm)
+            + tensors[8:]):
+        raise TypeError("ivf_pruned_topk: buckets must be float32, "
+                        "bfloat16 or uint8; queries, qpsq, bucket_bsq, "
+                        "bucket_sqnorm and the codec float32")
     if bucket_valid.dtype not in (torch.bool, torch.uint8):
         raise TypeError("ivf_pruned_topk: bucket_valid must be bool or "
                         "uint8")
@@ -238,7 +292,8 @@ def ivf_pruned_topk(vprobes: torch.Tensor, queries: torch.Tensor,
             or bucket_sqnorm.shape != (nb, cap) \
             or bucket_valid.shape != (nb, cap) \
             or bucket_slot.shape != (nb, cap) or b < 1 or budget < 1 \
-            or check_every < 1:
+            or check_every < 1 \
+            or any(t.shape != (d,) for t in tensors[8:]):
         raise ValueError("ivf_pruned_topk: shape mismatch")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ivf_pruned_topk: tensors must be contiguous")
@@ -248,40 +303,49 @@ def ivf_pruned_topk(vprobes: torch.Tensor, queries: torch.Tensor,
                         torch.cuda.get_device_properties(dev)
                         .multi_processor_count)
     groups = -(-budget // rpc)
-    vec4 = d % 4 == 0 and dblk % 4 == 0 and buckets.data_ptr() % 16 == 0
+    # 16 bytes per lane and load: 4 f32, 8 bf16 or 16 codes
+    per16 = 16 // buckets.element_size()
+    vec = d % per16 == 0 and dblk % per16 == 0 \
+        and buckets.data_ptr() % 16 == 0
     thr = torch.full((b,), ord_neg_inf(), dtype=torch.int32, device=dev)
     stats = torch.zeros((b, 4), dtype=torch.int32, device=dev)
     cand_v = torch.empty((b, groups, k), dtype=torch.float32, device=dev)
     cand_i = torch.empty((b, groups, k), dtype=torch.int32, device=dev)
     out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
-    lib, fn = _launcher()
+    lib, fn = _launcher(buckets.dtype)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(vprobes.data_ptr(), queries.data_ptr(), qpsq.data_ptr(),
-            buckets.data_ptr(), bucket_bsq.data_ptr(),
+    codec = (sq_vmin.data_ptr(), sq_scale.data_ptr()) if sq else ()
+    rc = fn(buckets.data_ptr(), *codec, vprobes.data_ptr(),
+            queries.data_ptr(), qpsq.data_ptr(), bucket_bsq.data_ptr(),
             bucket_sqnorm.data_ptr(),
             bucket_valid.view(torch.uint8).data_ptr(),
             bucket_slot.data_ptr(), b, budget, nb, cap, d, dblk, k,
-            int(ascending), int(check_every), int(inbucket), rpc, int(vec4),
+            int(ascending), int(check_every), int(inbucket), rpc, int(vec),
             thr.data_ptr(), stats.data_ptr(), cand_v.data_ptr(),
             cand_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), stream)
     cuda_build.check_launch(lib, rc, "ivf_pruned_topk")
-    ivf_pruned_topk.launches += 1
+    counter = ARMS[buckets.dtype][1]
+    setattr(ivf_pruned_topk, counter, getattr(ivf_pruned_topk, counter) + 1)
     return out_v, out_i, stats.to(torch.float32)
 
 
 ivf_pruned_topk.launches = 0
+ivf_pruned_topk.launches_bf16 = 0
+ivf_pruned_topk.launches_sq8 = 0
 
 
 def ivf_pruned_search(vprobes: torch.Tensor, queries: torch.Tensor,
                       buckets: torch.Tensor, bucket_bsq: torch.Tensor,
                       bucket_sqnorm: torch.Tensor,
                       bucket_valid: torch.Tensor, bucket_slot: torch.Tensor,
-                      k: int, dim_block: int, ascending: bool = True):
+                      k: int, dim_block: int, ascending: bool = True,
+                      sq_vmin=None, sq_scale=None):
     """The index's entry to B3: pads the per-query arrays to the
     ROW_BLOCK multiple (padded rows probe nothing), computes the query
     prefix norms, reads check_every and the in-bucket refresh from the
-    flags -> (scores[b, k], slots[b, k], stats[b, 4])."""
+    flags -> (scores[b, k], slots[b, k], stats[b, 4]). sq_vmin/sq_scale
+    are the codec of uint8 buckets."""
     from dingo_tpu_torch.common.config import FLAGS
 
     b = queries.shape[0]
@@ -291,5 +355,6 @@ def ivf_pruned_search(vprobes: torch.Tensor, queries: torch.Tensor,
     vals, slots, stats = ivf_pruned_topk(
         vprobes.contiguous(), queries.contiguous(), qpsq, buckets,
         bucket_bsq, bucket_sqnorm, bucket_valid, bucket_slot, k, ascending,
-        check, bool(FLAGS.get("ivf_prune_inbucket_bound")))
+        check, bool(FLAGS.get("ivf_prune_inbucket_bound")), sq_vmin,
+        sq_scale)
     return vals[:b], slots[:b], stats[:b]

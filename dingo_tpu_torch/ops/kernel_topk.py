@@ -1,10 +1,15 @@
 """Kernel B1: fused distance + running top-k (port of
-dingo_tpu/ops/pallas_topk.py::fused_topk).
+dingo_tpu/ops/pallas_topk.py::fused_topk), in its two row arms:
 
-``fused_topk`` launches the CUDA kernel in ``csrc/fused_topk.cu`` for CUDA
-tensors and runs ``fused_topk_plain`` for CPU tensors; any other
-placement raises. The kernel holds its running lists in shared memory for
-k <= K_MAX; callers route larger k to the XLA-equivalent arm themselves
+  f32   rows f32 (``fused_topk.launches``);
+  bf16  rows bf16 widened exactly to f32, query f32, f32 products
+        (pallas_topk.py:67; ``fused_topk.launches_bf16``).
+
+``fused_topk`` launches the arm of the rows' dtype in
+``csrc/fused_topk.cu`` for CUDA tensors and runs ``fused_topk_plain``
+(which takes the same arm) for CPU tensors; any other placement raises.
+The kernel holds its running lists in shared memory for k <= K_MAX;
+callers route larger k to the XLA-equivalent arm themselves
 (index/flat.py), so this wrapper refuses it.
 
 Bound on an H100 and design: see the note at the top of the CUDA source.
@@ -27,27 +32,31 @@ ROWS_PER_TILE = 128
 #: queries per CTA tile
 QUERIES_PER_TILE = 64
 
-_fn = None
+#: row dtype -> (C entry point, launch counter attribute)
+ARMS = {torch.float32: ("dingo_fused_topk", "launches"),
+        torch.bfloat16: ("dingo_fused_topk_bf16", "launches_bf16")}
+
+_fns: dict = {}
 
 
-def _launcher():
-    global _fn
-    if _fn is None:
+def _launcher(dtype: torch.dtype = torch.float32):
+    if dtype not in _fns:
         lib = cuda_build.load("fused_topk")
-        fn = lib.dingo_fused_topk
+        fn = getattr(lib, ARMS[dtype][0])
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                        + [ctypes.c_void_p] * 5)
-        _fn = (lib, fn)
-    return _fn
+        _fns[dtype] = (lib, fn)
+    return _fns[dtype]
 
 
 def fused_topk_plain(q: torch.Tensor, x: torch.Tensor,
                      x_sqnorm: torch.Tensor, valid: torch.Tensor, k: int,
                      ascending: bool = True
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of B1: the same function through a [b, n]
-    score matrix. Returns (scores[b, k] f32, slots[b, k] i32)."""
+    """Plain PyTorch version of B1, both arms: the same function through
+    a [b, n] score matrix (bf16 rows widen exactly; the query stays f32).
+    Returns (scores[b, k] f32, slots[b, k] i32)."""
     q32 = q.to(torch.float32)
     dots = q32 @ x.to(torch.float32).T
     if ascending:   # L2: -(||q||^2 - 2 q.x + ||x||^2)
@@ -81,9 +90,10 @@ def fused_topk(q: torch.Tensor, x: torch.Tensor, x_sqnorm: torch.Tensor,
     n = x.shape[0]
     if not 1 <= k <= K_MAX:
         raise ValueError(f"fused_topk: k={k} outside [1, {K_MAX}]")
-    if q.dtype != torch.float32 or x.dtype != torch.float32 \
+    if q.dtype != torch.float32 or x.dtype not in ARMS \
             or x_sqnorm.dtype != torch.float32:
-        raise TypeError("fused_topk: q, x and x_sqnorm must be float32")
+        raise TypeError("fused_topk: q and x_sqnorm must be float32, x "
+                        "float32 or bfloat16")
     if valid.dtype not in (torch.bool, torch.uint8):
         raise TypeError("fused_topk: valid must be bool or uint8")
     if x.dim() != 2 or x.shape[1] != d or x_sqnorm.shape != (n,) \
@@ -99,15 +109,20 @@ def fused_topk(q: torch.Tensor, x: torch.Tensor, x_sqnorm: torch.Tensor,
     cand_i = torch.empty((b, nsplit, k), dtype=torch.int32, device=dev)
     out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
-    lib, fn = _launcher()
+    # bf16 rows: 8 values (16 bytes) per thread and tile step
+    vec = x.dtype == torch.bfloat16 and d % 8 == 0 \
+        and x.data_ptr() % 16 == 0
+    lib, fn = _launcher(x.dtype)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(q.data_ptr(), x.data_ptr(), x_sqnorm.data_ptr(),
             valid.view(torch.uint8).data_ptr(), b, n, d, k, int(ascending),
-            rows, cand_v.data_ptr(), cand_i.data_ptr(), out_v.data_ptr(),
-            out_i.data_ptr(), stream)
+            rows, int(vec), cand_v.data_ptr(), cand_i.data_ptr(),
+            out_v.data_ptr(), out_i.data_ptr(), stream)
     cuda_build.check_launch(lib, rc, "fused_topk")
-    fused_topk.launches += 1
+    counter = ARMS[x.dtype][1]
+    setattr(fused_topk, counter, getattr(fused_topk, counter) + 1)
     return out_v, out_i
 
 
 fused_topk.launches = 0
+fused_topk.launches_bf16 = 0

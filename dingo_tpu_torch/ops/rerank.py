@@ -1,10 +1,12 @@
-"""Device-resident exact rerank of approximate shortlists (port of the fp32
-``exact_rerank_device`` in dingo_tpu/ops/rerank.py).
+"""Device-resident exact rerank of approximate shortlists (port of
+``exact_rerank_device`` and ``cached_rerank_device`` in
+dingo_tpu/ops/rerank.py).
 
 IVF_PQ's device store keeps every row on the card, so the ADC shortlist is
 reranked right after the scan, in the same stream: one gather of the
-candidates' rows, one batched product, one top-k. Nothing waits on the
-host, and the result joins the reply's single fetch group. Scores follow
+candidates' rows, one batched product, one top-k. The bf16/sq8 tiers
+rerank their quantized shortlist against a bounded row cache the same
+way. Nothing waits on the host, and the result joins the reply's single fetch group. Scores follow
 the JAX package's formulas (the cosine epsilon included); outputs are in
 the wire distance convention, so the rerank drops in after any scan.
 """
@@ -15,6 +17,7 @@ import torch
 
 from dingo_tpu_torch.ops.distance import (
     Metric,
+    metric_ascending,
     scores_to_distances,
     squared_norms,
 )
@@ -69,4 +72,26 @@ def exact_rerank_device(vecs: torch.Tensor, sqnorm: torch.Tensor,
     safe = torch.where(cand_slots >= 0, cand_slots,
                        torch.zeros_like(cand_slots))
     scores = _exact_candidate_scores(vecs, sqnorm, queries, safe, metric)
+    return _topk_epilogue(scores, cand_slots, k, metric)
+
+
+def cached_rerank_device(cache_vecs: torch.Tensor,
+                         cache_sqnorm: torch.Tensor,
+                         cache_map: torch.Tensor, cand_dists: torch.Tensor,
+                         cand_slots: torch.Tensor, queries: torch.Tensor,
+                         k: int, metric: Metric):
+    """Rerank a quantized shortlist [b, k'] against a bounded row cache:
+    cache_map [store_capacity] int32 maps a store slot to its cache row
+    (-1 = not cached). Cached candidates get exact scores (rows widened to
+    f32); the others keep their quantized score from cand_dists (wire
+    distances). Returns (wire distances [b, k], slots [b, k])."""
+    safe_slot = torch.where(cand_slots >= 0, cand_slots,
+                            torch.zeros_like(cand_slots)).long()
+    rows = cache_map[safe_slot]
+    cached = (rows >= 0) & (cand_slots >= 0)
+    exact = _exact_candidate_scores(
+        cache_vecs, cache_sqnorm, queries,
+        torch.where(cached, rows, torch.zeros_like(rows)), metric)
+    quant = -cand_dists if metric_ascending(metric) else cand_dists
+    scores = torch.where(cached, exact, quant)
     return _topk_epilogue(scores, cand_slots, k, metric)

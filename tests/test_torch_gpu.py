@@ -4,7 +4,11 @@ to K_MAX, ragged row counts, masks, padded ranks, a dimension that is not
 a multiple of 4 (the kernels' scalar-load path), dimension blocks that are
 not a multiple of the SGEMM depth, both prune bounds and the in-bucket
 refresh on and off; for B5, subspace counts that take each code-load width
-and spill buckets that share a table.
+and spill buckets that share a table. The bf16 and sq8 arms of B1-B4 run
+the same kinds of cases, k 1, 10 and 64, both load widths (a dimension or
+block that is not a multiple of the 16-byte load, and a row array that is
+not 16-byte aligned, take the scalar path), and the index routes of both
+tiers on the device.
 
 Marked ``gpu``: on a machine without a CUDA device each test skips (the
 decision is made inside the test). Run on the card with
@@ -364,3 +368,254 @@ def test_ivf_pq_index_serves_through_b5_on_device():
     for a, b in zip(plain, fused):
         np.testing.assert_allclose(a.distances, b.distances, rtol=RTOL,
                                    atol=ATOL)
+
+
+# -- the bf16 and sq8 arms ----------------------------------------------------
+def _tier_rows(x, tier, misalign=False):
+    """f32 rows [..., d] in a tier's form on their device -> (rows as
+    stored, f32 values the arm accumulates, codec kwargs). misalign puts
+    the rows one element past a 16-byte boundary (the scalar path)."""
+    from dingo_tpu_torch.ops import sq
+
+    if tier == "bf16":
+        rows = x.to(torch.bfloat16)
+        f32, kw = rows.to(torch.float32), {}
+    else:
+        flat = x.reshape(-1, x.shape[-1]).cpu().numpy()
+        p = sq.sq_train(flat)
+        codes = torch.from_numpy(sq.sq_encode(flat, p)).reshape(x.shape)
+        rows = codes.to(x.device)
+        kw = {"sq_vmin": torch.from_numpy(p.vmin).to(x.device),
+              "sq_scale": torch.from_numpy(p.scale).to(x.device)}
+        f32 = torch.from_numpy(sq.sq_decode(codes.reshape(flat.shape), p)
+                               ).reshape(x.shape).to(x.device)
+    return (_misaligned(rows) if misalign else rows), f32, kw
+
+
+def _misaligned(t):
+    """A contiguous copy of t one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.parametrize("b,n,d,k,ascending,keep,misalign", [
+    (64, 5000, 768, 10, True, 1.0, False),
+    (3, 1000, 33, 64, True, 0.5, False),     # d % 8 != 0: scalar loads
+    (130, 4097, 128, 1, False, 0.9, False),  # three query tiles, k = 1
+    (8, 300, 64, 40, True, 0.05, False),     # fewer valid rows than k
+    (16, 2048, 256, 10, False, 1.0, True),   # misaligned rows
+])
+def test_fused_topk_bf16_kernel_matches_plain(b, n, d, k, ascending, keep,
+                                              misalign):
+    from dingo_tpu_torch.ops import kernel_topk as kt
+
+    dev = _cuda()
+    g = torch.Generator(device="cpu").manual_seed(n + b + 1)
+    x, f32, _ = _tier_rows(torch.randn((n, d), generator=g).to(dev), "bf16",
+                           misalign)
+    q = torch.randn((b, d), generator=g).to(dev)
+    xsq = (f32 * f32).sum(1)
+    valid = (torch.rand(n, generator=g) < keep).to(dev)
+    before = kt.fused_topk.launches_bf16
+    kv, ki = kt.fused_topk(q, x, xsq, valid, k, ascending)
+    assert kt.fused_topk.launches_bf16 == before + 1
+    pv, pi = kt.fused_topk_plain(q, x, xsq, valid, k, ascending)
+    torch.cuda.synchronize()
+    _assert_parity(kv, ki, pv, pi)
+
+
+@pytest.mark.parametrize("d,cap,k,ascending,misalign", [
+    (768, 1024, 10, True, False),
+    (30, 100, 64, True, False),      # scalar loads, k = K_MAX
+    (128, 256, 1, False, False),
+    (256, 128, 10, True, True),      # misaligned buckets
+])
+def test_ivf_list_topk_bf16_kernel_matches_plain(d, cap, k, ascending,
+                                                 misalign):
+    from dingo_tpu_torch.ops import kernel_ivf as ki_mod
+
+    dev = _cuda()
+    g = torch.Generator(device="cpu").manual_seed(d + cap + 2)
+    nb, b, budget = 40, 16, 9
+    buckets, f32, _ = _tier_rows(
+        torch.randn((nb, cap, d), generator=g).to(dev), "bf16", misalign)
+    sq = (f32 * f32).sum(-1)
+    valid = (torch.rand((nb, cap), generator=g) < 0.8).to(dev)
+    slot = torch.randperm(nb * cap, generator=g).reshape(nb, cap).to(
+        torch.int32).to(dev)
+    q = torch.randn((b, d), generator=g).to(dev)
+    vp = torch.randint(0, nb, (b, budget), generator=g, dtype=torch.int32)
+    vp[2, 3:] = -1
+    vp[5] = -1
+    vp = vp.to(dev)
+    before = ki_mod.ivf_list_topk.launches_bf16
+    kv, kslots = ki_mod.ivf_list_topk(vp, q, buckets, sq, valid, slot, k,
+                                      ascending)
+    assert ki_mod.ivf_list_topk.launches_bf16 == before + 1
+    pv, pslots = ki_mod.ivf_list_topk_plain(vp, q, buckets, sq, valid, slot,
+                                            k, ascending)
+    torch.cuda.synchronize()
+    assert (kslots[5] == -1).all()
+    _assert_parity(kv, kslots, pv, pslots)
+
+
+TIER_B3 = [
+    (768, 128, 1024, 10, True, True, 1, False),
+    (768, 128, 1024, 64, False, True, 1, False),
+    (256, 64, 300, 1, True, False, 2, False),
+    (30, 10, 100, 5, False, True, 2, False),    # scalar loads (both tiers)
+    (48, 16, 64, 12, True, True, 1, True),      # misaligned buckets
+]
+
+
+@pytest.mark.parametrize("tier", ["bf16", "sq8"])
+@pytest.mark.parametrize("d,dblk,cap,k,ascending,inbucket,every,misalign",
+                         TIER_B3)
+def test_ivf_pruned_topk_tier_kernel_matches_plain(tier, d, dblk, cap, k,
+                                                   ascending, inbucket,
+                                                   every, misalign):
+    from dingo_tpu_torch.ops import blocked
+    from dingo_tpu_torch.ops import kernel_ivf_pruned as b3
+
+    dev = _cuda()
+    g = torch.Generator(device="cpu").manual_seed(d + cap + k + 3)
+    nb, b, budget = 40, 16, 9
+    raw = _clustered(g, nb * cap, d).reshape(nb, cap, d).to(dev)
+    buckets, f32, kw = _tier_rows(raw, tier, misalign)
+    sq = (f32 * f32).sum(-1)
+    bsq = blocked.bucket_block_sqnorms(f32, dblk)
+    valid = (torch.rand((nb, cap), generator=g) < 0.8).to(dev)  # a filter
+    slot = torch.randperm(nb * cap, generator=g).reshape(nb, cap).to(
+        torch.int32).to(dev)
+    q = (raw.reshape(-1, d)[torch.randint(0, nb * cap, (b,),
+                                          generator=g).to(dev)]
+         + 0.05 * torch.randn((b, d), generator=g).to(dev))
+    qpsq = blocked.query_prefix_sqnorms(q, dblk)
+    vp = torch.randint(0, nb, (b, budget), generator=g, dtype=torch.int32)
+    vp[2, 3:] = -1
+    vp[5] = -1
+    vp = vp.to(dev)
+    args = (vp, q, qpsq, buckets, bsq, sq, valid, slot, k, ascending, every,
+            inbucket)
+    counter = f"launches_{tier}"
+    before = getattr(b3.ivf_pruned_topk, counter)
+    kv, kslots, ks = b3.ivf_pruned_topk(*args, **kw)
+    assert getattr(b3.ivf_pruned_topk, counter) == before + 1
+    pv, pslots, ps = b3.ivf_pruned_topk_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert (kslots[5] == -1).all() and (ks[5] == 0).all()
+    _assert_parity(kv, kslots, pv, pslots)
+    _assert_stats(ks, ps)
+
+
+TIER_B4 = [
+    (64, 8192, 768, 128, 10, True, True, 1, 1.0, False),
+    (64, 8192, 768, 128, 10, False, True, 1, 1.0, False),
+    (130, 4096, 256, 64, 33, True, False, 2, 0.7, False),
+    (3, 4096, 40, 8, 64, False, True, 1, 0.9, False),   # sq8: scalar loads
+    (8, 4096, 64, 32, 1, True, True, 1, 0.002, False),  # fewer valid, k 1
+    (5, 4096, 60, 12, 10, True, True, 1, 1.0, False),   # scalar (both)
+    (16, 4096, 128, 32, 10, False, True, 1, 0.8, True),  # misaligned
+]
+
+
+@pytest.mark.parametrize("tier", ["bf16", "sq8"])
+@pytest.mark.parametrize(
+    "b,n,d,dblk,k,ascending,inbucket,every,keep,misalign", TIER_B4)
+def test_pruned_fused_topk_tier_kernel_matches_plain(
+        tier, b, n, d, dblk, k, ascending, inbucket, every, keep, misalign):
+    from dingo_tpu_torch.ops import blocked
+    from dingo_tpu_torch.ops import kernel_topk_pruned as b4
+
+    dev = _cuda()
+    g = torch.Generator(device="cpu").manual_seed(n + b + d + 4)
+    raw = _clustered(g, n, d).to(dev)
+    q = raw[torch.randint(0, n, (b,), generator=g).to(dev)] + 0.05 * \
+        torch.randn((b, d), generator=g).to(dev)
+    rows, f32, kw = _tier_rows(raw, tier)
+    x_blk = blocked.to_blocked(rows, dblk)
+    if misalign:
+        x_blk = _misaligned(x_blk)
+    xsq = (f32 * f32).sum(1)
+    bsq = blocked.block_sqnorms(f32, dblk)
+    valid = (torch.rand(n, generator=g) < keep).to(dev)
+    args = (q, x_blk, bsq, xsq, valid, k, ascending, every, inbucket)
+    counter = f"launches_{tier}"
+    before = getattr(b4.pruned_fused_topk, counter)
+    kv, ki, ks = b4.pruned_fused_topk(*args, **kw)
+    assert getattr(b4.pruned_fused_topk, counter) == before + 1
+    pv, pi, ps = b4.pruned_fused_topk_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_parity(kv, ki, pv, pi)
+    _assert_stats(ks, ps)
+
+
+@pytest.mark.parametrize("tier", ["bf16", "sq8"])
+def test_tier_indexes_serve_through_their_arms_on_device(tier):
+    """bf16/sq8 FLAT and IVF_FLAT on the device: the default routes take
+    B4's and B3's arm of the tier; with pruning off, bf16 takes B1/B2 and
+    sq8 its plain arms; the routes agree."""
+    from dingo_tpu_torch.index.base import IndexParameter, IndexType
+    from dingo_tpu_torch.index.factory import new_index
+    from dingo_tpu_torch.ops import (
+        kernel_ivf,
+        kernel_ivf_pruned,
+        kernel_topk,
+        kernel_topk_pruned,
+    )
+
+    _cuda()
+    rng = np.random.default_rng(3)
+    centers = rng.standard_normal((32, 256), dtype=np.float32)
+    x = (centers[rng.integers(0, 32, 6000)] + 0.3 * rng.standard_normal(
+        (6000, 256), dtype=np.float32)).astype(np.float32)
+    counter = f"launches_{tier}"
+    flat = new_index(6, IndexParameter(index_type=IndexType.FLAT,
+                                       dimension=256, precision=tier))
+    ivf = new_index(7, IndexParameter(index_type=IndexType.IVF_FLAT,
+                                      dimension=256, ncentroids=16,
+                                      precision=tier))
+    for idx in (flat, ivf):
+        idx.upsert(np.arange(6000), x)
+    ivf.train()
+    b4 = getattr(kernel_topk_pruned.pruned_fused_topk, counter)
+    b3 = getattr(kernel_ivf_pruned.ivf_pruned_topk, counter)
+    f_pruned = flat.search(x[:8], 10)
+    i_pruned = ivf.search(x[:8], 10, nprobe=16)
+    assert getattr(kernel_topk_pruned.pruned_fused_topk, counter) == b4 + 1
+    assert getattr(kernel_ivf_pruned.ivf_pruned_topk, counter) == b3 + 1
+    assert [int(r.ids[0]) for r in f_pruned] == list(range(8))
+    saved = _flags(ivf_prune_scan=False)
+    try:
+        ivf.compact()
+        before = (getattr(kernel_topk.fused_topk, counter, 0),
+                  getattr(kernel_ivf.ivf_list_topk, counter, 0))
+        f_un = flat.search(x[:8], 10)
+        i_un = ivf.search(x[:8], 10, nprobe=16)
+        after = (getattr(kernel_topk.fused_topk, counter, 0),
+                 getattr(kernel_ivf.ivf_list_topk, counter, 0))
+        assert after == ((before[0] + 1, before[1] + 1) if tier == "bf16"
+                         else before)
+    finally:
+        _restore(saved)
+    # B4's bf16 arm pairs a bf16 query (the TPU kernel's bf16 matmul), B1's
+    # keeps it f32: they agree on the nearest row, and B4 agrees with the
+    # plain arm, which pairs the same way (and clamps L2 at 0, as the JAX
+    # package's XLA arm does and its kernels do not: a row's distance to
+    # itself comes out slightly negative); B3 and B2 share their arithmetic
+    saved = _flags(use_pallas_fused_search=False)
+    try:
+        f_plain = flat.search(x[:8], 10)
+    finally:
+        _restore(saved)
+    for ra, rb in zip(f_pruned, f_un):
+        assert ra.ids[0] == rb.ids[0]
+    for a, b in ((f_pruned, f_plain), (i_pruned, i_un)):
+        for ra, rb in zip(a, b):
+            assert ra.ids[0] == rb.ids[0]
+            np.testing.assert_allclose(np.maximum(ra.distances, 0.0),
+                                       np.maximum(rb.distances, 0.0),
+                                       rtol=RTOL, atol=CROSS_ATOL)

@@ -10,6 +10,10 @@ import torch
 from dingo_tpu.index import ivf_layout as jl
 from dingo_tpu_torch.index import ivf_layout as tl
 
+# small shapes: one intra-op thread keeps the parallel test workers
+# from oversubscribing the cores
+torch.set_num_threads(1)
+
 
 def _skewed(seed, n=3000, nlist=16):
     rng = np.random.default_rng(seed)

@@ -25,6 +25,10 @@ from dingo_tpu_torch.ops import topk as tt
 from dingo_tpu_torch.ops.kernel_ivf import _pad_rows, ivf_list_topk
 from dingo_tpu_torch.ops.kernel_topk import fused_topk
 
+# small shapes: one intra-op thread keeps the parallel test workers
+# from oversubscribing the cores
+torch.set_num_threads(1)
+
 #: f32 sums land in another order in the two packages (XLA vs torch CPU)
 RTOL, ATOL = 1e-4, 1e-4
 

@@ -47,6 +47,10 @@ from dingo_tpu_torch.ops import rerank as trr
 from dingo_tpu_torch.ops.distance import Metric as TMetric
 from dingo_tpu_torch.ops.kernel_pq import ivf_pq_adc_topk
 
+# small shapes: one intra-op thread keeps the parallel test workers
+# from oversubscribing the cores
+torch.set_num_threads(1)
+
 OPS_RTOL, OPS_ATOL = 1e-5, 1e-4
 RTOL, ATOL = 1e-4, 1e-3
 

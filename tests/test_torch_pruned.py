@@ -33,7 +33,6 @@ from dingo_tpu_torch.common.metrics import METRICS as TMETRICS
 from dingo_tpu_torch.index.base import FilterSpec as TFilter
 from dingo_tpu_torch.index.base import IndexParameter as TParam
 from dingo_tpu_torch.index.base import IndexType as TType
-from dingo_tpu_torch.index.base import NotSupported
 from dingo_tpu_torch.index.carry import index_from_reference
 from dingo_tpu_torch.index.flat import TpuFlat, flat_search_plain
 from dingo_tpu_torch.index.ivf_flat import ivf_scan_scores
@@ -46,6 +45,10 @@ from dingo_tpu_torch.ops.kernel_topk_pruned import (
     pruned_fused_topk_plain,
 )
 from dingo_tpu_torch.ops.scatter import scatter_bucket_dim_update
+
+# small shapes: one intra-op thread keeps the parallel test workers
+# from oversubscribing the cores
+torch.set_num_threads(1)
 
 RTOL, ATOL = 1e-5, 1e-4
 D, DBLK, K = 32, 8, 10
@@ -471,12 +474,24 @@ def test_flat_snapshot_meta_without_mirror(flags, tmp_path):
 
 
 @pytest.mark.parametrize("precision", ["bf16", "sq8"])
-def test_pruned_flat_other_tiers_raise(flags, precision):
+def test_pruned_flat_other_tiers_keep_mirror(flags, precision):
+    """bf16 and sq8 FLAT stores keep the blocked mirror in their own dtype
+    (bf16 rows, uint8 codes) and search through B4's arm of that tier, as
+    the JAX index does with its pruned kernel."""
     flags("vector_blocked_layout", True)
     flags("ivf_prune_scan", True)
-    with pytest.raises(NotSupported):
-        TpuFlat(1, TParam(index_type=TType.FLAT, dimension=D,
-                          precision=precision), device="cpu")
+    flags("use_pallas_fused_search", True)
+    x, q, _ = _corpus(40, 2500)
+    jf = JFlat(41, JParam(index_type=JType.FLAT, dimension=D,
+                          precision=precision))
+    tf = TpuFlat(41, TParam(index_type=TType.FLAT, dimension=D,
+                            precision=precision), device="cpu")
+    for idx in (jf, tf):
+        idx.upsert(np.arange(2500, dtype=np.int64), x)
+    want = {"bf16": torch.bfloat16, "sq8": torch.uint8}[precision]
+    assert tf.store.vecs.dtype == tf.store.vecs_blk.dtype == want
+    assert tf.store.vecs_blk.shape == (D // DBLK, tf.store.capacity, DBLK)
+    assert_same_results(jf.search(q, K), tf.search(q, K))
 
 
 def test_metrics_series_keys_match_jax():

@@ -10,6 +10,7 @@ atol 1e-3 (f32 sums in another order; L2 distances here reach ~100)."""
 
 import numpy as np
 import pytest
+import torch
 
 from dingo_tpu.common.config import FLAGS as JFLAGS
 from dingo_tpu.index.base import FilterSpec as JFilter
@@ -28,6 +29,10 @@ from dingo_tpu_torch.index.flat import flat_search_plain
 from dingo_tpu_torch.index.ivf_flat import ivf_scan_scores
 from dingo_tpu_torch.index.wrapper import VectorIndexWrapper as TWrapper
 from dingo_tpu_torch.ops.distance import Metric as TMetric
+
+# small shapes: one intra-op thread keeps the parallel test workers
+# from oversubscribing the cores
+torch.set_num_threads(1)
 
 RTOL, ATOL = 1e-4, 1e-3
 KERNEL_FLAGS = ("use_pallas_fused_search", "use_pallas_ivf_search")
@@ -196,48 +201,83 @@ def test_wrapper_log_id_replay_matches_jax():
 
 
 def test_unported_features_raise_not_supported():
-    from dingo_tpu_torch.index.base import NotSupported
+    from dingo_tpu_torch.index.base import InvalidParameter, NotSupported
     from dingo_tpu_torch.index.factory import new_index
 
-    for kw in ({"precision": "bf16"}, {"precision": "sq8"},
-               {"dtype": "bfloat16"}):
-        with pytest.raises(NotSupported):
-            new_index(1, TParam(index_type=TType.IVF_FLAT, dimension=8,
-                                **kw), device="cpu")
     for t in (TType.HNSW, TType.BINARY_FLAT):
         with pytest.raises(NotSupported):
             new_index(1, TParam(index_type=t, dimension=8), device="cpu")
-    # IVF_PQ carries the fp32 store only; sq8 is invalid for it, as in the
-    # JAX package (its codes are already quantized)
-    for kw in ({"precision": "bf16"}, {"dtype": "bfloat16"}):
-        with pytest.raises(NotSupported):
-            new_index(1, TParam(index_type=TType.IVF_PQ, dimension=8,
-                                nsubvector=4, **kw), device="cpu")
-    from dingo_tpu_torch.index.base import InvalidParameter
+    # sq8 is invalid for IVF_PQ, as in the JAX package (its codes are
+    # already quantized)
     with pytest.raises(InvalidParameter):
         new_index(1, TParam(index_type=TType.IVF_PQ, dimension=8,
                             nsubvector=4, precision="sq8"), device="cpu")
-    # the pruned routes carry the fp32 tier only: bf16 and sq8 still raise
+    with pytest.raises(InvalidParameter):
+        new_index(1, TParam(index_type=TType.FLAT, dimension=8,
+                            precision="fp8"), device="cpu")
+
+
+TIER_CASES = [
+    (TType.IVF_FLAT, 8, {"precision": "bf16"}, "bf16"),
+    (TType.IVF_FLAT, 8, {"precision": "sq8"}, "sq8"),
+    (TType.IVF_FLAT, 8, {"dtype": "bfloat16"}, "bf16"),
+    (TType.IVF_PQ, 8, {"precision": "bf16"}, "bf16"),
+    (TType.IVF_PQ, 8, {"dtype": "bfloat16"}, "bf16"),
+    (TType.FLAT, 256, {"precision": "bf16"}, "bf16"),
+    (TType.FLAT, 256, {"precision": "sq8"}, "sq8"),
+]
+
+
+@pytest.mark.parametrize("t,dim,kw,tier", TIER_CASES,
+                         ids=[f"{c[0].value}-{c[3]}-{sorted(c[2])[0]}"
+                              for c in TIER_CASES])
+def test_precision_tiers_construct_write_and_search(t, dim, kw, tier):
+    """The bf16 and sq8 tiers build on FLAT, IVF_FLAT (and bf16 on
+    IVF_PQ), hold their rows in the tier's dtype, and answer a search
+    (the FLAT cases with the blocked mirror forced on, the pruned route)."""
+    import torch
+    from dingo_tpu_torch.index.factory import new_index
+
     saved = {f: TFLAGS.get(f)
              for f in ("vector_blocked_layout", "ivf_prune_scan")}
     try:
         TFLAGS.set("vector_blocked_layout", "true")
         TFLAGS.set("ivf_prune_scan", "true")
-        for kw in ({"precision": "bf16"}, {"precision": "sq8"}):
-            with pytest.raises(NotSupported):
-                new_index(1, TParam(index_type=TType.FLAT, dimension=256,
-                                    **kw), device="cpu")
+        idx = new_index(1, TParam(index_type=t, dimension=dim, ncentroids=4,
+                                  nsubvector=4, **kw), device="cpu")
     finally:
         for f, v in saved.items():
             TFLAGS.set(f, v)
-    import json
-    import tempfile
-    with tempfile.TemporaryDirectory() as snap:
-        with open(f"{snap}/meta.json", "w") as f:
-            json.dump({"index_type": "flat", "dimension": 8, "metric": "l2",
-                       "apply_log_id": 0, "precision": "sq8"}, f)
-        with pytest.raises(NotSupported):
-            index_from_reference(snap, device="cpu")
+    assert idx._precision == tier
+    x, q, _ = _data(50, 300, dim)
+    idx.upsert(np.arange(300), x)
+    want = {"bf16": torch.bfloat16, "sq8": torch.uint8}[tier]
+    assert idx.store.vecs.dtype == want
+    if t is TType.FLAT:
+        assert idx.store.vecs_blk.dtype == want
+    if idx.need_train():
+        idx.train()
+    res = idx.search(q, 5)
+    assert all(len(r.ids) == 5 for r in res)
+    # queries are stored rows plus small noise: their own row ranks first
+    assert sum(int(r.ids[0] in range(300)) for r in res) == len(res)
+
+
+def test_jax_sq8_snapshot_loads_into_the_port(tmp_path):
+    """A JAX sq8 FLAT snapshot (codes + codec, no rows) carries its tier
+    and its codes across: the port index holds the same codes and answers
+    as the JAX index does."""
+    n, d = 400, 16
+    x, q, _ = _data(51, n, d)
+    jidx = JFlat(3, JParam(index_type=JType.FLAT, dimension=d,
+                           precision="sq8"))
+    jidx.upsert(np.arange(n, dtype=np.int64), x)
+    jidx.save(str(tmp_path))
+    tidx = index_from_reference(str(tmp_path), device="cpu")
+    assert tidx._precision == "sq8"
+    np.testing.assert_array_equal(tidx.store.codes_to_host()["codes"],
+                                  jidx.store.codes_to_host()["codes"])
+    assert_same_results(jidx.search(q, 5), tidx.search(q, 5))
 
 
 def test_ivf_compaction_keeps_results(kernels_on):
