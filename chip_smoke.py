@@ -47,8 +47,9 @@ are compared come from the same card and minute. Data is BASELINE.json
 config 2 made with bench.py's recipe (seed 7, n // 1000 Gaussian centers +
 0.35 noise, queries = stored rows + 0.05 noise).
 
-The last line is ``{"ok": true, "device": {...}}``; any failed check exits
-nonzero before it. Imports nothing of JAX or of the JAX package.
+The last line is ``{"ok": true, "device": {...}}``. A failed check is
+printed and the run goes on through every phase; it then exits nonzero
+after the kernels line, without the last line. Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -101,9 +102,16 @@ class SmokeFailure(Exception):
     pass
 
 
+#: checks that failed: the run goes on through every phase and fails after
+#: the kernels line, without the last line
+FAILED: list = []
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
-        raise SmokeFailure(what)
+        FAILED.append(what)
+        print(f"FAIL {what}", flush=True)
+        return
     print(f"PASS {what}", flush=True)
 
 
@@ -210,9 +218,12 @@ def spread_text(xs) -> str:
 
 def pipelined_window(wrapper, queries, k, nprobe, reps=20):
     """One window of `reps` search_async dispatches resolved after the
-    last one (one host sync per reply), as a callable."""
+    last one (one host sync per reply), as a callable. nprobe None: a
+    FLAT index (no probes)."""
+    kw = {} if nprobe is None else {"nprobe": nprobe}
+
     def run_window():
-        thunks = [wrapper.search_async(queries, k, nprobe=nprobe)
+        thunks = [wrapper.search_async(queries, k, **kw)
                   for _ in range(reps)]
         for th in thunks:
             th()
@@ -223,8 +234,9 @@ def pipelined_ms(wrapper, queries, k, nprobe, reps=20) -> float:
     """Host ms per batch over one pipelined window, after warm-up."""
     import torch
 
+    kw = {} if nprobe is None else {"nprobe": nprobe}
     for _ in range(3):
-        wrapper.search_async(queries, k, nprobe=nprobe)()
+        wrapper.search_async(queries, k, **kw)()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pipelined_window(wrapper, queries, k, nprobe, reps)()
@@ -279,6 +291,48 @@ def timed_calls(module, name, spent: list):
 
     setattr(module, name, wrapper)
     return orig
+
+
+def b4_sass(cuda_build):
+    """Tensor-core instructions in each B4 scan kernel of the built
+    library (cuobjdump -sass; a failure to read it raises): {(arm,
+    opcode): count}, and whether any TF32 operation appears."""
+    import os
+
+    lib = cuda_build.build(["pruned_fused_topk"])["pruned_fused_topk"]
+    tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=120, check=True)
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif fn and "pruned_scan_kernel" in fn and "MMA" in line:
+            arm = ("f32" if "kernelIf" in fn else
+                   "sq8" if "kernelIh" in fn else "bf16")
+            op = next(t for t in line.split() if "MMA" in t)
+            counts[(arm, op)] = counts.get((arm, op), 0) + 1
+    return counts, "TF32" in out.stdout
+
+
+def b4_tiles_text(b4, stats) -> str:
+    """B4's scan counters after its last launch (count_tiles on): (tile,
+    block) steps computed, those pair by pair (the f32 arm), and the share
+    of the valid rows' block slices it read (rows computed / (valid rows
+    x blocks))."""
+    steps, sparse, rows = b4.tiles.tolist()
+    s = stats.double().sum(0).cpu().numpy()
+    nq = max(1, int((stats[:, 3] > 0).sum()))
+    pairs = s[1] / nq                     # valid rows x blocks, per query
+    return (f"; tile steps {steps}, sparse {sparse}, row slices read "
+            f"{rows / pairs if pairs else 0.0:.4f}")
+
+
+def b4_ratio_text(reads, new, old) -> str:
+    """Median (and range) of the per-round ratios reads[new] / reads[old]."""
+    r = np.divide(reads[new], reads[old])
+    return (f"per-round ratio {new} / {old} median {np.median(r):.4f} "
+            f"(min {r.min():.4f}, max {r.max():.4f})")
 
 
 def recall_at(res, gt, k) -> float:
@@ -659,6 +713,42 @@ def same_tier_results(a, b) -> bool:
     return True
 
 
+def f64_witness(res_a, res_b, queries, store) -> str:
+    """Two result lists of a float tier against f64 distances of the same
+    pairs under the tier's arithmetic (|q|^2 of the f32 query, the query
+    rounded to the rows' dtype in the dot, the stored row): each list's
+    largest |error|, and each position where the two differ by more than
+    RTOL/ATOL with both distances and the f64 ones."""
+    import torch
+
+    def exact(qi, ids):
+        slots = torch.as_tensor(store.slots_of(np.asarray(ids)),
+                                device=store.vecs.device)
+        rows = store.vecs[slots].double()
+        q = torch.as_tensor(queries[qi], device=rows.device)
+        qr = q.to(store.vecs.dtype).double()
+        q = q.double()
+        return ((q * q).sum() - 2.0 * (rows @ qr)
+                + (rows * rows).sum(1)).cpu().numpy()
+
+    err_a = err_b = 0.0
+    apart = []
+    for qi, (ra, rb) in enumerate(zip(res_a, res_b)):
+        fa, fb = exact(qi, ra.ids), exact(qi, rb.ids)
+        err_a = max(err_a, float(np.abs(ra.distances - fa).max()))
+        err_b = max(err_b, float(np.abs(rb.distances - fb).max()))
+        for r in range(min(len(ra.ids), len(rb.ids))):
+            if not np.isclose(ra.distances[r], rb.distances[r], rtol=RTOL,
+                              atol=ATOL):
+                apart.append(
+                    f"query {qi} rank {r} ids {ra.ids[r]}/{rb.ids[r]}: "
+                    f"{ra.distances[r]:.5f} / {rb.distances[r]:.5f}, f64 "
+                    f"{fa[r]:.5f} / {fb[r]:.5f}")
+    return (f"max |error| {err_a:.3g} / {err_b:.3g}; {len(apart)} positions "
+            f"apart by more than RTOL/ATOL" + "".join(
+                f"; {t}" for t in apart[:8]))
+
+
 def tier_phase(x, queries, extra, gt, nlist, card, fp32) -> list:
     """The bf16 and sq8 precision tiers at full width on the smoke's rows:
     for each tier a FLAT index searched before training (B4's arm of the
@@ -786,6 +876,9 @@ def tier_phase(x, queries, extra, gt, nlist, card, fp32) -> list:
         if tier == "bf16":
             check(launches["B1-bf16"] > 0 and plain_calls["B1-bf16"] == 0,
                   "bf16 FLAT search with pruning off ran B1's bf16 arm")
+            print("bf16 FLAT distances, pruned (B4) / plain arm, against "
+                  "f64: " + f64_witness(res_b4, res_plain, queries, st),
+                  flush=True)
             check(same_tier_results(res_b4, res_plain),
                   "bf16 FLAT pruned (B4) ids == plain-arm ids modulo ties")
         else:
@@ -1086,28 +1179,51 @@ def tier_phase(x, queries, extra, gt, nlist, card, fp32) -> list:
         for name, (kern, plain, cs) in cases.items():
             ok_all, err_all, frac = True, 0.0, None
             for tag, a_, kw in cs:
+                b4.count_tiles = True
                 kout = kern(*a_, **kw)
+                b4.count_tiles = False
                 pout = plain(*a_, **kw)
                 ok, err = kernel_parity(kout[0], kout[1], pout[0], pout[1])
                 if len(kout) == 3:
                     ok = ok and stats_ok(kout[2], pout[2])
+                    kf, pf = (pruned_fraction(kout[2]),
+                              pruned_fraction(pout[2]))
                     if tag == "L2":
-                        frac = (pruned_fraction(kout[2]),
-                                pruned_fraction(pout[2]))
+                        frac = (kf, pf)
+                    if tag in ("L2", "IP"):
+                        tiles = b4_tiles_text(b4, kout[2]) \
+                            if name.startswith("B4") else ""
+                        print(f"{name} {tag}: scanned fraction kernel "
+                              f"{1 - kf:.4f}, plain {1 - pf:.4f}{tiles}",
+                              flush=True)
                 check(ok, f"{name} kernel == plain, {tag} (max abs err "
                           f"{err:.3g})")
                 ok_all, err_all = ok_all and ok, max(err_all, err)
             arms[name] = {"ok": ok_all, "err": err_all, "frac": frac,
                           "run": (kern, cs[0][1], cs[0][2]),
+                          "ip": (kern, cs[1][1], cs[1][2]),
                           "plain": (plain, cs[0][1], cs[0][2])}
 
     # -- timings: the six arms alternating in each round --------------------
+    # (and B4's tier arms against B1-bf16 on IP, where little prunes)
     names = list(arms)
-    reads = {nm: [] for nm in names}
+    runs = {nm: arms[nm]["run"] for nm in names}
+    for nm in ("B1-bf16", "B4-bf16", "B4-sq8"):
+        runs[f"{nm} IP"] = arms[nm]["ip"]
+    order = list(runs)
+    reads = {nm: [] for nm in order}
     for r in range(ROUNDS):
-        for nm in names[r % len(names):] + names[:r % len(names)]:
-            kern, a_, kw = arms[nm]["run"]
+        for nm in order[r % len(order):] + order[:r % len(order)]:
+            kern, a_, kw = runs[nm]
             reads[nm].append(time_ms(lambda: kern(*a_, **kw), torch))
+    for tier in TIERS:
+        for tag in ("", " IP"):
+            print(f"[{card}] B4-{tier} against B1-bf16, "
+                  f"{'IP' if tag else 'L2'}: B4-{tier} "
+                  f"{spread_text(reads[f'B4-{tier}{tag}'])}, B1-bf16 "
+                  f"{spread_text(reads[f'B1-bf16{tag}'])}; "
+                  + b4_ratio_text(reads, f"B4-{tier}{tag}", f"B1-bf16{tag}"),
+                  flush=True)
     entries = []
     for nm in names:
         plain, a_, kw = arms[nm]["plain"]
@@ -1230,6 +1346,17 @@ def run(args) -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
+    sass, tf32 = b4_sass(cuda_build)
+    print("SASS of B4's scan kernels: " + ("; ".join(
+        f"{arm} {op} x{c}" for (arm, op), c in sorted(sass.items()))
+        or "no MMA") + f"; TF32 anywhere: {tf32}", flush=True)
+    for tier in TIERS:
+        check(any(arm == tier and "HMMA" in op and "BF16" in op
+                  for arm, op in sass),
+              f"B4-{tier}'s scan kernels issue bf16 tensor-core MMAs")
+    check(not any(arm == "f32" for arm, _ in sass),
+          "B4 f32's scan kernels issue no MMA")
+    check(not tf32, "no TF32 operation in B4's library")
 
     n, d, nlist, batch, k = args.n, args.d, args.nlist, 64, 10
     dev = torch.device("cuda")
@@ -1454,19 +1581,25 @@ def run(args) -> int:
         for metric_name, ascending in (("L2", True), ("IP", False)):
             for inbucket in (True, False):
                 a_ = mk(ascending, inbucket)
+                b4.count_tiles = True
                 kv, ki, ks = kern(*a_)
+                b4.count_tiles = False
+                tiles = b4_tiles_text(b4, ks) if name == "B4" else ""
                 pv, pi, ps = plain(*a_)
                 ok, err = kernel_parity(kv, ki, pv, pi)
                 ok = ok and stats_ok(ks, ps)
                 kf, pf = pruned_fraction(ks), pruned_fraction(ps)
                 print(f"{name} {metric_name} inbucket={int(inbucket)}: "
-                      f"pruned fraction kernel {kf:.4f}, plain {pf:.4f}; "
+                      f"pruned fraction kernel {kf:.4f}, plain {pf:.4f} "
+                      f"(scanned {1 - kf:.4f} / {1 - pf:.4f}){tiles}; "
                       f"max abs err {err:.3g}", flush=True)
                 check(ok, f"{name} {metric_name} inbucket={int(inbucket)} "
                           "kernel == plain (ids, scores, stats lanes)")
                 ok_all, err_all = ok_all and ok, max(err_all, err)
                 if ascending and inbucket:
                     pruned[name] = (kf, pf, ks)
+                elif inbucket:
+                    pruned[f"{name} IP"] = (kf, pf)
         pruned[name] += (ok_all, err_all)
 
     # -- incremental upsert + delete on the pruned routes ---------------------
@@ -1499,6 +1632,29 @@ def run(args) -> int:
     check(flat.get_count() == n and not any(
         (r.ids >= n).any() for r in res), "deleted rows are gone (B4)")
 
+    # -- pipelined FLAT serving: the default route (B4 over the mirror)
+    # against a store built without the mirror (B1), taking turns ---------
+    fpipe = {"B4": [], "B1": []}
+    for r in range(ROUNDS):
+        for nm in (("B4", "B1") if r % 2 == 0 else ("B1", "B4")):
+            idx_, kern = (flat, b4) if nm == "B4" else (flat1, b1)
+            before = kern.launches
+            fpipe[nm].append(pipelined_ms(idx_, queries, k, None))
+            if kern.launches == before:
+                raise SmokeFailure(f"pipelined FLAT search missed {nm}")
+    for nm, tag in (("B4", "default route, B4"), ("B1", "no mirror, B1")):
+        med = median_spread(fpipe[nm])[0]
+        print(f"[{card}] pipelined FLAT search ({tag}) b={batch} k={k} via "
+              f"search_async x20: {spread_text(fpipe[nm])} per batch "
+              f"({batch / med * 1e3:.0f} QPS at the median); readings "
+              f"{[round(v, 4) for v in fpipe[nm]]}", flush=True)
+    print(f"[{card}] pipelined FLAT " + b4_ratio_text(fpipe, "B4", "B1"),
+          flush=True)
+    for nm, idx_ in (("B4", flat), ("B1", flat1)):
+        print(f"[{card}] profile, pipelined FLAT search ({nm}) x20: "
+              + device_profile(pipelined_window(idx_, queries, k, None)),
+              flush=True)
+
     # -- IVF_PQ at BASELINE config 3's widths: the B5 route ------------------
     pq = ivf_pq_phase(x, queries, extra, gt, nlist, PQ_M, card)
     # B5 on the same probes at B2's k, and with codes whose lookups hit 32
@@ -1516,6 +1672,9 @@ def run(args) -> int:
     timed = {
         "B1": lambda: b1(qpad, fstore.vecs, fstore.sqnorm, fmask, k),
         "B4": lambda: b4(*b4_args(True, True)),
+        "B1 IP": lambda: b1(qpad, fstore.vecs, fstore.sqnorm, fmask, k,
+                            False),
+        "B4 IP": lambda: b4(*b4_args(False, True)),
         "B2": lambda: b2(*b2_args),
         "B3": lambda: b3(*b3_args(True, True)),
         "B5": lambda: kernel_pq.ivf_pq_adc_topk(*pq["args"]),
@@ -1617,6 +1776,15 @@ def run(args) -> int:
         print(f"[{card}] {new} / {old} (pruned / unpruned kernel), per-round "
               f"ratio median {np.median(ratios):.4f} (min {ratios.min():.4f}"
               f", max {ratios.max():.4f})", flush=True)
+    print(f"[{card}] B4 f32 against B1 f32, L2 (B4 scanned fraction kernel "
+          f"{b4_kfrac:.4f}, plain {b4_pfrac:.4f}): B4 "
+          f"{spread_text(reads['B4'])}, B1 {spread_text(reads['B1'])}; "
+          + b4_ratio_text(reads, "B4", "B1"), flush=True)
+    print(f"[{card}] B4 f32 against B1 f32, IP (B4 scanned fraction kernel "
+          f"{1 - pruned['B4 IP'][0]:.4f}, plain {1 - pruned['B4 IP'][1]:.4f}"
+          f"): B4 {spread_text(reads['B4 IP'])}, B1 "
+          f"{spread_text(reads['B1 IP'])}; "
+          + b4_ratio_text(reads, "B4 IP", "B1 IP"), flush=True)
 
     # -- the precision tiers: release the fp32 FLAT stores and the IVF_PQ
     # state first (their peaks would add up); the fp32 IVF_FLAT region
@@ -1685,6 +1853,8 @@ def run(args) -> int:
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
+    if FAILED:
+        raise SmokeFailure(f"{len(FAILED)} checks failed: {FAILED}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

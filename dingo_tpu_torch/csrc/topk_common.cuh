@@ -12,8 +12,10 @@
 // than k valid rows keeps (-inf, -1) entries, the contract of every exit.
 //
 // Row element types of the precision tiers, shared by every scan: float
-// (fp32 rows), __nv_bfloat16 (bf16 rows) and uint8_t (sq8 codes). A scan
-// converts each element to f32 on load and runs its f32 tile unchanged:
+// (fp32 rows), __nv_bfloat16 (bf16 rows) and uint8_t (sq8 codes). The
+// CUDA-core scans convert each element to f32 on load and run their f32
+// tile unchanged (B4's bf16 arms feed the tensor cores instead, with the
+// same sq8 decode):
 //   bf16  widens exactly (__bfloat162float);
 //   sq8   decodes code * scale[j] + vmin[j] in f32 with __fmul_rn then
 //         __fadd_rn (no contraction into an FMA: numpy and the JAX package
@@ -254,12 +256,15 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
 // one block per row picks the top k by k rounds of a block-wide argmax
 // (ties -> lowest candidate position, i.e. the earliest list). Taken
 // candidates are marked NaN in cand_v, which is scratch. Writes slot -1
-// wherever the picked score is -inf.
+// wherever the picked score is -inf. With thr (B4's seed) it publishes
+// each row's k-th best, where finite, by atomicMax on its ordered image,
+// and out_v/out_i may be null.
 template <int THREADS>
 __global__ void merge_candidates(float* __restrict__ cand_v,
                                  const int* __restrict__ cand_i, int m,
                                  int k, float* __restrict__ out_v,
-                                 int* __restrict__ out_i) {
+                                 int* __restrict__ out_i,
+                                 int* __restrict__ thr = nullptr) {
   constexpr int NW = THREADS / 32;
   __shared__ float sv[NW];
   __shared__ int si[NW];
@@ -291,8 +296,12 @@ __global__ void merge_candidates(float* __restrict__ cand_v,
       }
       if (lane == 0) {
         const bool none = bidx == INT_MAX || best == -CUDART_INF_F;
-        out_v[(size_t)row * k + r] = best;
-        out_i[(size_t)row * k + r] = none ? -1 : ci[bidx];
+        if (out_v != nullptr) {
+          out_v[(size_t)row * k + r] = best;
+          out_i[(size_t)row * k + r] = none ? -1 : ci[bidx];
+        }
+        if (thr != nullptr && r == k - 1 && !none)
+          atomicMax(thr + row, ord_of(best));
         if (bidx != INT_MAX) cv[bidx] = CUDART_NAN_F;
       }
     }
@@ -310,7 +319,7 @@ inline int lanes_per_row(int len, bool vec) {
   return (vec && (g == 16 || g == 8)) ? g : 32;
 }
 
-// Row tiles of the register-blocked scans (B1, B4): a 128-row x 16-column
+// Row tiles of the register-blocked scan (B1): a 128-row x 16-column
 // step of x goes through registers (8 values per thread of 256) into the
 // transposed shared tile Xs[16][ld]. f32 rows load one element per thread
 // and slot (consecutive threads on consecutive columns). bf16 rows and sq8

@@ -117,7 +117,7 @@ def scan_unit_plain(q: torch.Tensor, qsq: torch.Tensor, qpsq: torch.Tensor,
                     alive: torch.Tensor, ids: torch.Tensor,
                     best_v: torch.Tensor, best_i: torch.Tensor,
                     stats: torch.Tensor, k: int, ascending: bool,
-                    check_every: int, inbucket: bool):
+                    check_every: int, inbucket: bool, init_thr=None):
     """One pruned scan unit (a probed bucket in B3, a row block in B4) for
     every query at once, in the JAX kernels' step order.
 
@@ -126,8 +126,9 @@ def scan_unit_plain(q: torch.Tensor, qsq: torch.Tensor, qpsq: torch.Tensor,
     jb as the arm multiplies them (arm_rows; u = b per-query buckets, or 1
     shared rows); bsq [u, nblk,
     C]; xsq [u, C]; alive [b, C] f32 (1 = a candidate of this unit); ids
-    [u, C] i32. Adds to stats [b, 4] in place; returns the new running
-    (best_v, best_i) [b, k]."""
+    [u, C] i32; init_thr [b] f32 or None, a prune threshold the running
+    k-th best starts from. Adds to stats [b, 4] in place; returns the new
+    running (best_v, best_i) [b, k]."""
     b, c = alive.shape
     nblk = qpsq.shape[1]
     dblk = q.shape[1] // nblk
@@ -152,6 +153,8 @@ def scan_unit_plain(q: torch.Tensor, qsq: torch.Tensor, qpsq: torch.Tensor,
         cum = cum + dots
         xpsq = xpsq + bsq[:, jb]
         bound = best_v[:, k - 1:k]                  # running k-th best
+        if init_thr is not None:
+            bound = torch.maximum(bound, init_thr[:, None])
         qpsq_j = qpsq[:, jb:jb + 1]
         qtail = torch.clamp_min(qsq[:, None] - qpsq_j, 0.0)
         xtail = torch.clamp_min(xsq - xpsq, 0.0)

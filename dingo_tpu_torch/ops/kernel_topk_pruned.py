@@ -23,6 +23,17 @@ package's. The kernel splits the slot range across CTAs, so it prunes in
 another order: lanes 1 and 3 equal the plain version's, lanes 0 and 2
 only keep 0 <= lane0 <= lane1 and lane2 <= lane3.
 
+Before its scan the kernel seeds each query's threshold with the k-th
+best exact score over a strided sample of slots (``seed_slots``: every
+SEED_STRIDE-th slot). The plain version takes the same seed through
+``init_thr`` (``seed_threshold_plain`` computes it); by default it starts
+unseeded, as the JAX kernel does. With ``pruned_fused_topk.count_tiles``
+set, ``pruned_fused_topk.tiles`` holds, after a launch, the device counters
+of its scan: (tile, block) steps computed, those on the f32 arm's pair by
+pair path, and rows computed in all steps (rows computed / (valid rows x
+blocks) is the share of the mirror's row bytes it read). Searches leave
+the counters off.
+
 Bound on an H100 and design: see the note at the top of the CUDA source.
 """
 
@@ -46,6 +57,9 @@ from dingo_tpu_torch.ops.kernel_topk import K_MAX, split_rows
 
 #: the JAX package's row block (pallas_topk.pruned_fused_search default)
 BLOCK = 2048
+#: the seed samples every SEED_STRIDE-th slot (n / 64 rows: ~1.5% of a
+#: full scan's work)
+SEED_STRIDE = 64
 
 #: mirror dtype -> (C entry point, launch counter attribute)
 ARMS = {torch.float32: ("dingo_pruned_fused_topk", "launches"),
@@ -61,8 +75,8 @@ def _launcher(dtype: torch.dtype = torch.float32):
         fn = getattr(lib, ARMS[dtype][0])
         fn.restype = ctypes.c_int
         codec = 2 if dtype == torch.uint8 else 0
-        fn.argtypes = ([ctypes.c_void_p] * (1 + codec + 5)
-                       + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 7)
+        fn.argtypes = ([ctypes.c_void_p] * (1 + codec + 6)
+                       + [ctypes.c_int] * 12 + [ctypes.c_void_p] * 10)
         _fns[dtype] = (lib, fn)
     return _fns[dtype]
 
@@ -72,12 +86,14 @@ def pruned_fused_topk_plain(q: torch.Tensor, x_blk: torch.Tensor,
                             valid: torch.Tensor, k: int,
                             ascending: bool = True, check_every: int = 1,
                             inbucket: bool = True, block: int = BLOCK,
-                            sq_vmin=None, sq_scale=None
+                            sq_vmin=None, sq_scale=None, init_thr=None
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """Plain PyTorch version of B4, every arm (the mirror's dtype picks
     it) -> (scores[b, k], slots[b, k], stats[b, 4] f32). n must be a
-    multiple of `block`."""
+    multiple of `block`. init_thr [b] f32, if given, is a starting prune
+    threshold per query (a score that k real rows reach, as the kernel's
+    seed)."""
     nblk, n, dblk = x_blk.shape
     if n % block:
         raise ValueError(f"n={n} not a multiple of block={block}")
@@ -100,10 +116,32 @@ def pruned_fused_topk_plain(q: torch.Tensor, x_blk: torch.Tensor,
             lambda jb: arm_rows(x_blk[jb, sl][None], jb * dblk, sq_vmin,
                                 sq_scale),
             bsq_blk[:, sl][None], x_sqnorm[sl][None], alive, gidx[sl][None],
-            best_v, best_i, stats, k, ascending, check_every, inbucket)
+            best_v, best_i, stats, k, ascending, check_every, inbucket,
+            init_thr)
     best_i = torch.where(torch.isneginf(best_v),
                          torch.full_like(best_i, -1), best_i)
     return best_v, best_i, stats
+
+
+def seed_slots(n: int, device=None) -> torch.Tensor:
+    """The slots the kernel's seed launch scores: every SEED_STRIDE-th."""
+    return torch.arange(0, n, SEED_STRIDE, dtype=torch.long, device=device)
+
+
+def seed_threshold_plain(q: torch.Tensor, x_blk: torch.Tensor,
+                         bsq_blk: torch.Tensor, x_sqnorm: torch.Tensor,
+                         valid: torch.Tensor, k: int, ascending: bool = True,
+                         sq_vmin=None, sq_scale=None) -> torch.Tensor:
+    """Each query's k-th best exact score over the seed sample (-inf where
+    the sample holds fewer than k valid rows), [b] f32: the threshold the
+    kernel's seed launch publishes, by the plain arithmetic."""
+    idx = seed_slots(x_blk.shape[1], x_blk.device)
+    nblk = x_blk.shape[0]
+    vals, _, _ = pruned_fused_topk_plain(
+        q, x_blk[:, idx].contiguous(), bsq_blk[:, idx].contiguous(),
+        x_sqnorm[idx], valid[idx], k, ascending, nblk + 1, False,
+        len(idx), sq_vmin, sq_scale)
+    return vals[:, k - 1]
 
 
 def pruned_fused_topk(q: torch.Tensor, x_blk: torch.Tensor,
@@ -155,29 +193,42 @@ def pruned_fused_topk(q: torch.Tensor, x_blk: torch.Tensor,
         raise ValueError("pruned_fused_topk: tensors must be contiguous")
     dev = q.device
     qpsq = query_prefix_sqnorms(q, dblk).contiguous()
-    rows = split_rows(n, b, torch.cuda.get_device_properties(dev)
-                      .multi_processor_count)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = split_rows(n, b, sms)
     nsplit = -(-n // rows)
+    nseed = -(-n // SEED_STRIDE)
+    seed_rows = split_rows(nseed, b, sms)
+    seed_split = -(-nseed // seed_rows)
     thr = torch.full((b,), ord_neg_inf(), dtype=torch.int32, device=dev)
     stats = torch.zeros((b, 4), dtype=torch.int32, device=dev)
+    tiles = torch.zeros((3,), dtype=torch.int32, device=dev) \
+        if pruned_fused_topk.count_tiles else None
     cand_v = torch.empty((b, nsplit, k), dtype=torch.float32, device=dev)
     cand_i = torch.empty((b, nsplit, k), dtype=torch.int32, device=dev)
+    seed_v = torch.empty((b, seed_split, k), dtype=torch.float32, device=dev)
+    seed_i = torch.empty((b, seed_split, k), dtype=torch.int32, device=dev)
     out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
-    # bf16: 8 values (16 bytes), codes: 8 (8 bytes) per thread and step
+    # 16-byte loads: 8 bf16 values or 16 codes
     vec = x_blk.dtype != torch.float32 \
         and dblk % (16 // x_blk.element_size()) == 0 \
         and x_blk.data_ptr() % 16 == 0
     lib, fn = _launcher(x_blk.dtype)
     stream = torch.cuda.current_stream(dev).cuda_stream
     codec = (sq_vmin.data_ptr(), sq_scale.data_ptr()) if sq else ()
-    rc = fn(x_blk.data_ptr(), *codec, q.data_ptr(), qpsq.data_ptr(),
+    # the bf16 and sq8 arms multiply the query rounded to bf16 (arm_query)
+    q16 = None if x_blk.dtype == torch.float32 else q.to(torch.bfloat16)
+    rc = fn(x_blk.data_ptr(), *codec, q.data_ptr(),
+            None if q16 is None else q16.data_ptr(), qpsq.data_ptr(),
             bsq_blk.data_ptr(), x_sqnorm.data_ptr(),
             valid.view(torch.uint8).data_ptr(), b, n, d, dblk, k,
             int(ascending), int(check_every), int(inbucket), rows, int(vec),
-            thr.data_ptr(), stats.data_ptr(), cand_v.data_ptr(),
-            cand_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), stream)
+            SEED_STRIDE, seed_rows, thr.data_ptr(), stats.data_ptr(),
+            None if tiles is None else tiles.data_ptr(), cand_v.data_ptr(),
+            cand_i.data_ptr(), seed_v.data_ptr(), seed_i.data_ptr(),
+            out_v.data_ptr(), out_i.data_ptr(), stream)
     cuda_build.check_launch(lib, rc, "pruned_fused_topk")
+    pruned_fused_topk.tiles = tiles
     counter = ARMS[x_blk.dtype][1]
     setattr(pruned_fused_topk, counter,
             getattr(pruned_fused_topk, counter) + 1)
@@ -187,6 +238,9 @@ def pruned_fused_topk(q: torch.Tensor, x_blk: torch.Tensor,
 pruned_fused_topk.launches = 0
 pruned_fused_topk.launches_bf16 = 0
 pruned_fused_topk.launches_sq8 = 0
+#: set to fill pruned_fused_topk.tiles with the scan's counters
+pruned_fused_topk.count_tiles = False
+pruned_fused_topk.tiles = None
 
 
 def pruned_fused_search(q: torch.Tensor, x_blk: torch.Tensor,

@@ -8,7 +8,9 @@ and spill buckets that share a table. The bf16 and sq8 arms of B1-B4 run
 the same kinds of cases, k 1, 10 and 64, both load widths (a dimension or
 block that is not a multiple of the 16-byte load, and a row array that is
 not 16-byte aligned, take the scalar path), and the index routes of both
-tiers on the device.
+tiers on the device. B4's seeded scan runs in every arm on data where its
+later blocks prune (the f32 arm's then run pair by pair) and on data where
+nothing dies.
 
 Marked ``gpu``: on a machine without a CUDA device each test skips (the
 decision is made inside the test). Run on the card with
@@ -619,3 +621,83 @@ def test_tier_indexes_serve_through_their_arms_on_device(tier):
             np.testing.assert_allclose(np.maximum(ra.distances, 0.0),
                                        np.maximum(rb.distances, 0.0),
                                        rtol=RTOL, atol=CROSS_ATOL)
+
+
+# B4's seeded scan in every arm. "pruning" cases: eight queries over 64
+# clusters of clustered rows (the seed's strided sample holds at least k
+# rows of each query's cluster), where most pairs die after the first
+# block; the kernel must then prune about as much as the plain version
+# (scanned fraction within 0.15 of it). The f32 arm's later blocks run on
+# the rows still alive for some query, pair by pair; the bf16 and sq8 arms
+# keep every row of a tile that has one alive.
+# "edge" cases: clustered rows at k 64, a row count that is not a multiple
+# of 128 and a sparse valid mask. "dense" cases: IP on uniform rows, where
+# rows stay alive for some query and every block stays on the dense path.
+B4_ARMS = ["f32", "bf16", "sq8"]
+B4_CASES = [
+    # b, n, d, dblk, k, ascending, keep, data
+    (8, 65536, 256, 32, 10, True, 1.0, "pruning"),
+    (8, 65536, 256, 32, 1, True, 1.0, "pruning"),      # k 1
+    (8, 65536, 100, 20, 10, True, 1.0, "pruning"),     # scalar loads
+    (40, 20000, 256, 32, 64, True, 0.3, "edge"),
+    (64, 16384, 256, 32, 10, False, 1.0, "dense"),
+    (17, 5000, 100, 20, 10, False, 1.0, "dense"),      # scalar loads
+]
+
+
+def _b4_scanned(stats):
+    s = stats.double().sum(0).cpu().numpy()
+    return s[0] / s[1]
+
+
+@pytest.mark.parametrize("arm", B4_ARMS)
+@pytest.mark.parametrize("b,n,d,dblk,k,ascending,keep,data", B4_CASES)
+def test_pruned_fused_topk_seeded_compacted_scan(arm, b, n, d, dblk, k,
+                                                 ascending, keep, data):
+    from dingo_tpu_torch.ops import blocked
+    from dingo_tpu_torch.ops import kernel_topk_pruned as b4
+
+    dev = _cuda()
+    g = torch.Generator(device="cpu").manual_seed(n + b + d + k)
+    if data == "dense":
+        raw = (torch.rand((n, d), generator=g) - 0.5).to(dev)
+        q = (torch.rand((b, d), generator=g) - 0.5).to(dev)
+    else:
+        raw = _clustered(g, n, d, ncl=64 if data == "pruning" else 16).to(dev)
+        q = raw[torch.randint(0, n, (b,), generator=g).to(dev)] + 0.05 * \
+            torch.randn((b, d), generator=g).to(dev)
+    if arm == "f32":
+        rows, f32, kw = raw, raw, {}
+    else:
+        rows, f32, kw = _tier_rows(raw, arm)
+    x_blk = blocked.to_blocked(rows, dblk)
+    xsq = (f32 * f32).sum(1)
+    bsq = blocked.block_sqnorms(f32, dblk)
+    valid = (torch.rand(n, generator=g) < keep).to(dev)
+    args = (q, x_blk, bsq, xsq, valid, k, ascending, 1, True)
+    counter = "launches" if arm == "f32" else f"launches_{arm}"
+    before = getattr(b4.pruned_fused_topk, counter)
+    b4.pruned_fused_topk.count_tiles = True
+    try:
+        kv, ki, ks = b4.pruned_fused_topk(*args, **kw)
+    finally:
+        b4.pruned_fused_topk.count_tiles = False
+    assert getattr(b4.pruned_fused_topk, counter) == before + 1
+    steps, sparse, rows_read = b4.pruned_fused_topk.tiles.tolist()
+    # the plain version walks row blocks of BLOCK slots where they divide n
+    block = b4.BLOCK if n % b4.BLOCK == 0 else n
+    pv, pi, ps = b4.pruned_fused_topk_plain(*args, block=block, **kw)
+    torch.cuda.synchronize()
+    _assert_parity(kv, ki, pv, pi)
+    _assert_stats(ks, ps)
+    nblk = d // dblk
+    assert 0 < steps and rows_read <= int(valid.sum()) * nblk
+    if arm != "f32":
+        assert sparse == 0       # the tensor-core arms stay dense
+    if data == "pruning":
+        assert _b4_scanned(ks) <= _b4_scanned(ps) + 0.15
+        if arm == "f32":         # blocks ran pair by pair on fewer rows
+            assert sparse > 0
+            assert rows_read < 0.5 * int(valid.sum()) * nblk
+    elif data == "dense":          # (nearly) every block slice is read
+        assert rows_read >= 0.9 * int(valid.sum()) * nblk

@@ -204,6 +204,38 @@ def test_sq_scores_match_jax(metric):
                                atol=ATOL)
 
 
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_bf16_scores_blocked_and_exact(metric):
+    """bf16 rows at 768 dims (six DOT_BLOCKs), norms ~860 as in the chip
+    smoke's recipe: the plain score arm equals the JAX package's within
+    the kernel tolerance and lies within ATOL of the f64 score under the
+    tier's arithmetic (f32 |q|^2, bf16 query in the dot, bf16 rows); f32
+    rows keep one product."""
+    from dingo_tpu.ops.distance import score_matrix as j_score
+    from dingo_tpu_torch.ops.distance import DOT_BLOCK, _dot, score_matrix
+
+    d = 768
+    assert d > DOT_BLOCK
+    x, q, _ = _corpus(11, 2048, d=d, ncl=8, nq=8)
+    x = x * np.float32(0.35 / 0.3)
+    xb = _bf16_np(x)
+    xb32 = xb.astype(np.float32)
+    xsq = _norms(xb32)
+    got = score_matrix(_t(q), _bf16_t(x), TMetric(metric),
+                       x_sqnorm=_t(xsq)).numpy()
+    want = np.asarray(j_score(jnp.asarray(q), jnp.asarray(xb),
+                              JMetric(metric), x_sqnorm=jnp.asarray(xsq)))
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    qb = _bf16_np(q).astype(np.float64)
+    dots = qb @ xb32.astype(np.float64).T
+    exact = dots if metric == "ip" else -(
+        (q.astype(np.float64) ** 2).sum(1)[:, None] - 2.0 * dots
+        + xsq.astype(np.float64)[None, :])
+    assert np.abs(got - exact).max() <= ATOL
+    x32 = _t(xb32)
+    assert torch.equal(_dot(_t(q), x32), _t(q) @ x32.T)
+
+
 # -- precision resolution ----------------------------------------------------
 @pytest.mark.parametrize("kw,flag", [
     ({}, "fp32"), ({}, "sq8"), ({"precision": "bfloat16"}, "fp32"),
