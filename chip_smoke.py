@@ -39,9 +39,16 @@ row, in-place writes on every route, device bytes beside fp32's,
 pipelined timing with fp32 and both tiers taking turns, a profile of the
 sq8 route, and five kernel-vs-plain cases per arm. Every kernel is
 held against its plain PyTorch version on the card (B3/B4 for L2 and IP,
-the in-bucket refresh on and off; B5 with spill buckets, a filter and
-fewer valid rows than k), and the launches each serving path made are
-counted. Timings are medians over ROUNDS rounds in which the routes
+the in-bucket refresh on and off; B3 also on a filter and on fewer valid
+rows than k; B5 with spill buckets, a filter and fewer valid rows than
+k), and the launches each serving path made are counted. B3's staged row
+slices (``count_staged``) are held against the per-(query, rank) total
+(at most half) and printed beside the distinct-bucket total; B3 is timed
+with and without its rank-0 seed launch. A filtered search, and an IP
+and a COSINE region (a quarter of the rows), run on the B3 and B2 routes
+through the wrapper with the same ids modulo ties, and a search's
+dispatch runs under ``torch.cuda.set_sync_debug_mode("error")`` (no host
+sync before its resolve). Timings are medians over ROUNDS rounds in which the routes
 (pipelined searches) or the five kernels take turns, so two readings that
 are compared come from the same card and minute. Data is BASELINE.json
 config 2 made with bench.py's recipe (seed 7, n // 1000 Gaussian centers +
@@ -151,14 +158,22 @@ def exact_topk(x: np.ndarray, q: np.ndarray, k: int) -> np.ndarray:
     return out
 
 
-def exact_dists(x, q, ids) -> np.ndarray:
+def exact_dists(x, q, ids, metric: str = "L2") -> np.ndarray:
+    """Exact (f64) smaller-is-better scores of rows `ids` for query q: the
+    squared L2 distance, or the negated inner product (IP) or cosine."""
     rows = x[ids].astype(np.float64)
-    return ((rows - q.astype(np.float64)[None, :]) ** 2).sum(1)
+    q = q.astype(np.float64)
+    if metric == "L2":
+        return ((rows - q[None, :]) ** 2).sum(1)
+    if metric == "COSINE":
+        rows = rows / np.linalg.norm(rows, axis=1, keepdims=True)
+        q = q / np.linalg.norm(q)
+    return -(rows @ q)
 
 
-def same_modulo_ties(x, queries, got, want) -> bool:
-    """Each query's id list is a valid exact top-k: sorted f64 distances
-    of `got` and `want` agree within TIE_RTOL."""
+def same_modulo_ties(x, queries, got, want, metric: str = "L2") -> bool:
+    """Each query's id list is a valid exact top-k: sorted f64 scores of
+    `got` and `want` agree within TIE_RTOL."""
     for qi in range(len(queries)):
         g = np.asarray(got[qi], np.int64)
         w = np.asarray(want[qi], np.int64)
@@ -166,8 +181,8 @@ def same_modulo_ties(x, queries, got, want) -> bool:
             return False
         if set(g.tolist()) == set(w.tolist()):
             continue
-        dg = np.sort(exact_dists(x, queries[qi], g))
-        dw = np.sort(exact_dists(x, queries[qi], w))
+        dg = np.sort(exact_dists(x, queries[qi], g, metric))
+        dw = np.sort(exact_dists(x, queries[qi], w, metric))
         if not np.allclose(dg, dw, rtol=TIE_RTOL, atol=0.0):
             return False
     return True
@@ -293,13 +308,13 @@ def timed_calls(module, name, spent: list):
     return orig
 
 
-def b4_sass(cuda_build):
-    """Tensor-core instructions in each B4 scan kernel of the built
+def sass_mma(cuda_build, lib_name: str, kernel: str):
+    """Tensor-core instructions in each arm of a scan kernel of a built
     library (cuobjdump -sass; a failure to read it raises): {(arm,
     opcode): count}, and whether any TF32 operation appears."""
     import os
 
-    lib = cuda_build.build(["pruned_fused_topk"])["pruned_fused_topk"]
+    lib = cuda_build.build([lib_name])[lib_name]
     tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
     out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                          text=True, timeout=120, check=True)
@@ -307,7 +322,7 @@ def b4_sass(cuda_build):
     for line in out.stdout.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-        elif fn and "pruned_scan_kernel" in fn and "MMA" in line:
+        elif fn and kernel in fn and "MMA" in line:
             arm = ("f32" if "kernelIf" in fn else
                    "sq8" if "kernelIh" in fn else "bf16")
             op = next(t for t in line.split() if "MMA" in t)
@@ -328,6 +343,29 @@ def b4_tiles_text(b4, stats) -> str:
             f"{rows / pairs if pairs else 0.0:.4f}")
 
 
+def b3_staged_report(name, staged, stats, vprobes, cap, nblk,
+                     scanned) -> None:
+    """B3's staged row slices (count_staged) beside the distinct-bucket
+    total (each probed bucket's rows once per block) and the per-(query,
+    rank) total (lane 0 summed: what a walk per pair reads). Checks that a
+    bucket is staged once per item group (at most half the per-pair
+    total) and that the kernel's scanned fraction (lane 0 / lane 1) is
+    within 0.10 of the plain version's; scanned = (kernel, plain)."""
+    vp = vprobes.cpu().numpy()
+    distinct = len(np.unique(vp[vp >= 0])) * cap * nblk
+    lane0 = int(stats[:, 0].double().sum())
+    print(f"{name} L2 row slices staged {staged}, distinct-bucket total "
+          f"{distinct} (buckets x cap x blocks), per-(query, rank) total "
+          f"{lane0} (lane 0 summed): staged / lane 0 "
+          f"{staged / max(1, lane0):.4f}, staged / distinct "
+          f"{staged / max(1, distinct):.4f}", flush=True)
+    check(staged <= 0.5 * lane0, f"{name}: staged row slices <= half the "
+          "per-(query, rank) total")
+    check(abs(scanned[0] - scanned[1]) <= 0.10,
+          f"{name}: scanned fraction within 0.10 of the plain version's "
+          f"({scanned[0]:.4f} / {scanned[1]:.4f})")
+
+
 def b4_ratio_text(reads, new, old) -> str:
     """Median (and range) of the per-round ratios reads[new] / reads[old]."""
     r = np.divide(reads[new], reads[old])
@@ -341,11 +379,12 @@ def recall_at(res, gt, k) -> float:
     return hits / (len(gt) * k)
 
 
-def device_profile(fn, top: int = 8) -> str:
+def device_profile(fn, top: int = 8, was: str = "") -> str:
     """Run fn once under torch.profiler and describe the card's side of it:
     the device time of the `top` heaviest kernels (and copies), and the
     device's busy share (union of their intervals) of the window's wall
-    time, profiler overhead included."""
+    time, profiler overhead included; `was` is the same window's busy
+    share in an earlier run (PERF.md), printed beside it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -378,8 +417,62 @@ def device_profile(fn, top: int = 8) -> str:
     heavy = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     rows = "; ".join(f"{name[:60]} {ms:.3f} ms x{cnt}"
                      for name, (ms, cnt) in heavy)
+    was = f" (PR 5's run: {was})" if was else ""
     return (f"wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
-            f"({busy / wall_ms:.1%}); by device time: {rows}")
+            f"({busy / wall_ms:.1%}){was}; by device time: {rows}")
+
+
+def metric_regions(x, queries, nlist) -> None:
+    """An IP and a COSINE IVF_FLAT region (the first quarter of the rows,
+    nlist / 4) served through the wrapper on the pruned route (B3) and on
+    the unpruned one (B2): ids equal modulo ties of the region's metric."""
+    import torch
+
+    from dingo_tpu_torch.common.config import FLAGS
+    from dingo_tpu_torch.index.base import IndexParameter, IndexType
+    from dingo_tpu_torch.index.wrapper import VectorIndexWrapper
+    from dingo_tpu_torch.ops import kernel_ivf, kernel_ivf_pruned
+    from dingo_tpu_torch.ops.distance import Metric
+
+    b2, b3 = kernel_ivf.ivf_list_topk, kernel_ivf_pruned.ivf_pruned_topk
+    n, d, k = x.shape[0] // 4, x.shape[1], 10
+    for ri, (metric, tag) in enumerate(((Metric.INNER_PRODUCT, "IP"),
+                                        (Metric.COSINE, "COSINE"))):
+        t0 = time.perf_counter()
+        w = VectorIndexWrapper(30 + ri, IndexParameter(
+            index_type=IndexType.IVF_FLAT, dimension=d, metric=metric,
+            ncentroids=max(16, nlist // 4), default_nprobe=32),
+            device=torch.device("cuda"))
+        w.set_own(w.build_own())
+        idx = w.own_index
+        idx.store.reserve(n)
+        for lo in range(0, n, 65536):
+            w.add(np.arange(lo, min(n, lo + 65536), dtype=np.int64),
+                  x[lo:min(n, lo + 65536)], lo // 65536 + 1)
+        idx.train()
+        before = b3.launches
+        res3 = w.search(queries, k, nprobe=32)
+        ran3 = b3.launches > before
+        saved = set_flags(FLAGS, ivf_prune_scan=False)
+        try:
+            idx.compact()
+            before = b2.launches
+            res2 = w.search(queries, k, nprobe=32)
+            ran2 = b2.launches > before
+        finally:
+            for f_, v_ in saved.items():
+                FLAGS.set(f_, v_)
+        torch.cuda.synchronize()
+        print(f"{tag} IVF_FLAT region ({n} rows, nlist "
+              f"{max(16, nlist // 4)}): B3 and B2 searched at nprobe 32 in "
+              f"{time.perf_counter() - t0:.1f} s with ingest and train",
+              flush=True)
+        check(ran3 and ran2 and same_modulo_ties(
+            x, queries, [r.ids for r in res3], [r.ids for r in res2], tag),
+              f"{tag} IVF_FLAT region through the wrapper: B3 ids == B2 ids "
+              "modulo ties (nprobe 32)")
+        del w, idx, res3, res2
+        torch.cuda.empty_cache()
 
 
 def ivf_pq_phase(x, queries, extra, gt, nlist, m, card) -> dict:
@@ -569,8 +662,8 @@ def ivf_pq_phase(x, queries, extra, gt, nlist, m, card) -> dict:
     saved = set_flags(FLAGS, ivfpq_rerank_factor=6)
     try:
         print(f"[{card}] profile, pipelined IVF_PQ B5 route x20: "
-              + device_profile(pipelined_window(wrapper, queries, k, 32)),
-              flush=True)
+              + device_profile(pipelined_window(wrapper, queries, k, 32),
+                               was="49.9%"), flush=True)
     finally:
         for f_, v_ in saved.items():
             FLAGS.set(f_, v_)
@@ -1056,7 +1149,11 @@ def tier_phase(x, queries, extra, gt, nlist, card, fp32) -> list:
               f"{np.median(np.divide(pipe[tier], pipe['fp32'])):.4f}",
               flush=True)
     print(f"[{card}] profile, pipelined IVF search (sq8, B3-sq8) x20: "
-          + device_profile(pipelined_window(wrappers["sq8"], queries, k, 32)),
+          + device_profile(pipelined_window(wrappers["sq8"], queries, k, 32),
+                           was="40.4%"), flush=True)
+    print(f"[{card}] profile, pipelined IVF search (bf16, B3-bf16) x20: "
+          + device_profile(pipelined_window(wrappers["bf16"], queries, k,
+                                            32), was="not measured"),
           flush=True)
 
     # -- each arm against its plain version, at the path's shapes ----------
@@ -1179,9 +1276,10 @@ def tier_phase(x, queries, extra, gt, nlist, card, fp32) -> list:
         for name, (kern, plain, cs) in cases.items():
             ok_all, err_all, frac = True, 0.0, None
             for tag, a_, kw in cs:
-                b4.count_tiles = True
+                b4.count_tiles = b3.count_staged = True
                 kout = kern(*a_, **kw)
-                b4.count_tiles = False
+                b4.count_tiles = b3.count_staged = False
+                staged = b3.staged if name.startswith("B3") else None
                 pout = plain(*a_, **kw)
                 ok, err = kernel_parity(kout[0], kout[1], pout[0], pout[1])
                 if len(kout) == 3:
@@ -1190,6 +1288,11 @@ def tier_phase(x, queries, extra, gt, nlist, card, fp32) -> list:
                               pruned_fraction(pout[2]))
                     if tag == "L2":
                         frac = (kf, pf)
+                        if staged is not None:
+                            b3_staged_report(
+                                name, int(staged), kout[2], a_[0],
+                                int(a_[3].shape[1]), int(a_[2].shape[1]),
+                                (1.0 - kf, 1.0 - pf))
                     if tag in ("L2", "IP"):
                         tiles = b4_tiles_text(b4, kout[2]) \
                             if name.startswith("B4") else ""
@@ -1224,6 +1327,10 @@ def tier_phase(x, queries, extra, gt, nlist, card, fp32) -> list:
                   f"{spread_text(reads[f'B1-bf16{tag}'])}; "
                   + b4_ratio_text(reads, f"B4-{tier}{tag}", f"B1-bf16{tag}"),
                   flush=True)
+    for tier in TIERS:
+        print(f"[{card}] B3-{tier} against B2-bf16 (B2 has no sq8 arm), "
+              f"L2: " + b4_ratio_text(reads, f"B3-{tier}", "B2-bf16"),
+              flush=True)
     entries = []
     for nm in names:
         plain, a_, kw = arms[nm]["plain"]
@@ -1299,6 +1406,7 @@ def run(args) -> int:
     from dingo_tpu_torch.common.config import FLAGS
     from dingo_tpu_torch.common.metrics import METRICS
     from dingo_tpu_torch.index.base import (
+        FilterSpec,
         IndexParameter,
         IndexType,
         NotSupported,
@@ -1346,10 +1454,24 @@ def run(args) -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
-    sass, tf32 = b4_sass(cuda_build)
+    sass, tf32 = sass_mma(cuda_build, "pruned_fused_topk",
+                          "pruned_scan_kernel")
     print("SASS of B4's scan kernels: " + ("; ".join(
         f"{arm} {op} x{c}" for (arm, op), c in sorted(sass.items()))
         or "no MMA") + f"; TF32 anywhere: {tf32}", flush=True)
+    sass3, tf32_3 = sass_mma(cuda_build, "ivf_pruned_topk",
+                             "ivf_pruned_kernel")
+    mma3 = {key: c for key, c in sass3.items()
+            if key[1].startswith(("HMMA", "HGMMA"))}
+    print("SASS of B3's scan kernels (CUDA-core FMAs by design): matrix "
+          "MMAs (HMMA, HGMMA) " + ("; ".join(
+              f"{arm} {op} x{c}" for (arm, op), c in sorted(mma3.items()))
+              or "none in any arm") + "; other opcodes naming MMA: "
+          + ("; ".join(f"{arm} {op} x{c}"
+                       for (arm, op), c in sorted(sass3.items())
+                       if (arm, op) not in mma3) or "none")
+          + f"; TF32 anywhere: {tf32_3}", flush=True)
+    check(not tf32_3, "no TF32 operation in B3's library")
     for tier in TIERS:
         check(any(arm == tier and "HMMA" in op and "BF16" in op
                   for arm, op in sass),
@@ -1479,6 +1601,9 @@ def run(args) -> int:
           f"{b3_serving_frac:.4f}", flush=True)
     check(b3_launches > 0, "trained search ran kernel B3")
     check(recall[64] >= 0.95, "recall@10 >= 0.95 at nprobe=64 (B3)")
+    # a filtered search on each route (C3): half the ids
+    fspec = FilterSpec(ranges=[(0, n // 2)])
+    res_b3_f = wrapper.search(queries, k, fspec, nprobe=32)
 
     # -- the unpruned IVF route (B2): ivf_prune_scan off, view rebuilt ------
     saved = set_flags(FLAGS, ivf_prune_scan=False)
@@ -1488,6 +1613,7 @@ def run(args) -> int:
         b2.launches = 0
         ivf_scan_scores.calls = 0
         res_b2, recall_b2 = ivf_searches("unpruned")
+        res_b2_f = wrapper.search(queries, k, fspec, nprobe=32)
         b2_launches = b2.launches
         b2_plain_calls = ivf_scan_scores.calls
     finally:
@@ -1502,6 +1628,12 @@ def run(args) -> int:
                                [r.ids for r in res_b3[nprobe]],
                                [r.ids for r in res_b2[nprobe]]),
               f"B3 ids == B2 ids modulo ties at nprobe={nprobe}")
+    check(all((r.ids < n // 2).all() for r in res_b3_f)
+          and same_modulo_ties(x, queries, [r.ids for r in res_b3_f],
+                               [r.ids for r in res_b2_f]),
+          "filtered IVF_FLAT search: B3 ids == B2 ids modulo ties, all "
+          "inside the filter")
+    metric_regions(x, queries, nlist)
 
     # -- pipelined serving cost: both routes alternated within this call -----
     pipe = {True: [], False: []}
@@ -1532,9 +1664,27 @@ def run(args) -> int:
           flush=True)
     index.compact()                      # back to the pruned view
     check(index._bucket_bsq is not None, "pruned view rebuilt")
+    # C1: a search's dispatch makes no synchronizing CUDA call (the
+    # uploads are pinned and non-blocking); resolve waits once
+    index.search(queries, k, nprobe=32)
+    torch.cuda.synchronize()
+    thunks, c1_err = [], ""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for f_ in (None, FilterSpec(ranges=[(0, n // 3)])):
+            thunks.append(wrapper.search_async(queries, k, f_, nprobe=32))
+    except RuntimeError as e:
+        c1_err = str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for th in thunks:
+        th()
+    check(not c1_err and len(thunks) == 2,
+          "search_async dispatch (B3 route; unfiltered, a new filter) makes "
+          f"no synchronizing call {c1_err}")
     print(f"[{card}] profile, pipelined IVF search (pruned, B3) x20: "
-          + device_profile(pipelined_window(wrapper, queries, k, 32)),
-          flush=True)
+          + device_profile(pipelined_window(wrapper, queries, k, 32),
+                           was="30.1%"), flush=True)
 
     # -- each kernel against its plain version, at the path's shapes ---------
     qpad = torch.from_numpy(queries).to(dev)
@@ -1562,7 +1712,6 @@ def run(args) -> int:
     dblk = d // index._bucket_bsq.shape[1]
     qpsq = query_prefix_sqnorms(qpad, dblk)
     pstore = flat.store
-    pmask = pstore.device_mask()
 
     def b3_args(ascending, inbucket):
         return (vprobes, qpad, qpsq, index._buckets, index._bucket_bsq,
@@ -1570,8 +1719,10 @@ def run(args) -> int:
                 k_eff, ascending, 1, inbucket)
 
     def b4_args(ascending, inbucket):
-        return (qpad, pstore.vecs_blk, pstore.bsq_blk, pstore.sqnorm, pmask,
-                k, ascending, 1, inbucket)
+        # the store's arrays as they are at the call: the writes below may
+        # grow it (at --n 131072 they do)
+        return (qpad, pstore.vecs_blk, pstore.bsq_blk, pstore.sqnorm,
+                pstore.device_mask(), k, ascending, 1, inbucket)
 
     pruned = {}
     for name, kern, plain, mk in (
@@ -1581,9 +1732,11 @@ def run(args) -> int:
         for metric_name, ascending in (("L2", True), ("IP", False)):
             for inbucket in (True, False):
                 a_ = mk(ascending, inbucket)
-                b4.count_tiles = True
+                b4.count_tiles = b3.count_staged = True
                 kv, ki, ks = kern(*a_)
-                b4.count_tiles = False
+                b4.count_tiles = b3.count_staged = False
+                if name == "B3" and ascending and inbucket:
+                    b3_staged = int(b3.staged)
                 tiles = b4_tiles_text(b4, ks) if name == "B4" else ""
                 pv, pi, ps = plain(*a_)
                 ok, err = kernel_parity(kv, ki, pv, pi)
@@ -1601,6 +1754,26 @@ def run(args) -> int:
                 elif inbucket:
                     pruned[f"{name} IP"] = (kf, pf)
         pruned[name] += (ok_all, err_all)
+    b3_staged_report("B3", b3_staged, pruned["B3"][2], vprobes,
+                     view.cap_list, d // dblk,
+                     (1.0 - pruned["B3"][0], 1.0 - pruned["B3"][1]))
+    # B3 (f32) on a filter and on fewer valid rows than k, as its tier arms
+    crng = np.random.default_rng(11)
+    bfilt = view.bucket_valid & torch.from_numpy(
+        crng.random(tuple(view.bucket_valid.shape)) < 0.5).to(dev)
+    bfew = torch.zeros_like(view.bucket_valid)
+    live = torch.nonzero(view.bucket_valid)[:5]
+    bfew[live[:, 0], live[:, 1]] = True
+    for tag, valid_ in (("filter", bfilt), ("fewer valid rows than k", bfew)):
+        a_ = b3_args(True, True)
+        a_ = a_[:6] + (valid_,) + a_[7:]
+        kv, ki, ks = b3(*a_)
+        pv, pi, ps = kernel_ivf_pruned.ivf_pruned_topk_plain(*a_)
+        ok, err = kernel_parity(kv, ki, pv, pi)
+        ok = ok and stats_ok(ks, ps)
+        check(ok, f"B3 kernel == plain, {tag} (max abs err {err:.3g})")
+        pruned["B3"] = pruned["B3"][:3] + (pruned["B3"][3] and ok,
+                                           max(pruned["B3"][4], err))
 
     # -- incremental upsert + delete on the pruned routes ---------------------
     new_ids = np.arange(n, n + len(extra), dtype=np.int64)
@@ -1668,6 +1841,14 @@ def run(args) -> int:
     b5_k12 = pq["args"][:6] + (shape_bucket(k),)
     b5_bank_free = pq["args"][:3] + (bank_free,) + pq["args"][4:]
 
+    def b3_unseeded(*a_):
+        """B3 without its rank-0 seed launch (what the seed buys)."""
+        b3.seed = False
+        try:
+            return b3(*a_)
+        finally:
+            b3.seed = True
+
     # -- timings: the five kernels alternated in each round -------------------
     timed = {
         "B1": lambda: b1(qpad, fstore.vecs, fstore.sqnorm, fmask, k),
@@ -1677,6 +1858,7 @@ def run(args) -> int:
         "B4 IP": lambda: b4(*b4_args(False, True)),
         "B2": lambda: b2(*b2_args),
         "B3": lambda: b3(*b3_args(True, True)),
+        "B3 no seed": lambda: b3_unseeded(*b3_args(True, True)),
         "B5": lambda: kernel_pq.ivf_pq_adc_topk(*pq["args"]),
         "B5 k=12": lambda: kernel_pq.ivf_pq_adc_topk(*b5_k12),
         "B5 bank-free codes": lambda: kernel_pq.ivf_pq_adc_topk(
@@ -1771,6 +1953,13 @@ def run(args) -> int:
         print(f"[{card}] {tag} (same probes and tables): "
               f"{spread_text(reads[tag])}; per-round ratio to B5 at k "
               f"{pq['args'][6]} median {np.median(ratios):.4f}", flush=True)
+    nsk = b3_unseeded(*b3_args(True, True))[2]
+    print(f"[{card}] B3 without the rank-0 seed launch: "
+          f"{spread_text(reads['B3 no seed'])}; per-round ratio to B3 with "
+          "it median "
+          f"{np.median(np.divide(reads['B3 no seed'], reads['B3'])):.4f}"
+          f"; scanned fraction {1 - pruned_fraction(nsk):.4f} (with the "
+          f"seed {b3_kfrac:.4f})", flush=True)
     for new, old in (("B4", "B1"), ("B3", "B2")):
         ratios = np.divide(reads[new], reads[old])
         print(f"[{card}] {new} / {old} (pruned / unpruned kernel), per-round "

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -28,3 +29,17 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` without a host sync. On CUDA it goes
+    through a fresh pinned buffer and a non-blocking copy on the current
+    stream: a copy from pageable memory synchronizes the stream, so a
+    search would wait for every kernel queued before it. The buffer comes
+    from PyTorch's caching host allocator, which records the copy's event
+    on it and hands it out again only after the copy has completed. On
+    the CPU the tensor shares the array's memory."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

@@ -38,7 +38,7 @@ from dingo_tpu_torch.common.config import (
     prune_scan_enabled,
     train_sample_rows,
 )
-from dingo_tpu_torch.common.device import resolve_device
+from dingo_tpu_torch.common.device import resolve_device, upload
 from dingo_tpu_torch.common.metrics import METRICS
 from dingo_tpu_torch.index.base import (
     FilterSpec,
@@ -260,10 +260,11 @@ class _SlotStoreIndex(VectorIndex):
                      filter_spec: Optional[FilterSpec] = None
                      ) -> Callable[[], List[SearchResult]]:
         """Dispatch the search and return a thunk materializing results.
-        One host sync per reply: resolve() waits on one fetch group."""
+        One host sync per reply: resolve() waits on one fetch group; the
+        uploads here do not wait (common.device.upload)."""
         queries = self._prep_queries(queries)
         b = queries.shape[0]
-        qpad = torch.from_numpy(_pad_batch(queries)).to(self.device)
+        qpad = upload(_pad_batch(queries), self.device)
         store = self.store
         # lease BEFORE dispatch: result slots stay limbo-parked until
         # resolve translates them
@@ -273,9 +274,8 @@ class _SlotStoreIndex(VectorIndex):
                 if filter_spec is None or filter_spec.is_empty():
                     mask = store.device_mask()
                 else:
-                    mask = torch.from_numpy(
-                        filter_spec.slot_mask(store.ids_by_slot)
-                    ).to(self.device)
+                    mask = upload(filter_spec.slot_mask(store.ids_by_slot),
+                                  self.device)
                 kprime = self._rerank_shortlist(int(topk))
                 dists, slots, stats = self._run_search_kernel(
                     qpad, mask, kprime or int(topk))

@@ -40,7 +40,7 @@ from dingo_tpu_torch.common.config import (
     ivf_kernel_enabled,
     prune_scan_enabled,
 )
-from dingo_tpu_torch.common.device import resolve_device
+from dingo_tpu_torch.common.device import resolve_device, upload
 from dingo_tpu_torch.index.base import (
     FilterSpec,
     IndexParameter,
@@ -281,9 +281,8 @@ class IvfViewMaintenance:
             return hit[1]
         if mask is None or ver != view.version:
             mask = filter_spec.slot_mask(self.store.ids_by_slot)
-        bmask = _filter_bucket_mask(
-            torch.from_numpy(mask).to(self.device), view.bucket_slot
-        )
+        bmask = _filter_bucket_mask(upload(mask, self.device),
+                                    view.bucket_slot)
         if len(self._filter_cache) >= FILTER_CACHE_SIZE:
             stale = [k for k, (v, _) in self._filter_cache.items()
                      if v != view.version]
@@ -517,7 +516,7 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
         )
         kprime = self._rerank_shortlist(topk)
         k_eff, nprobe = self._shape_buckets(max(topk, kprime or 0), nprobe)
-        qpad = torch.from_numpy(_pad_batch(queries)).to(self.device)
+        qpad = upload(_pad_batch(queries), self.device)
         lease = self.store.begin_search()
         try:
             probes = coarse_probes(qpad, self.centroids, self._c_sqnorm,

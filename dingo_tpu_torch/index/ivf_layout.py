@@ -19,6 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from dingo_tpu_torch.common.device import upload
 from dingo_tpu_torch.index.slot_store import _next_pow2
 
 MIN_CAP = 8
@@ -159,7 +160,7 @@ class MutableIvfView:
         )
 
     def _up(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        return upload(a, self.device)
 
     @classmethod
     def build(cls, assign_h: np.ndarray, valid_h: np.ndarray, nlist: int,
@@ -172,8 +173,8 @@ class MutableIvfView:
     def gather_rows(self, source: torch.Tensor) -> torch.Tensor:
         """[alloc, cap_list, *source.shape[1:]] rows grouped by bucket."""
         flat = self.bucket_slot_h.reshape(-1)
-        idx = torch.from_numpy(np.where(flat >= 0, flat, 0).astype(
-            np.int64)).to(source.device)
+        idx = upload(np.where(flat >= 0, flat, 0).astype(np.int64),
+                     source.device)
         out = source[idx]
         return out.reshape((self.alloc, self.cap_list)
                            + tuple(source.shape[1:]))

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from dingo_tpu_torch.common.config import FLAGS, ivf_kernel_enabled
-from dingo_tpu_torch.common.device import resolve_device
+from dingo_tpu_torch.common.device import resolve_device, upload
 from dingo_tpu_torch.index.base import (
     FilterSpec,
     IndexParameter,
@@ -427,7 +427,7 @@ class TpuIvfPq(IvfViewMaintenance, _SlotStoreIndex):
         queries = self._prep_queries(queries)
         b = queries.shape[0]
         topk = int(topk)
-        qpad = torch.from_numpy(_pad_batch(queries)).to(self.device)
+        qpad = upload(_pad_batch(queries), self.device)
         store = self.store
         host = isinstance(store, HostSlotStore)
         # lease before any dispatch: result slots stay limbo-parked until
@@ -445,8 +445,8 @@ class TpuIvfPq(IvfViewMaintenance, _SlotStoreIndex):
                     dists, slots = _chunked_host_scan(
                         store, mask_h, qpad, topk, self.metric)
                 else:
-                    mask = (torch.from_numpy(filter_spec.slot_mask(
-                        store.ids_by_slot)).to(self.device)
+                    mask = (upload(filter_spec.slot_mask(
+                        store.ids_by_slot), self.device)
                         if filtered else store.device_mask())
                     with store.device_lock:
                         flat_search_plain.calls += 1

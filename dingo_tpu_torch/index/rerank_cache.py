@@ -29,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from dingo_tpu_torch.common.device import upload
 from dingo_tpu_torch.index.slot_store import SlotStore, _next_pow2
 
 
@@ -97,7 +98,7 @@ class DeviceRerankCache:
                 # drop entries past a (reloaded) smaller store
                 ok = store_slots < store_capacity
                 m[store_slots[ok]] = cache_rows[ok].astype(np.int32)
-            self._dmap = torch.from_numpy(m).to(self.inner.device)
+            self._dmap = upload(m, self.inner.device)
             self._map_capacity = store_capacity
         return self._dmap
 

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from dingo_tpu_torch.common.config import blocked_layout_enabled
+from dingo_tpu_torch.common.device import upload
 from dingo_tpu_torch.ops.blocked import (
     block_sqnorms,
     resolve_dim_block,
@@ -126,8 +127,7 @@ class SlotStore:
     def device_mask(self) -> torch.Tensor:
         """Validity bitmap on the device, re-uploaded only after a change."""
         if self._dmask is None:
-            self._dmask = torch.from_numpy(self.valid_h.copy()).to(
-                self.device)
+            self._dmask = upload(self.valid_h.copy(), self.device)
         return self._dmask
 
     def _row_dtypes(self):

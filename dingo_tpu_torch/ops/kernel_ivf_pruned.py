@@ -29,6 +29,14 @@ considered. The kernel may walk candidates in another order, so it may
 prune more or less: lanes 1 and 3 always equal the plain version's, and
 0 <= lane0 <= lane1, lane2 <= lane3.
 
+The kernel walks the probes bucket-major: one work item is a bucket and
+up to ``QT`` of the queries that probe it, so a bucket's rows are staged
+once for all of them. ``probe_items_plain`` defines that work list (the
+kernel builds the same one on the device; ``probe_items`` returns it).
+With ``ivf_pruned_topk.count_staged`` set, ``ivf_pruned_topk.staged``
+holds after a launch a device counter of the row slices (a row's
+dimension block) the launch staged.
+
 Bound on an H100 and design: see the note at the top of the CUDA source.
 """
 
@@ -46,6 +54,8 @@ from dingo_tpu_torch.ops.kernel_ivf import K_MAX, _pad_rows
 from dingo_tpu_torch.ops.sq import sq_decode_device
 
 NEG_INF = float("-inf")
+#: queries per work item (csrc/ivf_pruned_topk.cu QT; checked at load)
+QT = 8
 
 #: bucket dtype -> (C entry point, launch counter attribute)
 ARMS = {torch.float32: ("dingo_ivf_pruned_topk", "launches"),
@@ -87,14 +97,24 @@ def ord_neg_inf() -> int:
     return i if i >= 0 else i ^ 0x7FFFFFFF
 
 
+def _library() -> ctypes.CDLL:
+    lib = cuda_build.load("ivf_pruned_topk")
+    qt = lib.dingo_ivf_pruned_qt
+    qt.restype = ctypes.c_int
+    if qt() != QT:
+        raise RuntimeError(f"ivf_pruned_topk: the library's QT {qt()} is "
+                           f"not the wrapper's {QT}")
+    return lib
+
+
 def _launcher(dtype: torch.dtype = torch.float32):
     if dtype not in _fns:
-        lib = cuda_build.load("ivf_pruned_topk")
+        lib = _library()
         fn = getattr(lib, ARMS[dtype][0])
         fn.restype = ctypes.c_int
         codec = 2 if dtype == torch.uint8 else 0
         fn.argtypes = ([ctypes.c_void_p] * (1 + codec + 7)
-                       + [ctypes.c_int] * 12 + [ctypes.c_void_p] * 7)
+                       + [ctypes.c_int] * 12 + [ctypes.c_void_p] * 9)
         _fns[dtype] = (lib, fn)
     return _fns[dtype]
 
@@ -233,12 +253,74 @@ def ivf_pruned_topk_plain(vprobes: torch.Tensor, queries: torch.Tensor,
     return best_v, best_i, stats
 
 
-def ranks_per_cta(b: int, budget: int, num_sms: int) -> int:
-    """Consecutive probe ranks per CTA: about eight CTAs per SM over the
-    grid, each walking as many ranks as that leaves (its running top-k
-    carries its threshold from bucket to bucket)."""
-    groups = min(budget, max(1, -(-8 * num_sms // max(1, b))))
-    return -(-budget // groups)
+def probe_items_plain(vprobes: torch.Tensor, nbuckets: int, qt: int = QT
+                      ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """The scan's work list -> (pairs [n] i32, items [n, 3] i32, n_items),
+    n = b * budget.
+
+    A pair is a valid probe (0 <= bucket < nbuckets) as q * budget + r;
+    ``pairs`` lists them grouped by bucket (ascending), by rank then query
+    within a bucket, -1 past the valid ones. Each bucket's pairs are cut
+    in that order into chunks of qt: the items. ``items`` holds (bucket,
+    index of its first pair in ``pairs``, pair count) in visiting order:
+    by the rank of the item's first pair, then bucket, then position in
+    the bucket, so every item that holds a rank-0 pair comes first; -1
+    past n_items."""
+    b, budget = vprobes.shape
+    n = b * budget
+    dev = vprobes.device
+    p = torch.arange(n, dtype=torch.int64, device=dev)
+    bkt = vprobes.reshape(-1).to(torch.int64)
+    r, q = p % budget, p // budget
+    valid = (bkt >= 0) & (bkt < nbuckets)
+    big = torch.iinfo(torch.int64).max
+    key = torch.where(valid, (bkt * budget + r) * b + q,
+                      torch.full_like(bkt, big))
+    order = torch.sort(key, stable=True).indices
+    nvalid = int(valid.sum())
+    sp = order[:nvalid]
+    sb = bkt[sp]
+    start = torch.searchsorted(sb, sb)
+    count = torch.searchsorted(sb, sb, right=True) - start
+    pos = torch.arange(nvalid, device=dev) - start
+    heads = torch.nonzero(pos % qt == 0).flatten()
+    ikey = (r[sp[heads]] * nbuckets + sb[heads]) * n + pos[heads]
+    heads = heads[torch.sort(ikey).indices]
+    pairs = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    pairs[:nvalid] = sp.to(torch.int32)
+    items = torch.full((n, 3), -1, dtype=torch.int32, device=dev)
+    items[:len(heads), 0] = sb[heads].to(torch.int32)
+    items[:len(heads), 1] = heads.to(torch.int32)
+    items[:len(heads), 2] = torch.clamp_max(count[heads] - pos[heads],
+                                            qt).to(torch.int32)
+    return pairs, items, len(heads)
+
+
+def probe_items(vprobes: torch.Tensor, nbuckets: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """The work list as the kernel builds it on the device, in
+    probe_items_plain's form (reads its length back: a test and
+    measurement helper, not on the search path)."""
+    if vprobes.device.type != "cuda" or vprobes.dtype != torch.int32 \
+            or not vprobes.is_contiguous():
+        raise ValueError("probe_items: a contiguous int32 CUDA tensor")
+    b, budget = vprobes.shape
+    n = b * budget
+    work = torch.full((7 * n + 2,), -1, dtype=torch.int32,
+                      device=vprobes.device)
+    lib = _library()
+    fn = lib.dingo_ivf_pruned_items
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p] * 2
+    rc = fn(vprobes.data_ptr(), b, budget, nbuckets, work.data_ptr(),
+            torch.cuda.current_stream(vprobes.device).cuda_stream)
+    cuda_build.check_launch(lib, rc, "probe_items")
+    # the kernels write the valid pairs and the n_items items; the rest of
+    # work keeps its -1
+    items = torch.stack([work[4 * n:5 * n], work[5 * n:6 * n],
+                         work[6 * n:7 * n]], dim=1)
+    return work[:n], items, int(work[7 * n])
 
 
 def ivf_pruned_topk(vprobes: torch.Tensor, queries: torch.Tensor,
@@ -302,18 +384,17 @@ def ivf_pruned_topk(vprobes: torch.Tensor, queries: torch.Tensor,
         raise ValueError("ivf_pruned_topk: tensors must be contiguous")
     dblk = d // nblk
     dev = queries.device
-    rpc = ranks_per_cta(b, budget,
-                        torch.cuda.get_device_properties(dev)
-                        .multi_processor_count)
-    groups = -(-budget // rpc)
     # 16 bytes per lane and load: 4 f32, 8 bf16 or 16 codes
     per16 = 16 // buckets.element_size()
     vec = d % per16 == 0 and dblk % per16 == 0 \
         and buckets.data_ptr() % 16 == 0
     thr = torch.full((b,), ord_neg_inf(), dtype=torch.int32, device=dev)
     stats = torch.zeros((b, 4), dtype=torch.int32, device=dev)
-    cand_v = torch.empty((b, groups, k), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((b, groups, k), dtype=torch.int32, device=dev)
+    work = torch.empty((7 * b * budget + 2,), dtype=torch.int32, device=dev)
+    staged = torch.zeros((1,), dtype=torch.int32, device=dev) \
+        if ivf_pruned_topk.count_staged else None
+    cand_v = torch.empty((b, budget, k), dtype=torch.float32, device=dev)
+    cand_i = torch.empty((b, budget, k), dtype=torch.int32, device=dev)
     out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     lib, fn = _launcher(buckets.dtype)
@@ -324,10 +405,13 @@ def ivf_pruned_topk(vprobes: torch.Tensor, queries: torch.Tensor,
             bucket_sqnorm.data_ptr(),
             bucket_valid.view(torch.uint8).data_ptr(),
             bucket_slot.data_ptr(), b, budget, nb, cap, d, dblk, k,
-            int(ascending), int(check_every), int(inbucket), rpc, int(vec),
-            thr.data_ptr(), stats.data_ptr(), cand_v.data_ptr(),
-            cand_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), stream)
+            int(ascending), int(check_every), int(inbucket), int(vec),
+            int(ivf_pruned_topk.seed), thr.data_ptr(), stats.data_ptr(),
+            work.data_ptr(), None if staged is None else staged.data_ptr(),
+            cand_v.data_ptr(), cand_i.data_ptr(), out_v.data_ptr(),
+            out_i.data_ptr(), stream)
     cuda_build.check_launch(lib, rc, "ivf_pruned_topk")
+    ivf_pruned_topk.staged = staged
     counter = ARMS[buckets.dtype][1]
     setattr(ivf_pruned_topk, counter, getattr(ivf_pruned_topk, counter) + 1)
     return out_v, out_i, stats.to(torch.float32)
@@ -336,6 +420,11 @@ def ivf_pruned_topk(vprobes: torch.Tensor, queries: torch.Tensor,
 ivf_pruned_topk.launches = 0
 ivf_pruned_topk.launches_bf16 = 0
 ivf_pruned_topk.launches_sq8 = 0
+#: set to fill ivf_pruned_topk.staged with the row slices a launch staged
+ivf_pruned_topk.count_staged = False
+ivf_pruned_topk.staged = None
+#: the rank-0 seed launch before the scan (same results either way)
+ivf_pruned_topk.seed = True
 
 
 def ivf_pruned_search(vprobes: torch.Tensor, queries: torch.Tensor,

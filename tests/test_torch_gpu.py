@@ -10,7 +10,12 @@ block that is not a multiple of the 16-byte load, and a row array that is
 not 16-byte aligned, take the scalar path), and the index routes of both
 tiers on the device. B4's seeded scan runs in every arm on data where its
 later blocks prune (the f32 arm's then run pair by pair) and on data where
-nothing dies.
+nothing dies. B3's bucket-major scan runs in every arm on the cases its work
+list meets (a bucket probed by every query, shared probes, budget 1,
+padded ranks and rows, empty and sparse buckets, k 1 and 64, a block
+wider than a warp's 128 columns); its device work list is held against
+probe_items_plain; and search_async's dispatch runs, for every index
+family, under torch.cuda.set_sync_debug_mode("error").
 
 Marked ``gpu``: on a machine without a CUDA device each test skips (the
 decision is made inside the test). Run on the card with
@@ -701,3 +706,193 @@ def test_pruned_fused_topk_seeded_compacted_scan(arm, b, n, d, dblk, k,
             assert rows_read < 0.5 * int(valid.sum()) * nblk
     elif data == "dense":          # (nearly) every block slice is read
         assert rows_read >= 0.9 * int(valid.sum()) * nblk
+
+
+# -- B3: the bucket-major scan ------------------------------------------------
+# Cases the serving shapes do not reach, in every arm: a bucket probed by all
+# 64 queries (its items split), every query probing the same buckets, budget
+# 1, -1 ranks with padded query rows, an empty and a sparse bucket, k 1 and
+# 64, cap not a multiple of the row tile, d 100 with dblk 20 (scalar loads
+# in the bf16 and sq8 arms), a block wider than the 128 columns a warp
+# holds (dblk 256), L2 and IP each with the in-bucket bound on and off.
+B3_CASES = [
+    # name, b, budget, d, dblk, cap, k, ascending, inbucket
+    ("hot", 64, 9, 256, 64, 300, 10, True, True),
+    ("same", 16, 6, 256, 64, 256, 10, False, True),
+    ("budget1", 16, 1, 128, 32, 200, 5, True, False),
+    ("padded", 16, 9, 256, 64, 128, 64, False, False),
+    ("sparse", 16, 6, 128, 32, 96, 1, True, True),
+    ("scalar", 16, 6, 100, 20, 150, 10, True, True),
+    ("wide", 16, 6, 512, 256, 128, 10, False, True),   # two 128-column passes
+]
+
+
+def _b3_probes(name, g, b, budget, nb):
+    vp = torch.stack([torch.randperm(nb, generator=g)[:budget]
+                      for _ in range(b)]).to(torch.int32)
+    if name == "hot":
+        vp[:, 0] = 3
+        vp[:, 1:] = torch.where(vp[:, 1:] == 3, (vp[:, 1:] + 1) % nb,
+                                vp[:, 1:])
+        vp[:, 1:] = torch.where(vp[:, 1:] == 3, vp[:, 1:] + 1, vp[:, 1:])
+    elif name == "same":
+        vp[:] = vp[0]
+    elif name == "padded":
+        vp[2, 3:] = -1
+        vp[7, 1:] = -1
+        vp[-3:] = -1                      # padded query rows
+    elif name == "sparse":
+        vp[:, 0] = 5                      # the empty bucket first
+        vp[:, 1] = 7                      # then the sparse one
+        vp[:, 2:] = torch.where(vp[:, 2:] >= 5, vp[:, 2:], vp[:, 2:] + 8)
+        vp[:, 2:] = torch.clamp_max(vp[:, 2:], nb - 1)
+    return vp
+
+
+@pytest.mark.parametrize("arm", ["f32", "bf16", "sq8"])
+@pytest.mark.parametrize("name,b,budget,d,dblk,cap,k,ascending,inbucket",
+                         B3_CASES)
+def test_ivf_pruned_topk_bucket_major_cases(arm, name, b, budget, d, dblk,
+                                            cap, k, ascending, inbucket):
+    from dingo_tpu_torch.ops import blocked
+    from dingo_tpu_torch.ops import kernel_ivf_pruned as b3
+
+    dev = _cuda()
+    g = torch.Generator(device="cpu").manual_seed(b + budget + d + cap + k)
+    nb = 24
+    raw = _clustered(g, nb * cap, d).reshape(nb, cap, d).to(dev)
+    if arm == "f32":
+        buckets, f32, kw = raw, raw, {}
+    else:
+        buckets, f32, kw = _tier_rows(raw, arm)
+    sq = (f32 * f32).sum(-1)
+    bsq = blocked.bucket_block_sqnorms(f32, dblk)
+    valid = (torch.rand((nb, cap), generator=g) < 0.8).to(dev)
+    valid[5] = False                              # an empty bucket
+    valid[7] = False
+    valid[7, :2] = True                           # a sparse one
+    slot = torch.randperm(nb * cap, generator=g).reshape(nb, cap).to(
+        torch.int32).to(dev)
+    q = (raw.reshape(-1, d)[torch.randint(0, nb * cap, (b,),
+                                          generator=g).to(dev)]
+         + 0.05 * torch.randn((b, d), generator=g).to(dev))
+    qpsq = blocked.query_prefix_sqnorms(q, dblk)
+    vp = _b3_probes(name, g, b, budget, nb).to(dev)
+    args = (vp, q, qpsq, buckets, bsq, sq, valid, slot, k, ascending, 1,
+            inbucket)
+    counter = "launches" if arm == "f32" else f"launches_{arm}"
+    before = getattr(b3.ivf_pruned_topk, counter)
+    b3.ivf_pruned_topk.count_staged = True
+    try:
+        kv, ki, ks = b3.ivf_pruned_topk(*args, **kw)
+    finally:
+        b3.ivf_pruned_topk.count_staged = False
+    assert getattr(b3.ivf_pruned_topk, counter) == before + 1
+    staged = int(b3.ivf_pruned_topk.staged)
+    pv, pi, ps = b3.ivf_pruned_topk_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_parity(kv, ki, pv, pi)
+    _assert_stats(ks, ps)
+    dead = (vp < 0).all(dim=1).cpu()
+    assert (ki[dead] == -1).all() and (ks[dead] == 0).all()
+    # a row slice leaves HBM once per item: never more than the pairs the
+    # scan kept alive, plus the seed's first 2k rows of each rank-0 bucket
+    nblk = d // dblk
+    lane0 = int(ks[:, 0].sum())
+    assert 0 < staged <= lane0 + b * 2 * k * nblk
+    if name in ("hot", "same"):       # several queries share each item
+        assert staged < lane0
+
+
+@pytest.mark.parametrize("name,b,budget", [("hot", 64, 9), ("same", 16, 6),
+                                           ("padded", 16, 9),
+                                           ("budget1", 16, 1),
+                                           ("random", 64, 49)])
+def test_ivf_pruned_work_list_matches_plain(name, b, budget):
+    """The device work list equals probe_items_plain."""
+    from dingo_tpu_torch.ops import kernel_ivf_pruned as b3
+
+    dev = _cuda()
+    g = torch.Generator(device="cpu").manual_seed(b * budget)
+    nb = 1100 if name == "random" else 24
+    vp = _b3_probes(name, g, b, budget, nb)
+    want = b3.probe_items_plain(vp, nb)
+    got = b3.probe_items(vp.to(dev), nb)
+    assert got[2] == want[2]
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+# -- C1: a search's dispatch does not synchronize ------------------------------
+SYNC_CASES = ["flat_b4", "flat_b1", "ivf_fp32", "ivf_bf16", "ivf_sq8",
+              "pq_trained", "pq_untrained"]
+
+
+@pytest.mark.parametrize("case", SYNC_CASES)
+def test_search_async_dispatch_does_not_sync(case):
+    """search_async (the dispatch, not resolve) makes no synchronizing CUDA
+    call: under torch.cuda.set_sync_debug_mode("error") such a call
+    raises. Each family dispatches right after an upsert (FLAT and the
+    untrained IVF_PQ re-upload the validity mask), unfiltered and with two
+    filters it has not seen (IVF: a filter-cache miss): FLAT on B4 and on
+    B1, IVF_FLAT in every tier on B3, IVF_PQ on the device store trained
+    (B5) and untrained (the exact whole-store arm)."""
+    from dingo_tpu_torch.index.base import FilterSpec, IndexParameter, \
+        IndexType
+    from dingo_tpu_torch.index.factory import new_index
+    from dingo_tpu_torch.ops import (
+        kernel_ivf_pruned,
+        kernel_pq,
+        kernel_topk,
+        kernel_topk_pruned,
+    )
+
+    _cuda()
+    rng = np.random.default_rng(7)
+    centers = rng.standard_normal((32, 256), dtype=np.float32)
+    x = (centers[rng.integers(0, 32, 6000)] + 0.3 * rng.standard_normal(
+        (6000, 256), dtype=np.float32)).astype(np.float32)
+    kind, arm = case.split("_")
+    kw = {} if kind == "flat" else {"nprobe": 8}
+    saved = _flags(vector_blocked_layout=arm != "b1",
+                   ivfpq_rerank_factor=6)
+    try:
+        if kind == "flat":
+            idx = new_index(20, IndexParameter(index_type=IndexType.FLAT,
+                                               dimension=256))
+            counter = (kernel_topk_pruned.pruned_fused_topk, "launches") \
+                if arm == "b4" else (kernel_topk.fused_topk, "launches")
+        elif kind == "ivf":
+            idx = new_index(21, IndexParameter(
+                index_type=IndexType.IVF_FLAT, dimension=256, ncentroids=16,
+                precision=arm))
+            counter = (kernel_ivf_pruned.ivf_pruned_topk,
+                       "launches" if arm == "fp32" else f"launches_{arm}")
+        else:
+            idx = new_index(22, IndexParameter(
+                index_type=IndexType.IVF_PQ, dimension=256, ncentroids=16,
+                nsubvector=32))
+            counter = (kernel_pq.ivf_pq_adc_topk, "launches") \
+                if arm == "trained" else None
+        idx.upsert(np.arange(6000), x)
+        if kind == "ivf" or arm == "trained":
+            idx.train()
+        idx.search(x[:8], 10, **kw)          # kernels built, view up
+        idx.upsert(np.arange(6000, 6100), x[:100] + 0.5)
+        filters = [None, FilterSpec(ranges=[(0, 3000)]),
+                   FilterSpec(exclude_ids=np.arange(10))]
+        before = None if counter is None else getattr(*counter)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            thunks = [idx.search_async(x[:8], 10, f, **kw) for f in filters]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        res = [t() for t in thunks]
+    finally:
+        _restore(saved)
+    if counter is not None:
+        assert getattr(*counter) == before + 3
+    assert [int(r.ids[0]) for r in res[0]] == list(range(8))
+    assert all(r.ids.max() < 3000 for r in res[1])
+    assert not any(np.isin(r.ids, np.arange(10)).any() for r in res[2])
