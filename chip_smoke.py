@@ -4,8 +4,8 @@
     python3 chip_smoke.py            # full width: 1M x 768, nlist 1024
     python3 chip_smoke.py --n 131072 --nlist 128   # a quicker, smaller run
 
-Builds the port's five CUDA kernel libraries from ``dingo_tpu_torch/csrc``
-(one nvcc per source, in parallel), eleven arms in all:
+Builds the port's six CUDA kernel libraries from ``dingo_tpu_torch/csrc``
+(one nvcc per source, in parallel), twelve kernels and arms in all:
 
   B1 fused_topk         csrc/fused_topk.cu         FLAT scan, pruning off
                                                    (f32, bf16 rows)
@@ -16,7 +16,10 @@ Builds the port's five CUDA kernel libraries from ``dingo_tpu_torch/csrc``
   B4 pruned_fused_topk  csrc/pruned_fused_topk.cu  FLAT scan over the blocked
                                                    mirror, the default (f32,
                                                    bf16, sq8)
-  B5 ivf_pq_adc_topk    csrc/ivf_pq_adc_topk.cu    IVF_PQ Quick-ADC scan
+  B5 ivf_pq_adc_topk    csrc/ivf_pq_adc_topk.cu    IVF_PQ Quick-ADC scan, one
+                                                   CTA per (query, coarse rank)
+     ivfpq_adc_lut        csrc/ivfpq_adc_lut.cu      IVF_PQ's residual tables
+                                                   (an XLA program there)
 
 then serves an IVF_FLAT region the way the Index role does: raft-ordered
 adds through VectorIndexWrapper, a brute-force FLAT search while the
@@ -40,8 +43,12 @@ pipelined timing with fp32 and both tiers taking turns, a profile of the
 sq8 route, and five kernel-vs-plain cases per arm. Every kernel is
 held against its plain PyTorch version on the card (B3/B4 for L2 and IP,
 the in-bucket refresh on and off; B3 also on a filter and on fewer valid
-rows than k; B5 with spill buckets, a filter and fewer valid rows than
-k), and the launches each serving path made are counted. B3's staged row
+rows than k; B5 with spill buckets, a rank with three or more of them,
+a filter, fewer valid rows than k, k 1, 12 and 64, a query whose probes
+are all padded and coarse_pos rows out of order; the table kernel against
+the torch composite at nprobe 16 and 32), and the launches each serving
+path made are counted. The table kernel is timed against the torch
+composite in turns, and the B5 route's profile must name both kernels. B3's staged row
 slices (``count_staged``) are held against the per-(query, rank) total
 (at most half) and printed beside the distinct-bucket total; B3 is timed
 with and without its rank-0 seed launch. A filtered search, and an IP
@@ -77,6 +84,9 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 #: kernel-vs-plain tolerance: f32 sums land in a different order
 RTOL, ATOL = 1e-4, 1e-3
+#: the residual tables (entries ~1-100) against the torch composite: f32
+#: sums over dsub in another order (cuBLAS's product, torch's reductions)
+LUT_RTOL, LUT_ATOL = 1e-5, 1e-4
 #: two id lists agree modulo ties when their exact (f64) distances, sorted,
 #: agree within the f32 rounding of a distance computed as
 #: ||q||^2 - 2 q.x + ||x||^2 at these magnitudes
@@ -131,8 +141,8 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def make_data(n: int, d: int, batch: int):
-    rng = np.random.default_rng(7)
+def make_data(n: int, d: int, batch: int, seed: int = 7):
+    rng = np.random.default_rng(seed)
     ncl = max(64, n // 1000)
     centers = rng.standard_normal((ncl, d), dtype=np.float32)
     x = centers[rng.integers(0, ncl, n)]
@@ -383,7 +393,7 @@ def device_profile(fn, top: int = 8, was: str = "") -> str:
     """Run fn once under torch.profiler and describe the card's side of it:
     the device time of the `top` heaviest kernels (and copies), and the
     device's busy share (union of their intervals) of the window's wall
-    time, profiler overhead included; `was` is the same window's busy
+    time, profiler overhead included; `was` names the same window's busy
     share in an earlier run (PERF.md), printed beside it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -420,6 +430,32 @@ def device_profile(fn, top: int = 8, was: str = "") -> str:
     was = f" (PR 5's run: {was})" if was else ""
     return (f"wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
             f"({busy / wall_ms:.1%}){was}; by device time: {rows}")
+
+
+def host_profile(fn, top: int = 10) -> str:
+    """Run fn once under cProfile and name the host functions with the
+    most own time (cProfile's overhead included: read the shares, not the
+    milliseconds)."""
+    import cProfile
+    import os
+    import pstats
+
+    import torch
+
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    stats = pstats.Stats(prof).stats
+    heavy = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
+    rows = "; ".join(
+        f"{func} ({os.path.basename(file)}:{line}) {tt * 1e3:.1f} ms "
+        f"x{nc}" for (file, line, func), (_, nc, tt, _, _) in heavy)
+    return f"wall {wall_ms:.1f} ms; by own time: {rows}"
 
 
 def metric_regions(x, queries, nlist) -> None:
@@ -503,6 +539,7 @@ def ivf_pq_phase(x, queries, extra, gt, nlist, m, card) -> dict:
     from dingo_tpu_torch.ops.distance import Metric
 
     b5 = kernel_pq.ivf_pq_adc_topk
+    lutk = kernel_pq.ivfpq_adc_lut
     xla = ivf_pq._ivfpq_scan_kernel
     n, d = x.shape
     batch, k = len(queries), gt.shape[1]
@@ -570,14 +607,19 @@ def ivf_pq_phase(x, queries, extra, gt, nlist, m, card) -> dict:
 
     # -- the main path: the B5 route (k 10 x factor 6 = 60 <= 64) ----------
     b5.launches = 0
+    lutk.launches = 0
     xla.calls = 0
     res_b5 = searches("B5 route (factor 6)", (16, 32),
                       ivfpq_rerank_factor=6)
-    b5_launches, b5_xla_calls = b5.launches, xla.calls
+    b5_launches, lut_launches, b5_xla_calls = (b5.launches, lutk.launches,
+                                               xla.calls)
     print(f"IVF_PQ B5 route: ivf_pq_adc_topk launches {b5_launches}, "
-          f"XLA-arm searches {b5_xla_calls}", flush=True)
+          f"ivfpq_adc_lut launches {lut_launches}, XLA-arm searches "
+          f"{b5_xla_calls}", flush=True)
     check(b5_launches > 0 and b5_xla_calls == 0,
           "IVF_PQ searches at factor 6 ran kernel B5, not the XLA arm")
+    check(lut_launches == b5_launches,
+          "each B5 search built its residual tables with the table kernel")
     check(all(len(r.ids) == k and np.isfinite(r.distances).all()
               for rs in res_b5.values() for r in rs)
           and all(int(r.ids[0]) == int(g[0])
@@ -661,9 +703,20 @@ def ivf_pq_phase(x, queries, extra, gt, nlist, m, card) -> dict:
           f"{np.median(np.divide(pipe[True], pipe[False])):.4f}", flush=True)
     saved = set_flags(FLAGS, ivfpq_rerank_factor=6)
     try:
-        print(f"[{card}] profile, pipelined IVF_PQ B5 route x20: "
-              + device_profile(pipelined_window(wrapper, queries, k, 32),
-                               was="49.9%"), flush=True)
+        prof = device_profile(pipelined_window(wrapper, queries, k, 32),
+                              top=10, was="49.9%")
+        print(f"[{card}] profile, pipelined IVF_PQ B5 route x20: " + prof,
+              flush=True)
+    finally:
+        for f_, v_ in saved.items():
+            FLAGS.set(f_, v_)
+    check("adc_rank_kernel" in prof and "adc_lut_kernel" in prof,
+          "the B5 route's profile names B5 and the table kernel")
+    saved = set_flags(FLAGS, ivfpq_rerank_factor=6)
+    try:
+        print(f"[{card}] host profile, pipelined IVF_PQ B5 route x20: "
+              + host_profile(pipelined_window(wrapper, queries, k, 32)),
+              flush=True)
     finally:
         for f_, v_ in saved.items():
             FLAGS.set(f_, v_)
@@ -743,11 +796,30 @@ def ivf_pq_phase(x, queries, extra, gt, nlist, m, card) -> dict:
                                     nlist, index.store.capacity, dev,
                                     cap_hint=view.cap_list // 2)
         half_codes = half.gather_rows(index._codes)
+        # and at a quarter: a list of ~1,000 rows takes four buckets
+        quarter = MutableIvfView.build(
+            index._assign_h, index.store.valid_h, nlist,
+            index.store.capacity, dev, cap_hint=view.cap_list // 4)
+        quarter_codes = quarter.gather_rows(index._codes)
     path_args = b5_args(view, index._code_buckets, view.bucket_valid)
     half_args = b5_args(half, half_codes, half.bucket_valid)
+    quarter_args = b5_args(quarter, quarter_codes, quarter.bucket_valid)
     check(shared_tables(half_args) > 0,
           "the half-width view's probes include spill buckets that share "
           "a table")
+    qvp, qcp = quarter_args[0].cpu().numpy(), quarter_args[1].cpu().numpy()
+    most = max(int(np.bincount(qcp[i][qvp[i] >= 0]).max())
+               for i in range(batch))
+    check(most >= 3, f"the quarter-width view gives a rank {most} spill "
+          "buckets (>= 3)")
+    # a query whose probes are all padded, and every query's (vprobe,
+    # coarse_pos) pairs in a shuffled order (B5 assumes no order)
+    padded_vp = path_args[0].clone()
+    padded_vp[0] = -1
+    perm = torch.stack([torch.randperm(path_args[0].shape[1])
+                        for _ in range(batch)]).to(dev)
+    shuffled = (torch.gather(path_args[0], 1, perm),
+                torch.gather(path_args[1], 1, perm).contiguous())
     ok_all, err_all = True, 0.0
     for tag, a_ in (
             (f"the path's view ({shared_tables(path_args)} probes share "
@@ -755,18 +827,69 @@ def ivf_pq_phase(x, queries, extra, gt, nlist, m, card) -> dict:
             (f"spill buckets, cap {half.cap_list} "
              f"({shared_tables(half_args)} probes share their rank's "
              "table)", half_args),
+            (f"a rank with {most} spill buckets, cap {quarter.cap_list}",
+             quarter_args),
             ("filtered bucket_valid", path_args[:4] + (filtered,)
              + path_args[5:]),
             ("fewer valid rows than k", path_args[:4] + (sparse,)
-             + path_args[5:])):
+             + path_args[5:]),
+            ("k 1", path_args[:6] + (1,)),
+            ("k 12", path_args[:6] + (12,)),
+            ("k 64", path_args[:6] + (64,)),
+            ("a query whose probes are all padded", (padded_vp,)
+             + path_args[1:]),
+            ("coarse_pos rows out of order", shuffled + path_args[2:])):
         kv, ki = b5(*a_)
         pv, pi = kernel_pq.ivf_pq_adc_topk_plain(*a_)
         ok, err = kernel_parity(kv, ki, pv, pi)
         if a_[4] is sparse:
             ok = ok and bool((ki[:, 30:] == -1).all())
+        if a_[0] is padded_vp:
+            ok = ok and bool((ki[0] == -1).all()
+                             and torch.isneginf(kv[0]).all())
         check(ok, f"B5 kernel == plain, {tag} (max abs err {err:.3g})")
         ok_all, err_all = ok_all and ok, max(err_all, err)
-    del half, half_codes
+    del half, half_codes, quarter, quarter_codes, quarter_args
+
+    # -- the table kernel against the torch composite (its plain version) --
+    lut_ok, lut_err = True, 0.0
+    for np_ in (16, 32):
+        pr = coarse_probes(qpad, index.centroids, index._c_sqnorm, np_)
+        got = lutk(qpad, index.centroids, pr, index.codebooks)
+        want = kernel_pq.ivfpq_adc_lut_plain(qpad, index.centroids, pr,
+                                             index.codebooks)
+        err = float((got - want).abs().max())
+        ok = bool(torch.allclose(got, want, rtol=LUT_RTOL, atol=LUT_ATOL))
+        check(ok, f"table kernel == torch composite at nprobe={np_}, "
+              f"[{batch}, {np_}, {m}, {index.ksub}] (max abs err "
+              f"{err:.3g}, rtol {LUT_RTOL}, atol {LUT_ATOL})")
+        lut_ok, lut_err = lut_ok and ok, max(lut_err, err)
+    del got, want
+    lut_fns = {
+        "kernel": lambda: lutk(qpad, index.centroids, probes,
+                               index.codebooks),
+        "torch": lambda: kernel_pq.ivfpq_adc_lut_plain(
+            qpad, index.centroids, probes, index.codebooks)}
+    lut_reads = {nm: [] for nm in lut_fns}
+    for r in range(ROUNDS):
+        for nm in (("kernel", "torch") if r % 2 == 0 else ("torch",
+                                                           "kernel")):
+            lut_reads[nm].append(time_ms(lut_fns[nm], torch))
+    dsub = d // m
+    ncent = len(np.unique(probes.cpu().numpy()))
+    lut_bytes = (batch * nprobe_t * m * index.ksub * 4 + batch * d * 4
+                 + ncent * d * 4 + m * index.ksub * dsub * 4
+                 + batch * nprobe_t * 4)
+    lut_ops = 2.0 * batch * nprobe_t * m * index.ksub * (dsub + 1)
+    lut_bound, lut_by = bound_of(lut_bytes, lut_ops)
+    lut_ms = median_spread(lut_reads["kernel"])[0]
+    torch_ms = median_spread(lut_reads["torch"])[0]
+    print(f"[{card}] ivfpq_adc_lut [{batch}, {nprobe_t}, {m}, {index.ksub}]"
+          f": {spread_text(lut_reads['kernel'])}; torch composite "
+          f"{spread_text(lut_reads['torch'])}; per-round kernel / torch "
+          f"median {np.median(np.divide(lut_reads['kernel'], lut_reads['torch'])):.4f}"
+          f"; bound {lut_bound:.4f} ms ({lut_by}); launches on the IVF_PQ "
+          f"path {lut_launches}", flush=True)
     vp = path_args[0].cpu().numpy()
     cpn = path_args[1].cpu().numpy()
 
@@ -783,6 +906,9 @@ def ivf_pq_phase(x, queries, extra, gt, nlist, m, card) -> dict:
     return {"args": path_args, "launches": b5_launches,
             "xla_calls": b5_xla_calls, "ok": ok_all, "err": err_all,
             "bound": bound, "by": by,
+            "lut": {"launches": lut_launches, "ok": lut_ok, "err": lut_err,
+                    "reads": lut_reads["kernel"], "ms": lut_ms,
+                    "torch_ms": torch_ms, "bound": lut_bound, "by": lut_by},
             "shape": f"b={batch} budget={vp.shape[1]} cap={cap} m={m} "
                      f"k={kk} tables={ntables} distinct buckets={nbuck}"}
 
@@ -1449,6 +1575,7 @@ def run(args) -> int:
         for dtype in mod.ARMS:       # every arm's entry point resolves
             mod._launcher(dtype)
     kernel_pq._launcher()
+    kernel_pq._lut_launcher()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in cuda_build.build_logs.items():
         for line in log.splitlines():
@@ -2026,6 +2153,16 @@ def run(args) -> int:
     ]
     for e, nm in zip(kernels, ("B1", "B2", "B3", "B4", "B5")):
         _, e["ms_min"], e["ms_max"] = median_spread(reads[nm])
+    lut = pq["lut"]
+    # the table kernel: its plain version is the torch composite, which is
+    # also the PyTorch yardstick (no single call computes the tables)
+    e = entry("ivfpq_adc_lut", "ivfpq_adc_lut.cu",
+              "dingo_tpu/index/ivf_pq.py:195 (XLA, no Pallas kernel)",
+              lut["launches"], lut["err"], lut["ms"], lut["torch_ms"],
+              lut["bound"], lut["by"], lut["ok"], pq["xla_calls"])
+    e["library_ms"] = lut["torch_ms"]
+    _, e["ms_min"], e["ms_max"] = median_spread(lut["reads"])
+    kernels.append(e)
     # every arm, B1-B4 each followed by its tier arms
     kernels = (kernels[:1] + [tiers["fused_topk_bf16"]] + kernels[1:2]
                + [tiers["ivf_list_topk_bf16"]] + kernels[2:3]
@@ -2033,6 +2170,8 @@ def run(args) -> int:
                + kernels[3:4] + [tiers["pruned_fused_topk_bf16"],
                                  tiers["pruned_fused_topk_sq8"]]
                + kernels[4:])
+    check(len(kernels) == 12 and all(e_["parity"] for e_ in kernels),
+          "the kernels line lists 12 entries, each with parity")
     print(f"[{card}] serving-path ivf.pruned_dim_fraction: IVF (B3) "
           f"{b3_serving_frac:.4f}, FLAT (B4) {b4_serving_frac:.4f}",
           flush=True)

@@ -9,7 +9,8 @@ fp32 store tier).
   search   — coarse probes -> virtual bucket probes with their coarse rank
              -> an ADC scan with residual tables, then an exact rerank of
              topk * ivfpq_rerank_factor candidates. The scan is kernel B5
-             (ops/kernel_pq.py) when the crossover fires, the table
+             (ops/kernel_pq.py), over tables built by the table kernel
+             kernel_pq.ivfpq_adc_lut, when the crossover fires, the table
              [b, nprobe, m, ksub] fits LUT_BUDGET_BYTES and
              max(k, topk * factor) <= 64; else the JAX package's XLA arm
              as plain torch (_ivfpq_scan_kernel). A device store reranks on
@@ -76,7 +77,16 @@ from dingo_tpu_torch.ops.kmeans import (
     kmeans_assign,
     train_kmeans,
 )
-from dingo_tpu_torch.ops.pq import pq_encode, pq_train, split_subvectors
+# the residual tables' plain version, under the JAX package's name
+from dingo_tpu_torch.ops.kernel_pq import (
+    ivfpq_adc_lut_plain as _ivfpq_adc_lut,
+)
+from dingo_tpu_torch.ops.pq import (
+    codebook_sqnorms as _codebook_sqnorms,
+    pq_encode,
+    pq_train,
+    residual_lut_tables as _residual_lut_tables,
+)
 from dingo_tpu_torch.ops.rerank import _topk_epilogue, exact_rerank_device
 from dingo_tpu_torch.ops.scatter import pad_buckets, scatter_bucket_update
 from dingo_tpu_torch.ops.topk import begin_host_fetch, merge_topk
@@ -148,39 +158,6 @@ def _encode_residual(vectors: torch.Tensor, assign: torch.Tensor,
                      ) -> torch.Tensor:
     """codes[n, m] uint8 for residuals (vectors - their centroid)."""
     return pq_encode(vectors - centroids[assign.long()], codebooks)
-
-
-def _codebook_sqnorms(codebooks: torch.Tensor) -> torch.Tensor:
-    """||codeword||^2 per (subspace, codeword): [m, ksub] f32."""
-    return (codebooks * codebooks).sum(-1)
-
-
-def _residual_lut_tables(resid: torch.Tensor, codebooks: torch.Tensor,
-                         cb_sq: torch.Tensor) -> torch.Tensor:
-    """Residual targets [n, d] -> ADC tables [n, m, ksub] (a view):
-    lut[i, j, c] = ||resid_i_subj - codeword_jc||^2 in the expanded form
-    q_sq - 2 dots + cb_sq, the one copy of the table formula both scan
-    arms use."""
-    subs = split_subvectors(resid, codebooks.shape[0])     # [m, n, dsub]
-    dots = torch.bmm(subs, codebooks.transpose(1, 2))      # [m, n, ksub]
-    q_sq = (subs * subs).sum(-1)                           # [m, n]
-    lut = q_sq[:, :, None] - 2.0 * dots + cb_sq[:, None, :]
-    return lut.permute(1, 0, 2)
-
-
-def _ivfpq_adc_lut(queries: torch.Tensor, centroids: torch.Tensor,
-                   probes_coarse: torch.Tensor, codebooks: torch.Tensor
-                   ) -> torch.Tensor:
-    """Residual ADC tables [b, nprobe, m, ksub] (contiguous) over the coarse
-    probe ranking: the operand kernel B5 keeps in shared memory per
-    (query, rank)."""
-    b, d = queries.shape
-    m, ksub, _ = codebooks.shape
-    nprobe = probes_coarse.shape[1]
-    resid = (queries[:, None, :] - centroids[probes_coarse.long()]).reshape(
-        b * nprobe, d)
-    lut = _residual_lut_tables(resid, codebooks, _codebook_sqnorms(codebooks))
-    return lut.reshape(b, nprobe, m, ksub).contiguous()
 
 
 def _ivfpq_scan_kernel(code_buckets, bucket_valid, bucket_slot,
@@ -525,8 +502,8 @@ class TpuIvfPq(IvfViewMaintenance, _SlotStoreIndex):
             vprobes[b:] = -1
             valid = self._bucket_valid_for_filter(filter_spec, fprep)
             if use_fused:
-                lut_all = _ivfpq_adc_lut(qpad, self.centroids, probes,
-                                         self.codebooks)
+                lut_all = kernel_pq.ivfpq_adc_lut(qpad, self.centroids,
+                                                  probes, self.codebooks)
                 vals, slots = kernel_pq.ivf_pq_adc_topk(
                     vprobes, coarse_pos.contiguous(), lut_all,
                     self._code_buckets, valid, view.bucket_slot, kk)

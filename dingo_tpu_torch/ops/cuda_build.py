@@ -28,7 +28,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 SOURCES = {"fused_topk": "fused_topk.cu", "ivf_topk": "ivf_topk.cu",
            "ivf_pruned_topk": "ivf_pruned_topk.cu",
            "pruned_fused_topk": "pruned_fused_topk.cu",
-           "ivf_pq_adc_topk": "ivf_pq_adc_topk.cu"}
+           "ivf_pq_adc_topk": "ivf_pq_adc_topk.cu",
+           "ivfpq_adc_lut": "ivfpq_adc_lut.cu"}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

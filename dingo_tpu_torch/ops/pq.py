@@ -82,6 +82,24 @@ def adc_lut(q: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
     return lut.permute(1, 0, 2).contiguous()
 
 
+def codebook_sqnorms(codebooks: torch.Tensor) -> torch.Tensor:
+    """||codeword||^2 per (subspace, codeword): [m, ksub] f32."""
+    return (codebooks * codebooks).sum(-1)
+
+
+def residual_lut_tables(resid: torch.Tensor, codebooks: torch.Tensor,
+                        cb_sq: torch.Tensor) -> torch.Tensor:
+    """Residual targets [n, d] -> ADC tables [n, m, ksub] (a view):
+    lut[i, j, c] = ||resid_i_subj - codeword_jc||^2 in the expanded form
+    q_sq - 2 dots + cb_sq, the one copy of the table formula both IVF_PQ
+    scan arms use (and the one kernel_pq.ivfpq_adc_lut evaluates)."""
+    subs = split_subvectors(resid, codebooks.shape[0])     # [m, n, dsub]
+    dots = torch.bmm(subs, codebooks.transpose(1, 2))      # [m, n, ksub]
+    q_sq = (subs * subs).sum(-1)                           # [m, n]
+    lut = q_sq[:, :, None] - 2.0 * dots + cb_sq[:, None, :]
+    return lut.permute(1, 0, 2)
+
+
 def adc_scan(lut: torch.Tensor, codes: torch.Tensor,
              chunk: int = 32768) -> torch.Tensor:
     """ADC distances [b, n] from LUT[b, m, ksub] and codes[n, m], `chunk`

@@ -15,7 +15,10 @@ list meets (a bucket probed by every query, shared probes, budget 1,
 padded ranks and rows, empty and sparse buckets, k 1 and 64, a block
 wider than a warp's 128 columns); its device work list is held against
 probe_items_plain; and search_async's dispatch runs, for every index
-family, under torch.cuda.set_sync_debug_mode("error").
+family, under torch.cuda.set_sync_debug_mode("error"). B5's per-rank CTAs
+run on spill buckets, unsorted coarse_pos, ranks no probe reaches and
+buckets wider than one selection step, and IVF_PQ's residual-table kernel
+against the torch composite at each subspace width it specialises.
 
 Marked ``gpu``: on a machine without a CUDA device each test skips (the
 decision is made inside the test). Run on the card with
@@ -347,8 +350,10 @@ def test_ivf_pq_index_serves_through_b5_on_device():
     try:
         b5, xla = kernel_pq.ivf_pq_adc_topk.launches, \
             ivf_pq._ivfpq_scan_kernel.calls
+        luts = kernel_pq.ivfpq_adc_lut.launches
         fused = idx.search(x[:8], 10, nprobe=8)
         assert kernel_pq.ivf_pq_adc_topk.launches == b5 + 1
+        assert kernel_pq.ivfpq_adc_lut.launches == luts + 1
         assert ivf_pq._ivfpq_scan_kernel.calls == xla
         assert [int(r.ids[0]) for r in fused] == list(range(8))
         host = new_index(5, IndexParameter(
@@ -361,6 +366,7 @@ def test_ivf_pq_index_serves_through_b5_on_device():
                             .cpu().numpy(), idx._assign_h[slots])
         hres = host.search(x[:8], 10, nprobe=8)
         assert kernel_pq.ivf_pq_adc_topk.launches == b5 + 2
+        assert kernel_pq.ivfpq_adc_lut.launches == luts + 2
         assert [r.ids.tolist() for r in hres] == \
             [r.ids.tolist() for r in fused]
     finally:
@@ -369,12 +375,115 @@ def test_ivf_pq_index_serves_through_b5_on_device():
     try:
         plain = idx.search(x[:8], 10, nprobe=8)
         assert ivf_pq._ivfpq_scan_kernel.calls == xla + 1
+        assert kernel_pq.ivfpq_adc_lut.launches == luts + 2   # XLA arm
     finally:
         _restore(saved)
     assert [r.ids.tolist() for r in plain] == [r.ids.tolist() for r in fused]
     for a, b in zip(plain, fused):
         np.testing.assert_allclose(a.distances, b.distances, rtol=RTOL,
                                    atol=ATOL)
+
+
+# -- B5 per (query, coarse rank), and the residual-table kernel ---------------
+@pytest.mark.parametrize("spill", [True, False], ids=["spill", "flat"])
+@pytest.mark.parametrize("k", [1, 12, 60, 64])
+@pytest.mark.parametrize("ksub", [16, 256])
+@pytest.mark.parametrize("m", [8, 16, 96, 192])
+def test_ivf_pq_adc_topk_rank_cases(m, ksub, k, spill):
+    """B5 against its plain version on the cases its per-rank CTAs meet:
+    a rank that owns three spill buckets, coarse_pos out of order, a rank
+    no probe reaches, a filtered bucket_valid, a query with fewer valid
+    rows than k, a query whose probes are all padded, and buckets wider
+    than one selection step (cap 600 > SEG)."""
+    from dingo_tpu_torch.ops import kernel_pq
+
+    dev = _cuda()
+    g = torch.Generator(device="cpu").manual_seed(m * 7 + ksub + k)
+    nb, b, nprobe, cap = 30, 6, 5, 600 if m <= 16 else 130
+    lut = 5.0 * torch.rand((b, nprobe, m, ksub), generator=g)
+    codes = torch.randint(0, ksub, (nb, cap, m), generator=g,
+                          dtype=torch.uint8)
+    valid = torch.rand((nb, cap), generator=g) < 0.7        # a filter
+    slot = torch.randperm(nb * cap, generator=g).reshape(nb, cap).to(
+        torch.int32)
+    pos = [0, 0, 0, 1, 3, 3] if spill else [0, 1, 2, 3]   # rank 4: none
+    budget = len(pos)
+    vp = torch.randint(0, nb, (b, budget), generator=g, dtype=torch.int32)
+    cp = torch.tensor(pos, dtype=torch.int32).repeat(b, 1)
+    perm = torch.randperm(budget, generator=g)
+    vp[3], cp[3] = vp[3, perm], cp[3, perm]          # coarse_pos unsorted
+    vp[1] = -1                             # every probe padded
+    vp[4, 1:] = -1                         # one bucket, 3 valid rows
+    valid[vp[4, 0]] = False
+    valid[vp[4, 0], :3] = True
+    args = [t.to(dev) for t in (vp, cp, lut, codes, valid, slot)] + [k]
+    before = kernel_pq.ivf_pq_adc_topk.launches
+    kv, ks = kernel_pq.ivf_pq_adc_topk(*args)
+    assert kernel_pq.ivf_pq_adc_topk.launches == before + 1
+    pv, ps = kernel_pq.ivf_pq_adc_topk_plain(*args)
+    torch.cuda.synchronize()
+    assert (ks[1] == -1).all() and torch.isneginf(kv[1]).all()
+    assert (ks[4, 3:] == -1).all() and torch.isfinite(kv[4, :min(k, 3)]).all()
+    _assert_parity(kv, ks, pv, ps)
+
+
+@pytest.mark.parametrize("cap", [40, 600])
+def test_ivf_pq_adc_topk_equals_its_model_with_ties(cap):
+    """B5's pick is deterministic (score, then slot): on tables of small
+    integers, where many rows tie, its output equals the host model of its
+    two passes (rank_lists_plain, merge_lists_plain) bit for bit, slots in
+    the same order."""
+    from dingo_tpu_torch.ops import kernel_pq
+
+    dev = _cuda()
+    g = torch.Generator(device="cpu").manual_seed(cap)
+    nb, b, nprobe, m, ksub, k = 12, 3, 3, 16, 16, 60
+    lut = torch.randint(0, 4, (b, nprobe, m, ksub), generator=g).float()
+    codes = torch.randint(0, ksub, (nb, cap, m), generator=g,
+                          dtype=torch.uint8)
+    valid = torch.rand((nb, cap), generator=g) < 0.9
+    slot = torch.randperm(nb * cap, generator=g).reshape(nb, cap).to(
+        torch.int32)
+    vp = torch.randint(0, nb, (b, 5), generator=g, dtype=torch.int32)
+    cp = torch.tensor([[0, 2, 0, 1, 0]] * b, dtype=torch.int32)
+    vp[2, 3:] = -1
+    args = [vp, cp, lut, codes, valid, slot]
+    rv, ri = kernel_pq.rank_lists_plain(*args, k)
+    mv, mi = kernel_pq.merge_lists_plain(rv, ri, k)
+    kv, ki = kernel_pq.ivf_pq_adc_topk(*[t.to(dev) for t in args], k)
+    torch.cuda.synchronize()
+    assert torch.equal(kv.cpu(), mv) and torch.equal(ki.cpu(), mi)
+
+
+@pytest.mark.parametrize("d,m,ksub,nprobe", [
+    (768, 96, 256, 32),     # the serving shape: dsub 8
+    (768, 96, 256, 16),
+    (64, 16, 16, 7),        # dsub 4, ksub 16: 64 subspaces a CTA
+    (64, 32, 256, 5),       # dsub 2
+    (256, 16, 256, 9),      # dsub 16
+    (96, 4, 256, 3),        # dsub 24: codewords read at each rank
+])
+def test_ivfpq_adc_lut_kernel_matches_plain(d, m, ksub, nprobe):
+    """The residual-table kernel against ivfpq_adc_lut_plain (the torch
+    composite). Tolerance rtol 1e-5, atol 1e-4: the f32 sums over dsub run
+    in another order (cuBLAS's product and torch's reductions there)."""
+    from dingo_tpu_torch.ops import kernel_pq
+
+    dev = _cuda()
+    g = torch.Generator(device="cpu").manual_seed(d + m + nprobe)
+    b, nlist = 11, 40
+    q = torch.randn((b, d), generator=g).to(dev)
+    cent = torch.randn((nlist, d), generator=g).to(dev)
+    cb = torch.randn((m, ksub, d // m), generator=g).to(dev)
+    probes = torch.stack([torch.randperm(nlist, generator=g)[:nprobe]
+                          for _ in range(b)]).to(torch.int32).to(dev)
+    before = kernel_pq.ivfpq_adc_lut.launches
+    got = kernel_pq.ivfpq_adc_lut(q, cent, probes, cb)
+    assert kernel_pq.ivfpq_adc_lut.launches == before + 1
+    want = kernel_pq.ivfpq_adc_lut_plain(q, cent, probes, cb)
+    torch.cuda.synchronize()
+    assert got.shape == (b, nprobe, m, ksub) and got.is_contiguous()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
 # -- the bf16 and sq8 arms ----------------------------------------------------
@@ -836,7 +945,8 @@ def test_search_async_dispatch_does_not_sync(case):
     untrained IVF_PQ re-upload the validity mask), unfiltered and with two
     filters it has not seen (IVF: a filter-cache miss): FLAT on B4 and on
     B1, IVF_FLAT in every tier on B3, IVF_PQ on the device store trained
-    (B5) and untrained (the exact whole-store arm)."""
+    (B5, its residual tables built by their kernel) and untrained (the
+    exact whole-store arm)."""
     from dingo_tpu_torch.index.base import FilterSpec, IndexParameter, \
         IndexType
     from dingo_tpu_torch.index.factory import new_index
@@ -882,6 +992,7 @@ def test_search_async_dispatch_does_not_sync(case):
         filters = [None, FilterSpec(ranges=[(0, 3000)]),
                    FilterSpec(exclude_ids=np.arange(10))]
         before = None if counter is None else getattr(*counter)
+        luts = kernel_pq.ivfpq_adc_lut.launches
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -893,6 +1004,9 @@ def test_search_async_dispatch_does_not_sync(case):
         _restore(saved)
     if counter is not None:
         assert getattr(*counter) == before + 3
+    # IVF_PQ trained: the residual tables, one kernel per dispatch
+    assert kernel_pq.ivfpq_adc_lut.launches == luts + (
+        3 if case == "pq_trained" else 0)
     assert [int(r.ids[0]) for r in res[0]] == list(range(8))
     assert all(r.ids.max() < 3000 for r in res[1])
     assert not any(np.isin(r.ids, np.arange(10)).any() for r in res[2])

@@ -31,6 +31,7 @@ _BLOCKED_IMPORT = textwrap.dedent("""
     assert {"dingo_tpu_torch.ops.sq",
             "dingo_tpu_torch.index.rerank_cache"} <= set(names), names
     import chip_smoke  # the on-card smoke script imports nothing of JAX either
+    import precision_check  # nor does the f32-against-f64 check
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "dingo_tpu")]
     assert not bad, bad
