@@ -8,9 +8,13 @@ Builds the port's six CUDA kernel libraries from ``dingo_tpu_torch/csrc``
 (one nvcc per source, in parallel), twelve kernels and arms in all:
 
   B1 fused_topk         csrc/fused_topk.cu         FLAT scan, pruning off
-                                                   (f32, bf16 rows)
-  B2 ivf_list_topk      csrc/ivf_topk.cu           IVF scan, pruning off
-                                                   (f32, bf16 rows)
+                                                   or d not in 128-column
+                                                   blocks (f32, bf16 rows;
+                                                   split-precision tensor
+                                                   cores)
+  B2 ivf_list_topk      csrc/ivf_topk.cu           IVF scan, likewise (f32,
+                                                   bf16 rows; bucket-major
+                                                   items, tensor cores)
   B3 ivf_pruned_topk    csrc/ivf_pruned_topk.cu    IVF scan, pruned, the
                                                    default (f32, bf16, sq8)
   B4 pruned_fused_topk  csrc/pruned_fused_topk.cu  FLAT scan over the blocked
@@ -40,7 +44,14 @@ at nprobe 16/32/64 (B3's arm; B2-bf16 or sq8's plain arm with pruning
 off), recall against the JAX package's gates, a rerank cache over every
 row, in-place writes on every route, device bytes beside fp32's,
 pipelined timing with fp32 and both tiers taking turns, a profile of the
-sq8 route, and five kernel-vs-plain cases per arm. Every kernel is
+sq8 route, and five kernel-vs-plain cases per arm. Last, the default
+route at GIST1M's width (1,000,000 x 960 f32 from the same recipe, nlist
+1024, every flag at its default): 960 does not tile into 128-column
+blocks, so a FLAT index serves on B1 and an IVF_FLAT region on B2 (B3 and
+B4 must not launch), with recall@10, each kernel against its plain
+version, both timed in turns and pipelined ms/batch with a profile. The
+tensor-core instructions of B1's and B2's arms (cuobjdump) are counted
+and checked (TF32 in the f32 arms, bf16 in the bf16 arms). Every kernel is
 held against its plain PyTorch version on the card (B3/B4 for L2 and IP,
 the in-bucket refresh on and off; B3 also on a filter and on fewer valid
 rows than k; B5 with spill buckets, a rank with three or more of them,
@@ -81,7 +92,15 @@ import numpy as np
 #: dense bf16 on the tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
+#: B1 and B2 multiply in split precision on the tensor cores: three
+#: products per dot (3xTF32 for f32 rows, three bf16 query parts for bf16)
+SPLIT_PASSES = 3
+#: the default-route phase at GIST1M's width (ann-benchmarks'
+#: gist-960-euclidean: 1,000,000 x 960): 960 does not tile into the pruned
+#: route's 128-column blocks, so FLAT serves on B1 and IVF_FLAT on B2
+GIST_D = 960
 #: kernel-vs-plain tolerance: f32 sums land in a different order
 RTOL, ATOL = 1e-4, 1e-3
 #: the residual tables (entries ~1-100) against the torch composite: f32
@@ -913,6 +932,151 @@ def ivf_pq_phase(x, queries, extra, gt, nlist, m, card) -> dict:
                      f"k={kk} tables={ntables} distinct buckets={nbuck}"}
 
 
+def gist_phase(n, nlist, card) -> dict:
+    """The default route at GIST1M's width (ann-benchmarks'
+    gist-960-euclidean: 1,000,000 x 960), rows from make_data's recipe,
+    batch 64, k 10, every flag at its default. 960 does not tile into the
+    pruned route's 128-column blocks, so a FLAT index serves on B1 and a
+    trained IVF_FLAT on B2 (B3 and B4 do not launch): recall@10 against
+    the exact top-10, each kernel against its plain version, the two
+    kernels timed in turns, pipelined ms/batch of each index with the
+    device's busy share. Returns the launches of B1 and B2."""
+    import torch
+
+    from dingo_tpu_torch.index.base import IndexParameter, IndexType
+    from dingo_tpu_torch.index.flat import TpuFlat
+    from dingo_tpu_torch.index.ivf_flat import coarse_probes
+    from dingo_tpu_torch.index.ivf_layout import expand_probes, shape_bucket
+    from dingo_tpu_torch.index.wrapper import VectorIndexWrapper
+    from dingo_tpu_torch.ops import (
+        kernel_ivf,
+        kernel_ivf_pruned,
+        kernel_topk,
+        kernel_topk_pruned,
+    )
+    from dingo_tpu_torch.ops.distance import Metric
+
+    b1, b2 = kernel_topk.fused_topk, kernel_ivf.ivf_list_topk
+    b3 = kernel_ivf_pruned.ivf_pruned_topk
+    b4 = kernel_topk_pruned.pruned_fused_topk
+    d, batch, k = GIST_D, 64, 10
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    x, queries, _ = make_data(n, d, batch)
+    gt = exact_topk(x, queries, k)
+    print(f"d {d}: data + numpy exact top-{k} of {n} rows: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    flat = TpuFlat(40, IndexParameter(index_type=IndexType.FLAT,
+                                      dimension=d, metric=Metric.L2),
+                   device=dev)
+    flat.store.reserve(n)
+    for lo in range(0, n, 65536):
+        flat.upsert(np.arange(lo, min(n, lo + 65536), dtype=np.int64),
+                    x[lo:min(n, lo + 65536)])
+    check(flat.store.vecs_blk is None,
+          f"d {d}: the FLAT store keeps no blocked mirror by default")
+    wrapper = VectorIndexWrapper(41, IndexParameter(
+        index_type=IndexType.IVF_FLAT, dimension=d, metric=Metric.L2,
+        ncentroids=nlist, default_nprobe=32), device=dev)
+    wrapper.set_own(wrapper.build_own())
+    ivf = wrapper.own_index
+    ivf.store.reserve(n)
+    for i, lo in enumerate(range(0, n, 65536)):
+        wrapper.add(np.arange(lo, min(n, lo + 65536), dtype=np.int64),
+                    x[lo:min(n, lo + 65536)], i + 1)
+    ivf.train()
+    torch.cuda.synchronize()
+    print(f"d {d}: FLAT and IVF_FLAT (nlist {nlist}) ingest, train: "
+          f"{time.perf_counter() - t0:.1f} s since the phase began",
+          flush=True)
+
+    # the searches, flags at their defaults: B1 and B2, not B3 or B4
+    launches = {nm: kern.launches for nm, kern in
+                (("B1", b1), ("B2", b2), ("B3", b3), ("B4", b4))}
+    res_flat = flat.search(queries, k)
+    res_ivf = {nprobe: wrapper.search(queries, k, nprobe=nprobe)
+               for nprobe in (32, 64)}
+    torch.cuda.synchronize()
+    launches = {nm: kern.launches - launches[nm] for nm, kern in
+                (("B1", b1), ("B2", b2), ("B3", b3), ("B4", b4))}
+    rec = {nprobe: recall_at(r, gt, k) for nprobe, r in res_ivf.items()}
+    print(f"[{card}] d {d} default route: launches {launches}; FLAT "
+          f"recall@{k} {recall_at(res_flat, gt, k):.4f}; IVF_FLAT recall@{k} "
+          f"nprobe=32 {rec[32]:.4f}, nprobe=64 {rec[64]:.4f}", flush=True)
+    check(ivf._bucket_bsq is None,
+          f"d {d}: the IVF view carries no block norms (no pruned route)")
+    check(launches["B1"] > 0 and launches["B2"] > 0
+          and launches["B3"] == 0 and launches["B4"] == 0,
+          f"d {d}, flags at their defaults: FLAT served on B1, IVF_FLAT on "
+          "B2, B3 and B4 not launched")
+    check(same_modulo_ties(x, queries, [r.ids for r in res_flat], gt),
+          f"d {d}: B1 ids == numpy exact top-10 modulo ties")
+    check(rec[64] >= 0.95, f"d {d}: IVF_FLAT recall@10 >= 0.95 at nprobe=64 "
+                           "(B2)")
+
+    # each kernel against its plain version, then both timed in turns
+    qpad = torch.from_numpy(queries).to(dev)
+    fs = flat.store
+    b1_args = (qpad, fs.vecs, fs.sqnorm, fs.device_mask(), k)
+    nprobe_t = shape_bucket(32)
+    probes = coarse_probes(qpad, ivf.centroids, ivf._c_sqnorm, nprobe_t)
+    view = ivf._view
+    vprobes = expand_probes(probes, view.probe_table, nprobe_t,
+                            view.max_spill)
+    b2_args = (vprobes, qpad, ivf._buckets, ivf._bucket_sqnorm,
+               view.bucket_valid, view.bucket_slot, shape_bucket(k))
+    out = {}
+    for nm, kern, plain, a_ in (
+            ("B1", b1, kernel_topk.fused_topk_plain, b1_args),
+            ("B2", b2, kernel_ivf.ivf_list_topk_plain, b2_args)):
+        kv, ki = kern(*a_)
+        pv, pi = plain(*a_)
+        ok, err = kernel_parity(kv, ki, pv, pi)
+        check(ok, f"d {d}: {nm} kernel == plain (max abs err {err:.3g})")
+        out[nm] = {"ok": ok, "err": err,
+                   "plain_ms": time_ms(lambda: plain(*a_), torch, iters=3,
+                                       warmup=1)}
+    reads = {"B1": [], "B2": []}
+    for r in range(ROUNDS):
+        for nm in (("B1", "B2") if r % 2 == 0 else ("B2", "B1")):
+            kern, a_ = (b1, b1_args) if nm == "B1" else (b2, b2_args)
+            reads[nm].append(time_ms(lambda: kern(*a_), torch))
+    vp = vprobes.cpu().numpy()
+    nbuck = len(np.unique(vp[vp >= 0]))
+    cap = view.cap_list
+    b1_bytes = batch * d * 4 + n * (d * 4 + 4 + 1) + batch * k * 8
+    b2_bytes = (nbuck * cap * (d * 4 + 4 + 1 + 4) + batch * d * 4
+                + vp.size * 4 + batch * shape_bucket(k) * 8)
+    bounds = {"B1": bound_of(b1_bytes, SPLIT_PASSES * 2.0 * batch * n * d,
+                             PEAK_TF32_FLOPS),
+              "B2": bound_of(b2_bytes, SPLIT_PASSES * 2.0 * int(
+                  (vp >= 0).sum()) * cap * d, PEAK_TF32_FLOPS)}
+    for nm in ("B1", "B2"):
+        out[nm]["reads"] = reads[nm]
+        out[nm]["bound"] = bounds[nm]
+        print(f"[{card}] d {d} {nm} "
+              + (f"n={n}" if nm == "B1" else
+                 f"budget={vp.shape[1]} cap={cap} distinct buckets={nbuck}")
+              + f": {spread_text(reads[nm])}, plain "
+              f"{out[nm]['plain_ms']:.4f} ms, bound {bounds[nm][0]:.4f} ms "
+              f"({bounds[nm][1]})", flush=True)
+
+    # pipelined serving of both indexes, then a profile of each window
+    for tag, idx_, nprobe in (("FLAT (B1)", flat, None),
+                              ("IVF_FLAT nprobe=32 (B2)", wrapper, 32)):
+        ms = [pipelined_ms(idx_, queries, k, nprobe) for _ in range(ROUNDS)]
+        med = median_spread(ms)[0]
+        print(f"[{card}] d {d} pipelined {tag} b={batch} k={k} via "
+              f"search_async x20: {spread_text(ms)} per batch "
+              f"({batch / med * 1e3:.0f} QPS at the median)", flush=True)
+        print(f"[{card}] d {d} profile, pipelined {tag} x20: "
+              + device_profile(pipelined_window(idx_, queries, k, nprobe)),
+              flush=True)
+    out["launches"] = launches
+    return out
+
+
 def same_tier_results(a, b) -> bool:
     """Two result lists of one tier agree modulo ties of that tier's own
     distances: every id that only one list holds sits at (within
@@ -1490,10 +1654,16 @@ def tier_bound(name, a_, frac, batch, d):
     timed inputs: each input byte read once (the pruned arms: row bytes
     times the smaller scanned fraction of kernel and plain version, plus
     the metadata no pruning skips), each output written once; the f32
-    FMAs of the f32-query arms on the f32 peak, the bf16 x bf16 products
-    of B4-bf16 and the sq8 arms on the bf16 tensor-core peak."""
+    FMAs of B3-bf16 on the f32 peak, the bf16 x bf16 products of
+    B4-bf16 and the sq8 arms on the bf16 tensor-core peak, and B1-bf16's
+    and B2-bf16's three bf16 products there too."""
     bf16_ops = name in ("B4-bf16", "B4-sq8", "B3-sq8")
     peak = PEAK_BF16_FLOPS if bf16_ops else PEAK_F32_FLOPS
+    # B1-bf16 and B2-bf16: three bf16 products (the query's parts) on the
+    # tensor cores
+    passes = 1
+    if name in ("B1-bf16", "B2-bf16"):
+        peak, passes = PEAK_BF16_FLOPS, SPLIT_PASSES
     f = 1.0 if frac is None else max(0.0, 1.0 - max(frac))
     if name.startswith(("B1", "B4")):
         q, x = a_[0], a_[1]
@@ -1519,7 +1689,7 @@ def tier_bound(name, a_, frac, batch, d):
         ops = 2.0 * npairs * cap * d * f
         shape = (f"b={batch} budget={vp.shape[1]} cap={cap} d={d} k={k} "
                  f"distinct buckets={nbuck}")
-    bound, by = bound_of(nbytes, ops, peak)
+    bound, by = bound_of(nbytes, passes * ops, peak)
     return bound, by, shape
 
 
@@ -1599,6 +1769,20 @@ def run(args) -> int:
                        if (arm, op) not in mma3) or "none")
           + f"; TF32 anywhere: {tf32_3}", flush=True)
     check(not tf32_3, "no TF32 operation in B3's library")
+    for tag, lib_name, kern in (("B1", "fused_topk", "fused_scan_kernel"),
+                                ("B2", "ivf_topk", "ivf_scan_kernel")):
+        sass_s, _ = sass_mma(cuda_build, lib_name, kern)
+        print(f"SASS of {tag}'s scan kernels (split-precision products): "
+              + ("; ".join(f"{arm} {op} x{c}"
+                           for (arm, op), c in sorted(sass_s.items()))
+                 or "no MMA"), flush=True)
+        check(any(arm == "f32" and op.startswith(("HMMA", "HGMMA"))
+                  and "TF32" in op for arm, op in sass_s),
+              f"{tag} f32's scan kernel issues TF32 tensor-core MMAs "
+              "(3xTF32)")
+        check(any(arm == "bf16" and op.startswith(("HMMA", "HGMMA"))
+                  and "BF16" in op for arm, op in sass_s),
+              f"{tag}-bf16's scan kernel issues bf16 tensor-core MMAs")
     for tier in TIERS:
         check(any(arm == tier and "HMMA" in op and "BF16" in op
                   for arm, op in sass),
@@ -2003,7 +2187,11 @@ def run(args) -> int:
     nrow = fstore.capacity
     b1_bytes = batch * d * 4 + nrow * (d * 4 + 4 + 1) + batch * k * 8
     b1_ops = 2.0 * batch * nrow * d
-    b1_bound, b1_by = bound_of(b1_bytes, b1_ops)
+    # the kernel's products: three TF32 passes on the tensor cores; the
+    # bound of the same products as CUDA-core f32 FMAs printed beside it
+    b1_bound, b1_by = bound_of(b1_bytes, SPLIT_PASSES * b1_ops,
+                               PEAK_TF32_FLOPS)
+    b1_fma_bound = bound_of(b1_bytes, b1_ops)[0]
 
     b2_plain_ms = time_ms(lambda: kernel_ivf.ivf_list_topk_plain(*b2_args),
                           torch, iters=5)
@@ -2014,7 +2202,8 @@ def run(args) -> int:
     b2_bytes = (nbuck * cap * (d * 4 + 4 + 1 + 4) + batch * d * 4
                 + vp.size * 4 + batch * k_eff * 8)
     b2_ops = 2.0 * npairs * cap * d
-    b2_bound, b2_by = bound_of(b2_bytes, b2_ops)
+    b2_bound, b2_by = bound_of(b2_bytes, SPLIT_PASSES * b2_ops,
+                               PEAK_TF32_FLOPS)
 
     # pruned bounds: the unpruned work times a scanned fraction (lane0 /
     # lane1 of the L2 runs above), plus the metadata no pruning skips. The
@@ -2054,11 +2243,22 @@ def run(args) -> int:
 
     print(f"[{card}] B1 fused_topk b={batch} n={nrow} d={d} k={k}: "
           f"{spread_text(reads['B1'])}, plain {b1_plain_ms:.4f} ms, bound "
-          f"{b1_bound:.4f} ms ({b1_by})", flush=True)
+          f"{b1_bound:.4f} ms ({b1_by}; the products alone "
+          f"{SPLIT_PASSES * b1_ops / PEAK_TF32_FLOPS * 1e3:.4f} ms as three "
+          f"TF32 passes, {b1_fma_bound:.4f} ms as f32 FMAs)", flush=True)
+    # B2 reads a bucket once per item (a bucket and up to 8 of its
+    # queries): the items' bytes, beside the distinct buckets' of the bound
+    n_items = kernel_ivf_pruned.probe_items(vprobes,
+                                            index._buckets.shape[0])[2]
+    item_bytes = n_items * cap * d * 4
     print(f"[{card}] B2 ivf_list_topk b={batch} budget={vp.shape[1]} "
-          f"cap={cap} d={d} k={k_eff} distinct buckets={nbuck}: "
-          f"{spread_text(reads['B2'])}, plain {b2_plain_ms:.4f} ms, bound "
-          f"{b2_bound:.4f} ms ({b2_by})", flush=True)
+          f"cap={cap} d={d} k={k_eff} distinct buckets={nbuck}, pairs "
+          f"{npairs}, items {n_items}: {spread_text(reads['B2'])}, plain "
+          f"{b2_plain_ms:.4f} ms, bound {b2_bound:.4f} ms ({b2_by}: the "
+          f"distinct buckets' {b2_bytes / 1e9:.3f} GB); the items' rows "
+          f"{item_bytes / 1e9:.3f} GB, streamed at "
+          f"{item_bytes / median_spread(reads['B2'])[0] / 1e9:.3f} TB/s",
+          flush=True)
     print(f"[{card}] B3 ivf_pruned_topk L2 (same shapes, dblk={dblk}, "
           f"scanned fraction kernel {b3_kfrac:.4f}, plain {b3_pfrac:.4f}): "
           f"{spread_text(reads['B3'])}, plain {b3_plain_ms:.4f} ms, bound "
@@ -2118,6 +2318,18 @@ def run(args) -> int:
         "bytes": index.get_device_memory_size()})
     print(f"tier phase: {time.perf_counter() - t0:.1f} s", flush=True)
     tiers = {e["name"]: e for e in tier_entries}
+    peak_tiers = torch.cuda.max_memory_allocated()
+
+    # -- GIST1M's width on the default route (B1, B2), the fp32 region and
+    # the tiers' state released first -----------------------------------
+    wrapper = index = view = vprobes = probes = qpad = None
+    b2_args = None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gist = gist_phase(args.n, nlist, card)
+    print(f"d {GIST_D} phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound,
               by, ok, plain_calls, frac=None):
@@ -2153,6 +2365,16 @@ def run(args) -> int:
     ]
     for e, nm in zip(kernels, ("B1", "B2", "B3", "B4", "B5")):
         _, e["ms_min"], e["ms_max"] = median_spread(reads[nm])
+    # B1 and B2: their launches on the default route at d 960 beside the
+    # flag route's at d 768 (`launches`), and their times at that width
+    for e, nm in zip(kernels[:2], ("B1", "B2")):
+        g_ = gist[nm]
+        e["launches_default_route_d960"] = gist["launches"][nm]
+        e["ms_d960"] = median_spread(g_["reads"])[0]
+        e["plain_ms_d960"] = g_["plain_ms"]
+        e["bound_ms_d960"], e["bound_by_d960"] = g_["bound"]
+        e["parity"] = e["parity"] and g_["ok"]
+        e["max_abs_err"] = max(e["max_abs_err"], g_["err"])
     lut = pq["lut"]
     # the table kernel: its plain version is the torch composite, which is
     # also the PyTorch yardstick (no single call computes the tables)
@@ -2177,6 +2399,7 @@ def run(args) -> int:
           flush=True)
     print(f"[{card}] peak device memory: fp32 and IVF_PQ phases "
           f"{peak_fp32 / 2**30:.2f} GiB, tier phase "
+          f"{peak_tiers / 2**30:.2f} GiB, d {GIST_D} phase "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)

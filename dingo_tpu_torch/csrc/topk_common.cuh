@@ -11,11 +11,10 @@
 // Slots whose score is -inf are never inserted, so a list that saw fewer
 // than k valid rows keeps (-inf, -1) entries, the contract of every exit.
 //
-// Row element types of the precision tiers, shared by every scan: float
-// (fp32 rows), __nv_bfloat16 (bf16 rows) and uint8_t (sq8 codes). The
-// CUDA-core scans convert each element to f32 on load and run their f32
-// tile unchanged (B4's bf16 arms feed the tensor cores instead, with the
-// same sq8 decode):
+// Row element types of the precision tiers: float (fp32 rows),
+// __nv_bfloat16 (bf16 rows) and uint8_t (sq8 codes). The CUDA-core scan
+// (B3) converts each element to f32 as it loads (B4's bf16 arms feed the
+// tensor cores instead, with the same sq8 decode):
 //   bf16  widens exactly (__bfloat162float);
 //   sq8   decodes code * scale[j] + vmin[j] in f32 with __fmul_rn then
 //         __fadd_rn (no contraction into an FMA: numpy and the JAX package
@@ -30,7 +29,6 @@
 #include <math_constants.h>
 #include <climits>
 #include <cstdint>
-#include <type_traits>
 
 namespace dingo {
 
@@ -59,110 +57,6 @@ __device__ __forceinline__ float row_value(__nv_bfloat16 v, int, Codec) {
 }
 __device__ __forceinline__ float row_value(uint8_t v, int col, Codec cd) {
   return sq_decode((float)v, __ldg(cd.scale + col), __ldg(cd.vmin + col));
-}
-
-// Elements per 16-byte load of each row type.
-template <typename T>
-struct Vec16 {
-  static constexpr int N = 16 / sizeof(T);
-};
-
-// The codec of the N columns of one 16-byte load, fetched once and reused
-// for every row of a warp step (empty for the float arms).
-template <typename T>
-struct ColCodec {
-  __device__ __forceinline__ void load(int, Codec) {}
-};
-template <>
-struct ColCodec<uint8_t> {
-  float sc[16], vm[16];
-  __device__ __forceinline__ void load(int col0, Codec cd) {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      sc[i] = __ldg(cd.scale + col0 + i);
-      vm[i] = __ldg(cd.vmin + col0 + i);
-    }
-  }
-};
-
-// Unpack one 16-byte load of Vec16<T>::N elements to f32.
-__device__ __forceinline__ void unpack16(const uint4& raw,
-                                         const ColCodec<float>&, float* out) {
-  out[0] = __uint_as_float(raw.x);
-  out[1] = __uint_as_float(raw.y);
-  out[2] = __uint_as_float(raw.z);
-  out[3] = __uint_as_float(raw.w);
-}
-__device__ __forceinline__ void unpack16(const uint4& raw,
-                                         const ColCodec<__nv_bfloat16>&,
-                                         float* out) {
-  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    out[2 * i] = __uint_as_float(w[i] << 16);
-    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-__device__ __forceinline__ void unpack16(const uint4& raw,
-                                         const ColCodec<uint8_t>& cc,
-                                         float* out) {
-  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 16; ++i)
-    out[i] = sq_decode((float)((w[i >> 2] >> (8 * (i & 3))) & 0xffu),
-                       cc.sc[i], cc.vm[i]);
-}
-
-// Partial dots of ROWS rows with a query slice, one group of LPR lanes
-// (lane l of it) striding over `len` columns starting at column col0 (row
-// pointers already offset to col0; a null row skips). VEC reads 16 bytes
-// per lane and load, which needs len a multiple of Vec16<T>::N and 16-byte
-// aligned row slices; the caller folds the group's lanes. qs is the staged
-// query slice in shared memory.
-template <typename T, bool VEC, int ROWS, int LPR>
-__device__ __forceinline__ void group_row_dots(const T* (&rowp)[ROWS],
-                                               const float* __restrict__ qs,
-                                               int len, int col0, Codec cd,
-                                               int l, float (&acc)[ROWS]) {
-  if (VEC) {
-    constexpr int N = Vec16<T>::N;
-    for (int c = l; c < len / N; c += LPR) {
-      float qv[N];
-#pragma unroll
-      for (int e = 0; e < N; e += 4) {
-        const float4 q4 = *reinterpret_cast<const float4*>(qs + c * N + e);
-        qv[e] = q4.x;
-        qv[e + 1] = q4.y;
-        qv[e + 2] = q4.z;
-        qv[e + 3] = q4.w;
-      }
-      ColCodec<T> cc;
-      cc.load(col0 + c * N, cd);
-#pragma unroll
-      for (int t = 0; t < ROWS; ++t) {
-        if (rowp[t] != nullptr) {
-          // f32 rows take the read-only path, which the kernels'
-          // __restrict__ gave them before the row pointers moved into an
-          // array; bf16 rows measured slower on it (B2-bf16 1.28 against
-          // 1.12 ms, H100 80GB HBM3 at 700 W)
-          const uint4* src = reinterpret_cast<const uint4*>(rowp[t]) + c;
-          const uint4 raw = std::is_same<T, float>::value ? __ldg(src) : *src;
-          float xv[N];
-          unpack16(raw, cc, xv);
-#pragma unroll
-          for (int e = 0; e < N; ++e) acc[t] = fmaf(qv[e], xv[e], acc[t]);
-        }
-      }
-    }
-  } else {
-    for (int c = l; c < len; c += LPR) {
-      const float qv = qs[c];
-#pragma unroll
-      for (int t = 0; t < ROWS; ++t)
-        if (rowp[t] != nullptr)
-          acc[t] = fmaf(qv, row_value(rowp[t][c], col0 + c, cd), acc[t]);
-    }
-  }
 }
 
 __device__ __forceinline__ void list_init(float* vals, int* ids, int k) {
@@ -308,88 +202,5 @@ __global__ void merge_candidates(float* __restrict__ cand_v,
     __syncthreads();
   }
 }
-
-// Lanes per row of group_row_dots over a slice of `len` elements: the
-// slice's 16-byte groups, 16 or 8, when VEC would leave lanes of a warp
-// idle (a dimension block of 128 bf16 values is 16 groups, of 128 codes
-// 8), so that one warp scans 32 / LPR rows at once; else the whole warp.
-template <typename T>
-inline int lanes_per_row(int len, bool vec) {
-  const int g = len / Vec16<T>::N;
-  return (vec && (g == 16 || g == 8)) ? g : 32;
-}
-
-// Row tiles of the register-blocked scan (B1): a 128-row x 16-column
-// step of x goes through registers (8 values per thread of 256) into the
-// transposed shared tile Xs[16][ld]. f32 rows load one element per thread
-// and slot (consecutive threads on consecutive columns). bf16 rows and sq8
-// codes load, with VEC, 8 consecutive columns of one row per thread (one
-// 16-byte load of bf16, one 8-byte load of codes: ncols a multiple of 8
-// and 16-byte aligned rows), else one element as f32 does. col_off is the
-// dimension of column 0 (the sq8 codec's index).
-constexpr int TILE_THREADS = 256;
-constexpr int TILE_BK = 16;
-
-template <typename T, bool VEC>
-struct RowTile {
-  static constexpr bool kVec = VEC && sizeof(T) < 4;
-
-  __device__ __forceinline__ static void load(const T* __restrict__ x,
-                                              int ncols, int row_hi, int r0,
-                                              int k0, int col_off, Codec cd,
-                                              int tid, float (&px)[8]) {
-    if (kVec) {
-      const int row = r0 + (tid >> 1), c = k0 + (tid & 1) * 8;
-      if (row < row_hi && c < ncols) {
-        const T* src = x + (size_t)row * ncols + c;
-        if (sizeof(T) == 2) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(src);
-          const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            px[2 * i] = __uint_as_float(w[i] << 16);
-            px[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-          }
-        } else {
-          const uint2 raw = *reinterpret_cast<const uint2*>(src);
-          const unsigned w[2] = {raw.x, raw.y};
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-            px[i] = sq_decode((float)((w[i >> 2] >> (8 * (i & 3))) & 0xffu),
-                              __ldg(cd.scale + col_off + c + i),
-                              __ldg(cd.vmin + col_off + c + i));
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) px[i] = 0.f;
-      }
-    } else {
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        const int e = tid + TILE_THREADS * t, rr = e / TILE_BK,
-                  kk = e % TILE_BK;
-        const int row = r0 + rr, c = k0 + kk;
-        px[t] = (row < row_hi && c < ncols)
-                    ? row_value(x[(size_t)row * ncols + c], col_off + c, cd)
-                    : 0.f;
-      }
-    }
-  }
-
-  __device__ __forceinline__ static void store(float* Xs, int ld, int tid,
-                                               const float (&px)[8]) {
-    if (kVec) {
-      const int rr = tid >> 1, kk0 = (tid & 1) * 8;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) Xs[(kk0 + i) * ld + rr] = px[i];
-    } else {
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        const int e = tid + TILE_THREADS * t;
-        Xs[(e % TILE_BK) * ld + e / TILE_BK] = px[t];
-      }
-    }
-  }
-};
 
 }  // namespace dingo

@@ -1,15 +1,20 @@
 """Kernel B2: IVF probed-bucket scan + running top-k (port of
 dingo_tpu/ops/pallas_ivf.py::ivf_list_topk), in its two row arms:
 
-  f32   buckets f32 (``ivf_list_topk.launches``);
-  bf16  buckets bf16 widened exactly to f32, query f32, f32 products
-        (pallas_ivf.py:65; ``ivf_list_topk.launches_bf16``).
+  f32   buckets f32, the query f32 (``ivf_list_topk.launches``);
+  bf16  buckets bf16, the query f32 (pallas_ivf.py:65;
+        ``ivf_list_topk.launches_bf16``).
 
 ``ivf_list_topk`` launches the arm of the buckets' dtype in
 ``csrc/ivf_topk.cu`` for CUDA tensors and runs ``ivf_list_topk_plain``
 (the same arm) for CPU tensors; any other placement raises. k <= K_MAX
 (the JAX package's own gate, ivf_flat.py:885, is k <= 64).
 
+The kernel walks B3's work list (``kernel_ivf_pruned.probe_items_plain``:
+items of a bucket and up to 8 of its queries), so a bucket is read once
+per item, and multiplies on the tensor cores in split precision (3xTF32
+for f32 rows, a three-way bf16 split of the query for bf16 rows;
+``ops/split_dot.py`` models both and the per-pair candidate layout).
 Bound on an H100 and design: see the note at the top of the CUDA source.
 """
 
@@ -21,6 +26,7 @@ from typing import Tuple
 import torch
 
 from dingo_tpu_torch.ops import cuda_build
+from dingo_tpu_torch.ops.kernel_topk import tma_ready
 from dingo_tpu_torch.ops.topk import topk_scores
 
 K_MAX = 64
@@ -41,9 +47,18 @@ def _launcher(dtype: torch.dtype = torch.float32):
         fn = getattr(lib, ARMS[dtype][0])
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p] * 5)
+                       + [ctypes.c_void_p] * 6)
         _fns[dtype] = (lib, fn)
     return _fns[dtype]
+
+
+def _parts(lib, cap: int) -> int:
+    """Parts the kernel scans an item of a cap-row bucket in (each pair's
+    candidates have this many rows of k)."""
+    fn = lib.dingo_ivf_list_parts
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int]
+    return fn(cap)
 
 
 def _pad_rows(queries: torch.Tensor, vprobes: torch.Tensor):
@@ -132,20 +147,24 @@ def ivf_list_topk(vprobes: torch.Tensor, queries: torch.Tensor,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ivf_list_topk: tensors must be contiguous")
     dev = queries.device
-    # 16 bytes per lane and load: 4 f32 or 8 bf16 values
-    vec = d % (16 // buckets.element_size()) == 0 \
-        and buckets.data_ptr() % 16 == 0
-    cand_v = torch.empty((b, budget, k), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((b, budget, k), dtype=torch.int32, device=dev)
+    lib, fn = _launcher(buckets.dtype)
+    # the work list (7 b budget + 2) and the queries' norms (b)
+    work = torch.empty((7 * b * budget + 2 + b,), dtype=torch.int32,
+                       device=dev)
+    parts = _parts(lib, cap)
+    cand_v = torch.empty((b, budget, parts, k), dtype=torch.float32,
+                         device=dev)
+    cand_i = torch.empty((b, budget, parts, k), dtype=torch.int32,
+                         device=dev)
     out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
-    lib, fn = _launcher(buckets.dtype)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(vprobes.data_ptr(), queries.data_ptr(), buckets.data_ptr(),
+    rc = fn(buckets.data_ptr(), vprobes.data_ptr(), queries.data_ptr(),
             bucket_sqnorm.data_ptr(), bucket_valid.view(torch.uint8).data_ptr(),
             bucket_slot.data_ptr(), b, budget, nb, cap, d, k, int(ascending),
-            int(vec), cand_v.data_ptr(), cand_i.data_ptr(), out_v.data_ptr(),
-            out_i.data_ptr(), stream)
+            int(tma_ready(buckets, queries)), work.data_ptr(),
+            cand_v.data_ptr(), cand_i.data_ptr(),
+            out_v.data_ptr(), out_i.data_ptr(), stream)
     cuda_build.check_launch(lib, rc, "ivf_list_topk")
     counter = ARMS[buckets.dtype][1]
     setattr(ivf_list_topk, counter, getattr(ivf_list_topk, counter) + 1)

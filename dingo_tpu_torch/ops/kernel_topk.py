@@ -1,9 +1,9 @@
 """Kernel B1: fused distance + running top-k (port of
 dingo_tpu/ops/pallas_topk.py::fused_topk), in its two row arms:
 
-  f32   rows f32 (``fused_topk.launches``);
-  bf16  rows bf16 widened exactly to f32, query f32, f32 products
-        (pallas_topk.py:67; ``fused_topk.launches_bf16``).
+  f32   rows f32, the query f32 (``fused_topk.launches``);
+  bf16  rows bf16, the query f32 (pallas_topk.py:67;
+        ``fused_topk.launches_bf16``).
 
 ``fused_topk`` launches the arm of the rows' dtype in
 ``csrc/fused_topk.cu`` for CUDA tensors and runs ``fused_topk_plain``
@@ -12,7 +12,10 @@ The kernel holds its running lists in shared memory for k <= K_MAX;
 callers route larger k to the XLA-equivalent arm themselves
 (index/flat.py), so this wrapper refuses it.
 
-Bound on an H100 and design: see the note at the top of the CUDA source.
+The kernel multiplies on the tensor cores in split precision (3xTF32 for
+f32 rows, a three-way bf16 split of the query for bf16 rows;
+``ops/split_dot.py`` models both). Bound on an H100 and design: see the
+note at the top of the CUDA source.
 """
 
 from __future__ import annotations
@@ -27,8 +30,10 @@ from dingo_tpu_torch.ops.topk import topk_scores
 
 #: largest k the kernel's shared-memory running lists hold
 K_MAX = 64
-#: rows per scan tile (a CTA's slot range is a multiple of it)
+#: rows per scan tile of B4 (a CTA's slot range is a multiple of it)
 ROWS_PER_TILE = 128
+#: rows per scan tile of B1
+B1_ROWS_PER_TILE = 256
 #: queries per CTA tile
 QUERIES_PER_TILE = 64
 
@@ -37,6 +42,15 @@ ARMS = {torch.float32: ("dingo_fused_topk", "launches"),
         torch.bfloat16: ("dingo_fused_topk_bf16", "launches_bf16")}
 
 _fns: dict = {}
+
+
+def _lists_per_query(lib) -> int:
+    """Running lists per query and CTA of the kernel (its candidates'
+    middle dimension is this times the CTAs over the slots)."""
+    fn = lib.dingo_fused_topk_lists
+    fn.restype = ctypes.c_int
+    fn.argtypes = []
+    return fn()
 
 
 def _launcher(dtype: torch.dtype = torch.float32):
@@ -67,13 +81,22 @@ def fused_topk_plain(q: torch.Tensor, x: torch.Tensor,
     return topk_scores(scores, k, valid=valid.to(torch.bool)[None, :])
 
 
-def split_rows(n: int, b: int, num_sms: int) -> int:
-    """Slot rows per CTA: about four CTAs per SM over the whole grid, in
-    whole scan tiles."""
-    tiles = -(-n // ROWS_PER_TILE)
+def split_rows(n: int, b: int, num_sms: int, tile: int = ROWS_PER_TILE,
+               per_sm: int = 4) -> int:
+    """Slot rows per CTA: about `per_sm` CTAs per SM over the whole grid,
+    in whole scan tiles of `tile` rows."""
+    tiles = -(-n // tile)
     qtiles = -(-b // QUERIES_PER_TILE)
-    nsplit = min(tiles, max(1, -(-4 * num_sms // qtiles)))
-    return -(-tiles // nsplit) * ROWS_PER_TILE
+    nsplit = min(tiles, max(1, -(-per_sm * num_sms // qtiles)))
+    return -(-tiles // nsplit) * tile
+
+
+def tma_ready(*tensors: torch.Tensor) -> bool:
+    """The kernels' TMA copies take row-major matrices whose row pitch is a
+    multiple of 16 bytes from a 16-byte aligned base; others go through
+    the same ring by plain loads."""
+    return all(t.shape[-1] * t.element_size() % 16 == 0
+               and t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def fused_topk(q: torch.Tensor, x: torch.Tensor, x_sqnorm: torch.Tensor,
@@ -103,20 +126,19 @@ def fused_topk(q: torch.Tensor, x: torch.Tensor, x_sqnorm: torch.Tensor,
         raise ValueError("fused_topk: tensors must be contiguous")
     dev = q.device
     props = torch.cuda.get_device_properties(dev)
-    rows = split_rows(n, b, props.multi_processor_count)
+    # one CTA an SM (its ring and lists take most of the shared memory)
+    rows = split_rows(n, b, props.multi_processor_count, B1_ROWS_PER_TILE, 1)
     nsplit = -(-n // rows)
-    cand_v = torch.empty((b, nsplit, k), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((b, nsplit, k), dtype=torch.int32, device=dev)
+    lib, fn = _launcher(x.dtype)
+    lists = _lists_per_query(lib) * nsplit
+    cand_v = torch.empty((b, lists, k), dtype=torch.float32, device=dev)
+    cand_i = torch.empty((b, lists, k), dtype=torch.int32, device=dev)
     out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
-    # bf16 rows: 8 values (16 bytes) per thread and tile step
-    vec = x.dtype == torch.bfloat16 and d % 8 == 0 \
-        and x.data_ptr() % 16 == 0
-    lib, fn = _launcher(x.dtype)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(q.data_ptr(), x.data_ptr(), x_sqnorm.data_ptr(),
             valid.view(torch.uint8).data_ptr(), b, n, d, k, int(ascending),
-            rows, int(vec), cand_v.data_ptr(), cand_i.data_ptr(),
+            rows, int(tma_ready(x, q)), cand_v.data_ptr(), cand_i.data_ptr(),
             out_v.data_ptr(), out_i.data_ptr(), stream)
     cuda_build.check_launch(lib, rc, "fused_topk")
     counter = ARMS[x.dtype][1]

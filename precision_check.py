@@ -8,7 +8,7 @@ For each seed, the rows are chip_smoke.py's (bench.py's recipe: n // 1000
 Gaussian centers + 0.35 noise, queries = stored rows + 0.05 noise, d 768,
 64 queries), and the coarse quantizer and the PQ codebooks are trained as
 TpuIvfPq trains them (nlist 1024 over a 65,536-row sample, m 96 over its
-residuals). Four f32 computations are read against the same computation
+residuals). These f32 computations are read against the same computation
 in f64 on the same f32 inputs:
 
   flat     the fp32 plain FLAT arm's distance matrix (``pairwise_l2sqr``,
@@ -18,7 +18,18 @@ in f64 on the same f32 inputs:
            65,536-row sample against the centroids) and its argmin;
   probes   ``coarse_probes``' query-to-centroid distances and its top-32;
   table    the residual-table kernel (``kernel_pq.ivfpq_adc_lut``) at
-           nprobe 32, every [64, 32, 96, 256] entry.
+           nprobe 32, every [64, 32, 96, 256] entry;
+  B1, B1-bf16, B2, B2-bf16
+           the split-precision tensor-core kernels (3xTF32 for f32 rows,
+           three bf16 parts of the query for bf16 rows): B1 over all the
+           rows, B2 over an IVF_FLAT index of them (nlist 1024, nprobe 32),
+           k 10; their distances (negated scores) against f64's at the
+           same (query, row), beside the fp32 plain arm's there
+           (``pairwise_l2sqr`` of the same rows as f32, "plain at the same
+           entries"), and their ids against f64's top-10 (of every row for
+           B1, of the probed rows for B2). The gate: relative error at most
+           twice the plain arm's on the same entries, and no id off f64's
+           other than by a tie; a failed gate exits 1.
 
 For each it prints the largest relative error |f32 - f64| / |f64| (over
 entries whose f64 value is above 1e-3 of the largest, so that a distance
@@ -120,6 +131,79 @@ def check_seed(seed: int, n: int, d: int, nlist: int, m: int) -> dict:
            - 2.0 * torch.einsum("bpjt,jct->bpjc", r64, b64)
            + (b64 * b64).sum(-1)[None, None])
     out["table"] = rel_errors(lut, t64) + (0,)
+    del lut, t64, r64
+    out.update(split_kernels(x, q, seed))
+    return out
+
+
+def split_kernels(x, q, seed: int) -> dict:
+    """B1 and B2 in both arms against f64 on rows x [n, d] and queries q:
+    {name: (rel, abs, untied misses, plain rel, plain abs)} over each
+    kernel's returned (query, row) entries; the plain fp32 arm's errors at
+    the same entries."""
+    import torch
+
+    from dingo_tpu_torch.index.base import IndexParameter, IndexType
+    from dingo_tpu_torch.index.ivf_flat import TpuIvfFlat, coarse_probes
+    from dingo_tpu_torch.index.ivf_layout import expand_probes
+    from dingo_tpu_torch.ops import kernel_ivf, kernel_topk
+    from dingo_tpu_torch.ops.distance import pairwise_l2sqr, squared_norms
+
+    k, dev = 10, x.device
+    q64 = q.double()
+    out = {}
+    for arm, dtype in (("", torch.float32), ("-bf16", torch.bfloat16)):
+        rows = x.to(dtype)
+        x32 = rows.to(torch.float32)
+        xsq = squared_norms(x32)
+        x64 = x32.double()
+        d64 = ((q64 * q64).sum(1)[:, None] - 2.0 * (q64 @ x64.T)
+               + (x64 * x64).sum(1)[None, :])
+
+        def errors(dist32, ids, cand64):
+            """(rel, abs) of the kernel's distances at its ids, untied
+            misses against the f64 top-k of cand64 (inf: not a candidate),
+            (rel, abs) of the plain arm at the same entries."""
+            ids = ids.long()
+            ref = torch.gather(d64, 1, ids)
+            plain = torch.gather(pairwise_l2sqr(q, x32, xsq), 1, ids)
+            return (rel_errors(dist32, ref)
+                    + (untied_misses(ids, cand64, k),)
+                    + rel_errors(plain, ref))
+
+        v, i = kernel_topk.fused_topk(q, rows, xsq,
+                                      torch.ones(x.shape[0], dtype=torch.bool,
+                                                 device=dev), k)
+        out["B1" + arm] = errors(-v, i, d64)
+
+        ivf = TpuIvfFlat(90, IndexParameter(
+            index_type=IndexType.IVF_FLAT, dimension=x.shape[1],
+            ncentroids=1024, precision="fp32" if not arm else "bf16"),
+            device=dev)
+        ivf.upsert(np.arange(x.shape[0]), x.cpu().numpy())
+        ivf.train()
+        ivf.search(q[:1].cpu().numpy(), k, nprobe=32)   # the bucket view
+        view = ivf._view
+        probes = coarse_probes(q, ivf.centroids, ivf._c_sqnorm, 32)
+        vp = expand_probes(probes, view.probe_table, 32, view.max_spill)
+        v, i = kernel_ivf.ivf_list_topk(
+            vp, q, ivf._buckets, ivf._bucket_sqnorm, view.bucket_valid,
+            view.bucket_slot, k)
+        # f64's top-k among the rows the probes reach
+        ok = vp >= 0
+        slots = view.bucket_slot[vp.clamp_min(0).long()]   # [b, r, cap]
+        live = view.bucket_valid[vp.clamp_min(0).long()] & ok[:, :, None]
+        reach = torch.full_like(d64, float("inf"))
+        flat_slots = slots.reshape(slots.shape[0], -1).long()
+        flat_live = live.reshape(live.shape[0], -1)
+        src = torch.where(flat_live, torch.gather(d64, 1,
+                                                  flat_slots.clamp_min(0)),
+                          torch.full_like(flat_slots, float("inf"),
+                                          dtype=torch.float64))
+        reach.scatter_(1, flat_slots.clamp_min(0), src)
+        out["B2" + arm] = errors(-v, i, reach)
+        del ivf, view, d64, x64, reach
+        torch.cuda.empty_cache()
     return out
 
 
@@ -142,21 +226,35 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     worst = {}
+    gate_failed = []
     for seed in args.seeds:
         t0 = time.perf_counter()
         res = check_seed(seed, args.n, args.d, args.nlist, args.m)
-        for name, (rel, ab, miss) in res.items():
+        for name, (rel, ab, miss, *plain) in res.items():
+            beside = ""
+            if plain:   # a split-precision kernel: the gate
+                prel, pab = plain
+                beside = (f"; the fp32 plain arm at the same entries: max "
+                          f"rel err {prel:.3e}, max abs err {pab:.3e}")
+                if rel > 2.0 * prel or miss:
+                    gate_failed.append(f"seed {seed} {name}")
             print(f"[{card}] seed {seed} {name}: max rel err {rel:.3e}, max "
                   f"abs err {ab:.3e}, ids off f64's other than by a tie "
-                  f"{miss}", flush=True)
-            w = worst.get(name, (0.0, 0.0, 0))
-            worst[name] = (max(w[0], rel), max(w[1], ab), w[2] + miss)
+                  f"{miss}{beside}", flush=True)
+            w = worst.get(name, (0.0, 0.0, 0, 0.0))
+            worst[name] = (max(w[0], rel), max(w[1], ab), w[2] + miss,
+                           max(w[3], plain[0] if plain else 0.0))
         print(f"seed {seed}: {time.perf_counter() - t0:.1f} s", flush=True)
-    for name, (rel, ab, miss) in worst.items():
+    for name, (rel, ab, miss, prel) in worst.items():
         print(f"[{card}] over seeds {args.seeds} {name}: max rel err "
-              f"{rel:.3e}, max abs err {ab:.3e}, untied misses {miss}",
-              flush=True)
-    return 0
+              f"{rel:.3e}, max abs err {ab:.3e}, untied misses {miss}"
+              + (f" (plain arm at the same entries {prel:.3e})" if prel
+                 else ""), flush=True)
+    print("gate (split-precision kernels: relative error <= 2x the plain "
+          "arm's at the same entries, no untied miss): "
+          + ("FAILED " + ", ".join(gate_failed) if gate_failed else "passed"),
+          flush=True)
+    return 1 if gate_failed else 0
 
 
 if __name__ == "__main__":

@@ -18,7 +18,13 @@ probe_items_plain; and search_async's dispatch runs, for every index
 family, under torch.cuda.set_sync_debug_mode("error"). B5's per-rank CTAs
 run on spill buckets, unsorted coarse_pos, ranks no probe reaches and
 buckets wider than one selection step, and IVF_PQ's residual-table kernel
-against the torch composite at each subspace width it specialises.
+against the torch composite at each subspace width it specialises. B1 and
+B2 on the tensor cores run both arms at d 960 and d 100 (bf16 rows with a
+pitch TMA cannot read), n not a multiple of the tile, every row invalid,
+k 1 and 64, padded ranks and a bucket probed by more than 8 queries; B2
+at d 6500 and 6501; B2's result for a query is the same bits alone or at
+another column of its items; and at d 960 the default route serves FLAT
+on B1 and IVF_FLAT on B2.
 
 Marked ``gpu``: on a machine without a CUDA device each test skips (the
 decision is made inside the test). Run on the card with
@@ -64,6 +70,7 @@ def _assert_parity(kv, ki, pv, pi, atol=ATOL):
 
 @pytest.mark.parametrize("b,n,d,k,ascending,keep", [
     (64, 5000, 768, 10, True, 1.0),
+    (64, 9000, 960, 10, True, 1.0),     # GIST's width
     (3, 1000, 33, 64, True, 0.5),       # k = K_MAX, odd d, ragged n
     (130, 4097, 128, 17, False, 0.9),   # three query tiles, IP
     (8, 300, 64, 40, True, 0.05),       # fewer valid rows than k
@@ -1010,3 +1017,233 @@ def test_search_async_dispatch_does_not_sync(case):
     assert [int(r.ids[0]) for r in res[0]] == list(range(8))
     assert all(r.ids.max() < 3000 for r in res[1])
     assert not any(np.isin(r.ids, np.arange(10)).any() for r in res[2])
+
+
+# -- B1 and B2 on the tensor cores (split precision; B2 over work items) -------
+def _rows_of(x, arm):
+    """(rows as the arm stores them, their f32 values)."""
+    if arm == "f32":
+        return x, x
+    rows, f32, _ = _tier_rows(x, "bf16")
+    return rows, f32
+
+
+def _exact_scores(q, f32, xsq, ids, ascending):
+    """f64 'larger is better' scores of rows ids[b, k] (-1: -inf) for the
+    queries q, with the rows' given norms."""
+    q64, x64 = q.double().cpu(), f32.double().cpu()
+    idx = ids.long().cpu()
+    rows = x64[idx.clamp_min(0)]                       # [b, k, d]
+    dots = torch.einsum("bd,bkd->bk", q64, rows)
+    if ascending:
+        sc = -(((q64 * q64).sum(1)[:, None] - 2.0 * dots)
+               + xsq.double().cpu()[idx.clamp_min(0)])
+    else:
+        sc = dots
+    return torch.where(idx < 0, torch.full_like(sc, -np.inf), sc).numpy()
+
+
+def _assert_as_exact_as_plain(kv, ki, pv, pi, q, f32, xsq, ascending):
+    """Kernel against plain where the f32 GEMM's own rounding can pass the
+    parity tolerance (queries that nearly repeat a row, d 960: scores near
+    0 from norms near 1,000): both against f64. The same -inf entries;
+    every kernel score within 2x the plain's largest error against f64
+    plus ATOL of its slot's f64 score (the fp32 tier's gate, precision_check
+    .py); a kernel slot outside the plain's list no worse in f64 than the
+    plain's k-th best by more than that."""
+    kv, pv = kv.cpu().numpy(), pv.cpu().numpy()
+    np.testing.assert_array_equal(np.isneginf(kv), np.isneginf(pv))
+    fin = np.isfinite(pv)
+    assert (ki.cpu().numpy()[~fin] == -1).all()
+    kref = _exact_scores(q, f32, xsq, ki, ascending)
+    pref = _exact_scores(q, f32, xsq, pi, ascending)
+    perr = float(np.abs(pv[fin] - pref[fin]).max()) if fin.any() else 0.0
+    allow = 2.0 * perr + ATOL
+    assert np.abs(kv[fin] - kref[fin]).max(initial=0.0) <= allow
+    kset, pset = ki.cpu().numpy(), pi.cpu().numpy()
+    for r in range(len(kv)):
+        if not fin[r].any():
+            continue
+        kth = pref[r][fin[r]].min()
+        for c in np.flatnonzero(~np.isin(kset[r], pset[r])):
+            assert kref[r, c] >= kth - allow, (r, c)
+
+
+B1_SPLIT_CASES = [
+    (64, 9000, 960, 10, True, 1.0),    # GIST's width; n not a tile multiple
+    (64, 5000, 100, 64, True, 0.9),    # bf16 rows: a 200-byte pitch, plain
+    (70, 3000, 960, 1, False, 0.8),    # two query tiles, k 1, IP
+    (16, 700, 100, 10, True, 0.0),     # every row invalid
+]
+
+
+@pytest.mark.parametrize("arm", ["f32", "bf16"])
+@pytest.mark.parametrize("b,n,d,k,ascending,keep", B1_SPLIT_CASES)
+def test_fused_topk_split_kernel_matches_plain(arm, b, n, d, k, ascending,
+                                               keep):
+    from dingo_tpu_torch.ops import kernel_topk as kt
+
+    dev = _cuda()
+    g = torch.Generator(device="cpu").manual_seed(n + d + k)
+    # clustered rows and queries near stored rows: scores near 0, where
+    # the absolute tolerance, not the relative one, holds the sums
+    raw = _clustered(g, n, d).to(dev)
+    rows, f32 = _rows_of(raw, arm)
+    q = (raw[torch.randint(0, n, (b,), generator=g).to(dev)]
+         + 0.05 * torch.randn((b, d), generator=g).to(dev))
+    xsq = (f32 * f32).sum(1)
+    valid = (torch.rand(n, generator=g) < keep).to(dev)
+    counter = "launches" if arm == "f32" else "launches_bf16"
+    before = getattr(kt.fused_topk, counter)
+    kv, ki = kt.fused_topk(q, rows, xsq, valid, k, ascending)
+    assert getattr(kt.fused_topk, counter) == before + 1
+    pv, pi = kt.fused_topk_plain(q, rows, xsq, valid, k, ascending)
+    torch.cuda.synchronize()
+    _assert_as_exact_as_plain(kv, ki, pv, pi, q, f32, xsq, ascending)
+    if keep == 0.0:
+        assert torch.isneginf(kv).all() and (ki == -1).all()
+
+
+def _split_probes(g, b, budget, nb, hot):
+    """Distinct buckets per query, none of them bucket 3 except at rank 0
+    of the first `hot` queries (more than 8 of them: two items)."""
+    others = torch.tensor([v for v in range(nb) if v != 3])
+    vp = torch.stack([others[torch.randperm(nb - 1, generator=g)[:budget]]
+                      for _ in range(b)]).to(torch.int32)
+    vp[:hot, 0] = 3
+    vp[2, 3:] = -1                         # padded ranks
+    vp[b - 1] = -1                         # a query that probes nothing
+    return vp
+
+
+B2_SPLIT_CASES = [
+    (960, 1024, 12, True, 0),      # GIST's width at the smoke's cap
+    (100, 300, 64, True, 15),      # bf16 rows: plain loads; cap % 128 != 0
+    (960, 200, 1, False, 12),      # k 1, IP
+]
+
+
+@pytest.mark.parametrize("arm", ["f32", "bf16"])
+@pytest.mark.parametrize("d,cap,k,ascending,hot", B2_SPLIT_CASES)
+def test_ivf_list_topk_split_kernel_matches_plain(arm, d, cap, k, ascending,
+                                                  hot):
+    from dingo_tpu_torch.ops import kernel_ivf as ki_mod
+
+    dev = _cuda()
+    g = torch.Generator(device="cpu").manual_seed(d + cap + k)
+    nb, b, budget = 40, 16, 9
+    raw = _clustered(g, nb * cap, d).to(dev)
+    rows, f32 = _rows_of(raw.reshape(nb, cap, d), arm)
+    sq = (f32 * f32).sum(-1)
+    valid = (torch.rand((nb, cap), generator=g) < 0.8).to(dev)
+    slot = torch.randperm(nb * cap, generator=g).reshape(nb, cap).to(
+        torch.int32).to(dev)
+    q = (raw[torch.randint(0, nb * cap, (b,), generator=g).to(dev)]
+         + 0.05 * torch.randn((b, d), generator=g).to(dev))
+    vp = _split_probes(g, b, budget, nb, hot).to(dev)
+    counter = "launches" if arm == "f32" else "launches_bf16"
+    before = getattr(ki_mod.ivf_list_topk, counter)
+    kv, kslots = ki_mod.ivf_list_topk(vp, q, rows, sq, valid, slot, k,
+                                      ascending)
+    assert getattr(ki_mod.ivf_list_topk, counter) == before + 1
+    pv, pslots = ki_mod.ivf_list_topk_plain(vp, q, rows, sq, valid, slot, k,
+                                            ascending)
+    torch.cuda.synchronize()
+    assert (kslots[b - 1] == -1).all()
+    _assert_parity(kv, kslots, pv, pslots)
+
+
+@pytest.mark.parametrize("arm", ["f32", "bf16"])
+@pytest.mark.parametrize("d", [6500, 6501])
+def test_ivf_list_topk_wide_rows(arm, d):
+    """Widths far past what 8 whole query rows beside the ring would leave
+    room for (B2 stages the queries in the rows' column chunks): d 6500
+    (f32 rows by TMA, bf16 rows by plain loads) and 6501 (plain loads),
+    cap not a multiple of the tile, a bucket probed by 9 queries."""
+    from dingo_tpu_torch.ops import kernel_ivf as ki_mod
+
+    dev = _cuda()
+    g = torch.Generator(device="cpu").manual_seed(d)
+    nb, cap, b, budget, k = 24, 130, 12, 5, 10
+    rows, f32 = _rows_of(torch.randn((nb, cap, d), generator=g).to(dev),
+                         arm)
+    sq = (f32 * f32).sum(-1)
+    valid = (torch.rand((nb, cap), generator=g) < 0.9).to(dev)
+    slot = torch.randperm(nb * cap, generator=g).reshape(nb, cap).to(
+        torch.int32).to(dev)
+    q = torch.randn((b, d), generator=g).to(dev)
+    vp = _split_probes(g, b, budget, nb, 9).to(dev)
+    kv, kslots = ki_mod.ivf_list_topk(vp, q, rows, sq, valid, slot, k)
+    pv, pslots = ki_mod.ivf_list_topk_plain(vp, q, rows, sq, valid, slot, k)
+    torch.cuda.synchronize()
+    _assert_parity(kv, kslots, pv, pslots)
+
+
+@pytest.mark.parametrize("arm", ["f32", "bf16"])
+def test_ivf_list_topk_pair_does_not_depend_on_its_item(arm):
+    """Every query probes the same buckets (items of 8): a query's results
+    are the same bits alone, and at another column of its items."""
+    from dingo_tpu_torch.ops import kernel_ivf as ki_mod
+
+    dev = _cuda()
+    g = torch.Generator(device="cpu").manual_seed(31)
+    nb, cap, d, b = 24, 256, 960, 16
+    rows, f32 = _rows_of(torch.randn((nb, cap, d), generator=g).to(dev), arm)
+    sq = (f32 * f32).sum(-1)
+    valid = (torch.rand((nb, cap), generator=g) < 0.9).to(dev)
+    slot = torch.arange(nb * cap, dtype=torch.int32).reshape(nb, cap).to(dev)
+    q = torch.randn((b, d), generator=g).to(dev)
+    vp = torch.randperm(nb, generator=g)[:6].to(torch.int32).repeat(b, 1)
+    vp = vp.contiguous().to(dev)
+    args = (rows, sq, valid, slot, 10)
+    all_v, all_i = ki_mod.ivf_list_topk(vp, q, *args)
+    alone = vp.clone()
+    alone[1:] = -1
+    one_v, one_i = ki_mod.ivf_list_topk(alone, q, *args)
+    rev_v, rev_i = ki_mod.ivf_list_topk(vp, q.flip(0).contiguous(), *args)
+    torch.cuda.synchronize()
+    assert torch.equal(all_v[0], one_v[0]) and torch.equal(all_i[0], one_i[0])
+    assert torch.equal(all_v, rev_v.flip(0)) and torch.equal(all_i,
+                                                             rev_i.flip(0))
+
+
+def test_default_route_at_d960_serves_on_b1_and_b2():
+    """d = 960 (GIST1M) does not tile into 128-column blocks, so with every
+    flag at its default a FLAT index serves on B1 and a trained IVF_FLAT
+    on B2; the pruned kernels B3 and B4 do not launch."""
+    from dingo_tpu_torch.index.base import IndexParameter, IndexType
+    from dingo_tpu_torch.index.factory import new_index
+    from dingo_tpu_torch.ops import (
+        kernel_ivf,
+        kernel_ivf_pruned,
+        kernel_topk,
+        kernel_topk_pruned,
+    )
+
+    _cuda()
+    rng = np.random.default_rng(960)
+    centers = rng.standard_normal((16, 960), dtype=np.float32)
+    x = (centers[rng.integers(0, 16, 5000)] + 0.3 * rng.standard_normal(
+        (5000, 960), dtype=np.float32)).astype(np.float32)
+    b3 = kernel_ivf_pruned.ivf_pruned_topk
+    b4 = kernel_topk_pruned.pruned_fused_topk
+    pruned_before = (b3.launches, b4.launches)
+    flat = new_index(30, IndexParameter(index_type=IndexType.FLAT,
+                                        dimension=960))
+    assert flat.store.vecs_blk is None
+    flat.upsert(np.arange(5000), x)
+    b1_before = kernel_topk.fused_topk.launches
+    res_flat = flat.search(x[:8], 10)
+    assert kernel_topk.fused_topk.launches == b1_before + 1
+    ivf = new_index(31, IndexParameter(index_type=IndexType.IVF_FLAT,
+                                       dimension=960, ncentroids=16))
+    ivf.upsert(np.arange(5000), x)
+    ivf.train()
+    b2_before = kernel_ivf.ivf_list_topk.launches
+    res_ivf = ivf.search(x[:8], 10, nprobe=16)
+    assert kernel_ivf.ivf_list_topk.launches == b2_before + 1
+    assert (b3.launches, b4.launches) == pruned_before
+    assert [int(r.ids[0]) for r in res_flat] == list(range(8))
+    # all 16 lists probed: the IVF search is exact, as FLAT's
+    assert [r.ids.tolist() for r in res_ivf] == [r.ids.tolist()
+                                                 for r in res_flat]

@@ -27,8 +27,9 @@ _BLOCKED_IMPORT = textwrap.dedent("""
         dingo_tpu_torch.__path__, prefix="dingo_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
-    # the precision tiers' modules are among them
-    assert {"dingo_tpu_torch.ops.sq",
+    # the precision tiers' modules and B1/B2's split-product models are
+    # among them
+    assert {"dingo_tpu_torch.ops.sq", "dingo_tpu_torch.ops.split_dot",
             "dingo_tpu_torch.index.rerank_cache"} <= set(names), names
     import chip_smoke  # the on-card smoke script imports nothing of JAX either
     import precision_check  # nor does the f32-against-f64 check
