@@ -66,7 +66,20 @@ with and without its rank-0 seed launch. A filtered search, and an IP
 and a COSINE region (a quarter of the rows), run on the B3 and B2 routes
 through the wrapper with the same ids modulo ties, and a search's
 dispatch runs under ``torch.cuda.set_sync_debug_mode("error")`` (no host
-sync before its resolve). Timings are medians over ROUNDS rounds in which the routes
+sync before its resolve). After the kernel timings, the coalesced serving
+phase drives the fp32 IVF_FLAT region (B3), the FLAT store (B4) and the
+IVF_PQ region (B5, factor 6) through the port's entry point for many small
+requests (``server/services.IndexService``: a SearchCoalescer bound to
+the wrappers' search and search_async(staged=...)) with the JAX package's
+pipeline_sweep traffic: 4-row requests over 4 keys, max_batch 64, a 2 ms
+window, 16 in flight a round, serial against pipelined arms (IVF_FLAT at
+depths 1, 2 and 4 over 3 rounds of turns); it prints rows/s, request p50
+and p99, stage fractions, the depth-2 arm's device busy share and a
+per-thread host sample profile, and checks byte-identical probe replies
+across arms, probe ids == a direct search modulo ties, no staged miss, no
+new kernel shape after the warmed ladder, an expired budget launching
+nothing, the span tree and its Chrome export, and 8,192 upserts and 4,096
+deletes under load. Timings are medians over ROUNDS rounds in which the routes
 (pipelined searches) or the five kernels take turns, so two readings that
 are compared come from the same card and minute. Data is BASELINE.json
 config 2 made with bench.py's recipe (seed 7, n // 1000 Gaussian centers +
@@ -82,6 +95,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -922,7 +936,7 @@ def ivf_pq_phase(x, queries, extra, gt, nlist, m, card) -> dict:
     nbytes = (ntables * m * index.ksub * 4 + nbuck * cap * (m + 1 + 4)
               + vp.size * 8 + batch * kk * 8)
     bound, by = bound_of(nbytes, float(live.sum()) * cap * m)
-    return {"args": path_args, "launches": b5_launches,
+    return {"wrapper": wrapper, "args": path_args, "launches": b5_launches,
             "xla_calls": b5_xla_calls, "ok": ok_all, "err": err_all,
             "bound": bound, "by": by,
             "lut": {"launches": lut_launches, "ok": lut_ok, "err": lut_err,
@@ -930,6 +944,410 @@ def ivf_pq_phase(x, queries, extra, gt, nlist, m, card) -> dict:
                     "torch_ms": torch_ms, "bound": lut_bound, "by": lut_by},
             "shape": f"b={batch} budget={vp.shape[1]} cap={cap} m={m} "
                      f"k={kk} tables={ntables} distinct buckets={nbuck}"}
+
+
+def thread_profile(fn, top: int = 6, period_s: float = 0.001) -> str:
+    """Run fn while a sampler thread reads every thread's innermost Python
+    frame each `period_s` (sys._current_frames). cProfile sees only the
+    thread that enables it, and the coalesced path runs on three: the
+    submitter, the coalescer's flush thread (search-coalescer) and its
+    completion lane. Per thread with samples: their count and the `top`
+    functions by share of them (a thread blocked in C shows the Python
+    frame that called it, e.g. threading's wait); the sampler's own cost
+    is included."""
+    import collections
+    import os
+    import threading
+
+    counts = collections.defaultdict(collections.Counter)
+    names = {}
+    stop = threading.Event()
+
+    def sampler():
+        me = threading.get_ident()
+        n = 0
+        while not stop.wait(period_s):
+            if n % 50 == 0:
+                names.update({t.ident: t.name for t in threading.enumerate()})
+            n += 1
+            for tid, frame in sys._current_frames().items():
+                if tid != me:
+                    code = frame.f_code
+                    counts[tid][(code.co_name,
+                                 os.path.basename(code.co_filename),
+                                 code.co_firstlineno)] += 1
+
+    t = threading.Thread(target=sampler, name="smoke-sampler", daemon=True)
+    t0 = time.perf_counter()
+    t.start()
+    try:
+        fn()
+    finally:
+        stop.set()
+        t.join(timeout=10)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    parts = []
+    for tid, c in sorted(counts.items(), key=lambda kv: -sum(kv[1].values())):
+        total = sum(c.values())
+        name = names.get(tid, str(tid))
+        if total < 10 or not name.startswith(
+                ("MainThread", "search-coalescer", "dingo-completion-lane",
+                 "coalescer-flush", "smoke-writer")):
+            continue
+        rows = ", ".join(f"{f} ({file}:{line}) {k / total:.1%}"
+                         for (f, file, line), k in c.most_common(top))
+        parts.append(f"{name} [{total} samples]: {rows}")
+    return f"wall {wall_ms:.1f} ms; " + "; ".join(parts)
+
+
+#: the coalesced serving phase drives the JAX package's pipeline_sweep
+#: traffic (bench.py:2160): 4-row requests over 4 coalescer keys, max_batch
+#: 64, a 2 ms window, a closed loop of 16 requests in flight a round
+CO_REQ_ROWS, CO_KEYS, CO_MAX_BATCH, CO_WINDOW_MS, CO_IN_FLIGHT = \
+    4, 4, 64, 2.0, 16
+#: seconds each arm serves, split over CO_TURNS turns taken in rotation
+CO_ARM_S, CO_TURNS = 2.0, 3
+#: the writer of the load round: rows upserted, then deleted, in chunks
+CO_WRITE_ROWS, CO_DELETE_ROWS, CO_WRITE_CHUNK = 8192, 4096, 512
+
+
+def co_service(wrapper, depth: int):
+    """The port's entry point over one region, its wrapper bound under
+    CO_KEYS region ids (the reference sweep's keys over one index): depth
+    0 is the serial arm (pipeline_enabled false), else the pipelined arm at
+    that staging depth. Returns (service, saved flags)."""
+    from dingo_tpu_torch.common.config import FLAGS
+    from dingo_tpu_torch.server.services import IndexService
+
+    saved = set_flags(FLAGS, pipeline_enabled="true" if depth else "false",
+                      pipeline_depth=max(1, depth))
+    svc = IndexService({r: wrapper for r in range(1, CO_KEYS + 1)},
+                       device=wrapper.device, window_ms=CO_WINDOW_MS,
+                       max_batch=CO_MAX_BATCH)
+    return svc, saved
+
+
+def co_close(svc, saved) -> None:
+    from dingo_tpu_torch.common.config import FLAGS
+
+    svc.close()
+    for f_, v_ in saved.items():
+        FLAGS.set(f_, v_)
+
+
+def closed_loop(svc, pool, k, kw, seconds, stop=None):
+    """Serve `pool`'s 4-row requests through `svc` in a closed loop:
+    CO_IN_FLIGHT requests over the CO_KEYS regions a round, then wait for
+    all of them; for `seconds`, or until `stop` is set when given (60 s at
+    most). Returns (rows served, wall s, request latencies ms)."""
+    lat: list = []
+    rows, i = 0, 0
+    nreq = len(pool) // CO_REQ_ROWS
+    t0 = time.perf_counter()
+    while True:
+        el = time.perf_counter() - t0
+        if el > 60 or (stop.is_set() if stop is not None else el >= seconds):
+            break
+        futs = []
+        for j in range(CO_IN_FLIGHT):
+            r = i % nreq
+            i += 1
+            s = time.perf_counter()
+            f = svc.submit(1 + j % CO_KEYS,
+                           pool[r * CO_REQ_ROWS:(r + 1) * CO_REQ_ROWS], k,
+                           **kw)
+            f.add_done_callback(
+                lambda _f, s=s: lat.append((time.perf_counter() - s) * 1e3))
+            futs.append(f)
+        for f in futs:
+            rows += len(f.result(timeout=60))
+    return rows, time.perf_counter() - t0, lat
+
+
+def probe_digest(svc, probe, k, kw):
+    """The fixed probe set's replies, one 4-row request at a time (each
+    alone in its batch, so every arm forms the same batches): (sha1 over
+    the ids' and distances' bytes, ids per query)."""
+    import hashlib
+
+    sha, ids = hashlib.sha1(), []
+    for i in range(0, len(probe), CO_REQ_ROWS):
+        for r in svc.submit(1, probe[i:i + CO_REQ_ROWS], k,
+                            **kw).result(timeout=60):
+            sha.update(np.asarray(r.ids, np.int64).tobytes())
+            sha.update(np.asarray(r.distances, np.float32).tobytes())
+            ids.append(np.asarray(r.ids, np.int64))
+    return sha.hexdigest(), ids
+
+
+def serve_arm(wrapper, depth, pool, probe, k, kw, seconds) -> dict:
+    """One turn of one arm: warm its own path (ring slots, lane thread),
+    read the probe set's digest, serve the closed loop for `seconds`.
+    Stage totals are the loop's only."""
+    svc, saved = co_service(wrapper, depth)
+    try:
+        for f in [svc.submit(1 + i % CO_KEYS, pool[:CO_REQ_ROWS], k, **kw)
+                  for i in range(2 * CO_KEYS)]:
+            f.result(timeout=60)
+        sha, ids = probe_digest(svc, probe, k, kw)
+        base = svc._get_coalescer().stage_totals()
+        rows, wall, lat = closed_loop(svc, pool, k, kw, seconds)
+        totals = svc._get_coalescer().stage_totals()
+    finally:
+        co_close(svc, saved)
+    return {"rows": rows, "wall": wall, "lat": lat, "sha": sha, "ids": ids,
+            "totals": {s: totals.get(s, 0.0) - base.get(s, 0.0)
+                       for s in totals}}
+
+
+def arm_report(name, tag, turns, card) -> dict:
+    """Fold one arm's turns: rows/s at saturation, p50 and p99 request
+    latency, stage fractions of the pipelined arm (batch_form, dispatch
+    and resolve are the flush and lane walls; kernel and rerank lie inside
+    resolve) and the dispatch-overhead percentage, as bench.py's
+    pipeline_sweep reports them."""
+    rows = sum(t["rows"] for t in turns)
+    wall = sum(t["wall"] for t in turns)
+    lat = np.concatenate([np.asarray(t["lat"], np.float64) for t in turns])
+    totals: dict = {}
+    for t in turns:
+        for s, ms in t["totals"].items():
+            totals[s] = totals.get(s, 0.0) + ms
+    out = {"rows_per_s": rows / wall, "turn_rows_per_s":
+           [t["rows"] / t["wall"] for t in turns],
+           "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)), "requests": len(lat)}
+    text = (f"[{card}] coalesced {name} {tag}: {out['rows_per_s']:.1f} "
+            f"rows/s (turns {[round(v, 1) for v in out['turn_rows_per_s']]})"
+            f", request p50 {out['p50_ms']:.3f} ms, p99 {out['p99_ms']:.3f}"
+            f" ms over {len(lat)} requests")
+    serialized = sum(totals.get(s, 0.0)
+                     for s in ("batch_form", "dispatch", "resolve"))
+    if serialized > 0:
+        out["stage_fractions"] = {
+            s: totals.get(s, 0.0) / serialized
+            for s in ("batch_form", "dispatch", "kernel", "rerank",
+                      "resolve")}
+        out["dispatch_overhead_pct"] = \
+            100.0 * totals.get("dispatch", 0.0) / serialized
+        text += ("; stage fractions " + ", ".join(
+            f"{s} {v:.4f}" for s, v in out["stage_fractions"].items())
+            + f"; dispatch overhead {out['dispatch_overhead_pct']:.2f}%")
+    print(text, flush=True)
+    return out
+
+
+def coalesced_phase(x, extra, regions, card) -> dict:
+    """Serve the smoke's regions through the port's coalesced entry point
+    (server/services.IndexService: a SearchCoalescer whose run is
+    VectorIndexWrapper.search and whose dispatch is its
+    search_async(staged=...)) with the traffic of the JAX package's
+    pipeline_sweep. `regions`: name -> (wrapper, kernel wrapper whose
+    launches the path must make, search kwargs, depths, flags). IVF_FLAT
+    takes the serial arm and depths 1, 2 and 4 in turns over CO_TURNS
+    rounds; the others their serial arm and depth 2. Checks byte-identical
+    probe replies across arms, probe ids == a direct search modulo ties,
+    no staged miss, no new kernel shape after warm-up, an expired budget
+    launching nothing, the span tree and its Chrome export, and writes
+    under load (on the first region). Prints each arm's rows/s, p50/p99
+    and stage fractions, and the depth-2 arm's device busy share and host
+    profile."""
+    from dingo_tpu_torch.common.config import FLAGS
+    from dingo_tpu_torch.common.metrics import METRICS
+    from dingo_tpu_torch.obs.sentinel import SENTINEL
+
+    n = x.shape[0]
+    k = 10
+    rng = np.random.default_rng(23)
+    pool = (x[rng.choice(n, 1024, replace=False)] + 0.05 * rng.standard_normal(
+        (1024, x.shape[1]), dtype=np.float32)).astype(np.float32)
+    probe = pool[:32]
+    misses0 = METRICS.counter("pipeline.staged_miss").get()
+    report: dict = {}
+    t_phase = time.perf_counter()
+    for name, (wrapper, kern, kw, depths, flags) in regions.items():
+        saved_region = set_flags(FLAGS, **flags)
+        try:
+            kern.launches = 0
+            b = 1
+            while b <= CO_MAX_BATCH:          # warm the pow2 batch ladder
+                wrapper.search(pool[:b], k, **kw)
+                b *= 2
+            new0 = SENTINEL.new_shapes()
+            arms = [0] + list(depths)
+            turns = {a: [] for a in arms}
+            rounds = CO_TURNS if len(arms) > 2 else 1
+            for r in range(rounds):
+                for a in arms[r % len(arms):] + arms[:r % len(arms)]:
+                    turns[a].append(serve_arm(wrapper, a, pool, probe, k, kw,
+                                              CO_ARM_S / rounds))
+            new_shapes = SENTINEL.new_shapes() - new0
+            direct = wrapper.search(probe, k, **kw)
+            out = {"launches": kern.launches}
+            for a in arms:
+                out[a] = arm_report(name, "serial" if a == 0 else
+                                    f"pipelined depth {a}", turns[a], card)
+            shas = {t["sha"] for a in arms for t in turns[a]}
+            check(len(shas) == 1, f"coalesced {name}: probe replies "
+                  f"byte-identical across every arm and turn ({len(shas)} "
+                  "digests)")
+            check(same_modulo_ties(x, probe, turns[0][0]["ids"],
+                                   [r.ids for r in direct]),
+                  f"coalesced {name}: probe ids == a direct search modulo "
+                  "ties")
+            check(new_shapes == 0, f"coalesced {name}: no new kernel shape "
+                  f"after the warmed ladder ({new_shapes})")
+            check(kern.launches > 0, f"coalesced {name}: the path launched "
+                  f"its kernel ({kern.launches} launches)")
+            if 2 in depths:
+                ratio = out[2]["rows_per_s"] / out[0]["rows_per_s"]
+                print(f"[{card}] coalesced {name}: depth 2 / serial rows/s "
+                      f"{ratio:.4f}; launches in the arms {kern.launches}",
+                      flush=True)
+            report[name] = out
+            if name == next(iter(regions)):
+                report["checks"] = co_checks(wrapper, kern, pool, extra, k,
+                                             kw, card)
+        finally:
+            for f_, v_ in saved_region.items():
+                FLAGS.set(f_, v_)
+    misses = METRICS.counter("pipeline.staged_miss").get() - misses0
+    check(misses == 0, f"coalesced phase: pipeline.staged_miss {misses} on "
+          "the L2 regions")
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"coalesced serving phase: {report['seconds']:.1f} s", flush=True)
+    return report
+
+
+def co_checks(wrapper, kern, pool, extra, k, kw, card) -> dict:
+    """The depth-2 arm's profiles, then the checks that need a live
+    service: an expired budget, the span tree, writes under load."""
+    import tempfile
+    import threading
+
+    from dingo_tpu_torch.common.config import FLAGS
+    from dingo_tpu_torch.obs import pressure as qp
+    from dingo_tpu_torch.obs.sentinel import SENTINEL
+    from dingo_tpu_torch.trace import TRACE_BUFFER, to_chrome_trace
+    from dingo_tpu_torch.trace.export import dump_chrome_trace
+
+    out: dict = {}
+    svc, saved = co_service(wrapper, 2)
+    try:
+        closed_loop(svc, pool, k, kw, 0.2)          # warm
+        out["device_profile"] = device_profile(
+            lambda: closed_loop(svc, pool, k, kw, 0.5))
+        print(f"[{card}] profile, coalesced depth 2 (0.5 s closed loop): "
+              + out["device_profile"], flush=True)
+        out["host_profile"] = thread_profile(
+            lambda: closed_loop(svc, pool, k, kw, 1.0))
+        print(f"[{card}] host sample profile, coalesced depth 2 (1 s "
+              "closed loop): " + out["host_profile"], flush=True)
+
+        # an expired budget: DeadlineExceeded at admission, no launch
+        qsaved = set_flags(FLAGS, qos_enabled=True)
+        try:
+            launches = kern.launches
+            calls = sum(e["calls"] for e in SENTINEL.state().values())
+            with qp.budget_scope(-1.0):
+                fut = svc.submit(1, pool[:CO_REQ_ROWS], k, **kw)
+            exc = fut.exception(timeout=30)
+            check(isinstance(exc, qp.DeadlineExceeded)
+                  and kern.launches == launches
+                  and sum(e["calls"] for e in SENTINEL.state().values())
+                  == calls, "coalesced: an expired budget gets "
+                  "DeadlineExceeded with no kernel launch")
+        finally:
+            for f_, v_ in qsaved.items():
+                FLAGS.set(f_, v_)
+    finally:
+        co_close(svc, saved)
+
+    # the span tree of one request (the service closed after it, so the
+    # lane has ended the run span), and its Chrome export
+    tsaved = set_flags(FLAGS, trace_sampling_rate=1.0)
+    TRACE_BUFFER.clear()
+    svc, saved = co_service(wrapper, 2)
+    try:
+        svc.submit(1, pool[:CO_REQ_ROWS], k, **kw).result(timeout=60)
+    finally:
+        co_close(svc, saved)
+        for f_, v_ in tsaved.items():
+            FLAGS.set(f_, v_)
+    recs = TRACE_BUFFER.snapshot()
+    TRACE_BUFFER.clear()
+    waits = [r for r in recs if r["name"] == "coalesce.wait"]
+    runs = [r for r in recs if r["name"] == "coalesce.run"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = dump_chrome_trace(os.path.join(tmp, "trace.json"), recs)
+        with open(path) as f:
+            chrome = json.load(f)
+    check(len(waits) == 1 and len(runs) == 1
+          and runs[0]["trace_id"] == waits[0]["trace_id"]
+          and runs[0]["parent_id"] == waits[0]["span_id"]
+          and chrome == json.loads(json.dumps(to_chrome_trace(recs)))
+          and all(e["ph"] == "X" for e in chrome["traceEvents"]),
+          "coalesced: trace_sampling_rate 1 gives coalesce.wait and "
+          "coalesce.run in one trace; the Chrome export parses")
+
+    # writes under load: a depth-2 round while a writer thread upserts
+    # CO_WRITE_ROWS rows and deletes CO_DELETE_ROWS, in chunks
+    n = wrapper.get_count()
+    wid = np.arange(CO_WRITE_ROWS, dtype=np.int64) + 10 * n + 1_000_003
+    rows_w = extra[:CO_WRITE_ROWS]
+    log = [wrapper.apply_log_id]
+    done = threading.Event()
+    errors: list = []
+
+    def writer():
+        try:
+            for lo in range(0, CO_WRITE_ROWS, CO_WRITE_CHUNK):
+                log[0] += 1
+                wrapper.add(wid[lo:lo + CO_WRITE_CHUNK],
+                            rows_w[lo:lo + CO_WRITE_CHUNK], log[0])
+            for lo in range(0, CO_DELETE_ROWS, CO_WRITE_CHUNK):
+                log[0] += 1
+                wrapper.delete(wid[lo:lo + CO_WRITE_CHUNK], log[0])
+        except Exception as e:  # noqa: BLE001 — reported by the check
+            errors.append(repr(e))
+        finally:
+            done.set()
+
+    svc, saved = co_service(wrapper, 2)
+    try:
+        t = threading.Thread(target=writer, name="smoke-writer", daemon=True)
+        t.start()
+        rows, wall, lat = closed_loop(svc, pool, k, kw, 0.0, stop=done)
+        t.join(timeout=60)
+    finally:
+        co_close(svc, saved)
+    live, dead = wid[CO_DELETE_ROWS:], wid[:CO_DELETE_ROWS]
+    found = 0
+    for lo in range(0, len(live), 64):
+        res = wrapper.search(rows_w[CO_DELETE_ROWS + lo:
+                                    CO_DELETE_ROWS + lo + 64], k, **kw)
+        found += sum(len(r.ids) > 0 and r.ids[0] == i
+                     for r, i in zip(res, live[lo:lo + 64]))
+    leaked = 0
+    for lo in range(0, CO_DELETE_ROWS, 64):
+        res = wrapper.search(rows_w[lo:lo + 64], k, **kw)
+        leaked += sum(int(np.isin(r.ids, dead).sum()) for r in res)
+    print(f"[{card}] coalesced writes under load: {CO_WRITE_ROWS} upserts + "
+          f"{CO_DELETE_ROWS} deletes in {CO_WRITE_CHUNK}-row chunks during "
+          f"{wall:.2f} s of depth-2 serving ({rows / wall:.1f} rows/s, p99 "
+          f"{np.percentile(lat, 99):.3f} ms); live upserted rows found by "
+          f"their own vector {found}/{len(live)}, deleted ids returned "
+          f"{leaked}", flush=True)
+    check(not errors and not t.is_alive() and found == len(live)
+          and leaked == 0, "coalesced: each upserted row is found by its own "
+          f"vector and no deleted id appears {errors}")
+    log[0] += 1
+    wrapper.delete(live, log[0])           # the region back to its rows
+    check(wrapper.get_count() == n, "coalesced: the region holds its rows "
+          "again after the writes")
+    out["writes"] = {"rows_per_s": rows / wall, "found": found,
+                     "leaked": leaked}
+    return out
 
 
 def gist_phase(n, nlist, card) -> dict:
@@ -2302,11 +2720,23 @@ def run(args) -> int:
           f"{spread_text(reads['B1 IP'])}; "
           + b4_ratio_text(reads, "B4 IP", "B1 IP"), flush=True)
 
+    # -- the coalesced serving path: the port's IndexService (coalescer,
+    # staging ring, completion lane) over the fp32 regions, with the JAX
+    # package's pipeline_sweep traffic --------------------------------------
+    fwrap = VectorIndexWrapper(2, flat.parameter, device=dev)
+    fwrap.set_own(flat)
+    coalesced = coalesced_phase(x, extra, {
+        "IVF_FLAT (B3)": (wrapper, b3, {"nprobe": 32}, (1, 2, 4), {}),
+        "FLAT (B4)": (fwrap, b4, {}, (2,), {}),
+        "IVF_PQ (B5)": (pq["wrapper"], kernel_pq.ivf_pq_adc_topk,
+                        {"nprobe": 32}, (2,), {"ivfpq_rerank_factor": 6}),
+    }, card)
+
     # -- the precision tiers: release the fp32 FLAT stores and the IVF_PQ
     # state first (their peaks would add up); the fp32 IVF_FLAT region
     # stays, for the tiers' device-bytes and pipelined comparisons --------
-    flat = flat1 = fstore = pstore = fmask = pmask = timed = None
-    pq["args"] = b5_k12 = b5_bank_free = bank_free = None
+    flat = flat1 = fstore = pstore = fmask = pmask = timed = fwrap = None
+    pq["args"] = pq["wrapper"] = b5_k12 = b5_bank_free = bank_free = None
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     peak_fp32 = torch.cuda.max_memory_allocated()

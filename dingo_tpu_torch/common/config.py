@@ -1,6 +1,8 @@
 """Flag registry for the port: a copy of dingo_tpu's ``FlagRegistry`` with
 only the flags the FLAT, IVF_FLAT and IVF_PQ serving paths read (the
-pruned scans and the bf16/sq8 precision tiers included).
+pruned scans and the bf16/sq8 precision tiers included) and those of the
+coalesced serving path (coalescing window, tracing, QoS admission and the
+serving pipeline), under the JAX package's names and defaults.
 
 Crossovers that JAX resolved against ``jax.default_backend()`` resolve
 here against the device the index lives on: "auto" turns the hand-written
@@ -130,6 +132,56 @@ FLAGS.define("quantized_rerank_factor", 4, mutable=True,
 FLAGS.define("train_sample_rows", 65536, mutable=True,
              help_="train-sample row cap for k-means (0 = full corpus, "
                    "lifting derived caps too)")
+# -- the coalesced serving path (coalescer, tracer, QoS, pipeline) ----------
+FLAGS.define("search_coalescing_window_ms", 0.0, mutable=True,
+             help_="merge concurrent same-shaped searches into one device "
+                   "batch within this window (0 disables); fills the batch "
+                   "dimension instead of spending threads")
+FLAGS.define("trace_sampling_rate", 0.0, mutable=True,
+             help_="fraction of ingress requests recording a full span "
+                   "tree into dingo_tpu_torch/trace (0 disables; 1 records "
+                   "everything). Decided once at the trace root; children "
+                   "inherit the decision")
+FLAGS.define("slow_query_ms", 500.0, mutable=True,
+             help_="a sampled root span slower than this lands in the "
+                   "slow-query log (retained apart from the span ring so "
+                   "fast-trace churn cannot evict slow evidence)")
+FLAGS.define("qos_enabled", False, mutable=True,
+             help_="deadline-aware serving (obs/pressure.py + the QoS "
+                   "coalescer): admission, priority batch forming, expiry "
+                   "of dead requests before dispatch and admission shed "
+                   "under pressure. Off = observe nothing, act on nothing")
+FLAGS.define("qos_default_deadline_ms", 0.0, mutable=True,
+             help_="deadline granted to requests arriving without an "
+                   "x-dingo-deadline-ms header while qos.enabled (0 = no "
+                   "implied deadline)")
+FLAGS.define("qos_tenant_header", "x-dingo-tenant", mutable=True,
+             help_="metadata key carrying the tenant id for per-tenant "
+                   "demand accounting and admission")
+FLAGS.define("qos_max_queue_ms", 50.0, mutable=True,
+             help_="queue-wait bound the QoS layer defends: admission "
+                   "sheds low-priority work once the estimated wait "
+                   "exceeds it (priority >= 2 is exempt)")
+FLAGS.define("qos_shed_policy", "degrade_drop", mutable=True,
+             help_="pressure response: 'off' (observe only), 'degrade' "
+                   "(knob ladder only), 'drop' (admission shed only), "
+                   "'degrade_drop' (both, default). The knob ladder "
+                   "(ShedController) is not ported yet")
+FLAGS.define("qos_tenant_queue_rows", 0, mutable=True,
+             help_="per-tenant cap on queued query rows inside the "
+                   "coalescer (admission sheds the excess with "
+                   "reason=tenant_limit); 0 = unlimited")
+FLAGS.define("pipeline_enabled", "auto", mutable=True,
+             help_="overlapped serving pipeline: the coalescer's flush "
+                   "thread dispatches every due batch's kernels before any "
+                   "resolve runs, resolves drain on a completion lane, and "
+                   "query staging reuses pinned host slots. 'auto' = on "
+                   "for a CUDA device, off on the CPU; True/False force")
+FLAGS.define("pipeline_depth", 2, mutable=True,
+             help_="staging-ring depth per coalescer key: batch N+1's query "
+                   "upload can overlap batch N's compute up to this many "
+                   "batches in flight (1 = no overlap, 2 = double "
+                   "buffering)")
 
 
 def _parse_tri(flag) -> Optional[bool]:
@@ -185,3 +237,25 @@ def train_sample_rows() -> int:
         return max(0, int(FLAGS.get("train_sample_rows")))
     except (TypeError, ValueError):
         return 65536
+
+
+def serving_pipeline_enabled(device: torch.device) -> bool:
+    """Tri-state pipeline_enabled for a coalescer serving `device`. The
+    JAX package's 'auto' means "on the accelerator only", because CPU XLA
+    runs synchronously inside dispatch. Here 'auto' is on for a CUDA
+    device (kernel launches return before the card finishes, so the
+    completion lane overlaps a fetch with the next dispatch) and off on
+    the CPU, where the plain versions run inside dispatch and the lane's
+    thread hop would only add latency. True/False force."""
+    v = _parse_tri(FLAGS.get("pipeline_enabled"))
+    if v is None:
+        return torch.device(device).type == "cuda"
+    return v
+
+
+def pipeline_depth() -> int:
+    """Staging-ring depth for the serving pipeline (floor 1)."""
+    try:
+        return max(1, int(FLAGS.get("pipeline_depth")))
+    except (TypeError, ValueError):
+        return 2

@@ -124,6 +124,22 @@ def _pad_batch(q: np.ndarray) -> np.ndarray:
     return q
 
 
+def _staged_or_upload(staged, queries: np.ndarray,
+                      device: torch.device) -> torch.Tensor:
+    """The padded device copy of `queries`: the serving pipeline's staged
+    upload (common/pipeline.StagedBatch) when it was built from this very
+    array, else padded and uploaded here. A staged batch that
+    ``_prep_queries`` rebound (a dtype cast, COSINE's normalization) misses
+    as in the JAX package, and each miss is counted
+    (``pipeline.staged_miss``)."""
+    qpad = staged.take(queries) if staged is not None else None
+    if qpad is None:
+        if staged is not None:
+            METRICS.counter("pipeline.staged_miss").add(1)
+        qpad = upload(_pad_batch(queries), device)
+    return qpad
+
+
 class _SlotStoreIndex(VectorIndex):
     """Shared machinery for indexes whose rows live in a SlotStore."""
 
@@ -257,14 +273,16 @@ class _SlotStoreIndex(VectorIndex):
         return self.search_async(queries, topk, filter_spec)()
 
     def search_async(self, queries: np.ndarray, topk: int,
-                     filter_spec: Optional[FilterSpec] = None
-                     ) -> Callable[[], List[SearchResult]]:
+                     filter_spec: Optional[FilterSpec] = None,
+                     staged=None) -> Callable[[], List[SearchResult]]:
         """Dispatch the search and return a thunk materializing results.
         One host sync per reply: resolve() waits on one fetch group; the
-        uploads here do not wait (common.device.upload)."""
+        uploads here do not wait (common.device.upload). ``staged``: the
+        serving pipeline's pre-padded upload of these queries
+        (_staged_or_upload)."""
         queries = self._prep_queries(queries)
         b = queries.shape[0]
-        qpad = upload(_pad_batch(queries), self.device)
+        qpad = _staged_or_upload(staged, queries, self.device)
         store = self.store
         # lease BEFORE dispatch: result slots stay limbo-parked until
         # resolve translates them

@@ -55,8 +55,8 @@ from dingo_tpu_torch.index.base import (
 from dingo_tpu_torch.index.flat import (
     _SlotStoreIndex,
     _new_tier_store,
-    _pad_batch,
     _resolve_train_cap,
+    _staged_or_upload,
 )
 from dingo_tpu_torch.index.ivf_layout import (
     MutableIvfView,
@@ -503,7 +503,10 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
 
     def search_async(self, queries: np.ndarray, topk: int,
                      filter_spec: Optional[FilterSpec] = None,
-                     nprobe: Optional[int] = None):
+                     nprobe: Optional[int] = None, staged=None):
+        """Dispatch now, resolve later (one host wait in the thunk).
+        ``staged``: the serving pipeline's pre-padded upload of these
+        queries (flat._staged_or_upload)."""
         if not self.is_trained():
             raise NotTrained("IVF_FLAT not trained")   # reader falls back
         queries = self._prep_queries(queries)
@@ -516,7 +519,7 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
         )
         kprime = self._rerank_shortlist(topk)
         k_eff, nprobe = self._shape_buckets(max(topk, kprime or 0), nprobe)
-        qpad = upload(_pad_batch(queries), self.device)
+        qpad = _staged_or_upload(staged, queries, self.device)
         lease = self.store.begin_search()
         try:
             probes = coarse_probes(qpad, self.centroids, self._c_sqnorm,

@@ -49,8 +49,8 @@ from dingo_tpu_torch.index.base import (
 )
 from dingo_tpu_torch.index.flat import (
     _SlotStoreIndex,
-    _pad_batch,
     _resolve_train_cap,
+    _staged_or_upload,
     flat_search_plain,
 )
 from dingo_tpu_torch.index.ivf_flat import IvfViewMaintenance, coarse_probes
@@ -400,11 +400,14 @@ class TpuIvfPq(IvfViewMaintenance, _SlotStoreIndex):
 
     def search_async(self, queries: np.ndarray, topk: int,
                      filter_spec: Optional[FilterSpec] = None,
-                     nprobe: Optional[int] = None):
+                     nprobe: Optional[int] = None, staged=None):
+        """Dispatch now, resolve later (one host wait in the thunk).
+        ``staged``: the serving pipeline's pre-padded upload of these
+        queries (flat._staged_or_upload)."""
         queries = self._prep_queries(queries)
         b = queries.shape[0]
         topk = int(topk)
-        qpad = upload(_pad_batch(queries), self.device)
+        qpad = _staged_or_upload(staged, queries, self.device)
         store = self.store
         host = isinstance(store, HostSlotStore)
         # lease before any dispatch: result slots stay limbo-parked until

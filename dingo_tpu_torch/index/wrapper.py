@@ -162,9 +162,12 @@ class VectorIndexWrapper:
 
     def search_async(self, queries: np.ndarray, topk: int,
                      filter_spec: Optional[FilterSpec] = None,
+                     staged=None,
                      **kw) -> Callable[[], List[SearchResult]]:
         """Dispatch now, resolve later; the sibling-merge window takes a
-        thunk around the serial path (the merge needs both on the host)."""
+        thunk around the serial path (the merge needs both on the host).
+        ``staged`` (common/pipeline.StagedBatch) passes the serving
+        pipeline's upload on to the index."""
         idx = self.active()
         if idx is None:
             raise VectorIndexError(f"vector index {self.id} not ready")
@@ -174,7 +177,7 @@ class VectorIndexWrapper:
         dispatch = getattr(idx, "search_async", None)
         if dispatch is None:
             return lambda: idx.search(queries, topk, filter_spec, **kw)
-        return dispatch(queries, topk, filter_spec, **kw)
+        return dispatch(queries, topk, filter_spec, staged=staged, **kw)
 
     # -- policies --------------------------------------------------------------
     def need_to_save(self) -> bool:

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
 ``build/dingo_tpu_torch/lib<name>-<hash>.so`` at the repository root, at
 first use; the hash covers the source and the shared headers, so an edited
-kernel rebuilds and a stale library is never loaded. The build reads only
+kernel rebuilds and a stale library is never loaded. Each build is
+reported to the launch sentinel (``obs/sentinel.py``). The build reads only
 the sources under ``csrc/``. Nothing here runs at import time: this
 module imports on machines with no CUDA toolkit.
 """
@@ -16,8 +17,11 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable
+
+from dingo_tpu_torch.obs.sentinel import SENTINEL
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[2]
@@ -70,6 +74,7 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
+    t0 = time.perf_counter()
     for n in todo:
         tmp = paths[n].with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
@@ -86,6 +91,9 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
             failed.append(f"{n}: nvcc exit {proc.returncode}\n{out}")
             continue
         os.replace(tmp, paths[n])
+        # wall ms from the start of the parallel build to this nvcc's exit
+        # being collected (the launch sentinel's build record)
+        SENTINEL.on_build(n, (time.perf_counter() - t0) * 1e3)
     if failed:
         raise KernelBuildError("\n".join(failed))
     return paths

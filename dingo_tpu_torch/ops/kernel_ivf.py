@@ -25,6 +25,7 @@ from typing import Tuple
 
 import torch
 
+from dingo_tpu_torch.obs.sentinel import SENTINEL
 from dingo_tpu_torch.ops import cuda_build
 from dingo_tpu_torch.ops.kernel_topk import tma_ready
 from dingo_tpu_torch.ops.topk import topk_scores
@@ -124,6 +125,7 @@ def ivf_list_topk(vprobes: torch.Tensor, queries: torch.Tensor,
     tensors = (vprobes, queries, buckets, bucket_sqnorm, bucket_valid,
                bucket_slot)
     if all(t.device.type == "cpu" for t in tensors):
+        SENTINEL.launch("ivf_list_topk", tensors, k)
         return ivf_list_topk_plain(vprobes, queries, buckets, bucket_sqnorm,
                                    bucket_valid, bucket_slot, k, ascending)
     if not cuda_build.same_cuda_device(*tensors):
@@ -166,6 +168,7 @@ def ivf_list_topk(vprobes: torch.Tensor, queries: torch.Tensor,
             cand_v.data_ptr(), cand_i.data_ptr(),
             out_v.data_ptr(), out_i.data_ptr(), stream)
     cuda_build.check_launch(lib, rc, "ivf_list_topk")
+    SENTINEL.launch("ivf_list_topk", tensors, k)
     counter = ARMS[buckets.dtype][1]
     setattr(ivf_list_topk, counter, getattr(ivf_list_topk, counter) + 1)
     return out_v, out_i

@@ -48,6 +48,7 @@ from typing import Callable, Tuple
 
 import torch
 
+from dingo_tpu_torch.obs.sentinel import SENTINEL
 from dingo_tpu_torch.ops import cuda_build
 from dingo_tpu_torch.ops.blocked import query_prefix_sqnorms
 from dingo_tpu_torch.ops.kernel_ivf import K_MAX, _pad_rows
@@ -348,6 +349,7 @@ def ivf_pruned_topk(vprobes: torch.Tensor, queries: torch.Tensor,
                bucket_valid, bucket_slot) + ((sq_vmin, sq_scale) if sq
                                              else ())
     if all(t.device.type == "cpu" for t in tensors):
+        SENTINEL.launch("ivf_pruned_topk", tensors, k)
         return ivf_pruned_topk_plain(*tensors[:8], k, ascending, check_every,
                                      inbucket, sq_vmin, sq_scale)
     if not cuda_build.same_cuda_device(*tensors):
@@ -411,6 +413,7 @@ def ivf_pruned_topk(vprobes: torch.Tensor, queries: torch.Tensor,
             cand_v.data_ptr(), cand_i.data_ptr(), out_v.data_ptr(),
             out_i.data_ptr(), stream)
     cuda_build.check_launch(lib, rc, "ivf_pruned_topk")
+    SENTINEL.launch("ivf_pruned_topk", tensors, k)
     ivf_pruned_topk.staged = staged
     counter = ARMS[buckets.dtype][1]
     setattr(ivf_pruned_topk, counter, getattr(ivf_pruned_topk, counter) + 1)

@@ -28,6 +28,7 @@ from typing import List, Tuple
 
 import torch
 
+from dingo_tpu_torch.obs.sentinel import SENTINEL
 from dingo_tpu_torch.ops import cuda_build
 from dingo_tpu_torch.ops.pq import codebook_sqnorms, residual_lut_tables
 from dingo_tpu_torch.ops.topk import topk_scores
@@ -94,6 +95,7 @@ def ivfpq_adc_lut(queries: torch.Tensor, centroids: torch.Tensor,
     m * dsub and ksub a multiple of 4; all contiguous."""
     tensors = (queries, centroids, probes_coarse, codebooks)
     if all(t.device.type == "cpu" for t in tensors):
+        SENTINEL.launch("ivfpq_adc_lut", tensors)
         return ivfpq_adc_lut_plain(*tensors)
     if not cuda_build.same_cuda_device(*tensors):
         raise ValueError("ivfpq_adc_lut: tensors must share one CUDA device")
@@ -123,6 +125,7 @@ def ivfpq_adc_lut(queries: torch.Tensor, centroids: torch.Tensor,
             probes_coarse.data_ptr(), codebooks.data_ptr(), b, d, nlist,
             nprobe, m, ksub, dsub, lut.data_ptr(), stream)
     cuda_build.check_launch(lib, rc, "ivfpq_adc_lut")
+    SENTINEL.launch("ivfpq_adc_lut", tensors)
     ivfpq_adc_lut.launches += 1
     return lut
 
@@ -280,6 +283,7 @@ def ivf_pq_adc_topk(vprobes: torch.Tensor, coarse_pos: torch.Tensor,
     tensors = (vprobes, coarse_pos, lut_all, code_buckets, bucket_valid,
                bucket_slot)
     if all(t.device.type == "cpu" for t in tensors):
+        SENTINEL.launch("ivf_pq_adc_topk", tensors, k)
         return ivf_pq_adc_topk_plain(*tensors, k)
     if not cuda_build.same_cuda_device(*tensors):
         raise ValueError("ivf_pq_adc_topk: tensors must share one CUDA "
@@ -325,6 +329,7 @@ def ivf_pq_adc_topk(vprobes: torch.Tensor, coarse_pos: torch.Tensor,
             code_vec, int(lut_bulk), cand_v.data_ptr(), cand_i.data_ptr(),
             out_v.data_ptr(), out_i.data_ptr(), stream)
     cuda_build.check_launch(lib, rc, "ivf_pq_adc_topk")
+    SENTINEL.launch("ivf_pq_adc_topk", tensors, k)
     ivf_pq_adc_topk.launches += 1
     return out_v, out_i
 

@@ -25,6 +25,7 @@ from typing import Tuple
 
 import torch
 
+from dingo_tpu_torch.obs.sentinel import SENTINEL
 from dingo_tpu_torch.ops import cuda_build
 from dingo_tpu_torch.ops.topk import topk_scores
 
@@ -106,6 +107,7 @@ def fused_topk(q: torch.Tensor, x: torch.Tensor, x_sqnorm: torch.Tensor,
     slots[b, k] i32, -1 where the score is -inf). valid: [n] bool."""
     tensors = (q, x, x_sqnorm, valid)
     if all(t.device.type == "cpu" for t in tensors):
+        SENTINEL.launch("fused_topk", tensors, k)
         return fused_topk_plain(q, x, x_sqnorm, valid, k, ascending)
     if not cuda_build.same_cuda_device(*tensors):
         raise ValueError("fused_topk: tensors must share one CUDA device")
@@ -141,6 +143,7 @@ def fused_topk(q: torch.Tensor, x: torch.Tensor, x_sqnorm: torch.Tensor,
             rows, int(tma_ready(x, q)), cand_v.data_ptr(), cand_i.data_ptr(),
             out_v.data_ptr(), out_i.data_ptr(), stream)
     cuda_build.check_launch(lib, rc, "fused_topk")
+    SENTINEL.launch("fused_topk", tensors, k)
     counter = ARMS[x.dtype][1]
     setattr(fused_topk, counter, getattr(fused_topk, counter) + 1)
     return out_v, out_i

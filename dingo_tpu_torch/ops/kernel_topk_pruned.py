@@ -44,6 +44,7 @@ from typing import Tuple
 
 import torch
 
+from dingo_tpu_torch.obs.sentinel import SENTINEL
 from dingo_tpu_torch.ops import cuda_build
 from dingo_tpu_torch.ops.blocked import query_prefix_sqnorms
 from dingo_tpu_torch.ops.kernel_ivf_pruned import (
@@ -165,6 +166,7 @@ def pruned_fused_topk(q: torch.Tensor, x_blk: torch.Tensor,
     tensors = (q, x_blk, bsq_blk, x_sqnorm, valid) + (
         (sq_vmin, sq_scale) if sq else ())
     if all(t.device.type == "cpu" for t in tensors):
+        SENTINEL.launch("pruned_fused_topk", tensors, k)
         return pruned_fused_topk_plain(q, x_blk, bsq_blk, x_sqnorm, valid,
                                        k, ascending, check_every, inbucket,
                                        min(BLOCK, x_blk.shape[1]), sq_vmin,
@@ -228,6 +230,7 @@ def pruned_fused_topk(q: torch.Tensor, x_blk: torch.Tensor,
             cand_i.data_ptr(), seed_v.data_ptr(), seed_i.data_ptr(),
             out_v.data_ptr(), out_i.data_ptr(), stream)
     cuda_build.check_launch(lib, rc, "pruned_fused_topk")
+    SENTINEL.launch("pruned_fused_topk", tensors, k)
     pruned_fused_topk.tiles = tiles
     counter = ARMS[x_blk.dtype][1]
     setattr(pruned_fused_topk, counter,

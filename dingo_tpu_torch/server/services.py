@@ -1,0 +1,116 @@
+"""The port's coalesced search ingress: the coalescer binding of
+dingo_tpu/server/services.py (``IndexService._get_coalescer``).
+
+An ``IndexService`` holds the VectorIndexWrapper of each region it serves
+and one SearchCoalescer whose ``run`` is the wrapper's ``search`` and whose
+``dispatch`` is its ``search_async(staged=...)``, so a pipelined flush
+stages the batch in a pinned ring slot and the index claims that upload.
+Requests with the same (region, topk, scalar search parameters) share a
+batch. The gRPC server around it is not ported yet: callers submit
+in-process.
+
+    service = IndexService({1: wrapper}, window_ms=2.0, max_batch=64)
+    rows = service.submit(1, queries, 10, nprobe=32).result(timeout=30)
+    service.close()
+
+``device`` None is the CUDA device (DeviceUnavailable without one); on it
+``pipeline_enabled = "auto"`` takes the pipelined arm.
+"""
+
+from __future__ import annotations
+
+import threading
+from concurrent.futures import Future
+from typing import Dict, Optional
+
+import numpy as np
+
+from dingo_tpu_torch.common.coalescer import SearchCoalescer
+from dingo_tpu_torch.common.config import FLAGS
+from dingo_tpu_torch.common.device import resolve_device
+from dingo_tpu_torch.index.base import VectorIndexError
+from dingo_tpu_torch.index.wrapper import VectorIndexWrapper
+from dingo_tpu_torch.obs import pressure as qp
+
+
+class IndexService:
+    """Vector searches over regions through one coalescer.
+
+    ``window_ms`` None takes the ``search_coalescing_window_ms`` flag; a
+    window of 0 searches each request directly, as the JAX package's
+    service does. With ``qos_enabled`` each reply is counted served (and
+    in or past its deadline) by the pressure plane."""
+
+    def __init__(self, wrappers: Dict[int, VectorIndexWrapper],
+                 device=None, window_ms: Optional[float] = None,
+                 max_batch: int = 256):
+        self.wrappers = wrappers
+        self.device = resolve_device(device)
+        self.window_ms = float(FLAGS.get("search_coalescing_window_ms")
+                               if window_ms is None else window_ms)
+        self.max_batch = max_batch
+        self._coalescer: Optional[SearchCoalescer] = None
+        self._coalescer_lock = threading.Lock()
+
+    def _wrapper(self, region_id: int) -> VectorIndexWrapper:
+        w = self.wrappers.get(region_id)
+        if w is None:
+            raise VectorIndexError(f"region {region_id} gone")
+        return w
+
+    def _get_coalescer(self) -> SearchCoalescer:
+        with self._coalescer_lock:
+            if self._coalescer is None:
+                def run(key, stacked):
+                    region_id, topk, kw_items = key
+                    return self._wrapper(region_id).search(
+                        stacked, topk, **dict(kw_items))
+
+                def dispatch(key, stacked, staged=None):
+                    # the pipelined arm: launch now, return the resolve
+                    # thunk; the coalescer's completion lane waits on it
+                    region_id, topk, kw_items = key
+                    return self._wrapper(region_id).search_async(
+                        stacked, topk, staged=staged, **dict(kw_items))
+
+                self._coalescer = SearchCoalescer(
+                    run, window_ms=self.window_ms, max_batch=self.max_batch,
+                    dispatch_fn=dispatch, device=self.device)
+            return self._coalescer
+
+    def submit(self, region_id: int, queries: np.ndarray, topk: int,
+               **kw) -> Future:
+        """Search `queries` [n, d] on a region: a Future of n SearchResult
+        rows. `kw` are the index's search parameters; only requests whose
+        parameters are all scalars (nprobe) are coalesced, others (a
+        filter) search directly, as in the JAX package's service."""
+        plain = all(isinstance(v, (int, float, str, bool, type(None)))
+                    for v in kw.values())
+        if plain and self.window_ms > 0:
+            key = (region_id, int(topk), tuple(sorted(kw.items())))
+            fut = self._get_coalescer().submit(key, queries,
+                                               region_id=region_id)
+        else:
+            fut = Future()
+            try:
+                fut.set_result(self._wrapper(region_id).search(
+                    queries, topk, **kw))
+            except Exception as exc:  # noqa: BLE001 — the caller's future
+                fut.set_exception(exc)
+        if qp.qos_enabled():
+            # throughput against goodput: every reply counts served, only
+            # those inside their budget count toward goodput
+            budget = qp.current_budget()
+
+            def served(f: Future) -> None:
+                if f.exception() is None:
+                    qp.PRESSURE.on_served(region_id, budget)
+
+            fut.add_done_callback(served)
+        return fut
+
+    def close(self, drain: bool = True) -> None:
+        with self._coalescer_lock:
+            if self._coalescer is not None:
+                self._coalescer.stop(drain=drain)
+                self._coalescer = None

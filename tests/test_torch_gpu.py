@@ -953,7 +953,11 @@ def test_search_async_dispatch_does_not_sync(case):
     filters it has not seen (IVF: a filter-cache miss): FLAT on B4 and on
     B1, IVF_FLAT in every tier on B3, IVF_PQ on the device store trained
     (B5, its residual tables built by their kernel) and untrained (the
-    exact whole-store arm)."""
+    exact whole-store arm). Each dispatch runs again with ``staged=``
+    (the serving pipeline's ring, staged on the same thread under the same
+    mode), which the family claims without a miss."""
+    from dingo_tpu_torch.common.metrics import METRICS
+    from dingo_tpu_torch.common.pipeline import StagingRing
     from dingo_tpu_torch.index.base import FilterSpec, IndexParameter, \
         IndexType
     from dingo_tpu_torch.index.factory import new_index
@@ -1000,23 +1004,38 @@ def test_search_async_dispatch_does_not_sync(case):
                    FilterSpec(exclude_ids=np.arange(10))]
         before = None if counter is None else getattr(*counter)
         luts = kernel_pq.ivfpq_adc_lut.launches
+        ring = StagingRing(depth=len(filters), device="cuda")
+        q8 = x[:8]
+        misses = METRICS.counter("pipeline.staged_miss").get()
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
             thunks = [idx.search_async(x[:8], 10, f, **kw) for f in filters]
+            staged = [ring.stage(q8) for _ in filters]
+            thunks += [idx.search_async(q8, 10, f, staged=s, **kw)
+                       for f, s in zip(filters, staged)]
         finally:
             torch.cuda.set_sync_debug_mode(0)
         res = [t() for t in thunks]
+        for s in staged:
+            s.release()
     finally:
         _restore(saved)
+    assert METRICS.counter("pipeline.staged_miss").get() == misses
     if counter is not None:
-        assert getattr(*counter) == before + 3
+        assert getattr(*counter) == before + 6
     # IVF_PQ trained: the residual tables, one kernel per dispatch
     assert kernel_pq.ivfpq_adc_lut.launches == luts + (
-        3 if case == "pq_trained" else 0)
-    assert [int(r.ids[0]) for r in res[0]] == list(range(8))
-    assert all(r.ids.max() < 3000 for r in res[1])
-    assert not any(np.isin(r.ids, np.arange(10)).any() for r in res[2])
+        6 if case == "pq_trained" else 0)
+    for res_ in (res[:3], res[3:]):
+        assert [int(r.ids[0]) for r in res_[0]] == list(range(8))
+        assert all(r.ids.max() < 3000 for r in res_[1])
+        assert not any(np.isin(r.ids, np.arange(10)).any()
+                       for r in res_[2])
+    for a, b in zip(res[:3], res[3:]):
+        for ra, rb in zip(a, b):
+            assert np.array_equal(ra.ids, rb.ids)
+            assert ra.distances.tobytes() == rb.distances.tobytes()
 
 
 # -- B1 and B2 on the tensor cores (split precision; B2 over work items) -------
@@ -1247,3 +1266,141 @@ def test_default_route_at_d960_serves_on_b1_and_b2():
     # all 16 lists probed: the IVF search is exact, as FLAT's
     assert [r.ids.tolist() for r in res_ivf] == [r.ids.tolist()
                                                  for r in res_flat]
+
+
+# -- the coalesced serving path on the card -----------------------------------
+def test_staging_slot_reuse_waits_for_its_copy():
+    """A depth-1 ring: the first batch's upload is queued behind a long
+    kernel (torch.cuda._sleep) and its slot released at once, as after a
+    dispatch that raised. The second stage() waits on the slot's copy
+    event before it writes the slot, so the first upload still carries the
+    first batch's bytes."""
+    from dingo_tpu_torch.common.pipeline import StagingRing
+
+    _cuda()
+    rng = np.random.default_rng(21)
+    a = rng.standard_normal((48, 4096), dtype=np.float32)
+    b = rng.standard_normal((48, 4096), dtype=np.float32)
+    ring = StagingRing(depth=1, device="cuda")
+    ring.stage(a).release()              # the slot exists, its copy done
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(3e8))          # holds the stream ~0.2 s
+    s1 = ring.stage(a)
+    qa = s1.qpad
+    s1.release()                         # the copy is still queued
+    s2 = ring.stage(b)
+    qb = s2.qpad
+    torch.cuda.synchronize()
+    want_a = np.zeros((64, 4096), np.float32)
+    want_a[:48] = a
+    want_b = np.zeros((64, 4096), np.float32)
+    want_b[:48] = b
+    assert qa.cpu().numpy().tobytes() == want_a.tobytes()
+    assert qb.cpu().numpy().tobytes() == want_b.tobytes()
+    s2.release()
+
+
+def _coalesced_rows(svc, q, topk, kw):
+    futs = [svc.submit(1 + (i // 4) % 4, q[i:i + 4], topk, **kw)
+            for i in range(0, len(q), 4)]
+    return [r for f in futs for r in f.result(timeout=60)]
+
+
+@pytest.mark.parametrize("family", ["flat_b4", "ivf_b3", "pq_b5"])
+def test_coalesced_pipelined_equals_serial_on_device(family):
+    """The coalesced service on the card: the pipelined arm (staged
+    uploads, completion lane) returns the serial arm's ids and distances
+    bit for bit, claims every staged upload and runs the family's
+    kernel."""
+    from dingo_tpu_torch.common.metrics import METRICS
+    from dingo_tpu_torch.index.base import IndexParameter, IndexType
+    from dingo_tpu_torch.index.factory import new_index
+    from dingo_tpu_torch.index.wrapper import VectorIndexWrapper
+    from dingo_tpu_torch.ops import (
+        kernel_ivf_pruned,
+        kernel_pq,
+        kernel_topk_pruned,
+    )
+    from dingo_tpu_torch.server.services import IndexService
+
+    _cuda()
+    rng = np.random.default_rng(17)
+    centers = rng.standard_normal((32, 256), dtype=np.float32)
+    x = (centers[rng.integers(0, 32, 8000)] + 0.3 * rng.standard_normal(
+        (8000, 256), dtype=np.float32)).astype(np.float32)
+    q = x[:64] + 0.01
+    saved = _flags(ivfpq_rerank_factor=6, pipeline_enabled="auto")
+    try:
+        if family == "flat_b4":
+            idx = new_index(40, IndexParameter(index_type=IndexType.FLAT,
+                                               dimension=256))
+            kern, kw = kernel_topk_pruned.pruned_fused_topk, {}
+        elif family == "ivf_b3":
+            idx = new_index(41, IndexParameter(
+                index_type=IndexType.IVF_FLAT, dimension=256,
+                ncentroids=32))
+            kern, kw = kernel_ivf_pruned.ivf_pruned_topk, {"nprobe": 8}
+        else:
+            idx = new_index(42, IndexParameter(
+                index_type=IndexType.IVF_PQ, dimension=256, ncentroids=32,
+                nsubvector=32))
+            kern, kw = kernel_pq.ivf_pq_adc_topk, {"nprobe": 8}
+        idx.upsert(np.arange(8000), x)
+        if family != "flat_b4":
+            idx.train()
+        w = VectorIndexWrapper(idx.id, idx.parameter)
+        w.set_own(idx)
+        out = {}
+        for pipelined in ("false", "auto"):
+            _flags(pipeline_enabled=pipelined)
+            svc = IndexService({r: w for r in (1, 2, 3, 4)},
+                               window_ms=2.0, max_batch=64)
+            launches = kern.launches
+            misses = METRICS.counter("pipeline.staged_miss").get()
+            try:
+                out[pipelined] = _coalesced_rows(svc, q, 10, kw)
+                stages = svc._get_coalescer().stage_totals()
+            finally:
+                svc.close()
+            assert kern.launches > launches
+            assert METRICS.counter("pipeline.staged_miss").get() == misses
+            # "auto" takes the pipelined arm on a CUDA device
+            assert ("dispatch" in stages) == (pipelined == "auto")
+    finally:
+        _restore(saved)
+    for a, b in zip(out["false"], out["auto"]):
+        assert np.array_equal(a.ids, b.ids)
+        assert a.distances.tobytes() == b.distances.tobytes()
+    if family != "pq_b5":          # PQ codes approximate the rows
+        assert [int(r.ids[0]) for r in out["auto"]] == list(range(64))
+
+
+def test_completion_lane_fifo_on_device():
+    """Handoffs whose resolve waits on a reply's device fetch (the
+    HostFetch event) resolve in submission order, each with its own
+    values, behind kernels of different lengths."""
+    from dingo_tpu_torch.common.pipeline import CompletionLane
+    from dingo_tpu_torch.ops.topk import begin_host_fetch
+
+    _cuda()
+    done = []
+
+    class H:
+        def __init__(self, tag, fetch):
+            self.tag, self.fetch = tag, fetch
+
+        def resolve(self):
+            (v,) = self.fetch.get()
+            done.append((self.tag, float(v[0])))
+
+        def abandon(self):  # pragma: no cover
+            raise AssertionError("drained, not abandoned")
+
+    lane = CompletionLane(name="test-lane-gpu")
+    dev = torch.device("cuda")
+    for i in range(8):
+        torch.cuda._sleep(int(2e7) * (8 - i))
+        t = torch.full((4,), float(i), device=dev) * 2.0
+        assert lane.submit(H(i, begin_host_fetch(t)))
+    lane.stop(drain=True, timeout=30)
+    assert done == [(i, 2.0 * i) for i in range(8)]

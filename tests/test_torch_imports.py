@@ -27,10 +27,15 @@ _BLOCKED_IMPORT = textwrap.dedent("""
         dingo_tpu_torch.__path__, prefix="dingo_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
-    # the precision tiers' modules and B1/B2's split-product models are
-    # among them
+    # the precision tiers' modules, B1/B2's split-product models and the
+    # coalesced serving path are among them
     assert {"dingo_tpu_torch.ops.sq", "dingo_tpu_torch.ops.split_dot",
-            "dingo_tpu_torch.index.rerank_cache"} <= set(names), names
+            "dingo_tpu_torch.index.rerank_cache",
+            "dingo_tpu_torch.common.log", "dingo_tpu_torch.common.pipeline",
+            "dingo_tpu_torch.common.coalescer",
+            "dingo_tpu_torch.trace.span", "dingo_tpu_torch.trace.export",
+            "dingo_tpu_torch.obs.pressure", "dingo_tpu_torch.obs.sentinel",
+            "dingo_tpu_torch.server.services"} <= set(names), names
     import chip_smoke  # the on-card smoke script imports nothing of JAX either
     import precision_check  # nor does the f32-against-f64 check
     bad = [m for m in sys.modules
