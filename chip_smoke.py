@@ -79,7 +79,25 @@ per-thread host sample profile, and checks byte-identical probe replies
 across arms, probe ids == a direct search modulo ties, no staged miss, no
 new kernel shape after the warmed ladder, an expired budget launching
 nothing, the span tree and its Chrome export, and 8,192 upserts and 4,096
-deletes under load. Timings are medians over ROUNDS rounds in which the routes
+deletes under load (the service now bound to a MonoStoreEngine node whose
+regions own the wrappers, so every batch goes through Storage and the
+region's VectorReader). Last, the replicated region phase at full width
+and depth, every earlier phase's device state released: three StoreNodes
+on LocalTransport (a dingo-store region's three replicas) on the one card,
+an IVF_FLAT region (nlist 1024, every flag at its default); the 1M rows
+through the leader's Storage.vector_add in 4,096-row raft proposals
+(acknowledged rows/s, the share of time in apply); untrained searches on
+every replica (the reader's brute-force scan, B4; ids == numpy exact
+modulo ties, replicas agree); VectorIndexManager.rebuild on each replica
+(engine scan / index ingest / train); B3 at nprobe 32 (recall@10 >= 0.95,
+the replicas' ids equal, region path against wrapper-direct ms);
+IndexService(node) on the leader under the pipeline_sweep traffic while
+8,192 upserts and 4,096 deletes are proposed (each visible on the leader
+when acknowledged and on a follower once applied; no dispatch falls back
+to the reader's sync path); one region search's B3 launch against its
+plain version; the reader's dispatch under the sync-debug mode; device
+bytes per replica and peak host RSS; then the leader's node stops and the
+survivors hold every acknowledged write. Timings are medians over ROUNDS rounds in which the routes
 (pipelined searches) or the five kernels take turns, so two readings that
 are compared come from the same card and minute. Data is BASELINE.json
 config 2 made with bench.py's recipe (seed 7, n // 1000 Gaussian centers +
@@ -1012,18 +1030,22 @@ CO_WRITE_ROWS, CO_DELETE_ROWS, CO_WRITE_CHUNK = 8192, 4096, 512
 
 
 def co_service(wrapper, depth: int):
-    """The port's entry point over one region, its wrapper bound under
-    CO_KEYS region ids (the reference sweep's keys over one index): depth
-    0 is the serial arm (pipeline_enabled false), else the pipelined arm at
-    that staging depth. Returns (service, saved flags)."""
+    """The port's entry point over one index: a MonoStoreEngine node whose
+    CO_KEYS regions (the reference sweep's keys over one index) each own
+    the wrapper, so every batch goes through Storage and the region's
+    VectorReader. Depth 0 is the serial arm (pipeline_enabled false), else
+    the pipelined arm at that staging depth. Returns (service, saved
+    flags)."""
     from dingo_tpu_torch.common.config import FLAGS
     from dingo_tpu_torch.server.services import IndexService
+    from dingo_tpu_torch.store.node import MonoStoreNode
 
     saved = set_flags(FLAGS, pipeline_enabled="true" if depth else "false",
                       pipeline_depth=max(1, depth))
-    svc = IndexService({r: wrapper for r in range(1, CO_KEYS + 1)},
-                       device=wrapper.device, window_ms=CO_WINDOW_MS,
-                       max_batch=CO_MAX_BATCH)
+    node = MonoStoreNode(device=wrapper.device)
+    for r in range(1, CO_KEYS + 1):
+        node.serve_wrapper(r, wrapper)
+    svc = IndexService(node, window_ms=CO_WINDOW_MS, max_batch=CO_MAX_BATCH)
     return svc, saved
 
 
@@ -1035,9 +1057,9 @@ def co_close(svc, saved) -> None:
         FLAGS.set(f_, v_)
 
 
-def closed_loop(svc, pool, k, kw, seconds, stop=None):
+def closed_loop(svc, pool, k, kw, seconds, stop=None, keys=CO_KEYS):
     """Serve `pool`'s 4-row requests through `svc` in a closed loop:
-    CO_IN_FLIGHT requests over the CO_KEYS regions a round, then wait for
+    CO_IN_FLIGHT requests over regions 1..`keys` a round, then wait for
     all of them; for `seconds`, or until `stop` is set when given (60 s at
     most). Returns (rows served, wall s, request latencies ms)."""
     lat: list = []
@@ -1053,7 +1075,7 @@ def closed_loop(svc, pool, k, kw, seconds, stop=None):
             r = i % nreq
             i += 1
             s = time.perf_counter()
-            f = svc.submit(1 + j % CO_KEYS,
+            f = svc.submit(1 + j % keys,
                            pool[r * CO_REQ_ROWS:(r + 1) * CO_REQ_ROWS], k,
                            **kw)
             f.add_done_callback(
@@ -1072,11 +1094,13 @@ def probe_digest(svc, probe, k, kw):
 
     sha, ids = hashlib.sha1(), []
     for i in range(0, len(probe), CO_REQ_ROWS):
-        for r in svc.submit(1, probe[i:i + CO_REQ_ROWS], k,
-                            **kw).result(timeout=60):
-            sha.update(np.asarray(r.ids, np.int64).tobytes())
-            sha.update(np.asarray(r.distances, np.float32).tobytes())
-            ids.append(np.asarray(r.ids, np.int64))
+        for row in svc.submit(1, probe[i:i + CO_REQ_ROWS], k,
+                              **kw).result(timeout=60):
+            rid = np.asarray([v.id for v in row], np.int64)
+            sha.update(rid.tobytes())
+            sha.update(np.asarray([v.distance for v in row],
+                                  np.float32).tobytes())
+            ids.append(rid)
     return sha.hexdigest(), ids
 
 
@@ -2111,6 +2135,483 @@ def tier_bound(name, a_, frac, batch, d):
     return bound, by, shape
 
 
+#: the region phase: a region replicated three ways (a dingo-store region's
+#: default replica count), three StoreNodes on LocalTransport on the one
+#: card. The raft timeouts are longer than the in-process tests' so that a
+#: 4,096-row apply on a raft thread does not look like a dead leader
+REGION_ID = 1
+REGION_PEERS = ("s0", "s1", "s2")
+REGION_RAFT = {"election_timeout": (1.0, 2.0), "heartbeat_interval": 0.1}
+#: proposals of VECTOR_MAX_BATCH_COUNT rows (engine/storage.py), ascending
+#: ids: SortedKv.put appends for ascending keys
+REGION_PROPOSAL_ROWS = 4096
+REGION_NPROBE = 32
+
+
+def region_phase(x, queries, extra, gt, nlist, card, dev) -> dict:
+    """The replicated region path at full width and depth: three
+    StoreNodes, an IVF_FLAT region; the rows go through the leader's
+    Storage.vector_add as raft proposals; untrained searches through every
+    replica's Storage (the reader's brute-force scan, B4); each replica's
+    VectorIndexManager.rebuild (engine scan, train, build); trained
+    searches on B3 (recall, replicas agree, region path against
+    wrapper-direct); IndexService(node) on the leader serving
+    pipeline_sweep traffic while upserts and deletes are proposed (each
+    visible on the leader when acknowledged and on a follower once it has
+    applied the write's log index; no dispatch falls back to the sync
+    path); one B3 launch of a region search against its plain version; the
+    reader's dispatch under the sync-debug mode; then the leader's node
+    stops and the survivors hold the acknowledged state. Returns the
+    phase's numbers and each kernel's launches in it."""
+    import resource
+    import threading
+
+    import torch
+
+    from dingo_tpu_torch.common.config import FLAGS
+    from dingo_tpu_torch.common.metrics import METRICS
+    from dingo_tpu_torch.engine import raft_engine
+    from dingo_tpu_torch.index import codec as vcodec
+    from dingo_tpu_torch.index.base import IndexParameter, IndexType
+    from dingo_tpu_torch.index.vector_reader import VectorReader
+    from dingo_tpu_torch.ops import (
+        kernel_ivf,
+        kernel_ivf_pruned,
+        kernel_pq,
+        kernel_topk,
+        kernel_topk_pruned,
+    )
+    from dingo_tpu_torch.ops.distance import Metric
+    from dingo_tpu_torch.raft import LocalTransport, NotLeader
+    from dingo_tpu_torch.server.services import IndexService
+    from dingo_tpu_torch.store.node import StoreNode
+    from dingo_tpu_torch.store.region import RegionDefinition, RegionType
+
+    n, d = x.shape
+    k = 10
+    t_phase = time.perf_counter()
+    # every arm's launch counter, zeroed: the phase's own launches
+    counters = [(kf, attr) for kf in (
+        kernel_topk.fused_topk, kernel_ivf.ivf_list_topk,
+        kernel_ivf_pruned.ivf_pruned_topk,
+        kernel_topk_pruned.pruned_fused_topk, kernel_pq.ivf_pq_adc_topk,
+        kernel_pq.ivfpq_adc_lut)
+        for attr in ("launches", "launches_bf16", "launches_sq8")
+        if hasattr(kf, attr)]
+    for kf, attr in counters:
+        setattr(kf, attr, 0)
+    b3 = kernel_ivf_pruned.ivf_pruned_topk
+    b4 = kernel_topk_pruned.pruned_fused_topk
+    out: dict = {}
+
+    # the share of time the raft threads spend in apply, per store
+    apply_s = {sid: 0.0 for sid in REGION_PEERS}
+    orig_apply = raft_engine.apply_write
+
+    def timed_apply(engine, region, data, log_id=0, context=None,
+                    want_result=True):
+        t = time.perf_counter()
+        try:
+            return orig_apply(engine, region, data, log_id, context=context,
+                              want_result=want_result)
+        finally:
+            apply_s[context.store_id] += time.perf_counter() - t
+
+    raft_engine.apply_write = timed_apply
+    transport = LocalTransport()
+    nodes = {sid: StoreNode(sid, transport,
+                            raft_kw={"seed": i, **REGION_RAFT}, device=dev)
+             for i, sid in enumerate(REGION_PEERS)}
+    definition = RegionDefinition(
+        region_id=REGION_ID, start_key=vcodec.encode_vector_key(0, 0),
+        end_key=vcodec.encode_vector_key(1), peers=list(REGION_PEERS),
+        region_type=RegionType.INDEX, index_parameter=IndexParameter(
+            index_type=IndexType.IVF_FLAT, dimension=d, metric=Metric.L2,
+            ncentroids=nlist, default_nprobe=REGION_NPROBE))
+    regions = {sid: nd.create_region(definition)
+               for sid, nd in nodes.items()}
+    live_peers = list(REGION_PEERS)
+
+    def raft(sid):
+        return nodes[sid].engine.get_node(REGION_ID)
+
+    def leader(timeout=60.0):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            lead = [s for s in live_peers if raft(s).is_leader()]
+            if len(lead) == 1:
+                return lead[0]
+            time.sleep(0.02)
+        raise SmokeFailure("region phase: no unique raft leader")
+
+    def on_leader(fn, attempts=20):
+        """fn(node, region) on the leader, retried on NotLeader (the
+        reference tests' pattern); returns (leader, fn's result)."""
+        for _ in range(attempts):
+            sid = leader()
+            try:
+                return sid, fn(nodes[sid], regions[sid])
+            except NotLeader:
+                time.sleep(0.1)
+        raise SmokeFailure("region phase: leadership never stabilized")
+
+    def settle(timeout=300.0):
+        target = raft(leader()).commit_index
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if all(raft(s).last_applied >= target for s in live_peers):
+                return
+            time.sleep(0.02)
+        raise SmokeFailure("region phase: replicas did not apply the "
+                           "leader's commit index")
+
+    def search(sid, q, **kw):
+        return nodes[sid].storage.vector_batch_search(regions[sid], q, k,
+                                                      **kw)
+
+    def ids_of(rows):
+        return [[v.id for v in row] for row in rows]
+
+    try:
+        # -- ingest: 4,096-row proposals in ascending ids ---------------------
+        leader()
+        t0 = time.perf_counter()
+        for lo in range(0, n, REGION_PROPOSAL_ROWS):
+            hi = min(n, lo + REGION_PROPOSAL_ROWS)
+            ids = np.arange(lo, hi, dtype=np.int64)
+            on_leader(lambda nd, r, ids=ids, lo=lo, hi=hi:
+                      nd.storage.vector_add(r, ids, x[lo:hi]))
+        ingest_s = time.perf_counter() - t0
+        lead = leader()
+        settle()
+        settled_s = time.perf_counter() - t0
+        out["ingest_rows_per_s"] = n / ingest_s
+        out["apply_share"] = {s: apply_s[s] / ingest_s for s in REGION_PEERS}
+        print(f"[{card}] region ingest: {n} rows in "
+              f"{-(-n // REGION_PROPOSAL_ROWS)} proposals of "
+              f"{REGION_PROPOSAL_ROWS} through the leader's "
+              f"Storage.vector_add, 3 replicas: {ingest_s:.1f} s, "
+              f"acknowledged {out['ingest_rows_per_s']:.1f} rows/s; every "
+              f"replica applied at {settled_s:.1f} s; apply time / ingest "
+              "wall " + ", ".join(
+                  f"{s}{' (leader)' if s == lead else ''} "
+                  f"{out['apply_share'][s]:.4f}" for s in REGION_PEERS),
+              flush=True)
+        counts = {s: regions[s].vector_index_wrapper.get_count()
+                  for s in REGION_PEERS}
+        check(all(c == n for c in counts.values()),
+              f"region: every replica's index holds the {n} rows {counts}")
+
+        # -- untrained: the reader's brute-force scan on B4 -------------------
+        l4 = b4.launches
+        t0 = time.perf_counter()
+        untrained = {s: ids_of(search(s, queries)) for s in REGION_PEERS}
+        bf_s = (time.perf_counter() - t0) / len(REGION_PEERS)
+        print(f"[{card}] region untrained search (reader brute force: "
+              f"engine scan into a temporary FLAT, B4), 64 queries: "
+              f"{bf_s:.2f} s a replica, B4 launches {b4.launches - l4}",
+              flush=True)
+        check(b4.launches > l4, "region untrained: the brute-force scan "
+              "ran on B4")
+        for s in REGION_PEERS:
+            check(same_modulo_ties(x, queries, untrained[s], gt),
+                  f"region untrained: {s} ids == numpy exact top-{k} "
+                  "modulo ties")
+        check(all(same_modulo_ties(x, queries, untrained[s],
+                                   untrained[REGION_PEERS[0]])
+                  for s in REGION_PEERS),
+              "region untrained: the replicas agree (exactly equal: "
+              f"{all(untrained[s] == untrained[REGION_PEERS[0]] for s in REGION_PEERS)})")
+
+        # -- train: each replica's VectorIndexManager.rebuild -----------------
+        builds = {}
+        for s in REGION_PEERS:
+            t0 = time.perf_counter()
+            nodes[s].index_manager.rebuild(regions[s], raft_log=raft(s).log)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            st = dict(nodes[s].index_manager.build_stats[REGION_ID])
+            st["total_ms"] = (time.perf_counter() - t0) * 1e3
+            builds[s] = st
+            print(f"[{card}] region rebuild {s}: {st['rows']} rows, engine "
+                  f"scan {st['scan_ms'] / 1e3:.2f} s, index ingest "
+                  f"{st['ingest_ms'] / 1e3:.2f} s, train "
+                  f"{st['train_ms'] / 1e3:.2f} s, whole rebuild "
+                  f"{st['total_ms'] / 1e3:.2f} s", flush=True)
+        out["rebuild"] = builds
+        fails = METRICS.counter("build.train_failures",
+                                region_id=REGION_ID).get()
+        check(fails == 0 and all(
+            regions[s].vector_index_wrapper.own_index.is_trained()
+            for s in REGION_PEERS),
+            f"region: build.train_failures {fails}, every replica trained")
+
+        # -- trained: B3 ------------------------------------------------------
+        l3 = b3.launches
+        trained = {s: ids_of(search(s, queries, nprobe=REGION_NPROBE))
+                   for s in REGION_PEERS}
+        check(b3.launches > l3, "region trained: the search ran on B3")
+        rec = {s: sum(len(set(r) & set(g.tolist()))
+                      for r, g in zip(trained[s], gt)) / (len(gt) * k)
+               for s in REGION_PEERS}
+        out["recall"] = rec
+        print(f"[{card}] region trained search nprobe {REGION_NPROBE}: "
+              f"recall@{k} " + ", ".join(f"{s} {v:.4f}"
+                                        for s, v in rec.items()), flush=True)
+        check(min(rec.values()) >= 0.95,
+              f"region trained: recall@{k} >= 0.95 on every replica")
+        check(all(trained[s] == trained[REGION_PEERS[0]]
+                  for s in REGION_PEERS),
+              "region trained: the three replicas return the same ids")
+
+        # region path against wrapper-direct, the same 64-query batch
+        w = regions[lead].vector_index_wrapper
+        fns = {"region path": lambda: search(lead, queries,
+                                             nprobe=REGION_NPROBE),
+               "wrapper-direct": lambda: w.search(queries, k,
+                                                  nprobe=REGION_NPROBE)}
+        for fn in fns.values():
+            fn()
+        reads = {nm: [] for nm in fns}
+        order = list(fns)
+        for r in range(ROUNDS):
+            for nm in order[r % 2:] + order[:r % 2]:
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    fns[nm]()
+                reads[nm].append((time.perf_counter() - t0) * 100.0)
+        out["region_ms"] = median_spread(reads["region path"])[0]
+        out["wrapper_ms"] = median_spread(reads["wrapper-direct"])[0]
+        print(f"[{card}] region path against wrapper-direct, 64 queries, "
+              f"k {k}, nprobe {REGION_NPROBE} (host ms a search, results on "
+              f"the host): region {spread_text(reads['region path'])}, "
+              f"wrapper {spread_text(reads['wrapper-direct'])}; per-round "
+              "ratio median " + f"{np.median(np.divide(reads['region path'], reads['wrapper-direct'])):.4f}",
+              flush=True)
+
+        # -- writes under coalesced load --------------------------------------
+        pool_rng = np.random.default_rng(29)
+        pool = (x[pool_rng.choice(n, 1024, replace=False)] + 0.05
+                * pool_rng.standard_normal((1024, d), dtype=np.float32)
+                ).astype(np.float32)
+        kw = {"nprobe": REGION_NPROBE}
+        dispatches = {"async": 0, "sync_fallback": 0}
+        orig_async = VectorReader.vector_batch_search_async
+
+        def spy_async(self, *a, **kw_):
+            thunk = orig_async(self, *a, **kw_)
+            dispatches["sync_fallback" if thunk.__name__ == "sync_thunk"
+                       else "async"] += 1
+            return thunk
+
+        wid = np.arange(n, n + CO_WRITE_ROWS, dtype=np.int64)
+        rows_w = extra[:CO_WRITE_ROWS]
+        done = threading.Event()
+        errors: list = []
+        seen = {"leader": 0, "follower": 0, "gone": 0}
+
+        def visible(sid, i) -> bool:
+            row = search(sid, rows_w[i:i + 1], **kw)[0]
+            return bool(row) and row[0].id == wid[i]
+
+        def writer():
+            try:
+                for lo in range(0, CO_WRITE_ROWS, CO_WRITE_CHUNK):
+                    sl = slice(lo, lo + CO_WRITE_CHUNK)
+                    sid, _ = on_leader(lambda nd, r: nd.storage.vector_add(
+                        r, wid[sl], rows_w[sl]))
+                    lid = raft(sid).commit_index
+                    seen["leader"] += visible(sid, lo)
+                    for f in live_peers:
+                        if f == sid:
+                            continue
+                        deadline = time.monotonic() + 60
+                        while raft(f).last_applied < lid and \
+                                time.monotonic() < deadline:
+                            time.sleep(0.005)
+                        seen["follower"] += visible(f, lo)
+                for lo in range(0, CO_DELETE_ROWS, CO_WRITE_CHUNK):
+                    sl = slice(lo, lo + CO_WRITE_CHUNK)
+                    sid, _ = on_leader(lambda nd, r: nd.storage.vector_delete(
+                        r, wid[sl]))
+                    seen["gone"] += not visible(sid, lo)
+            except Exception as e:  # noqa: BLE001 — reported by the check
+                errors.append(repr(e))
+            finally:
+                done.set()
+
+        # the sweep's CO_KEYS keys: the region's index also served, read
+        # only, under region ids 2.. on the leader (the same engine rows)
+        for r_ in range(REGION_ID + 1, REGION_ID + CO_KEYS):
+            nodes[lead].serve_wrapper(r_, regions[lead].vector_index_wrapper,
+                                      like=regions[lead])
+        saved = set_flags(FLAGS, pipeline_enabled="true", pipeline_depth=2)
+        VectorReader.vector_batch_search_async = spy_async
+        svc = IndexService(nodes[lead], window_ms=CO_WINDOW_MS,
+                           max_batch=CO_MAX_BATCH)
+        try:
+            closed_loop(svc, pool, k, kw, 0.5)          # warm
+            base = svc._get_coalescer().stage_totals()
+            l3 = b3.launches
+            t = threading.Thread(target=writer, name="smoke-region-writer",
+                                 daemon=True)
+            t.start()
+            rows, wall, lat = closed_loop(svc, pool, k, kw, 0.0, stop=done)
+            t.join(timeout=120)
+            totals = svc._get_coalescer().stage_totals()
+        finally:
+            svc.close()
+            VectorReader.vector_batch_search_async = orig_async
+            for f_, v_ in saved.items():
+                FLAGS.set(f_, v_)
+        nchunk = CO_WRITE_ROWS // CO_WRITE_CHUNK
+        out["coalesced"] = arm_report(
+            "region IVF_FLAT (B3) on the leader", "pipelined depth 2, "
+            f"{CO_WRITE_ROWS} upserts + {CO_DELETE_ROWS} deletes proposed",
+            [{"rows": rows, "wall": wall, "lat": lat,
+              "totals": {s_: totals.get(s_, 0.0) - base.get(s_, 0.0)
+                         for s_ in totals}}], card)
+        out["dispatches"] = dict(dispatches)
+        print(f"[{card}] region writes under load: visible on the leader "
+              f"when acknowledged {seen['leader']}/{nchunk}, on a follower "
+              f"once applied {seen['follower']}/"
+              f"{nchunk * (len(live_peers) - 1)}, deleted rows gone "
+              f"{seen['gone']}/{CO_DELETE_ROWS // CO_WRITE_CHUNK}; reader "
+              f"dispatches async {dispatches['async']}, sync fallback "
+              f"{dispatches['sync_fallback']}; B3 launches while serving "
+              f"{b3.launches - l3}", flush=True)
+        check(not errors and not t.is_alive()
+              and seen["leader"] == nchunk
+              and seen["follower"] == nchunk * (len(live_peers) - 1)
+              and seen["gone"] == CO_DELETE_ROWS // CO_WRITE_CHUNK,
+              f"region writes under load: each write visible on the leader "
+              f"when acknowledged and on every replica once applied "
+              f"{errors}")
+        check(dispatches["async"] > 0 and dispatches["sync_fallback"] == 0,
+              "region coalesced: every dispatch took the reader's async "
+              "arm")
+        settle()
+        live, dead = wid[CO_DELETE_ROWS:], wid[:CO_DELETE_ROWS]
+        for s in live_peers:
+            found = leaked = 0
+            for lo in range(0, len(live), 64):
+                res = search(s, rows_w[CO_DELETE_ROWS + lo:
+                                       CO_DELETE_ROWS + lo + 64], **kw)
+                found += sum(bool(r) and r[0].id == i
+                             for r, i in zip(res, live[lo:lo + 64]))
+            for lo in range(0, CO_DELETE_ROWS, 64):
+                res = search(s, rows_w[lo:lo + 64], **kw)
+                leaked += sum(v.id in set(dead.tolist())
+                              for r in res for v in r)
+            check(found == len(live) and leaked == 0,
+                  f"region writes: {s} finds every live upsert by its own "
+                  f"vector ({found}/{len(live)}) and no deleted id "
+                  f"({leaked})")
+
+        # -- one region search's B3 launch against its plain version ---------
+        orig_b3 = kernel_ivf_pruned.ivf_pruned_topk
+        captured = []
+
+        def spy_b3(*a, **kw_):
+            res_ = orig_b3(*a, **kw_)
+            if not captured:
+                captured.append(([v.clone() if torch.is_tensor(v) else v
+                                  for v in a], dict(kw_),
+                                 [o.clone() for o in res_]))
+            return res_
+
+        # one attribute dict: the kernel reads its flags and counts its
+        # launches through the module's name, which is the spy's now
+        spy_b3.__dict__ = orig_b3.__dict__
+        kernel_ivf_pruned.ivf_pruned_topk = spy_b3
+        try:
+            search(lead, queries, **kw)
+        finally:
+            kernel_ivf_pruned.ivf_pruned_topk = orig_b3
+        if captured:
+            a_, kw_, (kv, ki, _) = captured[0]
+            pv, pi, _ = kernel_ivf_pruned.ivf_pruned_topk_plain(*a_, **kw_)
+            ok, err = kernel_parity(kv, ki, pv, pi)
+        else:
+            ok, err = False, float("nan")
+        out["b3_parity"] = (ok, err)
+        check(ok, f"region: a region search's B3 launch == its plain "
+              f"version (max abs err {err:.3e})")
+
+        # -- the reader's dispatch makes no host sync -------------------------
+        on_leader(lambda nd, r: nd.storage.vector_add(
+            r, np.asarray([n + CO_WRITE_ROWS], np.int64), rows_w[:1]))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        sync_err = None
+        try:
+            thunk = nodes[lead].storage.vector_batch_search_async(
+                regions[lead], queries, k, **kw)
+        except Exception as e:  # noqa: BLE001 — reported by the check
+            sync_err, thunk = repr(e), None
+        finally:
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode(0)
+        check(sync_err is None and thunk is not None
+              and thunk.__name__ != "sync_thunk"
+              and ids_of(thunk()) == ids_of(search(lead, queries, **kw)),
+              "region: the reader's async dispatch makes no synchronizing "
+              f"call and resolves to the sync search's ids {sync_err}")
+
+        # -- device bytes and host memory -------------------------------------
+        dbytes = {s: regions[s].vector_index_wrapper.own_index
+                  .get_device_memory_size() for s in REGION_PEERS}
+        out["device_bytes"] = dbytes
+        out["peak_rss"] = resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss * 1024
+        print(f"[{card}] region memory: device bytes per replica "
+              + ", ".join(f"{s} {v / 2**30:.3f} GiB"
+                          for s, v in dbytes.items())
+              + f"; peak host RSS of the process {out['peak_rss'] / 2**30:.2f}"
+              " GiB", flush=True)
+
+        # -- failover: the leader's node stops --------------------------------
+        settle()
+        want_ids = ids_of(search(lead, queries, **kw))
+        want_count = n + CO_WRITE_ROWS - CO_DELETE_ROWS + 1
+        t0 = time.perf_counter()
+        nodes[lead].stop()
+        live_peers.remove(lead)
+        new_lead = leader()
+        elect_s = time.perf_counter() - t0
+        got_count = {s: nodes[s].storage.vector_count(regions[s])
+                     for s in live_peers}
+        got_ids = {s: ids_of(search(s, queries, **kw)) for s in live_peers}
+        on_leader(lambda nd, r: nd.storage.vector_add(
+            r, np.asarray([n + CO_WRITE_ROWS + 1], np.int64), rows_w[1:2]))
+        row = search(new_lead, rows_w[1:2], **kw)[0]
+        print(f"[{card}] region failover: {lead} stopped, {new_lead} leads "
+              f"after {elect_s:.2f} s; vector_count {got_count} (acknowledged "
+              f"{want_count}); a write on the new leader visible "
+              f"{bool(row) and row[0].id == n + CO_WRITE_ROWS + 1}",
+              flush=True)
+        check(all(c == want_count for c in got_count.values())
+              and all(g == want_ids for g in got_ids.values())
+              and bool(row) and row[0].id == n + CO_WRITE_ROWS + 1,
+              "region failover: the survivors hold every acknowledged write "
+              "(count and search ids) and take new writes")
+        out["failover_s"] = elect_s
+    finally:
+        raft_engine.apply_write = orig_apply
+        for s in REGION_PEERS:
+            nodes[s].stop()
+    out["launches"] = {kf.__name__ + attr[len("launches"):]:
+                       getattr(kf, attr) for kf, attr in counters}
+    check(out["launches"]["ivf_pruned_topk"] > 0
+          and out["launches"]["pruned_fused_topk"] > 0,
+          f"region phase launched B3 and B4 {out['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[{card}] region phase launches {out['launches']}; "
+          f"{out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def run(args) -> int:
     import torch
 
@@ -2760,6 +3261,14 @@ def run(args) -> int:
     t0 = time.perf_counter()
     gist = gist_phase(args.n, nlist, card)
     print(f"d {GIST_D} phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    peak_gist = torch.cuda.max_memory_allocated()
+
+    # -- the replicated region path: three StoreNodes over the same rows,
+    # every earlier phase's device state released first -------------------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    region = region_phase(x, queries, extra, gt, nlist, card, dev)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound,
               by, ok, plain_calls, frac=None):
@@ -2822,6 +3331,8 @@ def run(args) -> int:
                + kernels[3:4] + [tiers["pruned_fused_topk_bf16"],
                                  tiers["pruned_fused_topk_sq8"]]
                + kernels[4:])
+    for e_ in kernels:
+        e_["launches_region_phase"] = region["launches"].get(e_["name"], 0)
     check(len(kernels) == 12 and all(e_["parity"] for e_ in kernels),
           "the kernels line lists 12 entries, each with parity")
     print(f"[{card}] serving-path ivf.pruned_dim_fraction: IVF (B3) "
@@ -2830,6 +3341,7 @@ def run(args) -> int:
     print(f"[{card}] peak device memory: fp32 and IVF_PQ phases "
           f"{peak_fp32 / 2**30:.2f} GiB, tier phase "
           f"{peak_tiers / 2**30:.2f} GiB, d {GIST_D} phase "
+          f"{peak_gist / 2**30:.2f} GiB, region phase "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)

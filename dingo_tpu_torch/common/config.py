@@ -132,6 +132,10 @@ FLAGS.define("quantized_rerank_factor", 4, mutable=True,
 FLAGS.define("train_sample_rows", 65536, mutable=True,
              help_="train-sample row cap for k-means (0 = full corpus, "
                    "lifting derived caps too)")
+# -- the region path (engines) ----------------------------------------------
+FLAGS.define("wal_checkpoint_bytes", 64 * 1024 * 1024, mutable=True,
+             help_="WalEngine folds the WAL into a checkpoint once it "
+                   "exceeds this size, bounding restart replay time")
 # -- the coalesced serving path (coalescer, tracer, QoS, pipeline) ----------
 FLAGS.define("search_coalescing_window_ms", 0.0, mutable=True,
              help_="merge concurrent same-shaped searches into one device "

@@ -37,8 +37,14 @@ class VectorIndexError(Exception):
 
 class NotSupported(VectorIndexError):
     """EVECTOR_NOT_SUPPORT: the reader falls back to a brute-force scan for
-    untrained IVF / BRUTEFORCE; the port also raises it for every feature
-    this slice does not carry yet."""
+    untrained IVF / BRUTEFORCE."""
+
+
+class NotPorted(VectorIndexError):
+    """A feature of the JAX package that the port does not carry yet. It
+    is not EVECTOR_NOT_SUPPORT: nothing catches it on the serving path, so
+    an unported feature fails loudly instead of turning into a
+    brute-force scan."""
 
 
 class NotTrained(VectorIndexError):
@@ -101,7 +107,7 @@ def resolve_precision(parameter: IndexParameter) -> str:
     """Effective precision tier of a float index (fp32, bf16 or sq8)."""
     tier = precision_tier(parameter)
     if parameter.dtype not in ("float32", "f32", "bfloat16", "bf16"):
-        raise NotSupported(f"storage dtype {parameter.dtype} is not ported")
+        raise NotPorted(f"storage dtype {parameter.dtype} is not ported")
     return tier
 
 

@@ -11,6 +11,10 @@ so both packages hold the same slots, centroids and bucket assignments and
 compute the same thing. An IVF_PQ snapshot re-encodes its rows at load, as
 the JAX package's load does; a mapping may carry the reference's exact
 ``codes`` and ``assign`` instead.
+
+``region_from_reference`` carries a whole region: the JAX package's
+engine state and region blob go into a port node, which rebuilds the
+region's index from its own engine.
 """
 
 from __future__ import annotations
@@ -103,3 +107,40 @@ def index_from_reference(source: Union[str, os.PathLike, Mapping],
         index.restore_arrays(arrays["ids"], **rows)
     index.apply_log_id = int(arrays.get("apply_log_id", 0))
     return index
+
+
+def region_from_reference(node, engine_state: Mapping, region_blob: bytes):
+    """Carry a JAX package region into a port node as plain data: a
+    ``MemEngine.snapshot_state()`` dict (column family -> list of (key,
+    value) bytes) and a ``Region.serialize()`` blob. The node creates the
+    region from the blob's definition, installs the state's pairs inside
+    the region's range (the meta column family stays behind) as one
+    region-install write, and rebuilds the region's index from its engine.
+    On a replicated node that write is a raft proposal: call it on the
+    leader, and every replica rebuilds when it applies the install.
+    Returns the port Region."""
+    from dingo_tpu_torch.engine import write_data as wd
+    from dingo_tpu_torch.engine.raft_engine import (
+        RaftStoreEngine,
+        region_bounds,
+    )
+    from dingo_tpu_torch.engine.raw_engine import CF_META
+    from dingo_tpu_torch.store.region import Region
+
+    definition = Region.deserialize(region_blob,
+                                    device=node.device).definition
+    region = node.create_region(definition)
+    start, end = region_bounds(region)
+    cfs = []
+    for cf, pairs in engine_state.items():
+        if cf == CF_META:
+            continue
+        inside = [(bytes(k), bytes(v)) for k, v in pairs
+                  if k >= start and (end is None or k < end)]
+        if inside:
+            cfs.append((cf, inside))
+    node.engine.write(region, wd.RegionInstallData(cfs=cfs))
+    if not isinstance(node.engine, RaftStoreEngine):
+        # a mono apply runs without the node's install hook
+        node.index_manager.rebuild(region)
+    return region

@@ -1,5 +1,5 @@
 """Index factory (port of dingo_tpu/index/factory.py): FLAT, BRUTEFORCE,
-IVF_FLAT and IVF_PQ. Every other type raises NotSupported until it is
+IVF_FLAT and IVF_PQ. Every other type raises NotPorted until it is
 ported."""
 
 from __future__ import annotations
@@ -7,7 +7,7 @@ from __future__ import annotations
 from dingo_tpu_torch.index.base import (
     IndexParameter,
     IndexType,
-    NotSupported,
+    NotPorted,
     VectorIndex,
 )
 
@@ -33,4 +33,4 @@ def new_index(index_id: int, parameter: IndexParameter,
         from dingo_tpu_torch.index.ivf_pq import TpuIvfPq
 
         return TpuIvfPq(index_id, parameter, device=device)
-    raise NotSupported(f"index type {t} is not ported yet")
+    raise NotPorted(f"index type {t} is not ported yet")

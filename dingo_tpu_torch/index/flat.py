@@ -44,6 +44,7 @@ from dingo_tpu_torch.index.base import (
     FilterSpec,
     IndexParameter,
     InvalidParameter,
+    NotPorted,
     NotSupported,
     SearchResult,
     VectorIndex,
@@ -475,7 +476,7 @@ class TpuFlat(_SlotStoreIndex):
         if parameter.dimension <= 0:
             raise InvalidParameter(f"dimension {parameter.dimension}")
         if parameter.metric is Metric.HAMMING:
-            raise NotSupported("binary/hamming FLAT is not ported yet")
+            raise NotPorted("binary/hamming FLAT is not ported yet")
         self.device = resolve_device(device)
         tier = resolve_precision(parameter)
         self.store = _new_tier_store(tier, parameter.dimension, self.device)

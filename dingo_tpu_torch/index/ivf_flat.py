@@ -45,7 +45,7 @@ from dingo_tpu_torch.index.base import (
     FilterSpec,
     IndexParameter,
     InvalidParameter,
-    NotSupported,
+    NotPorted,
     NotTrained,
     SearchResult,
     VectorIndex,
@@ -311,7 +311,7 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
         if parameter.ncentroids <= 0:
             raise InvalidParameter(f"ncentroids {parameter.ncentroids}")
         if parameter.metric is Metric.HAMMING:
-            raise NotSupported("binary IVF is not ported yet")
+            raise NotPorted("binary IVF is not ported yet")
         self.device = resolve_device(device)
         self._kernel_metric = parameter.metric
         tier = resolve_precision(parameter)

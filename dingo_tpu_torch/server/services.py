@@ -1,89 +1,92 @@
-"""The port's coalesced search ingress: the coalescer binding of
-dingo_tpu/server/services.py (``IndexService._get_coalescer``).
+"""The port's coalesced search ingress: ``IndexService`` of
+dingo_tpu/server/services.py, bound to a store node.
 
-An ``IndexService`` holds the VectorIndexWrapper of each region it serves
-and one SearchCoalescer whose ``run`` is the wrapper's ``search`` and whose
-``dispatch`` is its ``search_async(staged=...)``, so a pipelined flush
-stages the batch in a pinned ring slot and the index claims that upload.
-Requests with the same (region, topk, scalar search parameters) share a
-batch. The gRPC server around it is not ported yet: callers submit
+``IndexService(node)`` holds one SearchCoalescer whose ``run`` is the
+node's ``storage.vector_batch_search(region, ...)`` and whose ``dispatch``
+is ``storage.vector_batch_search_async(region, ..., staged=...)``, as in
+the JAX package's ``_get_coalescer``: every batch goes through the
+region's VectorReader (its id-window filter, its brute-force fallback for
+an untrained index) and the reader fills the coalescer's ``stage_us``
+split. Requests with the same (region, topk, scalar search parameters)
+share a batch. The gRPC server around it is not ported yet: callers submit
 in-process.
 
-    service = IndexService({1: wrapper}, window_ms=2.0, max_batch=64)
+    service = IndexService(node, window_ms=2.0, max_batch=64)
     rows = service.submit(1, queries, 10, nprobe=32).result(timeout=30)
     service.close()
 
-``device`` None is the CUDA device (DeviceUnavailable without one); on it
-``pipeline_enabled = "auto"`` takes the pipelined arm.
+Each reply is a list of VectorWithData rows, one list per query. The
+coalescer runs on the node's device: on CUDA ``pipeline_enabled = "auto"``
+takes the pipelined arm.
 """
 
 from __future__ import annotations
 
 import threading
 from concurrent.futures import Future
-from typing import Dict, Optional
+from typing import Optional
 
 import numpy as np
 
 from dingo_tpu_torch.common.coalescer import SearchCoalescer
 from dingo_tpu_torch.common.config import FLAGS
-from dingo_tpu_torch.common.device import resolve_device
 from dingo_tpu_torch.index.base import VectorIndexError
-from dingo_tpu_torch.index.wrapper import VectorIndexWrapper
 from dingo_tpu_torch.obs import pressure as qp
+from dingo_tpu_torch.store.region import Region
 
 
 class IndexService:
-    """Vector searches over regions through one coalescer.
+    """Vector searches over a node's regions through one coalescer.
 
     ``window_ms`` None takes the ``search_coalescing_window_ms`` flag; a
     window of 0 searches each request directly, as the JAX package's
     service does. With ``qos_enabled`` each reply is counted served (and
     in or past its deadline) by the pressure plane."""
 
-    def __init__(self, wrappers: Dict[int, VectorIndexWrapper],
-                 device=None, window_ms: Optional[float] = None,
+    def __init__(self, node, window_ms: Optional[float] = None,
                  max_batch: int = 256):
-        self.wrappers = wrappers
-        self.device = resolve_device(device)
+        self.node = node
         self.window_ms = float(FLAGS.get("search_coalescing_window_ms")
                                if window_ms is None else window_ms)
         self.max_batch = max_batch
         self._coalescer: Optional[SearchCoalescer] = None
         self._coalescer_lock = threading.Lock()
 
-    def _wrapper(self, region_id: int) -> VectorIndexWrapper:
-        w = self.wrappers.get(region_id)
-        if w is None:
+    def _region(self, region_id: int) -> Region:
+        region = self.node.get_region(region_id)
+        if region is None:
             raise VectorIndexError(f"region {region_id} gone")
-        return w
+        return region
 
     def _get_coalescer(self) -> SearchCoalescer:
         with self._coalescer_lock:
             if self._coalescer is None:
-                def run(key, stacked):
+                def run(key, stacked, stage_us=None):
                     region_id, topk, kw_items = key
-                    return self._wrapper(region_id).search(
-                        stacked, topk, **dict(kw_items))
+                    return self.node.storage.vector_batch_search(
+                        self._region(region_id), stacked, topk,
+                        stage_us=stage_us, **dict(kw_items))
 
-                def dispatch(key, stacked, staged=None):
+                def dispatch(key, stacked, staged=None, stage_us=None):
                     # the pipelined arm: launch now, return the resolve
                     # thunk; the coalescer's completion lane waits on it
                     region_id, topk, kw_items = key
-                    return self._wrapper(region_id).search_async(
-                        stacked, topk, staged=staged, **dict(kw_items))
+                    return self.node.storage.vector_batch_search_async(
+                        self._region(region_id), stacked, topk,
+                        staged=staged, stage_us=stage_us, **dict(kw_items))
 
                 self._coalescer = SearchCoalescer(
                     run, window_ms=self.window_ms, max_batch=self.max_batch,
-                    dispatch_fn=dispatch, device=self.device)
+                    dispatch_fn=dispatch, device=self.node.device)
             return self._coalescer
 
     def submit(self, region_id: int, queries: np.ndarray, topk: int,
                **kw) -> Future:
-        """Search `queries` [n, d] on a region: a Future of n SearchResult
-        rows. `kw` are the index's search parameters; only requests whose
-        parameters are all scalars (nprobe) are coalesced, others (a
-        filter) search directly, as in the JAX package's service."""
+        """Search `queries` [n, d] on a region: a Future of n rows of
+        VectorWithData. `kw` are the reader's search parameters; only
+        requests whose parameters are all scalars (nprobe) are coalesced,
+        others (a filter) search directly, as in the JAX package's
+        service."""
         plain = all(isinstance(v, (int, float, str, bool, type(None)))
                     for v in kw.values())
         if plain and self.window_ms > 0:
@@ -93,8 +96,8 @@ class IndexService:
         else:
             fut = Future()
             try:
-                fut.set_result(self._wrapper(region_id).search(
-                    queries, topk, **kw))
+                fut.set_result(self.node.storage.vector_batch_search(
+                    self._region(region_id), queries, topk, **kw))
             except Exception as exc:  # noqa: BLE001 — the caller's future
                 fut.set_exception(exc)
         if qp.qos_enabled():

@@ -350,13 +350,16 @@ def test_same_submit_sequence_forms_same_batches(qos):
 
 @pytest.mark.parametrize("pipelined", [False, True])
 def test_index_service_serves_through_the_coalescer(pipelined):
-    """IndexService binds run to the wrapper's search and dispatch to its
-    search_async(staged=...): concurrent requests of four regions share
-    batches and each caller gets the direct search's rows back."""
+    """IndexService binds run to the node's Storage.vector_batch_search
+    and dispatch to its vector_batch_search_async(staged=...): concurrent
+    requests of four regions (a MonoStoreEngine node whose regions own one
+    wrapper) share batches and each caller gets the direct search's rows
+    back."""
     from dingo_tpu_torch.common.metrics import METRICS
     from dingo_tpu_torch.index.base import IndexParameter, IndexType
     from dingo_tpu_torch.index.wrapper import VectorIndexWrapper
     from dingo_tpu_torch.server.services import IndexService
+    from dingo_tpu_torch.store.node import MonoStoreNode
 
     rng = np.random.default_rng(5)
     x = rng.standard_normal((1500, 16)).astype(np.float32)
@@ -370,8 +373,10 @@ def test_index_service_serves_through_the_coalescer(pipelined):
     direct = [w.search(q[i:i + 4], 5, nprobe=4) for i in range(0, 32, 4)]
     saved = TFLAGS.get("pipeline_enabled")
     TFLAGS.set("pipeline_enabled", pipelined)
-    svc = IndexService({r: w for r in (1, 2, 3, 4)}, device="cpu",
-                       window_ms=20.0, max_batch=64)
+    node = MonoStoreNode(device="cpu")
+    for r in (1, 2, 3, 4):
+        node.serve_wrapper(r, w)
+    svc = IndexService(node, window_ms=20.0, max_batch=64)
     miss = METRICS.counter("pipeline.staged_miss").get()
     try:
         futs = [svc.submit(1 + (i // 4) % 4, q[i:i + 4], 5, nprobe=4)
@@ -383,8 +388,9 @@ def test_index_service_serves_through_the_coalescer(pipelined):
         TFLAGS.set("pipeline_enabled", saved)
     for g, want in zip(got, direct):
         for a, b in zip(g, want):
-            assert np.array_equal(a.ids, b.ids)
-            assert a.distances.tobytes() == b.distances.tobytes()
+            assert [v.id for v in a] == b.ids.tolist()
+            assert np.asarray([v.distance for v in a],
+                              np.float32).tobytes() == b.distances.tobytes()
     assert METRICS.counter("pipeline.staged_miss").get() == miss
     assert ("dispatch" in stages) == pipelined
 
@@ -393,16 +399,19 @@ def test_index_service_window_zero_searches_directly():
     from dingo_tpu_torch.index.base import IndexParameter, IndexType
     from dingo_tpu_torch.index.wrapper import VectorIndexWrapper
     from dingo_tpu_torch.server.services import IndexService
+    from dingo_tpu_torch.store.node import MonoStoreNode
 
     x = np.random.default_rng(6).standard_normal((64, 8)).astype(np.float32)
     w = VectorIndexWrapper(1, IndexParameter(index_type=IndexType.FLAT,
                                              dimension=8), device="cpu")
     w.set_own(w.build_own())
     w.add(np.arange(64, dtype=np.int64), x, 1)
-    svc = IndexService({1: w}, device="cpu", window_ms=0.0)
+    node = MonoStoreNode(device="cpu")
+    node.serve_wrapper(1, w)
+    svc = IndexService(node, window_ms=0.0)
     try:
         rows = svc.submit(1, x[:3], 1).result(timeout=5)
-        assert [int(r.ids[0]) for r in rows] == [0, 1, 2]
+        assert [r[0].id for r in rows] == [0, 1, 2]
         assert svc._coalescer is None
         with pytest.raises(Exception, match="gone"):
             svc.submit(9, x[:1], 1).result(timeout=5)

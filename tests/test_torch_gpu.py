@@ -1322,6 +1322,7 @@ def test_coalesced_pipelined_equals_serial_on_device(family):
         kernel_topk_pruned,
     )
     from dingo_tpu_torch.server.services import IndexService
+    from dingo_tpu_torch.store.node import MonoStoreNode
 
     _cuda()
     rng = np.random.default_rng(17)
@@ -1353,8 +1354,10 @@ def test_coalesced_pipelined_equals_serial_on_device(family):
         out = {}
         for pipelined in ("false", "auto"):
             _flags(pipeline_enabled=pipelined)
-            svc = IndexService({r: w for r in (1, 2, 3, 4)},
-                               window_ms=2.0, max_batch=64)
+            node = MonoStoreNode()
+            for r in (1, 2, 3, 4):
+                node.serve_wrapper(r, w)
+            svc = IndexService(node, window_ms=2.0, max_batch=64)
             launches = kern.launches
             misses = METRICS.counter("pipeline.staged_miss").get()
             try:
@@ -1369,10 +1372,10 @@ def test_coalesced_pipelined_equals_serial_on_device(family):
     finally:
         _restore(saved)
     for a, b in zip(out["false"], out["auto"]):
-        assert np.array_equal(a.ids, b.ids)
-        assert a.distances.tobytes() == b.distances.tobytes()
+        assert [v.id for v in a] == [v.id for v in b]
+        assert [v.distance for v in a] == [v.distance for v in b]
     if family != "pq_b5":          # PQ codes approximate the rows
-        assert [int(r.ids[0]) for r in out["auto"]] == list(range(64))
+        assert [r[0].id for r in out["auto"]] == list(range(64))
 
 
 def test_completion_lane_fifo_on_device():
@@ -1404,3 +1407,210 @@ def test_completion_lane_fifo_on_device():
         assert lane.submit(H(i, begin_host_fetch(t)))
     lane.stop(drain=True, timeout=30)
     assert done == [(i, 2.0 * i) for i in range(8)]
+
+
+# ---------------- the replicated region path on the card -------------------
+
+def _region_cluster(d, nlist, dev_peers=("s0", "s1", "s2")):
+    from dingo_tpu_torch.index import codec as vcodec
+    from dingo_tpu_torch.index.base import IndexParameter, IndexType
+    from dingo_tpu_torch.raft import LocalTransport
+    from dingo_tpu_torch.store.node import StoreNode
+    from dingo_tpu_torch.store.region import RegionDefinition, RegionType
+
+    transport = LocalTransport()
+    nodes = {sid: StoreNode(sid, transport, raft_kw={
+        "seed": i, "election_timeout": (1.0, 2.0),
+        "heartbeat_interval": 0.1}) for i, sid in enumerate(dev_peers)}
+    definition = RegionDefinition(
+        region_id=1, start_key=vcodec.encode_vector_key(0, 0),
+        end_key=vcodec.encode_vector_key(1), peers=list(dev_peers),
+        region_type=RegionType.INDEX, index_parameter=IndexParameter(
+            index_type=IndexType.IVF_FLAT, dimension=d, ncentroids=nlist))
+    regions = {sid: n.create_region(definition) for sid, n in nodes.items()}
+    return nodes, regions
+
+
+def _region_leader(nodes, timeout=20.0):
+    import time
+
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        lead = [s for s, n in nodes.items() if n.engine.get_node(1).is_leader()]
+        if len(lead) == 1:
+            return lead[0]
+        time.sleep(0.02)
+    raise AssertionError("no unique leader")
+
+
+def _region_write(nodes, regions, fn, attempts=10):
+    import time
+
+    from dingo_tpu_torch.raft import NotLeader
+
+    for _ in range(attempts):
+        sid = _region_leader(nodes)
+        try:
+            return fn(nodes[sid].storage, regions[sid])
+        except NotLeader:
+            time.sleep(0.1)
+    raise AssertionError("leadership never stabilized")
+
+
+def _region_settle(nodes, timeout=30.0):
+    import time
+
+    lead = _region_leader(nodes)
+    target = nodes[lead].engine.get_node(1).commit_index
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if all(n.engine.get_node(1).last_applied >= target
+               for n in nodes.values()):
+            return
+        time.sleep(0.02)
+    raise AssertionError("replicas did not apply the commit index")
+
+
+def _region_data(n=6000, d=256, seed=31):
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((32, d), dtype=np.float32)
+    x = (centers[rng.integers(0, 32, n)] + 0.3 * rng.standard_normal(
+        (n, d), dtype=np.float32)).astype(np.float32)
+    return x, x[rng.choice(n, 16, replace=False)] + 0.01
+
+
+def test_region_cluster_searches_on_b4_then_b3():
+    """A 3-store region on the card: writes through the leader's Storage
+    replicate; untrained, every replica's reader brute-forces on B4 with
+    numpy's exact ids; after VectorIndexManager.rebuild on each replica,
+    the reader searches on B3 and the replicas agree."""
+    from dingo_tpu_torch.ops import kernel_ivf_pruned, kernel_topk_pruned
+
+    _cuda()
+    x, q = _region_data()
+    nodes, regions = _region_cluster(256, 16)
+    try:
+        for lo in range(0, len(x), 1000):
+            _region_write(nodes, regions, lambda s, r, lo=lo: s.vector_add(
+                r, np.arange(lo, lo + 1000, dtype=np.int64),
+                x[lo:lo + 1000]))
+        _region_settle(nodes)
+        d2 = ((q[:, None, :] - x[None, :, :]) ** 2).sum(-1)
+        exact = np.argsort(d2, axis=1)[:, :10]
+        b4 = kernel_topk_pruned.pruned_fused_topk
+        b3 = kernel_ivf_pruned.ivf_pruned_topk
+        l4 = b4.launches
+        for sid, node in nodes.items():
+            rows = node.storage.vector_batch_search(regions[sid], q, 10)
+            for qi, row in enumerate(rows):
+                got = [v.id for v in row]
+                assert set(got) == set(exact[qi].tolist()) or np.allclose(
+                    np.sort(d2[qi, got]), np.sort(d2[qi, exact[qi]]),
+                    rtol=1e-4), (sid, qi)
+        assert b4.launches >= l4 + 3
+        l3 = b3.launches
+        for sid, node in nodes.items():
+            node.index_manager.rebuild(regions[sid],
+                                       raft_log=node.engine.get_node(1).log)
+            assert regions[sid].vector_index_wrapper.own_index.is_trained()
+        ids = {sid: [[v.id for v in row] for row in
+                     node.storage.vector_batch_search(regions[sid], q, 10,
+                                                      nprobe=16)]
+               for sid, node in nodes.items()}
+        assert b3.launches >= l3 + 3
+        assert ids["s1"] == ids["s0"] and ids["s2"] == ids["s0"]
+        for qi in range(len(q)):
+            assert ids["s0"][qi][0] == exact[qi][0]
+    finally:
+        for node in nodes.values():
+            node.stop()
+
+
+def _trained_mono_region(d=256, n=6000, nlist=16):
+    from dingo_tpu_torch.index import codec as vcodec
+    from dingo_tpu_torch.index.base import IndexParameter, IndexType
+    from dingo_tpu_torch.store.node import MonoStoreNode
+    from dingo_tpu_torch.store.region import RegionDefinition, RegionType
+
+    x, q = _region_data(n, d)
+    node = MonoStoreNode()
+    region = node.create_region(RegionDefinition(
+        region_id=2, start_key=vcodec.encode_vector_key(0, 0),
+        end_key=vcodec.encode_vector_key(1), region_type=RegionType.INDEX,
+        index_parameter=IndexParameter(index_type=IndexType.IVF_FLAT,
+                                       dimension=d, ncentroids=nlist)))
+    for lo in range(0, n, 2000):
+        node.storage.vector_add(region, np.arange(lo, lo + 2000), x[lo:lo + 2000])
+    node.index_manager.rebuild(region)
+    return node, region, x, q
+
+
+def test_region_reader_async_dispatch_does_not_sync():
+    """Storage.vector_batch_search_async through the reader (its id-window
+    filter compiled anew after a write) takes the async arm and makes no
+    synchronizing call before its resolve."""
+    from dingo_tpu_torch.index.vector_reader import VectorReader
+    from dingo_tpu_torch.ops import kernel_ivf_pruned
+
+    _cuda()
+    node, region, x, q = _trained_mono_region()
+    try:
+        node.storage.vector_batch_search(region, q, 10, nprobe=8)   # warm
+        node.storage.vector_add(region, np.asarray([7000], np.int64),
+                                x[:1] + 0.5)
+        want = node.storage.vector_batch_search(region, q, 10, nprobe=8)
+        node.storage.vector_add(region, np.asarray([7001], np.int64),
+                                x[:1] + 0.6)
+        node.storage.vector_add(region, np.asarray([7001], np.int64),
+                                x[:1] + 0.5)
+        launches = kernel_ivf_pruned.ivf_pruned_topk.launches
+        stage = {}
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            thunk = node.storage.vector_batch_search_async(
+                region, q, 10, nprobe=8, stage_us=stage)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert thunk.__name__ != "sync_thunk"       # no fallback
+        got = thunk()
+        assert kernel_ivf_pruned.ivf_pruned_topk.launches == launches + 1
+        assert stage["search_us"] <= stage["total_us"]
+        for a, b in zip(got, want):
+            ga = [v.id for v in a if v.id != 7001]
+            gb = [v.id for v in b if v.id != 7001]
+            assert ga[:5] == gb[:5]
+        assert isinstance(node.engine.new_vector_reader(region), VectorReader)
+    finally:
+        node.stop()
+
+
+def test_region_search_b3_kernel_matches_plain():
+    """One region search's B3 launch, captured on the way, against B3's
+    plain version on the same inputs."""
+    from dingo_tpu_torch.ops import kernel_ivf_pruned
+
+    _cuda()
+    node, region, x, q = _trained_mono_region()
+    orig = kernel_ivf_pruned.ivf_pruned_topk
+    seen = []
+
+    def spy(*a, **kw):
+        out = orig(*a, **kw)
+        if not seen:
+            seen.append(([t.clone() if torch.is_tensor(t) else t for t in a],
+                         dict(kw), [o.clone() for o in out]))
+        return out
+
+    spy.__dict__ = orig.__dict__      # the kernel reads its flags by name
+    kernel_ivf_pruned.ivf_pruned_topk = spy
+    try:
+        node.storage.vector_batch_search(region, q, 10, nprobe=8)
+    finally:
+        kernel_ivf_pruned.ivf_pruned_topk = orig
+        node.stop()
+    assert seen
+    args, kw, (kv, ki, ks) = seen[0]
+    pv, pi, ps = kernel_ivf_pruned.ivf_pruned_topk_plain(*args, **kw)
+    _assert_parity(kv, ki, pv, pi)
+    assert torch.equal(ks[:, 1], ps[:, 1]) and torch.equal(ks[:, 3], ps[:, 3])

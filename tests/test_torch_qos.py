@@ -404,6 +404,7 @@ def test_expired_budget_through_the_service_launches_nothing():
     from dingo_tpu_torch.index.wrapper import VectorIndexWrapper
     from dingo_tpu_torch.obs.sentinel import SENTINEL
     from dingo_tpu_torch.server.services import IndexService
+    from dingo_tpu_torch.store.node import MonoStoreNode
 
     idxs, x = _ivf_pair()
     t = idxs["torch"]
@@ -413,13 +414,15 @@ def test_expired_budget_through_the_service_launches_nothing():
     saved = _qos_on(p)
     saved_t = TFLAGS.get("use_pallas_ivf_search")
     TFLAGS.set("use_pallas_ivf_search", True)
-    svc = IndexService({9400: w}, device="cpu", window_ms=2.0)
+    node = MonoStoreNode(device="cpu")
+    node.serve_wrapper(9400, w)
+    svc = IndexService(node, window_ms=2.0)
     served = TMETRICS.counter("qos.served_in_deadline", region_id=9400)
     served0 = served.get()
     try:
         with p.qp.budget_scope(60_000.0):
             rows = svc.submit(9400, x[[3]], 5, nprobe=8).result(timeout=30)
-        assert int(rows[0].ids[0]) == 3
+        assert rows[0][0].id == 3
         calls0 = sum(e["calls"] for e in SENTINEL.state().values())
         with p.qp.budget_scope(-1.0):
             fut = svc.submit(9400, x[[3]], 5, nprobe=8)

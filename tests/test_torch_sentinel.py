@@ -23,6 +23,7 @@ from dingo_tpu_torch.index.factory import new_index
 from dingo_tpu_torch.index.wrapper import VectorIndexWrapper
 from dingo_tpu_torch.obs.sentinel import SENTINEL, LaunchSentinel
 from dingo_tpu_torch.server.services import IndexService
+from dingo_tpu_torch.store.node import MonoStoreNode
 from dingo_tpu_torch.trace import TRACE_BUFFER
 
 # small shapes: one intra-op thread keeps the parallel test workers from
@@ -196,15 +197,17 @@ def test_warmed_ladder_sees_no_new_shape_under_coalesced_run(
         b *= 2
     new0 = SENTINEL.new_shapes()
     calls0 = SENTINEL.state()[kernel]["calls"]
-    svc = IndexService({r: w for r in (1, 2, 3, 4)}, device="cpu",
-                       window_ms=2.0, max_batch=64)
+    node = MonoStoreNode(device="cpu")
+    for r in (1, 2, 3, 4):
+        node.serve_wrapper(r, w)
+    svc = IndexService(node, window_ms=2.0, max_batch=64)
     try:
         for rnd in range(3):
             futs = [svc.submit(1 + i % 4, x[4 * i:4 * i + 4] + 0.01, K,
                                **kw) for i in range(16 * rnd, 16 * rnd + 16)]
             for i, f in zip(range(16 * rnd, 16 * rnd + 16), futs):
                 rows = f.result(timeout=60)
-                assert [int(r.ids[0]) for r in rows] == \
+                assert [r[0].id for r in rows] == \
                     list(range(4 * i, 4 * i + 4))
     finally:
         svc.close()
