@@ -111,6 +111,7 @@ after the kernels line, without the last line. Imports nothing of JAX or of the 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -266,6 +267,33 @@ def kernel_parity(kv, ki, pv, pi) -> tuple:
             if not np.isclose(sv, kth, rtol=RTOL, atol=ATOL):
                 ok = False
     return ok, err
+
+
+@contextlib.contextmanager
+def first_launch(module, name: str):
+    """Swap the kernel wrapper `module.name` for a spy that keeps a copy
+    of its first call's arguments and results, [(args, kwargs, outputs)],
+    for a check against the plain version. The spy shares the wrapper's
+    attribute dict: the wrapper reads its flags and counts its launches
+    through the module's name, which is the spy's while it is in place."""
+    import torch
+
+    orig = getattr(module, name)
+    captured: list = []
+
+    def spy(*a, **kw):
+        res = orig(*a, **kw)
+        if not captured:
+            captured.append(([v.clone() if torch.is_tensor(v) else v
+                              for v in a], dict(kw), [o.clone() for o in res]))
+        return res
+
+    spy.__dict__ = orig.__dict__
+    setattr(module, name, spy)
+    try:
+        yield captured
+    finally:
+        setattr(module, name, orig)
 
 
 def time_ms(fn, torch, iters: int = 10, warmup: int = 2) -> float:
@@ -1029,22 +1057,70 @@ CO_ARM_S, CO_TURNS = 2.0, 3
 CO_WRITE_ROWS, CO_DELETE_ROWS, CO_WRITE_CHUNK = 8192, 4096, 512
 
 
-def co_service(wrapper, depth: int):
-    """The port's entry point over one index: a MonoStoreEngine node whose
-    CO_KEYS regions (the reference sweep's keys over one index) each own
-    the wrapper, so every batch goes through Storage and the region's
-    VectorReader. Depth 0 is the serial arm (pipeline_enabled false), else
-    the pipelined arm at that staging depth. Returns (service, saved
-    flags)."""
+def alias_region(node, region_id: int, region):
+    """A read-only region `region_id` on `node` over `region`'s key range
+    and index: the same engine rows and the same wrapper under another
+    region id, as the sweep serves one index under several keys. It has
+    no raft member, so it takes no writes."""
+    import copy
+
+    from dingo_tpu_torch.store.region import Region, RegionState
+
+    definition = copy.deepcopy(region.definition)
+    definition.region_id = region_id
+    alias = Region(definition, device=node.device)
+    alias.vector_index_wrapper = region.vector_index_wrapper
+    node.meta.add_region(alias)
+    alias.set_state(RegionState.NORMAL, f"alias of region {region.id}")
+    return alias
+
+
+def co_node(wrapper, x):
+    """A MonoStoreEngine node whose region 1 holds `x` (ids 0..n-1, the
+    rows `wrapper` holds) in its engine and is served by `wrapper`, with
+    regions 2..CO_KEYS as its aliases. The rows go in through
+    Storage.vector_add; the wrapper stands for an index snapshot taken at
+    the region's last ingest log id, so the apply-log contract skips those
+    writes in the index and applies every later one. Returns (node, region
+    1)."""
+    from dingo_tpu_torch.engine.storage import VECTOR_MAX_BATCH_COUNT
+    from dingo_tpu_torch.index import codec as vcodec
+    from dingo_tpu_torch.store.node import MonoStoreNode
+    from dingo_tpu_torch.store.region import RegionDefinition, RegionType
+
+    n = x.shape[0]
+    node = MonoStoreNode(device=wrapper.device)
+    region = node.create_region(RegionDefinition(
+        region_id=1, start_key=vcodec.encode_vector_key(0, 0),
+        end_key=vcodec.encode_vector_key(1), region_type=RegionType.INDEX,
+        index_parameter=wrapper.parameter))
+    region.vector_index_wrapper = wrapper
+    index = wrapper.own_index
+    index.apply_log_id = -(-n // VECTOR_MAX_BATCH_COUNT)
+    wrapper.set_own(index)
+    t0 = time.perf_counter()
+    for lo in range(0, n, VECTOR_MAX_BATCH_COUNT):
+        hi = min(n, lo + VECTOR_MAX_BATCH_COUNT)
+        node.storage.vector_add(region, np.arange(lo, hi, dtype=np.int64),
+                                x[lo:hi])
+    print(f"coalesced node: {n} rows into a MonoStoreEngine region through "
+          f"Storage.vector_add in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for r in range(2, CO_KEYS + 1):
+        alias_region(node, r, region)
+    return node, region
+
+
+def co_service(node, depth: int):
+    """The port's entry point over `node` (co_node's): every batch goes
+    through Storage and the region's VectorReader. Depth 0 is the serial
+    arm (pipeline_enabled false), else the pipelined arm at that staging
+    depth. Returns (service, saved flags)."""
     from dingo_tpu_torch.common.config import FLAGS
     from dingo_tpu_torch.server.services import IndexService
-    from dingo_tpu_torch.store.node import MonoStoreNode
 
     saved = set_flags(FLAGS, pipeline_enabled="true" if depth else "false",
                       pipeline_depth=max(1, depth))
-    node = MonoStoreNode(device=wrapper.device)
-    for r in range(1, CO_KEYS + 1):
-        node.serve_wrapper(r, wrapper)
     svc = IndexService(node, window_ms=CO_WINDOW_MS, max_batch=CO_MAX_BATCH)
     return svc, saved
 
@@ -1057,9 +1133,9 @@ def co_close(svc, saved) -> None:
         FLAGS.set(f_, v_)
 
 
-def closed_loop(svc, pool, k, kw, seconds, stop=None, keys=CO_KEYS):
+def closed_loop(svc, pool, k, kw, seconds, stop=None):
     """Serve `pool`'s 4-row requests through `svc` in a closed loop:
-    CO_IN_FLIGHT requests over regions 1..`keys` a round, then wait for
+    CO_IN_FLIGHT requests over regions 1..CO_KEYS a round, then wait for
     all of them; for `seconds`, or until `stop` is set when given (60 s at
     most). Returns (rows served, wall s, request latencies ms)."""
     lat: list = []
@@ -1075,7 +1151,7 @@ def closed_loop(svc, pool, k, kw, seconds, stop=None, keys=CO_KEYS):
             r = i % nreq
             i += 1
             s = time.perf_counter()
-            f = svc.submit(1 + j % keys,
+            f = svc.submit(1 + j % CO_KEYS,
                            pool[r * CO_REQ_ROWS:(r + 1) * CO_REQ_ROWS], k,
                            **kw)
             f.add_done_callback(
@@ -1104,11 +1180,11 @@ def probe_digest(svc, probe, k, kw):
     return sha.hexdigest(), ids
 
 
-def serve_arm(wrapper, depth, pool, probe, k, kw, seconds) -> dict:
+def serve_arm(node, depth, pool, probe, k, kw, seconds) -> dict:
     """One turn of one arm: warm its own path (ring slots, lane thread),
     read the probe set's digest, serve the closed loop for `seconds`.
     Stage totals are the loop's only."""
-    svc, saved = co_service(wrapper, depth)
+    svc, saved = co_service(node, depth)
     try:
         for f in [svc.submit(1 + i % CO_KEYS, pool[:CO_REQ_ROWS], k, **kw)
                   for i in range(2 * CO_KEYS)]:
@@ -1162,12 +1238,13 @@ def arm_report(name, tag, turns, card) -> dict:
 
 
 def coalesced_phase(x, extra, regions, card) -> dict:
-    """Serve the smoke's regions through the port's coalesced entry point
-    (server/services.IndexService: a SearchCoalescer whose run is
-    VectorIndexWrapper.search and whose dispatch is its
-    search_async(staged=...)) with the traffic of the JAX package's
-    pipeline_sweep. `regions`: name -> (wrapper, kernel wrapper whose
-    launches the path must make, search kwargs, depths, flags). IVF_FLAT
+    """Serve the smoke's indexes through the port's coalesced entry point
+    (server/services.IndexService over a co_node: a SearchCoalescer whose
+    run is Storage.vector_batch_search and whose dispatch is its
+    vector_batch_search_async(staged=...)) with the traffic of the JAX
+    package's pipeline_sweep. `regions`: name -> (wrapper, kernel wrapper
+    whose launches the path must make, search kwargs, depths, flags).
+    Each index gets a node of its own, released after its arms. IVF_FLAT
     takes the serial arm and depths 1, 2 and 4 in turns over CO_TURNS
     rounds; the others their serial arm and depth 2. Checks byte-identical
     probe replies across arms, probe ids == a direct search modulo ties,
@@ -1191,6 +1268,7 @@ def coalesced_phase(x, extra, regions, card) -> dict:
     t_phase = time.perf_counter()
     for name, (wrapper, kern, kw, depths, flags) in regions.items():
         saved_region = set_flags(FLAGS, **flags)
+        node, region = co_node(wrapper, x)
         try:
             kern.launches = 0
             b = 1
@@ -1203,7 +1281,7 @@ def coalesced_phase(x, extra, regions, card) -> dict:
             rounds = CO_TURNS if len(arms) > 2 else 1
             for r in range(rounds):
                 for a in arms[r % len(arms):] + arms[:r % len(arms)]:
-                    turns[a].append(serve_arm(wrapper, a, pool, probe, k, kw,
+                    turns[a].append(serve_arm(node, a, pool, probe, k, kw,
                                               CO_ARM_S / rounds))
             new_shapes = SENTINEL.new_shapes() - new0
             direct = wrapper.search(probe, k, **kw)
@@ -1230,9 +1308,11 @@ def coalesced_phase(x, extra, regions, card) -> dict:
                       flush=True)
             report[name] = out
             if name == next(iter(regions)):
-                report["checks"] = co_checks(wrapper, kern, pool, extra, k,
-                                             kw, card)
+                report["checks"] = co_checks(node, region, kern, pool,
+                                             extra, k, kw, card)
         finally:
+            node.stop()
+            node = region = None
             for f_, v_ in saved_region.items():
                 FLAGS.set(f_, v_)
     misses = METRICS.counter("pipeline.staged_miss").get() - misses0
@@ -1243,9 +1323,10 @@ def coalesced_phase(x, extra, regions, card) -> dict:
     return report
 
 
-def co_checks(wrapper, kern, pool, extra, k, kw, card) -> dict:
+def co_checks(node, region, kern, pool, extra, k, kw, card) -> dict:
     """The depth-2 arm's profiles, then the checks that need a live
-    service: an expired budget, the span tree, writes under load."""
+    service: an expired budget, the span tree, writes under load (through
+    `region`'s Storage)."""
     import tempfile
     import threading
 
@@ -1256,7 +1337,7 @@ def co_checks(wrapper, kern, pool, extra, k, kw, card) -> dict:
     from dingo_tpu_torch.trace.export import dump_chrome_trace
 
     out: dict = {}
-    svc, saved = co_service(wrapper, 2)
+    svc, saved = co_service(node, 2)
     try:
         closed_loop(svc, pool, k, kw, 0.2)          # warm
         out["device_profile"] = device_profile(
@@ -1291,7 +1372,7 @@ def co_checks(wrapper, kern, pool, extra, k, kw, card) -> dict:
     # lane has ended the run span), and its Chrome export
     tsaved = set_flags(FLAGS, trace_sampling_rate=1.0)
     TRACE_BUFFER.clear()
-    svc, saved = co_service(wrapper, 2)
+    svc, saved = co_service(node, 2)
     try:
         svc.submit(1, pool[:CO_REQ_ROWS], k, **kw).result(timeout=60)
     finally:
@@ -1316,28 +1397,27 @@ def co_checks(wrapper, kern, pool, extra, k, kw, card) -> dict:
 
     # writes under load: a depth-2 round while a writer thread upserts
     # CO_WRITE_ROWS rows and deletes CO_DELETE_ROWS, in chunks
+    wrapper = region.vector_index_wrapper
     n = wrapper.get_count()
     wid = np.arange(CO_WRITE_ROWS, dtype=np.int64) + 10 * n + 1_000_003
     rows_w = extra[:CO_WRITE_ROWS]
-    log = [wrapper.apply_log_id]
     done = threading.Event()
     errors: list = []
 
     def writer():
         try:
             for lo in range(0, CO_WRITE_ROWS, CO_WRITE_CHUNK):
-                log[0] += 1
-                wrapper.add(wid[lo:lo + CO_WRITE_CHUNK],
-                            rows_w[lo:lo + CO_WRITE_CHUNK], log[0])
+                node.storage.vector_add(region, wid[lo:lo + CO_WRITE_CHUNK],
+                                        rows_w[lo:lo + CO_WRITE_CHUNK])
             for lo in range(0, CO_DELETE_ROWS, CO_WRITE_CHUNK):
-                log[0] += 1
-                wrapper.delete(wid[lo:lo + CO_WRITE_CHUNK], log[0])
+                node.storage.vector_delete(region,
+                                           wid[lo:lo + CO_WRITE_CHUNK])
         except Exception as e:  # noqa: BLE001 — reported by the check
             errors.append(repr(e))
         finally:
             done.set()
 
-    svc, saved = co_service(wrapper, 2)
+    svc, saved = co_service(node, 2)
     try:
         t = threading.Thread(target=writer, name="smoke-writer", daemon=True)
         t.start()
@@ -1365,9 +1445,9 @@ def co_checks(wrapper, kern, pool, extra, k, kw, card) -> dict:
     check(not errors and not t.is_alive() and found == len(live)
           and leaked == 0, "coalesced: each upserted row is found by its own "
           f"vector and no deleted id appears {errors}")
-    log[0] += 1
-    wrapper.delete(live, log[0])           # the region back to its rows
-    check(wrapper.get_count() == n, "coalesced: the region holds its rows "
+    node.storage.vector_delete(region, live)   # the region back to its rows
+    check(wrapper.get_count() == n and node.storage.vector_count(region)
+          == n, "coalesced: the region's index and engine hold its rows "
           "again after the writes")
     out["writes"] = {"rows_per_s": rows / wall, "found": found,
                      "leaked": leaked}
@@ -2305,7 +2385,8 @@ def region_phase(x, queries, extra, gt, nlist, card, dev) -> dict:
         # -- untrained: the reader's brute-force scan on B4 -------------------
         l4 = b4.launches
         t0 = time.perf_counter()
-        untrained = {s: ids_of(search(s, queries)) for s in REGION_PEERS}
+        with first_launch(kernel_topk_pruned, "pruned_fused_topk") as b4_call:
+            untrained = {s: ids_of(search(s, queries)) for s in REGION_PEERS}
         bf_s = (time.perf_counter() - t0) / len(REGION_PEERS)
         print(f"[{card}] region untrained search (reader brute force: "
               f"engine scan into a temporary FLAT, B4), 64 queries: "
@@ -2322,6 +2403,19 @@ def region_phase(x, queries, extra, gt, nlist, card, dev) -> dict:
                   for s in REGION_PEERS),
               "region untrained: the replicas agree (exactly equal: "
               f"{all(untrained[s] == untrained[REGION_PEERS[0]] for s in REGION_PEERS)})")
+        # the first brute-force B4 launch against its plain version (the
+        # wrapper passes the sq8 codec where the plain version takes block)
+        if b4_call:
+            a_, kw_, (kv, ki, _) = b4_call[0]
+            pv, pi, _ = kernel_topk_pruned.pruned_fused_topk_plain(
+                *a_[:9], **dict(zip(("sq_vmin", "sq_scale"), a_[9:])), **kw_)
+            ok, err = kernel_parity(kv, ki, pv, pi)
+        else:
+            ok, err = False, float("nan")
+        b4_call = a_ = None
+        out["b4_parity"] = (ok, err)
+        check(ok, "region: a brute-force search's B4 launch == its plain "
+              f"version (max abs err {err:.3e})")
 
         # -- train: each replica's VectorIndexManager.rebuild -----------------
         builds = {}
@@ -2443,8 +2537,7 @@ def region_phase(x, queries, extra, gt, nlist, card, dev) -> dict:
         # the sweep's CO_KEYS keys: the region's index also served, read
         # only, under region ids 2.. on the leader (the same engine rows)
         for r_ in range(REGION_ID + 1, REGION_ID + CO_KEYS):
-            nodes[lead].serve_wrapper(r_, regions[lead].vector_index_wrapper,
-                                      like=regions[lead])
+            alias_region(nodes[lead], r_, regions[lead])
         saved = set_flags(FLAGS, pipeline_enabled="true", pipeline_depth=2)
         VectorReader.vector_batch_search_async = spy_async
         svc = IndexService(nodes[lead], window_ms=CO_WINDOW_MS,
@@ -2509,25 +2602,8 @@ def region_phase(x, queries, extra, gt, nlist, card, dev) -> dict:
                   f"({leaked})")
 
         # -- one region search's B3 launch against its plain version ---------
-        orig_b3 = kernel_ivf_pruned.ivf_pruned_topk
-        captured = []
-
-        def spy_b3(*a, **kw_):
-            res_ = orig_b3(*a, **kw_)
-            if not captured:
-                captured.append(([v.clone() if torch.is_tensor(v) else v
-                                  for v in a], dict(kw_),
-                                 [o.clone() for o in res_]))
-            return res_
-
-        # one attribute dict: the kernel reads its flags and counts its
-        # launches through the module's name, which is the spy's now
-        spy_b3.__dict__ = orig_b3.__dict__
-        kernel_ivf_pruned.ivf_pruned_topk = spy_b3
-        try:
+        with first_launch(kernel_ivf_pruned, "ivf_pruned_topk") as captured:
             search(lead, queries, **kw)
-        finally:
-            kernel_ivf_pruned.ivf_pruned_topk = orig_b3
         if captured:
             a_, kw_, (kv, ki, _) = captured[0]
             pv, pi, _ = kernel_ivf_pruned.ivf_pruned_topk_plain(*a_, **kw_)

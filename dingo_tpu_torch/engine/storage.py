@@ -161,7 +161,8 @@ class Storage:
 
         want = None
         if param:
-            want = param.dimension // 8 if is_binary_dim_param(param)                 else param.dimension
+            want = (param.dimension // 8 if is_binary_dim_param(param)
+                    else param.dimension)
         if want is not None and vectors.shape[1] != want:
             raise InvalidParameter(
                 f"row width {vectors.shape[1]} != {want}"
@@ -213,10 +214,11 @@ class Storage:
         )
         return ts
 
-    def vector_batch_search(
-        self, region: Region, queries: np.ndarray, topk: int, **kw
-    ) -> List[List[VectorWithData]]:
-        """Storage::VectorBatchSearch (storage.cc:577)."""
+    def _search_queries(self, region: Region, queries,
+                        topk: int) -> np.ndarray:
+        """The search guards: the region's query dtype, a 2-d batch of at
+        most VECTOR_MAX_BATCH_COUNT rows, topk x rows under the
+        index_service.cc:206 product cap."""
         from dingo_tpu_torch.index.vector_reader import is_binary_dim_param
 
         qdtype = (
@@ -233,6 +235,13 @@ class Storage:
             raise InvalidParameter(
                 "topN * batch exceeds guard (index_service.cc:206)"
             )
+        return queries
+
+    def vector_batch_search(
+        self, region: Region, queries: np.ndarray, topk: int, **kw
+    ) -> List[List[VectorWithData]]:
+        """Storage::VectorBatchSearch (storage.cc:577)."""
+        queries = self._search_queries(region, queries, topk)
         reader = self.engine.new_vector_reader(region)
         return reader.vector_batch_search(queries, topk, **kw)
 
@@ -241,22 +250,7 @@ class Storage:
     ):
         """Dispatch-now/resolve-later arm of vector_batch_search (serving
         pipeline): same guards, returns the reader's resolve thunk."""
-        from dingo_tpu_torch.index.vector_reader import is_binary_dim_param
-
-        qdtype = (
-            np.uint8
-            if is_binary_dim_param(region.definition.index_parameter)
-            else np.float32
-        )
-        queries = np.asarray(queries, qdtype)
-        if queries.ndim == 1:
-            queries = queries[None, :]
-        if len(queries) > VECTOR_MAX_BATCH_COUNT:
-            raise InvalidParameter("too many queries")
-        if topk * len(queries) > MAX_TOPN_BATCH_PRODUCT:
-            raise InvalidParameter(
-                "topN * batch exceeds guard (index_service.cc:206)"
-            )
+        queries = self._search_queries(region, queries, topk)
         reader = self.engine.new_vector_reader(region)
         return reader.vector_batch_search_async(queries, topk, **kw)
 

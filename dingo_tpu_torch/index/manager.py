@@ -85,7 +85,10 @@ class VectorIndexManager:
             total = 0
             scan_ns = ingest_ns = train_ns = 0
             t0 = time.perf_counter_ns()
-            for ids, vecs in self._scan_chunks(reader):
+            # one engine scan, paged: the JAX package pages with
+            # vector_scan_query from each page's last id + 1, copying the
+            # rest of the region out of the engine per page (quadratic)
+            for ids, vecs in reader.scan_pages(BUILD_BATCH):
                 t1 = time.perf_counter_ns()
                 scan_ns += t1 - t0
                 total += len(ids)
@@ -115,14 +118,6 @@ class VectorIndexManager:
             span.set_attr("region_id", region.id)
             span.set_attr("rows", total)
         return index
-
-    def _scan_chunks(self, reader: VectorReader):
-        """Page the region data CF ascending in BUILD_BATCH-row chunks,
-        yielding (ids int64, vectors) per page, from one engine scan. The
-        JAX package pages with vector_scan_query from each page's last id
-        + 1, and each call copies the rest of the region out of the
-        engine: quadratic in the rows, most of a 1M-row rebuild."""
-        return reader.scan_pages(BUILD_BATCH)
 
     # ---------------- catch-up + switch ----------------
     def _catch_up_and_install(self, wrapper, index, region: Region,

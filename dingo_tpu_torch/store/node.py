@@ -14,8 +14,7 @@ vector-index snapshot pulls) raises NotPorted, and the node takes no
 coordinator.
 
 ``MonoStoreNode`` is the same lifecycle over a MonoStoreEngine (a single
-replica, no raft): the node of a MONO_STORE deployment. ``serve_wrapper``
-serves one index under another region id on either node.
+replica, no raft): the node of a MONO_STORE deployment.
 """
 
 from __future__ import annotations
@@ -29,15 +28,12 @@ from dingo_tpu_torch.engine.mono_engine import MonoStoreEngine
 from dingo_tpu_torch.engine.raft_engine import RaftStoreEngine
 from dingo_tpu_torch.engine.raw_engine import MemEngine, RawEngine
 from dingo_tpu_torch.engine.storage import Storage
-from dingo_tpu_torch.index import codec as vcodec
 from dingo_tpu_torch.index.base import NotPorted
 from dingo_tpu_torch.index.manager import VectorIndexManager
-from dingo_tpu_torch.index.wrapper import VectorIndexWrapper
 from dingo_tpu_torch.store.region import (
     Region,
     RegionDefinition,
     RegionState,
-    RegionType,
     StoreMetaManager,
 )
 
@@ -51,31 +47,15 @@ def _control_plane(name: str):
     return not_ported
 
 
-def _serve_wrapper(node, region_id: int, wrapper: VectorIndexWrapper,
-                   like: Optional[Region] = None) -> Region:
-    """A read-only INDEX region on `node` whose index is `wrapper`: over
-    `like`'s key range (the same engine rows under another region id), or
-    over every vector id of partition 0. It has no raft member, so it
-    takes no writes; searches go through the node's Storage and the
-    region's VectorReader. How one index is served under several region
-    ids (the coalescer's keys) or by a caller that holds only a wrapper
-    (the engine then holds none of its rows, so only index searches
-    serve from it)."""
-    if like is not None:
-        definition = copy.deepcopy(like.definition)
-        definition.region_id = region_id
-    else:
-        definition = RegionDefinition(
-            region_id=region_id,
-            start_key=vcodec.encode_vector_key(0, 0),
-            end_key=vcodec.encode_vector_key(1),
-            region_type=RegionType.INDEX,
-            index_parameter=wrapper.parameter,
-        )
-    region = Region(definition, device=node.device)
-    region.vector_index_wrapper = wrapper
+def _materialize(node, definition: RegionDefinition) -> Region:
+    """A region of `definition` with its own empty index, in `node`'s meta
+    (CreateRegionTask's part that both node kinds share)."""
+    region = Region(copy.deepcopy(definition), device=node.device)
+    wrapper = region.vector_index_wrapper
+    if wrapper is not None:
+        wrapper.build_own()
+        wrapper.set_own(wrapper.own_index)
     node.meta.add_region(region)
-    region.set_state(RegionState.NORMAL, "serves an index wrapper")
     return region
 
 
@@ -112,12 +92,7 @@ class StoreNode:
             existing = self.meta.get_region(definition.region_id)
             if existing is not None:
                 return existing
-            region = Region(copy.deepcopy(definition), device=self.device)
-            wrapper = region.vector_index_wrapper
-            if wrapper is not None:
-                wrapper.build_own()
-                wrapper.set_own(wrapper.own_index)
-            self.meta.add_region(region)
+            region = _materialize(self, definition)
             self.engine.add_node(region, definition.peers, **self.raft_kw)
             region.set_state(RegionState.NORMAL, "created")
             return region
@@ -161,8 +136,6 @@ class StoreNode:
         if region.vector_index_wrapper is not None:
             self.index_manager.rebuild(region)
 
-    serve_wrapper = _serve_wrapper
-
     # ---------------- control plane: not ported ------------------------------
     propose_split = _control_plane("propose_split")
     handle_split = _control_plane("handle_split")
@@ -200,16 +173,9 @@ class MonoStoreNode:
         existing = self.meta.get_region(definition.region_id)
         if existing is not None:
             return existing
-        region = Region(copy.deepcopy(definition), device=self.device)
-        wrapper = region.vector_index_wrapper
-        if wrapper is not None:
-            wrapper.build_own()
-            wrapper.set_own(wrapper.own_index)
-        self.meta.add_region(region)
+        region = _materialize(self, definition)
         region.set_state(RegionState.NORMAL, "created")
         return region
-
-    serve_wrapper = _serve_wrapper
 
     def get_region(self, region_id: int) -> Optional[Region]:
         return self.meta.get_region(region_id)

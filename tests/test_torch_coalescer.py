@@ -359,7 +359,7 @@ def test_index_service_serves_through_the_coalescer(pipelined):
     from dingo_tpu_torch.index.base import IndexParameter, IndexType
     from dingo_tpu_torch.index.wrapper import VectorIndexWrapper
     from dingo_tpu_torch.server.services import IndexService
-    from dingo_tpu_torch.store.node import MonoStoreNode
+    from torch_region_util import node_over_wrapper
 
     rng = np.random.default_rng(5)
     x = rng.standard_normal((1500, 16)).astype(np.float32)
@@ -373,9 +373,7 @@ def test_index_service_serves_through_the_coalescer(pipelined):
     direct = [w.search(q[i:i + 4], 5, nprobe=4) for i in range(0, 32, 4)]
     saved = TFLAGS.get("pipeline_enabled")
     TFLAGS.set("pipeline_enabled", pipelined)
-    node = MonoStoreNode(device="cpu")
-    for r in (1, 2, 3, 4):
-        node.serve_wrapper(r, w)
+    node = node_over_wrapper(w, np.arange(1500), x, keys=(1, 2, 3, 4))
     svc = IndexService(node, window_ms=20.0, max_batch=64)
     miss = METRICS.counter("pipeline.staged_miss").get()
     try:
@@ -399,15 +397,14 @@ def test_index_service_window_zero_searches_directly():
     from dingo_tpu_torch.index.base import IndexParameter, IndexType
     from dingo_tpu_torch.index.wrapper import VectorIndexWrapper
     from dingo_tpu_torch.server.services import IndexService
-    from dingo_tpu_torch.store.node import MonoStoreNode
+    from torch_region_util import node_over_wrapper
 
     x = np.random.default_rng(6).standard_normal((64, 8)).astype(np.float32)
     w = VectorIndexWrapper(1, IndexParameter(index_type=IndexType.FLAT,
                                              dimension=8), device="cpu")
     w.set_own(w.build_own())
     w.add(np.arange(64, dtype=np.int64), x, 1)
-    node = MonoStoreNode(device="cpu")
-    node.serve_wrapper(1, w)
+    node = node_over_wrapper(w, np.arange(64), x)
     svc = IndexService(node, window_ms=0.0)
     try:
         rows = svc.submit(1, x[:3], 1).result(timeout=5)

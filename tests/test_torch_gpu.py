@@ -1322,7 +1322,7 @@ def test_coalesced_pipelined_equals_serial_on_device(family):
         kernel_topk_pruned,
     )
     from dingo_tpu_torch.server.services import IndexService
-    from dingo_tpu_torch.store.node import MonoStoreNode
+    from torch_region_util import node_over_wrapper
 
     _cuda()
     rng = np.random.default_rng(17)
@@ -1354,9 +1354,8 @@ def test_coalesced_pipelined_equals_serial_on_device(family):
         out = {}
         for pipelined in ("false", "auto"):
             _flags(pipeline_enabled=pipelined)
-            node = MonoStoreNode()
-            for r in (1, 2, 3, 4):
-                node.serve_wrapper(r, w)
+            node = node_over_wrapper(w, np.arange(8000), x,
+                                     keys=(1, 2, 3, 4))
             svc = IndexService(node, window_ms=2.0, max_batch=64)
             launches = kern.launches
             misses = METRICS.counter("pipeline.staged_miss").get()

@@ -404,7 +404,7 @@ def test_expired_budget_through_the_service_launches_nothing():
     from dingo_tpu_torch.index.wrapper import VectorIndexWrapper
     from dingo_tpu_torch.obs.sentinel import SENTINEL
     from dingo_tpu_torch.server.services import IndexService
-    from dingo_tpu_torch.store.node import MonoStoreNode
+    from torch_region_util import node_over_wrapper
 
     idxs, x = _ivf_pair()
     t = idxs["torch"]
@@ -414,8 +414,7 @@ def test_expired_budget_through_the_service_launches_nothing():
     saved = _qos_on(p)
     saved_t = TFLAGS.get("use_pallas_ivf_search")
     TFLAGS.set("use_pallas_ivf_search", True)
-    node = MonoStoreNode(device="cpu")
-    node.serve_wrapper(9400, w)
+    node = node_over_wrapper(w, np.arange(len(x)), x, keys=(9400,))
     svc = IndexService(node, window_ms=2.0)
     served = TMETRICS.counter("qos.served_in_deadline", region_id=9400)
     served0 = served.get()

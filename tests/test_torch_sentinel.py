@@ -23,8 +23,8 @@ from dingo_tpu_torch.index.factory import new_index
 from dingo_tpu_torch.index.wrapper import VectorIndexWrapper
 from dingo_tpu_torch.obs.sentinel import SENTINEL, LaunchSentinel
 from dingo_tpu_torch.server.services import IndexService
-from dingo_tpu_torch.store.node import MonoStoreNode
 from dingo_tpu_torch.trace import TRACE_BUFFER
+from torch_region_util import node_over_wrapper
 
 # small shapes: one intra-op thread keeps the parallel test workers from
 # oversubscribing the cores
@@ -197,9 +197,7 @@ def test_warmed_ladder_sees_no_new_shape_under_coalesced_run(
         b *= 2
     new0 = SENTINEL.new_shapes()
     calls0 = SENTINEL.state()[kernel]["calls"]
-    node = MonoStoreNode(device="cpu")
-    for r in (1, 2, 3, 4):
-        node.serve_wrapper(r, w)
+    node = node_over_wrapper(w, np.arange(len(x)), x, keys=(1, 2, 3, 4))
     svc = IndexService(node, window_ms=2.0, max_batch=64)
     try:
         for rnd in range(3):
