@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py            # full width: 1M x 768, nlist 1024
     python3 chip_smoke.py --n 131072 --nlist 128   # a quicker, smaller run
+    python3 chip_smoke.py --hnsw-n 131072          # a smaller HNSW build
 
-Builds the port's six CUDA kernel libraries from ``dingo_tpu_torch/csrc``
-(one nvcc per source, in parallel), twelve kernels and arms in all:
+Builds the port's seven CUDA kernel libraries from ``dingo_tpu_torch/csrc``
+(one nvcc per source, in parallel), thirteen kernels and arms in all:
 
   B1 fused_topk         csrc/fused_topk.cu         FLAT scan, pruning off
                                                    or d not in 128-column
@@ -24,6 +25,10 @@ Builds the port's six CUDA kernel libraries from ``dingo_tpu_torch/csrc``
                                                    CTA per (query, coarse rank)
      ivfpq_adc_lut        csrc/ivfpq_adc_lut.cu      IVF_PQ's residual tables
                                                    (an XLA program there)
+  G  candidate_scores   csrc/beam_scores.cu        HNSW walk and build: a
+                                                   score per live candidate
+                                                   slot (an XLA program
+                                                   there)
 
 then serves an IVF_FLAT region the way the Index role does: raft-ordered
 adds through VectorIndexWrapper, a brute-force FLAT search while the
@@ -97,7 +102,21 @@ when acknowledged and on a follower once applied; no dispatch falls back
 to the reader's sync path); one region search's B3 launch against its
 plain version; the reader's dispatch under the sync-debug mode; device
 bytes per replica and peak host RSS; then the leader's node stops and the
-survivors hold every acknowledged write. Timings are medians over ROUNDS rounds in which the routes
+survivors hold every acknowledged write. Then HNSW at BASELINE.json config
+4's widths (768 dims, M 32, efConstruction 200, ef 200, every flag at its
+default) on its own rows from the same recipe: the device bulk build
+(rows/s split into the walk, the occlusion selection and the reprune;
+reverse_dropped), recall@10 >= 0.95 against exact top-10 computed on the
+card, pipelined ms per 64-query batch, the walk's hops / visited slots /
+occupancy, kernel G's launches, live-candidate share, time against its
+bound and parity with its plain version, device bytes, and a dispatch
+under the sync-debug mode; then a smaller HNSW index whose host graph
+takes the writes (device walk against host walk at equal ef, upserts and
+deletes, filter pushdown, save/load); then the device recovery ladder on
+a 65,536-row FLAT region (a retried fault, a degraded region served by the
+host path and absorbing writes, re-materialization back onto B4, a real
+CUDA out-of-memory error classified). Timings are medians over ROUNDS
+rounds in which the routes
 (pipelined searches) or the five kernels take turns, so two readings that
 are compared come from the same card and minute. Data is BASELINE.json
 config 2 made with bench.py's recipe (seed 7, n // 1000 Gaussian centers +
@@ -2688,6 +2707,497 @@ def region_phase(x, queries, extra, gt, nlist, card, dev) -> dict:
     return out
 
 
+# -- HNSW on the card (BASELINE.json config 4) and the recovery ladder -------
+
+#: BASELINE.json config 4: HNSW 1M x 768, M = 32 (level-0 degree 64),
+#: efConstruction 200, searched at ef 200 (beam 256 on the shape ladder)
+HNSW_NLINKS = 32
+HNSW_EFC = 200
+HNSW_EF = 200
+#: rows of the HNSW phase's device bulk build: BASELINE's 1M (a quick pass
+#: at 131,072 rows built at 5,781 rows/s, so 1M fits well under 300 s;
+#: PERF.md section 4)
+HNSW_N = 1_000_000
+#: rows of the HNSW writes phase: its host graph inserts one row at a time
+#: on one thread (the JAX package's native graph), 16.74 ms a row at d 768
+#: on the card's host (PERF.md section 4)
+HNSW_WRITE_N = 4_096
+#: the recovery phase's FLAT region
+RECOVERY_N = 65_536
+
+
+def exact_topk_device(x, q, k: int):
+    """Exact L2 top-k ids of q against x, computed on the card in f32
+    (TF32 off) in row chunks: the HNSW phases' ground truth."""
+    import torch
+
+    dev = torch.device("cuda")
+    qt = torch.from_numpy(q).to(dev)
+    qsq = (qt * qt).sum(1)
+    best_d = best_i = None
+    for lo in range(0, len(x), 262_144):
+        xt = torch.from_numpy(x[lo:lo + 262_144]).to(dev)
+        d2 = qsq[:, None] - 2.0 * (qt @ xt.T) + (xt * xt).sum(1)[None, :]
+        v, i = torch.topk(d2, min(k, d2.shape[1]), dim=1, largest=False)
+        i = i + lo
+        if best_d is None:
+            best_d, best_i = v, i
+        else:
+            best_d, pos = torch.topk(torch.cat([best_d, v], 1), k, dim=1,
+                                     largest=False)
+            best_i = torch.cat([best_i, i], 1).gather(1, pos)
+    return best_i.cpu().numpy()
+
+
+def g_capture():
+    """Spy on kernel G (ops/kernel_beam.candidate_scores) that keeps a copy
+    of the arguments of the launch with the most live candidate slots."""
+    import torch
+
+    from dingo_tpu_torch.ops import kernel_beam
+
+    orig = kernel_beam.candidate_scores
+    best: dict = {"live": -1}
+
+    def spy(*a, **kw):
+        out = orig(*a, **kw)
+        live = int((a[3] >= 0).sum())
+        if live > best["live"]:
+            best["live"] = live
+            best["args"] = [v.clone() if torch.is_tensor(v) else v
+                            for v in a]
+        return out
+
+    spy.__dict__ = orig.__dict__
+    return orig, spy, best
+
+
+def hnsw_phase(n_h: int, card: str) -> dict:
+    """BASELINE.json config 4 on the card, flags at their defaults: the
+    device bulk build (build rows/s split into walk, occlusion selection
+    and reprune, reverse_dropped), recall@10 at ef 200 against exact top-10
+    computed on the card, pipelined ms per 64-query batch, the walk's
+    hops / visited / occupancy, kernel G's launches, live-candidate share,
+    time against its bound and parity with its plain version on a captured
+    launch, device bytes, and a dispatch under the sync-debug mode."""
+    import torch
+
+    from dingo_tpu_torch.common.metrics import METRICS
+    from dingo_tpu_torch.index.base import IndexParameter, IndexType
+    from dingo_tpu_torch.index.factory import new_index
+    from dingo_tpu_torch.index.hnsw import TpuHnsw
+    from dingo_tpu_torch.obs.sentinel import SENTINEL
+    from dingo_tpu_torch.ops import kernel_beam
+    from dingo_tpu_torch.ops.distance import Metric
+
+    g = kernel_beam.candidate_scores
+    d, k, batch = 768, 10, 64
+    t_phase = time.perf_counter()
+    x, queries, _ = make_data(n_h, d, batch, seed=11)
+    gt = exact_topk_device(x, queries, k)
+    param = IndexParameter(index_type=IndexType.HNSW, dimension=d,
+                           metric=Metric.L2, nlinks=HNSW_NLINKS,
+                           efconstruction=HNSW_EFC)
+    idx = new_index(50, param)
+    check(isinstance(idx, TpuHnsw) and idx.device.type == "cuda",
+          "new_index(HNSW) builds the port's TpuHnsw on the card")
+    for attr in ("launches", "launches_bf16", "launches_sq8"):
+        setattr(g, attr, 0)
+    out: dict = {}
+
+    # -- the device bulk build ------------------------------------------------
+    sess = idx.bulk_builder(expect_rows=n_h)
+    check(sess is not None, "hnsw_device_build 'auto' takes the device bulk "
+          "build for a CUDA store")
+    sess.builder.timings = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lo in range(0, n_h, 65536):
+        hi = min(n_h, lo + 65536)
+        sess.add(np.arange(lo, hi, dtype=np.int64), x[lo:hi])
+    stats = sess.finish()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    tm = sess.builder.timings
+    out["build_launches"] = g.launches
+    out["build_s"] = build_s
+    print(f"[{card}] HNSW bulk build {n_h} x {d} (M {HNSW_NLINKS}, "
+          f"efConstruction {HNSW_EFC} -> beam {idx._beam_width(HNSW_EFC, 1)},"
+          f" batch {sess.builder.batch_rows}, {stats['batches']} batches): "
+          f"{build_s:.1f} s, {n_h / build_s:.1f} rows/s; walk "
+          f"{tm.get('walk', 0):.1f} s, occlusion selection "
+          f"{tm.get('select', 0):.1f} s, reprune {tm.get('reprune', 0):.1f} s"
+          f", the rest (row puts, host) "
+          f"{build_s - sum(tm.values()):.1f} s; reverse_dropped "
+          f"{stats['reverse_dropped']} of {stats['rows'] * idx._graph_deg} "
+          f"edges; G launches {g.launches}", flush=True)
+    check(stats["rows"] == n_h and idx.get_count() == n_h,
+          f"HNSW bulk build holds {n_h} rows")
+    check(g.launches > 0, "the bulk build launched kernel G")
+    check(idx._native_pending, "the bulk-built graph is not back-filled "
+          "into the host graph (no host-path use)")
+
+    # -- search at ef 200 -----------------------------------------------------
+    idx.warmup(batches=(batch,), topk=k, ef=HNSW_EF)
+    shapes0 = SENTINEL.new_shapes()
+    l0 = g.launches
+    res = idx.search(queries, k, ef=HNSW_EF)
+    per_search = g.launches - l0
+    rec = recall_at(res, gt, k)
+    beam = idx._beam_width(HNSW_EF, k)
+    cap = idx.store.capacity
+    hops = METRICS.gauge("hnsw.mean_hops", region_id=50).get()
+    vfrac = METRICS.gauge("hnsw.visited_fraction", region_id=50).get()
+    occ = METRICS.gauge("hnsw.beam_occupancy", region_id=50).get()
+    print(f"[{card}] HNSW search b={batch} k={k} ef {HNSW_EF} (beam {beam},"
+          f" {HNSW_NLINKS * 2} neighbours a node): recall@10 {rec:.4f}; mean"
+          f" hops {hops:.2f}, mean visited {vfrac * cap:.1f} slots, mean "
+          f"result occupancy {occ * beam:.1f} of {beam}; G launches a "
+          f"search {per_search}", flush=True)
+    check(rec >= 0.95, f"HNSW recall@10 at ef {HNSW_EF} >= 0.95 ({rec:.4f})")
+    g.count_live, g.live, g.slots = True, 0, 0
+    idx.search(queries, k, ef=HNSW_EF)
+    g.count_live = False
+    share = g.live / max(1, g.slots)
+    print(f"[{card}] G live candidate slots in a search: {g.live} of "
+          f"{g.slots} ({share:.4f})", flush=True)
+
+    # pipelined: REPS dispatches, then their resolves
+    reps = 10
+    idx.search_async(queries, k, ef=HNSW_EF)()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    thunks = [idx.search_async(queries, k, ef=HNSW_EF) for _ in range(reps)]
+    for th in thunks:
+        th()
+    pipe_ms = (time.perf_counter() - t0) * 1e3 / reps
+    out["pipe_ms"] = pipe_ms
+    print(f"[{card}] HNSW pipelined: {pipe_ms:.3f} ms per {batch}-query "
+          f"batch, {batch * 1e3 / pipe_ms:.1f} QPS", flush=True)
+    check(SENTINEL.new_shapes() == shapes0,
+          "no new kernel shape after the HNSW warmup")
+
+    def window():
+        for th in [idx.search_async(queries, k, ef=HNSW_EF)
+                   for _ in range(2)]:
+            th()
+    print(f"[{card}] HNSW pipelined window of 2 searches: "
+          + device_profile(window, top=10), flush=True)
+
+    # dispatch without a host sync
+    torch.cuda.synchronize()
+    synced = None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        th = idx.search_async(queries, k, ef=HNSW_EF)
+    except RuntimeError as e:
+        import traceback
+
+        synced, th = str(e), None
+        tb = traceback.extract_tb(e.__traceback__)
+        synced += " at " + "; ".join(f"{f.filename.split('/')[-1]}:"
+                                     f"{f.lineno}" for f in tb[-3:])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(synced is None and th is not None,
+          "HNSW search_async dispatch makes no synchronizing call"
+          + (f" ({synced})" if synced else ""))
+    if th is not None:
+        th()
+
+    # -- kernel G on its busiest launch of a search ---------------------------
+    orig, spy, best = g_capture()
+    kernel_beam.candidate_scores = spy
+    try:
+        idx.search(queries, k, ef=HNSW_EF)
+    finally:
+        kernel_beam.candidate_scores = orig
+    a = best["args"]
+    kv = g(*a)
+    pv = kernel_beam.candidate_scores_plain(*a)
+    fin = torch.isfinite(pv)
+    ok = bool(torch.equal(fin, torch.isfinite(kv)) and torch.allclose(
+        kv[fin], pv[fin], rtol=RTOL, atol=ATOL))
+    err = float((kv[fin] - pv[fin]).abs().max()) if bool(fin.any()) else 0.0
+    check(ok, f"G == its plain version on a search's busiest launch (max abs"
+          f" err {err:.3e}, {best['live']} live of {a[3].numel()} slots)")
+    reads, plain_reads = [], []
+    for _ in range(ROUNDS):
+        reads.append(time_ms(lambda: g(*a), torch, iters=10))
+        plain_reads.append(time_ms(
+            lambda: kernel_beam.candidate_scores_plain(*a), torch, iters=3,
+            warmup=1))
+    live = best["live"]
+    b_, c_ = a[3].shape
+    # each input read once: the distinct live rows and their norms (queries
+    # share rows), the slots; the scores written once
+    rows = int(torch.unique(a[3][a[3] >= 0]).numel())
+    nbytes = rows * (d * 4 + 4) + b_ * c_ * 8 + b_ * d * 4
+    bound, by = bound_of(nbytes, 2.0 * d * live)
+    g_ms = median_spread(reads)[0]
+    print(f"[{card}] G candidate_scores b={b_} C={c_} live {live} d={d}: "
+          f"{spread_text(reads)}, plain {median_spread(plain_reads)[0]:.4f} "
+          f"ms, bound {bound:.4f} ms ({by}: {rows} distinct live rows and "
+          f"norms, slots and scores at {PEAK_BYTES / 1e12:.2f} TB/s), "
+          f"{g_ms / bound:.2f}x the bound", flush=True)
+
+    # -- device bytes -------------------------------------------------------
+    st = idx.store
+    store_b = st.vecs.numel() * st.vecs.element_size() + st.sqnorm.numel() * 4
+    adj_b = st.adj.numel() * 4
+    vis_b = batch * (cap + 1) * 4
+    print(f"[{card}] HNSW device bytes: store {store_b / 2**20:.1f} MiB, "
+          f"adjacency {adj_b / 2**20:.1f} MiB ([{cap}, {st.graph_deg}] "
+          f"int32), visited map {vis_b / 2**20:.1f} MiB a {batch}-query "
+          f"search ([{batch}, {cap + 1}] int32); phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    out.update({
+        "recall": rec, "launches_search": per_search, "live_share": share,
+        "hops": hops, "err": err, "ok": ok, "ms": g_ms,
+        "reads": reads, "plain_ms": median_spread(plain_reads)[0],
+        "bound": bound, "by": by,
+        "launches": g.launches + g.launches_bf16 + g.launches_sq8})
+    return out
+
+
+def hnsw_writes_phase(n_w: int, card: str) -> dict:
+    """An HNSW index whose host graph takes the writes (native inserts,
+    one thread): the device walk against the host walk at equal ef,
+    upserts and deletes then the adjacency mirror's re-export, filter
+    pushdown against the host post-filter, and save/load."""
+    import tempfile
+
+    import torch
+
+    from dingo_tpu_torch.common.config import FLAGS
+    from dingo_tpu_torch.common.metrics import METRICS
+    from dingo_tpu_torch.index.base import (
+        FilterSpec,
+        IndexParameter,
+        IndexType,
+    )
+    from dingo_tpu_torch.index.factory import new_index
+    from dingo_tpu_torch.ops import kernel_beam
+    from dingo_tpu_torch.ops.distance import Metric
+
+    d, k = 768, 10
+    g = kernel_beam.candidate_scores
+    t_phase = time.perf_counter()
+    x, queries, extra = make_data(n_w, d, 64, seed=13)
+    param = IndexParameter(index_type=IndexType.HNSW, dimension=d,
+                           metric=Metric.L2, nlinks=HNSW_NLINKS,
+                           efconstruction=HNSW_EFC)
+    idx = new_index(51, param)
+    t0 = time.perf_counter()
+    idx.add(np.arange(n_w, dtype=np.int64), x)
+    ins_s = time.perf_counter() - t0
+    gt = exact_topk_device(x, queries, k)
+
+    def walk(device_on, q=queries, spec=None):
+        saved = set_flags(FLAGS, hnsw_device_search=device_on)
+        try:
+            return idx.search(q, k, spec, ef=HNSW_EF)
+        finally:
+            set_flags(FLAGS, **saved)
+
+    l0 = g.launches
+    r_host = recall_at(walk(False), gt, k)
+    r_dev = recall_at(walk(True), gt, k)
+    print(f"[{card}] HNSW writes phase {n_w} x {d}: host graph inserts "
+          f"{ins_s:.1f} s ({ins_s * 1e3 / n_w:.2f} ms a row, one thread); "
+          f"recall@10 at ef {HNSW_EF}: device walk {r_dev:.4f}, host walk "
+          f"{r_host:.4f}", flush=True)
+    check(r_dev >= r_host - 0.01, "HNSW device-walk recall >= host-walk "
+          f"recall - 0.01 ({r_dev:.4f} vs {r_host:.4f})")
+    check(g.launches > l0, "the device walk of the writes phase launched G")
+
+    # upserts (new ids and replaced rows), deletes, then the mirror re-export
+    rb = METRICS.counter("hnsw.adjacency_rebuilds", region_id=51)
+    new_ids = np.arange(n_w, n_w + 512, dtype=np.int64)
+    idx.upsert(new_ids, extra[:512])
+    idx.upsert(np.arange(512, dtype=np.int64), extra[512:1024])
+    gone = np.arange(1024, 1536, dtype=np.int64)
+    idx.delete(gone)
+    rb0 = rb.get()
+    res_new = walk(True, extra[:64], None)
+    hit = float(np.mean([len(r.ids) and r.ids[0] == w
+                         for r, w in zip(res_new, new_ids[:64])]))
+    res_q = walk(True)
+    leaked = sum(int(np.isin(r.ids, gone).sum()) for r in res_q)
+    check(rb.get() == rb0 + 1 and hit >= 0.9 and leaked == 0,
+          f"HNSW adjacency re-exported after writes (rebuilds +"
+          f"{rb.get() - rb0}), upserted rows found ({hit:.3f}), deleted "
+          f"ids absent ({leaked} leaked)")
+
+    # filter pushdown against the host post-filter
+    cur = np.concatenate([x, extra[:512]])
+    cur[:512] = extra[512:1024]
+    alive = np.ones(len(cur), bool)
+    alive[1024:1536] = False
+    lo, hi = 0, n_w // 2
+    sub = np.flatnonzero(alive & (np.arange(len(cur)) >= lo)
+                         & (np.arange(len(cur)) < hi))
+    fgt = sub[exact_topk_device(cur[sub], queries, k)]
+    spec = FilterSpec(ranges=[(lo, hi)])
+    f_dev = walk(True, queries, spec)
+    f_host = walk(False, queries, spec)
+    rf_dev, rf_host = recall_at(f_dev, fgt, k), recall_at(f_host, fgt, k)
+    inside = all(((r.ids >= lo) & (r.ids < hi)).all() for r in f_dev)
+    check(inside and rf_dev >= rf_host - 0.01,
+          f"HNSW filter pushdown: results inside the filter, recall "
+          f"{rf_dev:.4f} vs the host post-filter's {rf_host:.4f}")
+
+    # save / load
+    before = walk(True)
+    with tempfile.TemporaryDirectory() as tmp:
+        idx.save(tmp)
+        idx2 = new_index(51, param)
+        idx2.load(tmp)
+    saved = set_flags(FLAGS, hnsw_device_search=True)
+    try:
+        after = idx2.search(queries, k, ef=HNSW_EF)
+    finally:
+        set_flags(FLAGS, **saved)
+    # the snapshot compacts the slots (512 ids were deleted), so the two
+    # mirrors are compared in id space, and the walks modulo exact ties
+    # (the walk breaks ties by slot)
+
+    def id_graph(ix):
+        st_ = ix.store
+        live = np.flatnonzero(st_.ids_by_slot >= 0)
+        nb = st_.ids_of_slots(st_.adj.cpu().numpy()[live].astype(np.int64))
+        return {int(v): frozenset(r.tolist()) - {-1}
+                for v, r in zip(st_.ids_by_slot[live], nb)}
+
+    same_graph = id_graph(idx) == id_graph(idx2)
+    same = same_modulo_ties(cur, queries, [r.ids for r in after],
+                            [r.ids for r in before])
+    check(same_graph and same, "HNSW save/load: the same adjacency in id "
+          "space, the same device-walk ids modulo ties")
+    print(f"[{card}] HNSW writes phase: {time.perf_counter() - t_phase:.1f} "
+          "s", flush=True)
+    return {"recall_dev": r_dev, "recall_host": r_host, "insert_s": ins_s}
+
+
+def recovery_phase(card: str) -> dict:
+    """The device recovery ladder on a FLAT region of a MonoStoreNode on the
+    card (B4 on its path): one injected fault recovered by the retry; a
+    persistent fault degrades the region, whose host path answers like
+    numpy and absorbs writes; re-materialization brings the region back
+    on B4 (held against its plain version); one real CUDA out-of-memory
+    error classified."""
+    import torch
+
+    from dingo_tpu_torch.index import codec as vcodec
+    from dingo_tpu_torch.index.base import IndexParameter, IndexType
+    from dingo_tpu_torch.index.recovery import RECOVERY
+    from dingo_tpu_torch.obs.hbm import looks_like_oom
+    from dingo_tpu_torch.ops import kernel_topk, kernel_topk_pruned
+    from dingo_tpu_torch.ops.devfault import DEVFAULT
+    from dingo_tpu_torch.store.node import MonoStoreNode
+    from dingo_tpu_torch.store.region import RegionDefinition, RegionType
+
+    n, d, k = RECOVERY_N, 768, 10
+    t_phase = time.perf_counter()
+    x, queries, extra = make_data(n, d, 64, seed=17)
+    b1, b4 = kernel_topk.fused_topk, kernel_topk_pruned.pruned_fused_topk
+    counters = [(b1, "launches"), (b1, "launches_bf16"), (b4, "launches"),
+                (b4, "launches_bf16"), (b4, "launches_sq8")]
+    for kf, attr in counters:
+        setattr(kf, attr, 0)
+    node = MonoStoreNode()
+    rid = 9
+    region = node.create_region(RegionDefinition(
+        region_id=rid, start_key=vcodec.encode_vector_key(0, 0),
+        end_key=vcodec.encode_vector_key(1), region_type=RegionType.INDEX,
+        index_parameter=IndexParameter(index_type=IndexType.FLAT,
+                                       dimension=d)))
+    out: dict = {}
+    try:
+        for lo in range(0, n, 4096):
+            node.storage.vector_add(region, np.arange(lo, lo + 4096),
+                                    x[lo:lo + 4096])
+        gt = exact_topk(x, queries, k)
+
+        def ids(rows):
+            return [[v.id for v in r] for r in rows]
+
+        l4 = b4.launches
+        got = ids(node.storage.vector_batch_search(region, queries, k))
+        check(b4.launches > l4 and same_modulo_ties(x, queries, got, gt),
+              "recovery: the FLAT region serves on B4 with numpy's ids")
+        DEVFAULT.arm(1)
+        got = ids(node.storage.vector_batch_search(region, queries, k))
+        check(DEVFAULT.armed() == 0 and not RECOVERY.is_degraded(rid)
+              and same_modulo_ties(x, queries, got, gt),
+              "recovery: one injected device fault is recovered by the "
+              "ladder's retry, ids == numpy's")
+        DEVFAULT.arm(1 << 30)
+        wrapper = region.vector_index_wrapper
+        applied = wrapper.apply_log_id
+        node.storage.vector_add(region, np.arange(n, n + 4096),
+                                extra[:4096])
+        degraded = RECOVERY.is_degraded(rid)
+        allx = np.concatenate([x, extra[:4096]])
+        gt2 = exact_topk(allx, queries, k)
+        t0 = time.perf_counter()
+        got = ids(node.storage.vector_batch_search(region, queries, k))
+        host_s = time.perf_counter() - t0
+        check(degraded and wrapper.apply_log_id == applied
+              and same_modulo_ties(allx, queries, got, gt2),
+              "recovery: a persistent fault degrades the region; the write "
+              "is absorbed (apply_log_id stays), the host exact path "
+              f"answers like numpy over every row ({host_s:.2f} s)")
+        DEVFAULT.disarm()
+        l4s = b4.launches_sq8
+        with first_launch(kernel_topk_pruned, "pruned_fused_topk") as call:
+            t0 = time.perf_counter()
+            n_remat = RECOVERY.run_rematerializations(node)
+            remat_s = time.perf_counter() - t0
+            got = ids(node.storage.vector_batch_search(region, queries, k))
+        idx = wrapper.own_index
+        if call:
+            a_, kw_, (kv, ki, _) = call[0]
+            pv, pi, _ = kernel_topk_pruned.pruned_fused_topk_plain(
+                *a_[:9], **dict(zip(("sq_vmin", "sq_scale"), a_[9:])), **kw_)
+            ok, err = kernel_parity(kv, ki, pv, pi)
+        else:
+            ok, err = False, float("nan")
+        check(n_remat == 1 and not RECOVERY.is_degraded(rid)
+              and idx._precision == "sq8" and b4.launches_sq8 > l4s and ok,
+              f"recovery: re-materialized in {remat_s:.2f} s at "
+              f"{idx._precision}, out of degraded mode, B4-sq8 back and == "
+              f"its plain version (max abs err {err:.3e})")
+        recall = float(np.mean([len(set(r) & set(w.tolist())) / k
+                                for r, w in zip(got, gt2)]))
+        print(f"[{card}] recovery: recall@10 after re-materialization at "
+              f"sq8 {recall:.4f}", flush=True)
+        check(recall >= 0.9, "recovery: the re-materialized region serves "
+              f"(recall@10 {recall:.4f})")
+    finally:
+        DEVFAULT.disarm()
+        RECOVERY.clear()
+        node.stop()
+    # one real CUDA out-of-memory error
+    free, _total = torch.cuda.mem_get_info()
+    caught = None
+    try:
+        torch.empty(int(free) + (8 << 30), dtype=torch.uint8,
+                    device="cuda")
+    except Exception as e:  # noqa: BLE001 - classified below
+        caught = e
+    check(caught is not None and looks_like_oom(caught),
+          "recovery: a real CUDA out-of-memory error ("
+          f"{type(caught).__name__}) is classified by looks_like_oom")
+    out["launches"] = {"pruned_fused_topk": b4.launches,
+                       "pruned_fused_topk_sq8": b4.launches_sq8,
+                       "fused_topk": b1.launches}
+    print(f"[{card}] recovery phase: {time.perf_counter() - t_phase:.1f} s;"
+          f" launches B4 {b4.launches}, B4-sq8 {b4.launches_sq8}, B1 "
+          f"{b1.launches}", flush=True)
+    return out
+
+
 def run(args) -> int:
     import torch
 
@@ -2712,6 +3222,7 @@ def run(args) -> int:
     from dingo_tpu_torch.index.wrapper import VectorIndexWrapper
     from dingo_tpu_torch.ops import (
         cuda_build,
+        kernel_beam,
         kernel_ivf,
         kernel_ivf_pruned,
         kernel_pq,
@@ -2741,6 +3252,7 @@ def run(args) -> int:
             mod._launcher(dtype)
     kernel_pq._launcher()
     kernel_pq._lut_launcher()
+    kernel_beam._launcher()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in cuda_build.build_logs.items():
         for line in log.splitlines():
@@ -3345,6 +3857,33 @@ def run(args) -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     region = region_phase(x, queries, extra, gt, nlist, card, dev)
+    peak_region = torch.cuda.max_memory_allocated()
+
+    # -- HNSW (BASELINE.json config 4) on its own rows, then the HNSW writes
+    # phase and the recovery ladder; every earlier phase's device state
+    # released first ---------------------------------------------------------
+    x = queries = extra = gt = None
+    import gc
+
+    gc.collect()                  # the stopped replicas' reference cycles
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    print(f"[{card}] device memory held by earlier phases at the HNSW "
+          f"phase's start: {held / 2**30:.2f} GiB", flush=True)
+    t0 = time.perf_counter()
+    hnsw = hnsw_phase(args.hnsw_n, card)
+    print(f"HNSW phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    peak_hnsw = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    hnsw_writes_phase(args.hnsw_write_n, card)
+    print(f"HNSW writes phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    recovery = recovery_phase(card)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound,
               by, ok, plain_calls, frac=None):
@@ -3407,10 +3946,23 @@ def run(args) -> int:
                + kernels[3:4] + [tiers["pruned_fused_topk_bf16"],
                                  tiers["pruned_fused_topk_sq8"]]
                + kernels[4:])
+    # G: the HNSW phase's launches (its build and searches), its busiest
+    # search launch against the plain version and the live rows' bound
+    e = entry("candidate_scores", "beam_scores.cu",
+              "dingo_tpu/ops/beam.py:55 (XLA _candidate_scores, no Pallas "
+              "kernel)", hnsw["launches"], hnsw["err"], hnsw["ms"],
+              hnsw["plain_ms"], hnsw["bound"], hnsw["by"], hnsw["ok"], 0)
+    _, e["ms_min"], e["ms_max"] = median_spread(hnsw["reads"])
+    e["launches_build"] = hnsw["build_launches"]
+    e["launches_per_search"] = hnsw["launches_search"]
+    e["live_share"] = hnsw["live_share"]
+    kernels.append(e)
     for e_ in kernels:
         e_["launches_region_phase"] = region["launches"].get(e_["name"], 0)
-    check(len(kernels) == 12 and all(e_["parity"] for e_ in kernels),
-          "the kernels line lists 12 entries, each with parity")
+        e_["launches_recovery_phase"] = recovery["launches"].get(
+            e_["name"], 0)
+    check(len(kernels) == 13 and all(e_["parity"] for e_ in kernels),
+          "the kernels line lists 13 entries, each with parity")
     print(f"[{card}] serving-path ivf.pruned_dim_fraction: IVF (B3) "
           f"{b3_serving_frac:.4f}, FLAT (B4) {b4_serving_frac:.4f}",
           flush=True)
@@ -3418,7 +3970,9 @@ def run(args) -> int:
           f"{peak_fp32 / 2**30:.2f} GiB, tier phase "
           f"{peak_tiers / 2**30:.2f} GiB, d {GIST_D} phase "
           f"{peak_gist / 2**30:.2f} GiB, region phase "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+          f"{peak_region / 2**30:.2f} GiB, HNSW phase "
+          f"{peak_hnsw / 2**30:.2f} GiB ({held / 2**30:.2f} GiB of it "
+          "held from before)", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -3435,6 +3989,8 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--d", type=int, default=768)
     ap.add_argument("--nlist", type=int, default=1024)
+    ap.add_argument("--hnsw-n", type=int, default=HNSW_N)
+    ap.add_argument("--hnsw-write-n", type=int, default=HNSW_WRITE_N)
     args = ap.parse_args()
     try:
         return run(args)

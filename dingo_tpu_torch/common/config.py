@@ -1,8 +1,9 @@
 """Flag registry for the port: a copy of dingo_tpu's ``FlagRegistry`` with
-only the flags the FLAT, IVF_FLAT and IVF_PQ serving paths read (the
-pruned scans and the bf16/sq8 precision tiers included) and those of the
-coalesced serving path (coalescing window, tracing, QoS admission and the
-serving pipeline), under the JAX package's names and defaults.
+only the flags the FLAT, IVF_FLAT, IVF_PQ and HNSW paths read (the pruned
+scans, the bf16/sq8 precision tiers, the device graph walk and build
+included), those of the coalesced serving path (coalescing window,
+tracing, QoS admission and the serving pipeline) and those of the device
+recovery ladder, under the JAX package's names and defaults.
 
 Crossovers that JAX resolved against ``jax.default_backend()`` resolve
 here against the device the index lives on: "auto" turns the hand-written
@@ -187,6 +188,49 @@ FLAGS.define("pipeline_depth", 2, mutable=True,
                    "batches in flight (1 = no overlap, 2 = double "
                    "buffering)")
 
+FLAGS.define("hnsw_device_search", "auto", mutable=True,
+             help_="route HNSW searches through the device graph tier: "
+                   "the lockstep beam walk over the level-0 adjacency "
+                   "mirror (ops/beam.py) and an exact device rerank of "
+                   "its beam. 'auto' = on for a CUDA-resident store, off "
+                   "on the CPU (the host C++ graph stays the CPU arm and "
+                   "the parity oracle). True/False force")
+FLAGS.define("hnsw_device_beam", 0, mutable=True,
+             help_="fixed candidate-beam width of the device HNSW walk; 0 "
+                   "derives it from the request ef by the {1,1.5}x-pow2 "
+                   "shape-bucket ladder")
+FLAGS.define("hnsw_max_iters", 48, mutable=True,
+             help_="expansion rounds of the device HNSW walk (one round "
+                   "expands every beam entry one hop); a query stops "
+                   "changing once its beam converges")
+FLAGS.define("hnsw_device_build", "auto", mutable=True,
+             help_="build bulk HNSW graphs on the device "
+                   "(ops/graph_build.py) in pow2 insert batches; the "
+                   "native graph back-fills on first host-path use. "
+                   "'auto' = on for a CUDA-resident store, off on the "
+                   "CPU. True/False force")
+FLAGS.define("hnsw_build_batch", 256, mutable=True,
+             help_="rows per device bulk-build insert batch (rounded up "
+                   "to a power of two; the last batch pads with dropped "
+                   "lanes)")
+FLAGS.define("hnsw_build_alpha", 1.0, mutable=True,
+             help_="occlusion-pruning factor of the device bulk build "
+                   "(DiskANN's alpha): a candidate is pruned once it "
+                   "scores closer to a kept neighbour than to the inserted "
+                   "point, the kept score scaled by alpha^2")
+FLAGS.define("device_recovery_enabled", True, mutable=True,
+             help_="graduated device OOM recovery ladder "
+                   "(index/recovery.py): on an OOM during a device write "
+                   "or search, drop rerank caches, evict the blocked and "
+                   "adjacency mirrors, retry once; if it fails again, "
+                   "mark the region device-degraded (served by the host "
+                   "exact path) until re-materialization. Off = OOMs "
+                   "propagate")
+FLAGS.define("device_recovery_remat_precision", "sq8", mutable=True,
+             help_="precision tier a device-degraded region is "
+                   "re-materialized at (the region definition keeps its "
+                   "declared precision)")
+
 
 def _parse_tri(flag) -> Optional[bool]:
     """Tri-state crossover flag: None = 'auto', True/False force. FLAGS.set
@@ -263,3 +307,22 @@ def pipeline_depth() -> int:
         return max(1, int(FLAGS.get("pipeline_depth")))
     except (TypeError, ValueError):
         return 2
+
+
+def hnsw_device_enabled(device: torch.device) -> bool:
+    """Tri-state hnsw_device_search for an index on `device`: 'auto' walks
+    the graph on the card for a CUDA-resident store and on the host C++
+    graph on the CPU (the JAX package's 'auto' is TPU-only)."""
+    v = _parse_tri(FLAGS.get("hnsw_device_search"))
+    if v is None:
+        return torch.device(device).type == "cuda"
+    return v
+
+
+def hnsw_device_build_enabled(device: torch.device) -> bool:
+    """Tri-state hnsw_device_build for an index on `device`, read like
+    hnsw_device_enabled."""
+    v = _parse_tri(FLAGS.get("hnsw_device_build"))
+    if v is None:
+        return torch.device(device).type == "cuda"
+    return v

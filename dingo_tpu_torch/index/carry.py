@@ -12,6 +12,12 @@ compute the same thing. An IVF_PQ snapshot re-encodes its rows at load, as
 the JAX package's load does; a mapping may carry the reference's exact
 ``codes`` and ``assign`` instead.
 
+``hnsw_from_reference`` carries an HNSW index: the JAX package's
+``TpuHnsw.save`` directory (meta, rows or sq8 codes, the native graph blob
+and the level-0 adjacency) goes through the port's ``TpuHnsw.load``; the
+graph's nlinks and efConstruction come from the blob's header, so the
+host graph, the device mirror and the search defaults all carry over.
+
 ``region_from_reference`` carries a whole region: the JAX package's
 engine state and region blob go into a port node, which rebuilds the
 region's index from its own engine.
@@ -106,6 +112,32 @@ def index_from_reference(source: Union[str, os.PathLike, Mapping],
     else:
         index.restore_arrays(arrays["ids"], **rows)
     index.apply_log_id = int(arrays.get("apply_log_id", 0))
+    return index
+
+
+def hnsw_from_reference(snapshot_dir: Union[str, os.PathLike], device=None,
+                        parameter: Optional[IndexParameter] = None,
+                        index_id: int = 0):
+    """Port TpuHnsw from a directory written by the JAX package's
+    ``TpuHnsw.save``. ``parameter`` is inferred when absent: dimension,
+    metric and tier from meta.json, nlinks and efconstruction from the
+    native graph blob's header (int64 words: version, dim, metric, M,
+    ef_construction)."""
+    path = os.fspath(snapshot_dir)
+    if parameter is None:
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+        head = np.fromfile(os.path.join(path, "hnsw_graph.bin"), np.int64,
+                           count=5)
+        if len(head) < 5 or int(head[0]) != 1:
+            raise InvalidParameter("bad hnsw graph blob header")
+        parameter = IndexParameter(
+            index_type=IndexType.HNSW, dimension=int(meta["dimension"]),
+            metric=Metric(meta["metric"]),
+            precision=meta.get("precision") or "fp32",
+            nlinks=int(head[3]), efconstruction=int(head[4]))
+    index = new_index(index_id, parameter, device=device)
+    index.load(path)
     return index
 
 

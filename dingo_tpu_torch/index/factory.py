@@ -1,5 +1,5 @@
 """Index factory (port of dingo_tpu/index/factory.py): FLAT, BRUTEFORCE,
-IVF_FLAT and IVF_PQ. Every other type raises NotPorted until it is
+IVF_FLAT, IVF_PQ and HNSW. Every other type raises NotPorted until it is
 ported."""
 
 from __future__ import annotations
@@ -33,4 +33,8 @@ def new_index(index_id: int, parameter: IndexParameter,
         from dingo_tpu_torch.index.ivf_pq import TpuIvfPq
 
         return TpuIvfPq(index_id, parameter, device=device)
+    if t is IndexType.HNSW:
+        from dingo_tpu_torch.index.hnsw import TpuHnsw
+
+        return TpuHnsw(index_id, parameter, device=device)
     raise NotPorted(f"index type {t} is not ported yet")

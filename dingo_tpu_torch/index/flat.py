@@ -54,6 +54,7 @@ from dingo_tpu_torch.index.base import (
 from dingo_tpu_torch.index.rerank_cache import DeviceRerankCache
 from dingo_tpu_torch.index.slot_store import SlotStore, SqSlotStore, _next_pow2
 from dingo_tpu_torch.ops import kernel_topk, kernel_topk_pruned
+from dingo_tpu_torch.ops.devfault import DEVFAULT
 from dingo_tpu_torch.ops.distance import (
     Metric,
     metric_ascending,
@@ -351,6 +352,7 @@ class _SlotStoreIndex(VectorIndex):
                 return scores_to_distances(vals, self._kernel_metric), \
                     slots, stats
             sq_flat_search_plain.calls += 1
+            DEVFAULT.maybe_fail("index.flat.search_sq")
             dists, slots = sq_flat_search_plain(
                 store.vecs, vmin, scale, store.sqnorm, mask, qpad, k,
                 self._kernel_metric)
@@ -369,6 +371,7 @@ class _SlotStoreIndex(VectorIndex):
             return scores_to_distances(vals, self._kernel_metric), slots, \
                 None
         flat_search_plain.calls += 1
+        DEVFAULT.maybe_fail("index.flat.search")
         dists, slots = flat_search_plain(store.vecs, store.sqnorm, mask,
                                          qpad, k, self._kernel_metric)
         return dists, slots, None

@@ -64,6 +64,7 @@ from dingo_tpu_torch.index.ivf_layout import (
     shape_bucket,
 )
 from dingo_tpu_torch.ops import kernel_ivf, kernel_ivf_pruned
+from dingo_tpu_torch.ops.devfault import DEVFAULT
 from dingo_tpu_torch.ops.blocked import (
     block_sqnorms,
     bucket_block_sqnorms,
@@ -562,6 +563,8 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
                     )
                 else:
                     ivf_scan_scores.calls += 1
+                    DEVFAULT.maybe_fail("index.ivf.scan_sq" if sq
+                                        else "index.ivf.scan")
                     vals, slots = ivf_scan_scores(
                         self._buckets, self._bucket_sqnorm, valid,
                         view.bucket_slot, vprobes, qpad, k_eff,

@@ -64,6 +64,7 @@ from dingo_tpu_torch.index.slot_store import (
     SlotStore,
 )
 from dingo_tpu_torch.ops import kernel_pq
+from dingo_tpu_torch.ops.devfault import DEVFAULT
 from dingo_tpu_torch.ops.distance import (
     Metric,
     metric_ascending,
@@ -430,6 +431,7 @@ class TpuIvfPq(IvfViewMaintenance, _SlotStoreIndex):
                         if filtered else store.device_mask())
                     with store.device_lock:
                         flat_search_plain.calls += 1
+                        DEVFAULT.maybe_fail("index.flat.search")
                         dists, slots = flat_search_plain(
                             store.vecs, store.sqnorm, mask, qpad, topk,
                             self.metric)
@@ -513,6 +515,7 @@ class TpuIvfPq(IvfViewMaintenance, _SlotStoreIndex):
                 dists = -vals          # wire: ADC squared L2, ascending
             else:
                 _ivfpq_scan_kernel.calls += 1
+                DEVFAULT.maybe_fail("index.ivfpq.scan")
                 dists, slots = _ivfpq_scan_kernel(
                     self._code_buckets, valid, view.bucket_slot,
                     view.bucket_coarse, probes, vprobes, coarse_pos, qpad,

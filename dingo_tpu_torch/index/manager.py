@@ -16,13 +16,17 @@ the source of truth and every index tracks apply_log_id.
 
 The port builds every index on the manager's ``device`` (None = the CUDA
 device; DeviceUnavailable without one) and keeps the last build's split
-(engine scan, index ingest, train) per region in ``build_stats``. The
-precision-override rebuilds (tiering, device recovery), the device bulk
-build (HNSW) and the view-compaction crontab are not ported.
+(engine scan, index ingest, train) per region in ``build_stats``. A build
+may take a ``param_override`` (the device recovery's re-materialization
+narrows the precision this way, leaving the region definition alone), and
+an index with a bulk session (HNSW behind ``hnsw_device_build``) builds
+its graph on the device from the same scan pages. The tiering plane's
+rebuilds and the view-compaction crontab are not ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import threading
 import time
@@ -33,7 +37,7 @@ from dingo_tpu_torch.common.log import get_logger, region_log
 from dingo_tpu_torch.common.metrics import METRICS
 from dingo_tpu_torch.engine import write_data as wd
 from dingo_tpu_torch.engine.raw_engine import RawEngine
-from dingo_tpu_torch.index.base import VectorIndex
+from dingo_tpu_torch.index.base import IndexParameter, VectorIndex
 from dingo_tpu_torch.index.factory import new_index
 from dingo_tpu_torch.index.vector_reader import ReaderContext, VectorReader
 from dingo_tpu_torch.raft.log import RaftLog
@@ -54,6 +58,19 @@ class StaleSnapshot(RuntimeError):
     compacted past snapshot_log_id + 1); installing it would lose writes."""
 
 
+def precision_override(param: Optional[IndexParameter],
+                       target: Optional[str]) -> Optional[IndexParameter]:
+    """`param` with its precision replaced by `target`, or `param` itself
+    (the same object) when nothing changes. The region definition is never
+    touched: its declared parameter stays what an ordinary rebuild
+    returns to."""
+    if param is None or not target:
+        return param
+    if (getattr(param, "precision", "") or "") == target:
+        return param
+    return dataclasses.replace(param, precision=target)
+
+
 class VectorIndexManager:
     def __init__(self, engine: RawEngine, snapshot_root: Optional[str] = None,
                  device=None):
@@ -71,12 +88,17 @@ class VectorIndexManager:
 
     # ---------------- build ----------------
     def build_index(self, region: Region,
-                    raft_log: Optional[RaftLog] = None) -> VectorIndex:
+                    raft_log: Optional[RaftLog] = None,
+                    param_override: Optional[IndexParameter] = None
+                    ) -> VectorIndex:
         """BuildVectorIndex (vector_index_manager.cc:864): full scan of the
-        region data CF -> fresh index (+train for IVF types)."""
+        region data CF -> fresh index (+train for IVF types).
+        `param_override` builds with another parameter without touching
+        the region definition."""
         assert region.vector_index_wrapper is not None
-        index = new_index(region.id, region.definition.index_parameter,
-                          device=self.device)
+        param = param_override if param_override is not None \
+            else region.definition.index_parameter
+        index = new_index(region.id, param, device=self.device)
         reader = self._reader(region)
 
         with TRACER.start_span("index.build") as span:
@@ -84,6 +106,11 @@ class VectorIndexManager:
             # so peak host memory is one page, not the corpus
             total = 0
             scan_ns = ingest_ns = train_ns = 0
+            # an index with a bulk session (TpuHnsw behind the
+            # hnsw_device_build crossover) builds its graph on the device
+            # from the same pages
+            mk = getattr(index, "bulk_builder", None)
+            bulk = mk() if mk is not None else None
             t0 = time.perf_counter_ns()
             # one engine scan, paged: the JAX package pages with
             # vector_scan_query from each page's last id + 1, copying the
@@ -92,10 +119,17 @@ class VectorIndexManager:
                 t1 = time.perf_counter_ns()
                 scan_ns += t1 - t0
                 total += len(ids)
-                index.upsert(ids, vecs)
+                if bulk is not None:
+                    bulk.add(ids, vecs)
+                else:
+                    index.upsert(ids, vecs)
                 t0 = time.perf_counter_ns()
                 ingest_ns += t0 - t1
             scan_ns += time.perf_counter_ns() - t0
+            if bulk is not None:
+                t1 = time.perf_counter_ns()
+                bulk.finish()
+                ingest_ns += time.perf_counter_ns() - t1
             if index.need_train() and total:
                 # TrainForBuild (:1365), after ingest: trainable stores
                 # buffer pre-train rows and the implicit train() samples
@@ -117,6 +151,7 @@ class VectorIndexManager:
             }
             span.set_attr("region_id", region.id)
             span.set_attr("rows", total)
+            span.set_attr("device_build", bulk is not None)
         return index
 
     # ---------------- catch-up + switch ----------------
@@ -140,7 +175,8 @@ class VectorIndexManager:
             wrapper.share_index = None
 
     def rebuild(self, region: Region,
-                raft_log: Optional[RaftLog] = None) -> bool:
+                raft_log: Optional[RaftLog] = None,
+                param_override: Optional[IndexParameter] = None) -> bool:
         """LaunchRebuildVectorIndex -> RebuildVectorIndex (:1062): build +
         multi-round WAL catch-up + atomic switch (:1149). Returns False
         when a rebuild of THIS region is already in flight (atomic
@@ -164,7 +200,8 @@ class VectorIndexManager:
                 # no write lands between the scan and the switch (otherwise
                 # the fresh index would silently miss it forever).
                 with wrapper._lock:
-                    index = self.build_index(region, raft_log)
+                    index = self.build_index(region, raft_log,
+                                             param_override=param_override)
                     index.apply_log_id = wrapper.apply_log_id
                     wrapper.own_index = index
                     wrapper.ready = True
@@ -172,7 +209,8 @@ class VectorIndexManager:
                     wrapper.share_index = None
                 return True
             start_log_id = wrapper.apply_log_id
-            index = self.build_index(region, raft_log)
+            index = self.build_index(region, raft_log,
+                                     param_override=param_override)
             index.apply_log_id = start_log_id
             self._catch_up_and_install(wrapper, index, region, raft_log)
             return True
@@ -186,6 +224,17 @@ class VectorIndexManager:
             with self._lock:
                 self._rebuilding.discard(region.id)
                 self.rebuild_running -= 1
+
+    def rebuild_at_precision(self, region: Region,
+                             raft_log: Optional[RaftLog] = None,
+                             precision: Optional[str] = None) -> bool:
+        """Rebuild at `precision` (None/empty/equal = the declared tier):
+        engine scan -> fresh index -> WAL catch-up -> atomic switch. The
+        device recovery's re-materialization lands here."""
+        override = precision_override(
+            region.definition.index_parameter, precision)
+        return self.rebuild(region, raft_log=raft_log,
+                            param_override=override)
 
     def replay_wal(self, index: VectorIndex, region: Region,
                    raft_log: RaftLog, start: int, end: int) -> int:

@@ -35,6 +35,7 @@ import torch
 
 from dingo_tpu_torch.common.config import blocked_layout_enabled
 from dingo_tpu_torch.common.device import upload
+from dingo_tpu_torch.ops.devfault import DEVFAULT
 from dingo_tpu_torch.ops.blocked import (
     block_sqnorms,
     resolve_dim_block,
@@ -89,7 +90,14 @@ class SlotStore:
                 self.bsq_blk = torch.zeros((self.nblk, self.capacity),
                                            dtype=torch.float32,
                                            device=self.device)
+        # graph adjacency mirror of the device HNSW tier (index/hnsw.py):
+        # [capacity, graph_deg] int32 slot-space neighbour lists, -1 padded,
+        # read by the beam walk (ops/beam.py); installed by set_graph(),
+        # grown with the capacity
+        self.graph_deg = 0
+        self.adj: Optional[torch.Tensor] = None
         #: bumped by put/remove/growth; keys caches of the slot<->id map
+        #: (the HNSW filter-mask cache and adjacency mirror among them)
         self.mutation_version = 0
         self.vecs, self.sqnorm = self._alloc_storage(self.capacity)
         self.ids_by_slot = np.full((self.capacity,), -1, np.int64)
@@ -144,7 +152,24 @@ class SlotStore:
         if self.vecs_blk is not None:
             # blocked scan mirror: one more copy of the rows + block norms
             size += self.capacity * (self.dim * itemsize + self.nblk * 4)
+        if self.adj is not None:
+            size += self.capacity * self.graph_deg * 4
         return size
+
+    def set_graph(self, adj, deg: int) -> None:
+        """Install the slot-space adjacency mirror: [capacity, deg] int32
+        neighbour slots, -1 padded (a numpy array or a tensor). A full
+        swap, not a scatter: one node insert can rewire arbitrary
+        neighbours' lists."""
+        if tuple(adj.shape) != (self.capacity, deg):
+            raise ValueError(
+                f"adjacency shape {tuple(adj.shape)} != "
+                f"({self.capacity}, {deg})")
+        if not isinstance(adj, torch.Tensor):
+            adj = torch.from_numpy(np.ascontiguousarray(adj, np.int32))
+        with self.device_lock:
+            self.graph_deg = deg
+            self.adj = adj.to(device=self.device, dtype=torch.int32)
 
     def reserve(self, capacity: int) -> None:
         """Pre-size the device arrays (bulk ingest grows once)."""
@@ -175,6 +200,7 @@ class SlotStore:
     def _write_runs(self, runs, rows_h: np.ndarray) -> None:
         """Write rows sorted by slot; runs = [(lo, hi, first slot)] of
         contiguous slots, one slice assignment each."""
+        DEVFAULT.maybe_fail("index.slot_store.write_run")
         rows, rows32 = self._stored_rows(rows_h)
         row_sq = (rows32 * rows32).sum(dim=1)
         with self.device_lock:
@@ -263,6 +289,11 @@ class SlotStore:
                 self.bsq_blk = torch.cat(
                     [self.bsq_blk, self.bsq_blk.new_zeros((self.nblk, pad))],
                     dim=1)
+            if self.adj is not None:
+                # slots are stable across growth: existing rows keep
+                # their lists, new slots start with none
+                self.adj = torch.cat(
+                    [self.adj, self.adj.new_full((pad, self.graph_deg), -1)])
         self.ids_by_slot = np.concatenate(
             [self.ids_by_slot, np.full((pad,), -1, np.int64)]
         )
@@ -275,6 +306,14 @@ class SlotStore:
         self.mutation_version += 1
 
     # -- host round-trips --------------------------------------------------
+    def gather(self, ids: np.ndarray):
+        """(found mask, f32 rows) by external id; absent ids read slot 0.
+        Quantized stores return their decoded rows."""
+        slots = self.slots_of(ids)
+        found = slots >= 0
+        rows = self.rows_device(np.where(found, slots, 0))
+        return found, rows.cpu().numpy()
+
     def rows_device(self, slots: np.ndarray) -> torch.Tensor:
         """f32 rows at `slots` as a device tensor (train-path gather: only
         slot indices cross to the device, the rows never leave it)."""

@@ -20,9 +20,11 @@ ScanQuery / Count entry points (vector_reader.h:44-88).
 The port: the brute-force path builds its temporary FLAT index on the
 reader's ``device`` (None = the CUDA device; DeviceUnavailable without
 one). Only NotSupported and NotTrained fall back to brute force, as in the
-JAX package; NotPorted and every other error propagate. The device
-recovery ladder is not ported, so the reader behaves as the JAX package's
-does with ``recovery.enabled`` off. TABLE filters (the coprocessor) and
+JAX package; NotPorted propagates. A device OOM walks the recovery ladder
+(index/recovery.py), and a device-degraded region is served by an exact
+numpy scan of the engine (``_host_exact_search``); every other error
+propagates. Search parameters (``nprobe``, HNSW's ``ef``) pass through
+to the index. TABLE filters (the coprocessor) and
 binary regions raise NotPorted. The async arm fills ``stage_us`` with the
 device wait and fetch (``search_us``) apart from the whole resolve
 (``total_us``), which also builds the reply rows.
@@ -56,9 +58,11 @@ from dingo_tpu_torch.index.base import (
     VectorIndexError,
 )
 from dingo_tpu_torch.index.flat import TpuFlat
+from dingo_tpu_torch.index.recovery import RECOVERY, DeviceDegraded
 from dingo_tpu_torch.index.wrapper import VectorIndexWrapper
 from dingo_tpu_torch.mvcc.codec import MAX_TS
 from dingo_tpu_torch.mvcc.reader import Reader as MvccReader
+from dingo_tpu_torch.obs.hbm import looks_like_oom
 from dingo_tpu_torch.raft import wire
 from dingo_tpu_torch.trace import TRACER
 
@@ -216,9 +220,10 @@ class VectorReader:
         sync (completion lane). PLAIN searches only — the coalescer's
         plain-path conditions (no filters, no radius, no data backfill)
         are exactly the shapes whose whole post-kernel work is the one
-        fetch. Anything that cannot stay async — wrapper not
-        ready/supported, a dispatch-time error — falls back to a thunk
-        around the full sync path, which keeps its brute-force ladder.
+        fetch. Anything that cannot stay async — degraded region,
+        wrapper not ready/supported, a dispatch-time error — falls back to
+        a thunk around the full sync path, which keeps its brute-force and
+        OOM-recovery ladders.
         ``stage_us`` is filled at RESOLVE time: search_us there is the
         device wait and fetch, which the coalescer books as kernel time;
         total_us also holds the reply rows' construction (the dispatch
@@ -235,7 +240,8 @@ class VectorReader:
             )
 
         wrapper = self.ctx.index_wrapper
-        if wrapper is None or not wrapper.is_ready():
+        if (wrapper is None or not wrapper.is_ready()
+                or RECOVERY.is_degraded(self.ctx.region_id)):
             return sync_thunk
         base = FilterSpec(ranges=[self.ctx.id_window()])
         with TRACER.start_span("index.search") as span:
@@ -454,15 +460,104 @@ class VectorReader:
         """SearchAndRangeSearchWrapper (:1781): index search when the wrapper
         is ready and supports it, else brute-force scan (:1873). Only the
         reference's EVECTOR_NOT_SUPPORT / EVECTOR_INDEX_NOT_TRAIN fall back;
-        NotPorted and device errors propagate (the JAX package re-raises
-        them too while its recovery plane is off)."""
+        NotPorted propagates. A device-degraded region (index/recovery.py)
+        serves the exact host path; a device OOM mid-search walks the
+        recovery ladder and serves the host path if the region degrades;
+        any other error propagates."""
         wrapper = self.ctx.index_wrapper
+        if wrapper is not None and RECOVERY.is_degraded(self.ctx.region_id):
+            return self._host_exact_search(queries, topk, spec)
         if wrapper is not None and wrapper.is_ready():
             try:
                 return wrapper.search(queries, topk, spec, **kw)
             except (NotSupported, NotTrained):
                 pass  # EVECTOR_NOT_SUPPORT contract -> brute force
+            except Exception as e:  # noqa: BLE001 - OOM-classified below
+                if not (looks_like_oom(e) and RECOVERY.enabled()):
+                    raise
+                try:
+                    return RECOVERY.attempt(
+                        wrapper, self.ctx.region_id,
+                        lambda: wrapper.search(queries, topk, spec, **kw),
+                        kind="search", cause=e)
+                except DeviceDegraded:
+                    return self._host_exact_search(queries, topk, spec)
         return self._brute_force_search(queries, topk, spec)
+
+    def _host_exact_search(
+        self, queries: np.ndarray, topk: int, spec: FilterSpec
+    ) -> List[SearchResult]:
+        """Degraded-mode serving: an exact scan of the engine's rows in
+        numpy, with no device tensor at all (the brute-force path builds a
+        temporary device FLAT, which is what just failed). The engine holds
+        every acknowledged write, those applied while the device index was
+        degraded included."""
+        from dingo_tpu_torch.ops.distance import Metric, metric_ascending
+
+        param = self.ctx.parameter
+        if param is None:
+            raise VectorIndexError("host exact search needs index parameter")
+        with TRACER.start_span("index.host_exact") as span:
+            span.set_attr("region_id", self.ctx.region_id)
+            ids_l: List[int] = []
+            rows: List[np.ndarray] = []
+            for vid, blob in self._scan_data(*self.ctx.id_window()):
+                ids_l.append(vid)
+                rows.append(self._deser(blob))
+            span.set_attr("rows", len(ids_l))
+            nq = len(queries)
+            if not ids_l:
+                return [SearchResult(np.empty(0, np.int64),
+                                     np.empty(0, np.float32))
+                        for _ in range(nq)]
+            ids = np.asarray(ids_l, np.int64)
+            valid = self._spec_mask(ids, spec)
+            metric = param.metric
+            vecs = np.stack(rows).astype(np.float32)
+            q = np.asarray(queries, np.float32)
+            if metric is Metric.L2:
+                scores = -(
+                    (q ** 2).sum(1)[:, None]
+                    - 2.0 * q @ vecs.T
+                    + (vecs ** 2).sum(1)[None, :]
+                )
+            else:
+                # COSINE rows are stored normalized by the write path, as
+                # in the JAX package: the inner product is the score
+                scores = q @ vecs.T
+            scores = np.where(valid[None, :], scores, -np.inf)
+            kk = min(int(topk), scores.shape[1])
+            part = np.argpartition(-scores, kk - 1, axis=1)[:, :kk]
+            vals = np.take_along_axis(scores, part, axis=1)
+            order = np.argsort(-vals, axis=1)
+            part = np.take_along_axis(part, order, axis=1)
+            vals = np.take_along_axis(vals, order, axis=1)
+            out: List[SearchResult] = []
+            for qi in range(nq):
+                keep = ~np.isneginf(vals[qi])
+                d = vals[qi][keep]
+                d = -d if metric_ascending(metric) else d
+                out.append(SearchResult(ids[part[qi][keep]],
+                                        np.asarray(d, np.float32)))
+            return out
+
+    @staticmethod
+    def _spec_mask(ids: np.ndarray, spec: Optional[FilterSpec]) -> np.ndarray:
+        """FilterSpec evaluated against external ids (the host path has no
+        slot space)."""
+        mask = np.ones(len(ids), np.bool_)
+        if spec is None or spec.is_empty():
+            return mask
+        if spec.ranges:
+            rm = np.zeros(len(ids), np.bool_)
+            for lo, hi in spec.ranges:
+                rm |= (ids >= lo) & (ids < hi)
+            mask &= rm
+        if spec.include_ids is not None:
+            mask &= np.isin(ids, np.asarray(spec.include_ids, np.int64))
+        if spec.exclude_ids is not None:
+            mask &= ~np.isin(ids, np.asarray(spec.exclude_ids, np.int64))
+        return mask
 
     def _brute_force_search(
         self, queries: np.ndarray, topk: int, spec: FilterSpec

@@ -5,7 +5,9 @@ Tracks ready/stop/build-error flags, apply_log_id & snapshot_log_id, and
 the own/share/sibling index pointers used during region split and merge.
 The raft apply handlers talk to the wrapper, never to the index: the
 engine is the source of truth and the index an apply-log-tracked view, so
-a write applies only when its log id advances.
+a write applies only when its log id advances. A device OOM during a write
+walks the recovery ladder (index/recovery.py); a device-degraded region's
+writes stay in the engine until re-materialization.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from dingo_tpu_torch.index.base import (
     VectorIndexError,
 )
 from dingo_tpu_torch.index.factory import new_index
+from dingo_tpu_torch.index.recovery import RECOVERY, DeviceDegraded
 from dingo_tpu_torch.ops.distance import metric_ascending
 
 
@@ -122,6 +125,28 @@ class VectorIndexWrapper:
                 idx.apply_log_id = log_id
         self.write_count += len(ids)
 
+    def _apply(self, idx: VectorIndex, ids: np.ndarray, log_id: int,
+               mutate: Callable[[], None]) -> None:
+        """Run a write's index mutation through the device recovery ladder
+        (index/recovery.py) and advance the apply cursor. A degraded
+        region's write stays in the engine only: the device index awaits
+        re-materialization and apply_log_id does not advance (replicas are
+        compared at equal applied indices, and this index's state is that
+        of the last advanced log id)."""
+        if RECOVERY.is_degraded(self.id):
+            return
+
+        def op():
+            mutate()
+            self._advance(idx, ids, log_id)
+
+        try:
+            # mutations are upserts/deletes, idempotent: the ladder's retry
+            # re-applies the whole block safely
+            RECOVERY.attempt(self, self.id, op, kind="write")
+        except DeviceDegraded:
+            return
+
     def add(self, ids: np.ndarray, vectors: np.ndarray, log_id: int,
             is_upsert: bool = True) -> None:
         """Apply a raft-committed VECTOR_ADD iff log_id advances."""
@@ -129,19 +154,15 @@ class VectorIndexWrapper:
             idx = self._write_target(log_id)
             if idx is None:
                 return
-            if is_upsert:
-                idx.upsert(ids, vectors)
-            else:
-                idx.add(ids, vectors)
-            self._advance(idx, ids, log_id)
+            mutate = idx.upsert if is_upsert else idx.add
+            self._apply(idx, ids, log_id, lambda: mutate(ids, vectors))
 
     def delete(self, ids: np.ndarray, log_id: int) -> None:
         with self._lock:
             idx = self._write_target(log_id)
             if idx is None:
                 return
-            idx.delete(ids)
-            self._advance(idx, ids, log_id)
+            self._apply(idx, ids, log_id, lambda: idx.delete(ids))
 
     # -- reads ---------------------------------------------------------------
     def search(self, queries: np.ndarray, topk: int,

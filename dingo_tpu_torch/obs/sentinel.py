@@ -27,8 +27,13 @@ Counters and their names in the JAX package:
 The invariant is the JAX package's: after warm-up, steady-state serving
 adds no new shape. Here a new shape costs no compile, but it means a batch
 left the pow2 ladder the warm-up covered: new allocations and a shape no
-warm-up timed. The device-fault injection hook of the JAX sentinel is not
-ported yet.
+warm-up timed.
+
+Device-fault injection: ``launch`` first calls
+``DEVFAULT.maybe_fail`` (ops/devfault.py) with the JAX package's sentinel
+name of the program the kernel replaces (``FAULT_NAMES``), as the JAX
+sentinel does before each dispatch, so an armed shim fails the same
+program in both packages.
 
 Cost of a repeated shape: one tuple of (dtype, shape) pairs, a dict lookup
 under the kernel's lock and one Counter.add.
@@ -41,8 +46,21 @@ import time
 from typing import Any, Dict
 
 from dingo_tpu_torch.common.metrics import METRICS
+from dingo_tpu_torch.ops.devfault import DEVFAULT
 
-__all__ = ["SENTINEL", "LaunchSentinel"]
+__all__ = ["SENTINEL", "LaunchSentinel", "FAULT_NAMES"]
+
+#: kernel wrapper name -> the JAX package's sentinel name of the program it
+#: replaces (the device-fault shim's dispatch name); a kernel of the port's
+#: own (G, ops/kernel_beam.py) is named under its program already
+FAULT_NAMES = {
+    "fused_topk": "ops.pallas.fused_topk",
+    "pruned_fused_topk": "ops.pallas.pruned_fused_topk",
+    "ivf_list_topk": "ops.pallas.ivf_list_topk",
+    "ivf_pruned_topk": "ops.pallas.ivf_pruned_topk",
+    "ivf_pq_adc_topk": "ops.pallas.pq_adc_topk",
+    "ivfpq_adc_lut": "index.ivfpq.adc_lut",
+}
 
 
 def _sig_text(key) -> str:
@@ -89,7 +107,10 @@ class LaunchSentinel:
     # ---- launches ------------------------------------------------------------
     def launch(self, kernel: str, tensors, *scalars) -> bool:
         """Count one call of `kernel` on `tensors` (its inputs) and the
-        scalars that size its outputs; True when the signature is new."""
+        scalars that size its outputs; True when the signature is new.
+        Raises the device-fault shim's fault when it is armed for this
+        kernel."""
+        DEVFAULT.maybe_fail(FAULT_NAMES.get(kernel, kernel))
         route = "cuda" if tensors[0].is_cuda else "plain"
         key = (route, tuple((t.dtype, tuple(t.shape)) for t in tensors),
                scalars)

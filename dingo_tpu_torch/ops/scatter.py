@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dingo_tpu_torch.ops.devfault import DEVFAULT
+
 #: scatter batches larger than this go to the caller's full-rebuild path
 #: (a write that big amortizes a dense rebuild anyway)
 MAX_SCATTER_BATCH = 8192
@@ -21,6 +23,11 @@ def scatter_bucket_update(dst: torch.Tensor, b_idx, r_idx, vals
                           ) -> torch.Tensor:
     """dst[b_idx[i], r_idx[i]] = vals[i] in place on a [B, cap, ...] view
     array; returns dst."""
+    DEVFAULT.maybe_fail("ops.scatter.bucket_rows")
+    return _index_put(dst, b_idx, r_idx, vals)
+
+
+def _index_put(dst: torch.Tensor, b_idx, r_idx, vals) -> torch.Tensor:
     if len(b_idx) == 0:
         return dst
     dev = dst.device
@@ -38,7 +45,8 @@ def scatter_bucket_dim_update(dst: torch.Tensor, b_idx, r_idx, vals
     """dst[b_idx[i], :, r_idx[i]] = vals[i] in place on a dimension-blocked
     [A, n_blocks, cap] view array (one row touches every block; vals is
     [n, n_blocks]); returns dst."""
-    scatter_bucket_update(dst.permute(0, 2, 1), b_idx, r_idx, vals)
+    DEVFAULT.maybe_fail("ops.scatter.bucket_dim_rows")
+    _index_put(dst.permute(0, 2, 1), b_idx, r_idx, vals)
     return dst
 
 

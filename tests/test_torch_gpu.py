@@ -1613,3 +1613,246 @@ def test_region_search_b3_kernel_matches_plain():
     pv, pi, ps = kernel_ivf_pruned.ivf_pruned_topk_plain(*args, **kw)
     _assert_parity(kv, ki, pv, pi)
     assert torch.equal(ks[:, 1], ps[:, 1]) and torch.equal(ks[:, 3], ps[:, 3])
+
+
+# ---------------- kernel G and the HNSW walk on the card ---------------------
+
+G_CASES = [
+    # b, C, d, cap, hole share
+    (64, 4096, 768, 20000, 0.9),
+    (3, 100, 32, 500, 0.0),
+    (5, 70, 33, 300, 0.5),          # d off the 16-byte loads: scalar path
+    (2, 9, 768, 64, 1.0),           # every slot a hole
+]
+
+
+@pytest.mark.parametrize("arm", ["f32", "bf16", "sq8"])
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+@pytest.mark.parametrize("b,c,d,cap,holes", G_CASES)
+def test_candidate_scores_kernel_matches_plain(arm, metric, b, c, d, cap,
+                                               holes):
+    from dingo_tpu_torch.ops import kernel_beam as kb
+    from dingo_tpu_torch.ops.distance import Metric, squared_norms
+    from dingo_tpu_torch.ops.sq import sq_decode_device, sq_train, sq_encode
+
+    dev = _cuda()
+    m = {"l2": Metric.L2, "ip": Metric.INNER_PRODUCT,
+         "cosine": Metric.COSINE}[metric]
+    rng = np.random.default_rng(b * 7 + c)
+    x = rng.standard_normal((cap, d)).astype(np.float32)
+    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32))
+    vmin = scale = None
+    if arm == "sq8":
+        params = sq_train(x)
+        vecs = torch.from_numpy(sq_encode(x, params))
+        vmin = torch.from_numpy(params.vmin)
+        scale = torch.from_numpy(params.scale)
+        sqn = squared_norms(sq_decode_device(vecs, vmin, scale,
+                                             torch.float32))
+    else:
+        vecs = torch.from_numpy(x).to(torch.bfloat16 if arm == "bf16"
+                                      else torch.float32)
+        sqn = squared_norms(vecs)
+    slots = rng.integers(0, cap, (b, c)).astype(np.int32)
+    slots[rng.random((b, c)) < holes] = -1
+    slots = torch.from_numpy(slots)
+    plain = kb.candidate_scores_plain(q, vecs, sqn, slots, m, vmin, scale)
+    on = lambda t: None if t is None else t.to(dev)  # noqa: E731
+    counter = "launches" if arm == "f32" else f"launches_{arm}"
+    n0 = getattr(kb.candidate_scores, counter)
+    got = kb.candidate_scores(on(q), on(vecs), on(sqn), on(slots), m,
+                              on(vmin), on(scale)).cpu()
+    assert getattr(kb.candidate_scores, counter) == n0 + 1
+    np.testing.assert_array_equal(torch.isneginf(got).numpy(),
+                                  (slots < 0).numpy())
+    fin = (slots >= 0).numpy()
+    np.testing.assert_allclose(got.numpy()[fin], plain.numpy()[fin],
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_candidate_scores_unaligned_rows_take_scalar_loads():
+    """A row array that does not start on a 16-byte boundary: the scalar
+    path, same scores."""
+    from dingo_tpu_torch.ops import kernel_beam as kb
+    from dingo_tpu_torch.ops.distance import Metric, squared_norms
+
+    dev = _cuda()
+    rng = np.random.default_rng(5)
+    big = torch.from_numpy(rng.standard_normal((401 * 64 + 1,))
+                           .astype(np.float32)).to(dev)
+    vecs = big[1:].view(401, 64)                 # 4-byte offset
+    sqn = squared_norms(vecs)
+    q = torch.from_numpy(rng.standard_normal((4, 64)).astype(np.float32))
+    slots = torch.from_numpy(rng.integers(-1, 401, (4, 50)).astype(np.int32))
+    got = kb.candidate_scores(q.to(dev), vecs, sqn, slots.to(dev), Metric.L2)
+    plain = kb.candidate_scores_plain(q, vecs.cpu(), sqn.cpu(), slots,
+                                      Metric.L2)
+    fin = (slots >= 0).numpy()
+    np.testing.assert_allclose(got.cpu().numpy()[fin], plain.numpy()[fin],
+                               rtol=RTOL, atol=ATOL)
+
+
+def _hnsw_corpus(n=6000, d=128, nq=64, seed=3):
+    rng = np.random.default_rng(seed)
+    centers = 2.0 * rng.standard_normal((24, d), dtype=np.float32)
+    x = (centers[rng.integers(0, 24, n)] + rng.standard_normal(
+        (n, d), dtype=np.float32)).astype(np.float32)
+    q = (x[rng.integers(0, n, nq)] + 0.1 * rng.standard_normal(
+        (nq, d), dtype=np.float32)).astype(np.float32)
+    return x, q
+
+
+def _hnsw_index(tier="fp32", device="cuda", n=6000, d=128, **kw):
+    from dingo_tpu_torch.index.base import IndexParameter, IndexType
+    from dingo_tpu_torch.index.factory import new_index
+
+    x, q = _hnsw_corpus(n, d)
+    idx = new_index(40, IndexParameter(index_type=IndexType.HNSW,
+                                       dimension=d, nlinks=16,
+                                       efconstruction=96, precision=tier,
+                                       **kw), device=device)
+    idx.add(np.arange(n, dtype=np.int64), x)
+    return idx, x, q
+
+
+def _recall(res, x, q, k=10):
+    d2 = ((q[:, None, :] - x[None, :, :]) ** 2).sum(-1)
+    exact = np.argsort(d2, axis=1)[:, :k]
+    return float(np.mean([len(set(r.ids) & set(e)) / k
+                          for r, e in zip(res, exact)]))
+
+
+@pytest.mark.parametrize("tier", ["fp32", "bf16", "sq8"])
+def test_hnsw_walk_on_device_matches_plain_walk(tier):
+    """The same graph walked on the card (kernel G) and on the CPU (its
+    plain version): recall within 0.01, hops within 1."""
+    from dingo_tpu_torch.ops import kernel_beam as kb
+    from dingo_tpu_torch.ops.beam import beam_search
+
+    dev = _cuda()
+    idx, x, q = _hnsw_index(tier)
+    g = kb.candidate_scores
+    counter = "launches" if tier == "fp32" else f"launches_{tier}"
+    n0 = getattr(g, counter)
+    res = idx.search(q, 10, ef=128)
+    assert getattr(g, counter) > n0
+    st = idx.store
+    sq_on, vmin, scale = idx._codec()
+    qd = torch.from_numpy(idx._prep_queries(q))
+    args = (st.adj, st.vecs, st.sqnorm, st.device_mask(), st.device_mask())
+    out_d = beam_search(*args, qd.to(dev), idx._entry_slot, vmin, scale,
+                        128, 48, idx._kernel_metric, sq_on)
+    out_p = beam_search(*(a.cpu() for a in args), qd, idx._entry_slot,
+                        vmin.cpu(), scale.cpu(), 128, 48,
+                        idx._kernel_metric, sq_on)
+    hops_d, hops_p = out_d[1].cpu().numpy(), out_p[1].numpy()
+    assert np.abs(hops_d - hops_p).max() <= 1
+    ids_d = st.ids_of_slots(out_d[0].cpu().numpy().astype(np.int64))
+    ids_p = st.ids_of_slots(out_p[0].numpy().astype(np.int64))
+    d2 = ((q[:, None, :] - x[None, :, :]) ** 2).sum(-1)
+    exact = np.argsort(d2, axis=1)[:, :10]
+    rd = np.mean([len(set(a) & set(e)) / 10 for a, e in zip(ids_d, exact)])
+    rp = np.mean([len(set(a) & set(e)) / 10 for a, e in zip(ids_p, exact)])
+    assert abs(rd - rp) <= 0.01
+    assert _recall(res, x, q) >= 0.9
+
+
+def test_hnsw_device_search_dispatch_does_not_sync():
+    """search_async of a device-walk HNSW (the walk's max_iters rounds,
+    kernel G, the rerank) makes no synchronizing call, with and without a
+    filter it has not seen."""
+    from dingo_tpu_torch.index.base import FilterSpec
+
+    _cuda()
+    idx, x, q = _hnsw_index()
+    idx.search(q[:8], 10, ef=64)         # mirror exported, shapes warm
+    idx.upsert(np.arange(6000, 6100, dtype=np.int64), x[:100] + 0.5)
+    idx.search(q[:8], 10, ef=64)         # re-export after the write
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        thunks = [idx.search_async(q, 10, ef=64),
+                  idx.search_async(q, 10, FilterSpec(ranges=[(0, 3000)]),
+                                   ef=64)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    res, filt = thunks[0](), thunks[1]()
+    assert _recall(res, x, q) >= 0.9
+    assert all((r.ids < 3000).all() for r in filt)
+
+
+def test_device_bulk_build_on_card_routes():
+    """The device bulk build on the card: kernel G in discovery and
+    reprune, a graph that routes, and the native back-fill on the first
+    write."""
+    from dingo_tpu_torch.common.config import FLAGS
+    from dingo_tpu_torch.index.base import IndexParameter, IndexType
+    from dingo_tpu_torch.index.factory import new_index
+    from dingo_tpu_torch.ops import kernel_beam as kb
+
+    _cuda()
+    x, q = _hnsw_corpus(4000)
+    idx = new_index(41, IndexParameter(index_type=IndexType.HNSW,
+                                       dimension=128, nlinks=16,
+                                       efconstruction=96))
+    sess = idx.bulk_builder(expect_rows=4000)
+    assert sess is not None          # "auto" is on for a CUDA store
+    n0 = kb.candidate_scores.launches
+    for s in range(0, 4000, 1000):
+        sess.add(np.arange(s, s + 1000, dtype=np.int64), x[s:s + 1000])
+    stats = sess.finish()
+    assert stats["rows"] == 4000 and kb.candidate_scores.launches > n0
+    assert _recall(idx.search(q, 10, ef=128), x[:4000], q) >= 0.9
+    idx.upsert(np.asarray([4000], np.int64), x[:1] + 0.25)
+    assert not idx._native_pending
+    FLAGS.set("hnsw_device_search", False)
+    try:
+        assert _recall(idx.search(q, 10, ef=128), np.concatenate(
+            [x[:4000], x[:1] + 0.25]), q) >= 0.9
+    finally:
+        FLAGS.set("hnsw_device_search", "auto")
+
+
+def test_recovery_retry_and_degrade_on_card_region():
+    """A FLAT region on the card (B4 on its path): one injected fault is
+    recovered by the ladder's retry; a persistent one degrades the region,
+    whose host path answers like numpy and absorbs writes; the
+    re-materialization rebuilds it on the card."""
+    from dingo_tpu_torch.index import codec as vcodec
+    from dingo_tpu_torch.index.base import IndexParameter, IndexType
+    from dingo_tpu_torch.index.recovery import RECOVERY
+    from dingo_tpu_torch.ops.devfault import DEVFAULT
+    from dingo_tpu_torch.store.node import MonoStoreNode
+    from dingo_tpu_torch.store.region import RegionDefinition, RegionType
+
+    _cuda()
+    x, q = _hnsw_corpus(6000, 256, nq=16)
+    node = MonoStoreNode()
+    region = node.create_region(RegionDefinition(
+        region_id=3, start_key=vcodec.encode_vector_key(0, 0),
+        end_key=vcodec.encode_vector_key(1), region_type=RegionType.INDEX,
+        index_parameter=IndexParameter(index_type=IndexType.FLAT,
+                                       dimension=256)))
+    d2 = ((q[:, None, :] - x[None, :, :]) ** 2).sum(-1)
+    exact = np.argsort(d2, axis=1)[:, :5]
+    try:
+        node.storage.vector_add(region, np.arange(4000), x[:4000])
+        DEVFAULT.arm(1)
+        rows = node.storage.vector_batch_search(region, q, 5)
+        assert DEVFAULT.armed() == 0 and not RECOVERY.is_degraded(3)
+        e4 = np.argsort(d2[:, :4000], axis=1)[:, :5]
+        assert [r[0].id for r in rows] == e4[:, 0].tolist()
+        DEVFAULT.arm(1 << 30)
+        node.storage.vector_add(region, np.arange(4000, 6000), x[4000:])
+        assert RECOVERY.is_degraded(3)
+        rows = node.storage.vector_batch_search(region, q, 5)
+        assert [[v.id for v in r] for r in rows] == exact.tolist()
+        DEVFAULT.disarm()
+        assert RECOVERY.run_rematerializations(node) == 1
+        assert not RECOVERY.is_degraded(3)
+        rows = node.storage.vector_batch_search(region, q, 5)
+        assert [r[0].id for r in rows] == exact[:, 0].tolist()
+    finally:
+        DEVFAULT.disarm()
+        RECOVERY.clear()
+        node.stop()

@@ -59,6 +59,14 @@ _BLOCKED_IMPORT = textwrap.dedent("""
             "dingo_tpu_torch.index.manager",
             "dingo_tpu_torch.store.region",
             "dingo_tpu_torch.store.node"} <= set(names), names
+    # the device recovery ladder and HNSW: the walk, kernel G's wrapper,
+    # the bulk build, the index and the host graph's own binding
+    assert {"dingo_tpu_torch.ops.devfault", "dingo_tpu_torch.obs.hbm",
+            "dingo_tpu_torch.index.recovery", "dingo_tpu_torch.ops.beam",
+            "dingo_tpu_torch.ops.kernel_beam",
+            "dingo_tpu_torch.ops.graph_build",
+            "dingo_tpu_torch.index.hnsw",
+            "dingo_tpu_torch.native"} <= set(names), names
     import chip_smoke  # the on-card smoke script imports nothing of JAX either
     import precision_check  # nor does the f32-against-f64 check
     bad = [m for m in sys.modules
@@ -86,7 +94,8 @@ def test_new_index_without_device_raises_when_no_cuda(monkeypatch):
     from dingo_tpu_torch.index.wrapper import VectorIndexWrapper
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for t in (IndexType.FLAT, IndexType.IVF_FLAT, IndexType.BRUTEFORCE):
+    for t in (IndexType.FLAT, IndexType.IVF_FLAT, IndexType.BRUTEFORCE,
+              IndexType.HNSW):
         param = IndexParameter(index_type=t, dimension=8, ncentroids=4)
         with pytest.raises(DeviceUnavailable):
             new_index(1, param)
@@ -106,3 +115,19 @@ def test_kernel_wrappers_refuse_mixed_devices():
     x = torch.zeros((8, 4), device="meta")
     with pytest.raises(ValueError):
         fused_topk(q, x, torch.zeros(8), torch.ones(8, dtype=torch.bool), 2)
+
+
+def test_candidate_scores_refuses_mixed_devices():
+    """Kernel G's wrapper, likewise: CPU tensors take the plain version,
+    a placement that is neither all-CPU nor one CUDA device raises."""
+    from dingo_tpu_torch.ops.distance import Metric
+    from dingo_tpu_torch.ops.kernel_beam import candidate_scores
+
+    q = torch.zeros((2, 4))
+    slots = torch.tensor([[0, -1], [1, 0]], dtype=torch.int32)
+    x = torch.zeros((8, 4), device="meta")
+    with pytest.raises(ValueError):
+        candidate_scores(q, x, torch.zeros(8), slots, Metric.L2)
+    got = candidate_scores(q, torch.ones((8, 4)), torch.full((8,), 4.0),
+                           slots, Metric.L2)
+    assert torch.equal(torch.isneginf(got), slots < 0)

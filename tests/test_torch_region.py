@@ -774,8 +774,8 @@ def test_not_ported_raise_sites():
     from dingo_tpu_torch.ops.distance import Metric
 
     with pytest.raises(NotPorted):                  # factory.py
-        new_index(1, IndexParameter(index_type=IndexType.HNSW, dimension=8),
-                  device="cpu")
+        new_index(1, IndexParameter(index_type=IndexType.DISKANN,
+                                    dimension=8), device="cpu")
     with pytest.raises(NotPorted):                  # flat.py
         TpuFlat(1, IndexParameter(dimension=8, metric=Metric.HAMMING),
                 device="cpu")

@@ -204,7 +204,7 @@ def test_unported_features_raise_not_supported():
     from dingo_tpu_torch.index.base import InvalidParameter, NotPorted
     from dingo_tpu_torch.index.factory import new_index
 
-    for t in (TType.HNSW, TType.BINARY_FLAT):
+    for t in (TType.DISKANN, TType.BINARY_FLAT):
         with pytest.raises(NotPorted):
             new_index(1, TParam(index_type=t, dimension=8), device="cpu")
     # sq8 is invalid for IVF_PQ, as in the JAX package (its codes are
