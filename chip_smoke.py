@@ -110,9 +110,12 @@ reverse_dropped), recall@10 >= 0.95 against exact top-10 computed on the
 card, pipelined ms per 64-query batch, the walk's hops / visited slots /
 occupancy, kernel G's launches, live-candidate share, time against its
 bound and parity with its plain version, device bytes, and a dispatch
-under the sync-debug mode; then a smaller HNSW index whose host graph
-takes the writes (device walk against host walk at equal ef, upserts and
-deletes, filter pushdown, save/load); then the device recovery ladder on
+under the sync-debug mode; then a 20,000-row HNSW index whose host graph
+takes the writes (its one-thread native inserts run beside the HNSW
+phase; device walk against host walk at equal ef, upserts and deletes,
+filter pushdown, save/load). Each phase that serves through the wrappers
+and the reader checks that the recovery ladder never fired. Then the
+device recovery ladder on
 a 65,536-row FLAT region (a retried fault, a degraded region served by the
 host path and absorbing writes, re-materialization back onto B4, a real
 CUDA out-of-memory error classified). Timings are medians over ROUNDS
@@ -137,6 +140,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -485,6 +489,66 @@ def recall_at(res, gt, k) -> float:
     hits = sum(len(set(r.ids.tolist()) & set(g.tolist()))
                for r, g in zip(res, gt))
     return hits / (len(gt) * k)
+
+
+def recovery_quiet(phase: str, card: str) -> None:
+    """Fail the run if the device recovery ladder fired by the end of a
+    measured phase: a retried search or write is slower than the card's,
+    and a degraded region answers from numpy on the host, so the phase's
+    numbers would not be the card's."""
+    from dingo_tpu_torch.common.metrics import METRICS
+    from dingo_tpu_torch.index.recovery import RECOVERY
+
+    fired = {key: v for key, v in METRICS.dump().items()
+             if key.startswith("fault.oom_recoveries")}
+    degraded = sorted(RECOVERY.degraded_regions())
+    print(f"[{card}] {phase}: recovery ladder runs {RECOVERY.ladder_runs}, "
+          f"fault.oom_recoveries {fired or 0}, degraded regions {degraded}",
+          flush=True)
+    check(RECOVERY.ladder_runs == 0 and not any(fired.values())
+          and not degraded, f"{phase}: the device recovery ladder never "
+          "fired (no retry, no degraded region)")
+
+
+def device_holders(scope: dict, floor: int = 1 << 20) -> dict:
+    """{name: bytes} of the CUDA storages each value of `scope` reaches
+    (through containers, instance attributes and closures), for the names
+    that reach at least `floor` bytes: what keeps an earlier phase's device
+    state alive."""
+    import torch
+
+    out = {}
+    for name, root in scope.items():
+        seen, storages, todo = set(), {}, [(root, 0)]
+        while todo:
+            obj, depth = todo.pop()
+            if id(obj) in seen or depth > 8:
+                continue
+            seen.add(id(obj))
+            if torch.is_tensor(obj):
+                if obj.is_cuda:
+                    st = obj.untyped_storage()
+                    storages[st.data_ptr()] = st.nbytes()
+                continue
+            if isinstance(obj, (str, bytes, int, float, np.ndarray, type,
+                                types.ModuleType)):
+                continue
+            if isinstance(obj, dict):
+                kids = list(obj.values())
+            elif isinstance(obj, (list, tuple, set, frozenset)):
+                kids = list(obj)
+            else:
+                kids = list(getattr(obj, "__dict__", {}).values())
+                for cell in getattr(obj, "__closure__", None) or ():
+                    try:
+                        kids.append(cell.cell_contents)
+                    except ValueError:      # an empty cell
+                        pass
+                kids.append(getattr(obj, "__self__", None))
+            todo += [(c, depth + 1) for c in kids if c is not None]
+        if sum(storages.values()) >= floor:
+            out[name] = sum(storages.values())
+    return out
 
 
 def device_profile(fn, top: int = 8, was: str = "") -> str:
@@ -2719,9 +2783,10 @@ HNSW_EF = 200
 #: PERF.md section 4)
 HNSW_N = 1_000_000
 #: rows of the HNSW writes phase: its host graph inserts one row at a time
-#: on one thread (the JAX package's native graph), 16.74 ms a row at d 768
-#: on the card's host (PERF.md section 4)
-HNSW_WRITE_N = 4_096
+#: on one thread (the JAX package's native graph; 9.60-17.29 ms a row at
+#: d 768 and 4,096 rows on the card's hosts, PERF.md section 4), so the
+#: inserts run in a thread beside the HNSW phase
+HNSW_WRITE_N = 20_000
 #: the recovery phase's FLAT region
 RECOVERY_N = 65_536
 
@@ -2904,6 +2969,9 @@ def hnsw_phase(n_h: int, card: str) -> dict:
           + (f" ({synced})" if synced else ""))
     if th is not None:
         th()
+    # the main path's launches: the build and every search above; the
+    # capture, parity and timing launches below are not counted
+    launches = g.launches + g.launches_bf16 + g.launches_sq8
 
     # -- kernel G on its busiest launch of a search ---------------------------
     orig, spy, best = g_capture()
@@ -2955,42 +3023,78 @@ def hnsw_phase(n_h: int, card: str) -> dict:
         "recall": rec, "launches_search": per_search, "live_share": share,
         "hops": hops, "err": err, "ok": ok, "ms": g_ms,
         "reads": reads, "plain_ms": median_spread(plain_reads)[0],
-        "bound": bound, "by": by,
-        "launches": g.launches + g.launches_bf16 + g.launches_sq8})
+        "bound": bound, "by": by, "launches": launches})
     return out
 
 
-def hnsw_writes_phase(n_w: int, card: str) -> dict:
-    """An HNSW index whose host graph takes the writes (native inserts,
-    one thread): the device walk against the host walk at equal ef,
-    upserts and deletes then the adjacency mirror's re-export, filter
-    pushdown against the host post-filter, and save/load."""
-    import tempfile
+def hnsw_writes_start(n_w: int) -> dict:
+    """Start the HNSW writes phase: an HNSW index whose host graph takes
+    n_w rows, inserted by the native graph one row at a time on one
+    thread (the JAX package's). The insert runs on a thread of its own
+    (ctypes releases the GIL inside the native call) so that it overlaps
+    the HNSW phase; this returns once the rows' device writes are done,
+    so the thread does not touch the card again."""
+    import threading
 
     import torch
 
-    from dingo_tpu_torch.common.config import FLAGS
-    from dingo_tpu_torch.common.metrics import METRICS
-    from dingo_tpu_torch.index.base import (
-        FilterSpec,
-        IndexParameter,
-        IndexType,
-    )
+    from dingo_tpu_torch.index.base import IndexParameter, IndexType
     from dingo_tpu_torch.index.factory import new_index
-    from dingo_tpu_torch.ops import kernel_beam
     from dingo_tpu_torch.ops.distance import Metric
 
-    d, k = 768, 10
-    g = kernel_beam.candidate_scores
-    t_phase = time.perf_counter()
-    x, queries, extra = make_data(n_w, d, 64, seed=13)
-    param = IndexParameter(index_type=IndexType.HNSW, dimension=d,
+    x, queries, extra = make_data(n_w, 768, 64, seed=13)
+    param = IndexParameter(index_type=IndexType.HNSW, dimension=768,
                            metric=Metric.L2, nlinks=HNSW_NLINKS,
                            efconstruction=HNSW_EFC)
     idx = new_index(51, param)
-    t0 = time.perf_counter()
-    idx.add(np.arange(n_w, dtype=np.int64), x)
-    ins_s = time.perf_counter() - t0
+    st = {"idx": idx, "param": param, "x": x, "queries": queries,
+          "extra": extra, "error": None}
+    version = idx.store.mutation_version
+
+    def insert():
+        t0 = time.perf_counter()
+        try:
+            idx.add(np.arange(n_w, dtype=np.int64), x)
+        except BaseException as e:  # noqa: BLE001 - re-raised at the join
+            st["error"] = e
+        st["insert_s"] = time.perf_counter() - t0
+
+    st["thread"] = threading.Thread(target=insert, name="hnsw-host-inserts",
+                                    daemon=True)
+    st["thread"].start()
+    # the store bumps its mutation version once its device writes are
+    # queued; the native inserts follow
+    while idx.store.mutation_version == version and st["thread"].is_alive():
+        time.sleep(0.01)
+    torch.cuda.synchronize()
+    return st
+
+
+def hnsw_writes_phase(st: dict, card: str) -> dict:
+    """The HNSW index of hnsw_writes_start once its host graph holds the
+    rows: the device walk against the host walk at equal ef (with the
+    share of the graph a walk visits), upserts and deletes then the
+    adjacency mirror's re-export, filter pushdown against the host
+    post-filter, and save/load."""
+    import tempfile
+
+    from dingo_tpu_torch.common.config import FLAGS
+    from dingo_tpu_torch.common.metrics import METRICS
+    from dingo_tpu_torch.index.base import FilterSpec
+    from dingo_tpu_torch.index.factory import new_index
+    from dingo_tpu_torch.ops import kernel_beam
+
+    k = 10
+    g = kernel_beam.candidate_scores
+    t_phase = time.perf_counter()
+    st["thread"].join()
+    waited = time.perf_counter() - t_phase
+    if st["error"] is not None:
+        raise st["error"]
+    idx, param, x = st["idx"], st["param"], st["x"]
+    queries, extra = st["queries"], st["extra"]
+    n_w, d = x.shape
+    ins_s = st["insert_s"]
     gt = exact_topk_device(x, queries, k)
 
     def walk(device_on, q=queries, spec=None):
@@ -3003,10 +3107,15 @@ def hnsw_writes_phase(n_w: int, card: str) -> dict:
     l0 = g.launches
     r_host = recall_at(walk(False), gt, k)
     r_dev = recall_at(walk(True), gt, k)
+    vfrac = METRICS.gauge("hnsw.visited_fraction", region_id=51).get()
+    cap = idx.store.capacity
     print(f"[{card}] HNSW writes phase {n_w} x {d}: host graph inserts "
-          f"{ins_s:.1f} s ({ins_s * 1e3 / n_w:.2f} ms a row, one thread); "
-          f"recall@10 at ef {HNSW_EF}: device walk {r_dev:.4f}, host walk "
-          f"{r_host:.4f}", flush=True)
+          f"{ins_s:.1f} s ({ins_s * 1e3 / n_w:.2f} ms a row, one thread, "
+          f"beside the HNSW phase; {waited:.1f} s waited for them after "
+          f"it); recall@10 at ef {HNSW_EF}: device walk {r_dev:.4f}, host "
+          f"walk {r_host:.4f}; a device walk visits {vfrac * cap:.1f} "
+          f"slots a query, {vfrac * cap / n_w:.4f} of the {n_w} rows",
+          flush=True)
     check(r_dev >= r_host - 0.01, "HNSW device-walk recall >= host-walk "
           f"recall - 0.01 ({r_dev:.4f} vs {r_host:.4f})")
     check(g.launches > l0, "the device walk of the writes phase launched G")
@@ -3076,7 +3185,8 @@ def hnsw_writes_phase(n_w: int, card: str) -> dict:
           "space, the same device-walk ids modulo ties")
     print(f"[{card}] HNSW writes phase: {time.perf_counter() - t_phase:.1f} "
           "s", flush=True)
-    return {"recall_dev": r_dev, "recall_host": r_host, "insert_s": ins_s}
+    return {"recall_dev": r_dev, "recall_host": r_host, "insert_s": ins_s,
+            "visited_share": vfrac * cap / n_w}
 
 
 def recovery_phase(card: str) -> dict:
@@ -3820,6 +3930,7 @@ def run(args) -> int:
         "IVF_PQ (B5)": (pq["wrapper"], kernel_pq.ivf_pq_adc_topk,
                         {"nprobe": 32}, (2,), {"ivfpq_rerank_factor": 6}),
     }, card)
+    recovery_quiet("coalesced phase", card)
 
     # -- the precision tiers: release the fp32 FLAT stores and the IVF_PQ
     # state first (their peaks would add up); the fp32 IVF_FLAT region
@@ -3862,7 +3973,13 @@ def run(args) -> int:
     # -- HNSW (BASELINE.json config 4) on its own rows, then the HNSW writes
     # phase and the recovery ladder; every earlier phase's device state
     # released first ---------------------------------------------------------
-    x = queries = extra = gt = None
+    recovery_quiet("region phase", card)
+    # the last references into the fp32 phases' indexes: B3's argument
+    # tuple (the IVF view), the last pipelined FLAT index, resolved thunks
+    # (their closures hold the IVF wrapper) and kernel outputs
+    x = queries = extra = gt = a_ = idx_ = thunks = th = nsk = None
+    kv = ki = pv = pi = ks = ps = qpsq = bfilt = bfew = valid_ = None
+    rows_ = cols_ = live = None
     import gc
 
     gc.collect()                  # the stopped replicas' reference cycles
@@ -3870,17 +3987,36 @@ def run(args) -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
+    holders = device_holders(locals())
+    in_tensors = sum({t_.untyped_storage().data_ptr():
+                      t_.untyped_storage().nbytes()
+                      for t_ in gc.get_objects()
+                      if torch.is_tensor(t_) and t_.is_cuda}.values())
     print(f"[{card}] device memory held by earlier phases at the HNSW "
-          f"phase's start: {held / 2**30:.2f} GiB", flush=True)
+          f"phase's start: {held / 2**30:.2f} GiB, {in_tensors / 2**30:.2f} "
+          "GiB of it in live tensors; reached from run()'s names (MiB): "
+          + (", ".join(f"{nm_} {b_ / 2**20:.1f}" for nm_, b_ in sorted(
+              holders.items(), key=lambda kv_: -kv_[1])) or "none"),
+          flush=True)
+    check(held < n * d * 4, "the earlier phases' device state is released "
+          f"before the HNSW phase ({held / 2**30:.2f} GiB held, less than "
+          f"one {n} x {d} f32 store)")
     t0 = time.perf_counter()
+    writes = hnsw_writes_start(HNSW_WRITE_N)
     hnsw = hnsw_phase(args.hnsw_n, card)
-    print(f"HNSW phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"HNSW phase: {time.perf_counter() - t0:.1f} s (the writes "
+          "phase's host graph inserts ran beside it on another core)",
+          flush=True)
+    recovery_quiet("HNSW phase", card)
     peak_hnsw = torch.cuda.max_memory_allocated()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    hnsw_writes_phase(args.hnsw_write_n, card)
-    print(f"HNSW writes phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    hnsw_writes_phase(writes, card)
+    writes = None
+    print(f"HNSW writes phase: {time.perf_counter() - t0:.1f} s after the "
+          "HNSW phase", flush=True)
+    recovery_quiet("HNSW writes phase", card)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     recovery = recovery_phase(card)
@@ -3990,7 +4126,6 @@ def main() -> int:
     ap.add_argument("--d", type=int, default=768)
     ap.add_argument("--nlist", type=int, default=1024)
     ap.add_argument("--hnsw-n", type=int, default=HNSW_N)
-    ap.add_argument("--hnsw-write-n", type=int, default=HNSW_WRITE_N)
     args = ap.parse_args()
     try:
         return run(args)
