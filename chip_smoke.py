@@ -89,7 +89,9 @@ regions own the wrappers, so every batch goes through Storage and the
 region's VectorReader). Last, the replicated region phase at full width
 and depth, every earlier phase's device state released: three StoreNodes
 on LocalTransport (a dingo-store region's three replicas) on the one card,
-an IVF_FLAT region (nlist 1024, every flag at its default); the 1M rows
+bound to one in-process CoordinatorControl, which creates the IVF_FLAT
+region (nlist 1024, every flag at its default) and delivers it to the
+stores by heartbeats; the 1M rows
 through the leader's Storage.vector_add in 4,096-row raft proposals
 (acknowledged rows/s, the share of time in apply); untrained searches on
 every replica (the reader's brute-force scan, B4; ids == numpy exact
@@ -101,10 +103,19 @@ IndexService(node) on the leader under the pipeline_sweep traffic while
 when acknowledged and on a follower once applied; no dispatch falls back
 to the reader's sync path); one region search's B3 launch against its
 plain version; the reader's dispatch under the sync-debug mode; device
-bytes per replica and peak host RSS; then the leader's node stops and the
-survivors hold every acknowledged write. Then HNSW at BASELINE.json config
-4's widths (768 dims, M 32, efConstruction 200, ef 200, every flag at its
-default) on its own rows from the same recipe: the device bulk build
+bytes per replica and peak host RSS; then the cluster phase on the same
+region (one split_check tick at the default 1,000,000 keys proposes the
+median id, heartbeats deliver SPLIT, the child is served through the
+parent's index, 8,192 upserts and 4,096 deletes proposed on each side
+while split, HOLD_VECTOR_INDEX on each replica in turn, coord.merge_region
+and the sibling-merged search, finish_merge_index on each replica in
+turn, a leader transfer; recall@10 >= 0.95 against exact top-10 on the
+card at every stage, equal ids on every replica, device peak); then the
+leader's node stops and the survivors hold every acknowledged write.
+Then HNSW at BASELINE.json config 4's widths (768 dims, M 32,
+efConstruction 200, ef 200, every flag at its default) on 500,000 rows of
+its own from the same recipe (``--hnsw-n`` sets the depth; config 4's 1M
+does not fit the smoke's time beside the cluster phase): the device bulk build
 (rows/s split into the walk, the occlusion selection and the reprune;
 reverse_dropped), recall@10 >= 0.95 against exact top-10 computed on the
 card, pipelined ms per 64-query batch, the walk's hops / visited slots /
@@ -1216,11 +1227,13 @@ def co_close(svc, saved) -> None:
         FLAGS.set(f_, v_)
 
 
-def closed_loop(svc, pool, k, kw, seconds, stop=None):
+def closed_loop(svc, pool, k, kw, seconds, stop=None, keys=None):
     """Serve `pool`'s 4-row requests through `svc` in a closed loop:
-    CO_IN_FLIGHT requests over regions 1..CO_KEYS a round, then wait for
-    all of them; for `seconds`, or until `stop` is set when given (60 s at
-    most). Returns (rows served, wall s, request latencies ms)."""
+    CO_IN_FLIGHT requests over the region ids `keys` (1..CO_KEYS by
+    default) a round, then wait for all of them; for `seconds`, or until
+    `stop` is set when given (60 s at most). Returns (rows served, wall s,
+    request latencies ms)."""
+    keys = list(keys or range(1, CO_KEYS + 1))
     lat: list = []
     rows, i = 0, 0
     nreq = len(pool) // CO_REQ_ROWS
@@ -1234,7 +1247,7 @@ def closed_loop(svc, pool, k, kw, seconds, stop=None):
             r = i % nreq
             i += 1
             s = time.perf_counter()
-            f = svc.submit(1 + j % CO_KEYS,
+            f = svc.submit(keys[j % len(keys)],
                            pool[r * CO_REQ_ROWS:(r + 1) * CO_REQ_ROWS], k,
                            **kw)
             f.add_done_callback(
@@ -2300,9 +2313,12 @@ def tier_bound(name, a_, frac, batch, d):
 
 #: the region phase: a region replicated three ways (a dingo-store region's
 #: default replica count), three StoreNodes on LocalTransport on the one
-#: card. The raft timeouts are longer than the in-process tests' so that a
-#: 4,096-row apply on a raft thread does not look like a dead leader
-REGION_ID = 1
+#: card bound to one in-process coordinator, which creates the region and
+#: delivers it by heartbeats. The raft timeouts are longer than the
+#: in-process tests' so that a 4,096-row apply on a raft thread does not
+#: look like a dead leader. The sweep's other keys serve the region's index
+#: read-only under REGION_ALIASES (below the coordinator's region ids)
+REGION_ALIASES = (2, 3, 4)
 REGION_PEERS = ("s0", "s1", "s2")
 REGION_RAFT = {"election_timeout": (1.0, 2.0), "heartbeat_interval": 0.1}
 #: proposals of VECTOR_MAX_BATCH_COUNT rows (engine/storage.py), ascending
@@ -2312,8 +2328,9 @@ REGION_NPROBE = 32
 
 
 def region_phase(x, queries, extra, gt, nlist, card, dev) -> dict:
-    """The replicated region path at full width and depth: three
-    StoreNodes, an IVF_FLAT region; the rows go through the leader's
+    """The replicated region path at full width and depth: a coordinator
+    and three StoreNodes, an IVF_FLAT region created by the coordinator
+    and delivered by heartbeats; the rows go through the leader's
     Storage.vector_add as raft proposals; untrained searches through every
     replica's Storage (the reader's brute-force scan, B4); each replica's
     VectorIndexManager.rebuild (engine scan, train, build); trained
@@ -2323,9 +2340,11 @@ def region_phase(x, queries, extra, gt, nlist, card, dev) -> dict:
     visible on the leader when acknowledged and on a follower once it has
     applied the write's log index; no dispatch falls back to the sync
     path); one B3 launch of a region search against its plain version; the
-    reader's dispatch under the sync-debug mode; then the leader's node
-    stops and the survivors hold the acknowledged state. Returns the
-    phase's numbers and each kernel's launches in it."""
+    reader's dispatch under the sync-debug mode; then the cluster phase on
+    the same region (cluster_phase: split check, split, merge, leader
+    transfer); then the leader's node stops and the survivors hold the
+    acknowledged state. Returns the phase's numbers, each kernel's
+    launches in it, and the cluster phase's numbers under "cluster"."""
     import resource
     import threading
 
@@ -2333,7 +2352,9 @@ def region_phase(x, queries, extra, gt, nlist, card, dev) -> dict:
 
     from dingo_tpu_torch.common.config import FLAGS
     from dingo_tpu_torch.common.metrics import METRICS
+    from dingo_tpu_torch.coordinator.control import CoordinatorControl
     from dingo_tpu_torch.engine import raft_engine
+    from dingo_tpu_torch.engine.raw_engine import MemEngine
     from dingo_tpu_torch.index import codec as vcodec
     from dingo_tpu_torch.index.base import IndexParameter, IndexType
     from dingo_tpu_torch.index.vector_reader import VectorReader
@@ -2348,7 +2369,7 @@ def region_phase(x, queries, extra, gt, nlist, card, dev) -> dict:
     from dingo_tpu_torch.raft import LocalTransport, NotLeader
     from dingo_tpu_torch.server.services import IndexService
     from dingo_tpu_torch.store.node import StoreNode
-    from dingo_tpu_torch.store.region import RegionDefinition, RegionType
+    from dingo_tpu_torch.store.region import RegionType
 
     n, d = x.shape
     k = 10
@@ -2382,21 +2403,27 @@ def region_phase(x, queries, extra, gt, nlist, card, dev) -> dict:
 
     raft_engine.apply_write = timed_apply
     transport = LocalTransport()
-    nodes = {sid: StoreNode(sid, transport,
+    coord = CoordinatorControl(MemEngine(), replication=len(REGION_PEERS))
+    nodes = {sid: StoreNode(sid, transport, coord,
                             raft_kw={"seed": i, **REGION_RAFT}, device=dev)
              for i, sid in enumerate(REGION_PEERS)}
-    definition = RegionDefinition(
-        region_id=REGION_ID, start_key=vcodec.encode_vector_key(0, 0),
-        end_key=vcodec.encode_vector_key(1), peers=list(REGION_PEERS),
+    definition = coord.create_region(
+        vcodec.encode_vector_key(0, 0), vcodec.encode_vector_key(1),
         region_type=RegionType.INDEX, index_parameter=IndexParameter(
             index_type=IndexType.IVF_FLAT, dimension=d, metric=Metric.L2,
             ncentroids=nlist, default_nprobe=REGION_NPROBE))
-    regions = {sid: nd.create_region(definition)
-               for sid, nd in nodes.items()}
+    rid = definition.region_id
+    for nd in nodes.values():              # the CREATE commands
+        nd.heartbeat_once()
+    regions = {sid: nd.get_region(rid) for sid, nd in nodes.items()}
+    check(all(r is not None for r in regions.values())
+          and sorted(definition.peers) == sorted(REGION_PEERS),
+          f"region: the coordinator placed region {rid} on "
+          f"{definition.peers} and the heartbeats created it on every store")
     live_peers = list(REGION_PEERS)
 
     def raft(sid):
-        return nodes[sid].engine.get_node(REGION_ID)
+        return nodes[sid].engine.get_node(rid)
 
     def leader(timeout=60.0):
         deadline = time.monotonic() + timeout
@@ -2507,7 +2534,7 @@ def region_phase(x, queries, extra, gt, nlist, card, dev) -> dict:
             nodes[s].index_manager.rebuild(regions[s], raft_log=raft(s).log)
             if dev.type == "cuda":
                 torch.cuda.synchronize()
-            st = dict(nodes[s].index_manager.build_stats[REGION_ID])
+            st = dict(nodes[s].index_manager.build_stats[rid])
             st["total_ms"] = (time.perf_counter() - t0) * 1e3
             builds[s] = st
             print(f"[{card}] region rebuild {s}: {st['rows']} rows, engine "
@@ -2517,7 +2544,7 @@ def region_phase(x, queries, extra, gt, nlist, card, dev) -> dict:
                   f"{st['total_ms'] / 1e3:.2f} s", flush=True)
         out["rebuild"] = builds
         fails = METRICS.counter("build.train_failures",
-                                region_id=REGION_ID).get()
+                                region_id=rid).get()
         check(fails == 0 and all(
             regions[s].vector_index_wrapper.own_index.is_trained()
             for s in REGION_PEERS),
@@ -2618,21 +2645,23 @@ def region_phase(x, queries, extra, gt, nlist, card, dev) -> dict:
                 done.set()
 
         # the sweep's CO_KEYS keys: the region's index also served, read
-        # only, under region ids 2.. on the leader (the same engine rows)
-        for r_ in range(REGION_ID + 1, REGION_ID + CO_KEYS):
+        # only, under REGION_ALIASES on the leader (the same engine rows)
+        keys = (rid,) + REGION_ALIASES[:CO_KEYS - 1]
+        for r_ in keys[1:]:
             alias_region(nodes[lead], r_, regions[lead])
         saved = set_flags(FLAGS, pipeline_enabled="true", pipeline_depth=2)
         VectorReader.vector_batch_search_async = spy_async
         svc = IndexService(nodes[lead], window_ms=CO_WINDOW_MS,
                            max_batch=CO_MAX_BATCH)
         try:
-            closed_loop(svc, pool, k, kw, 0.5)          # warm
+            closed_loop(svc, pool, k, kw, 0.5, keys=keys)          # warm
             base = svc._get_coalescer().stage_totals()
             l3 = b3.launches
             t = threading.Thread(target=writer, name="smoke-region-writer",
                                  daemon=True)
             t.start()
-            rows, wall, lat = closed_loop(svc, pool, k, kw, 0.0, stop=done)
+            rows, wall, lat = closed_loop(svc, pool, k, kw, 0.0, stop=done,
+                                          keys=keys)
             t.join(timeout=120)
             totals = svc._get_coalescer().stage_totals()
         finally:
@@ -2640,6 +2669,8 @@ def region_phase(x, queries, extra, gt, nlist, card, dev) -> dict:
             VectorReader.vector_batch_search_async = orig_async
             for f_, v_ in saved.items():
                 FLAGS.set(f_, v_)
+            for r_ in keys[1:]:
+                nodes[lead].meta.delete_region(r_)
         nchunk = CO_WRITE_ROWS // CO_WRITE_CHUNK
         out["coalesced"] = arm_report(
             "region IVF_FLAT (B3) on the leader", "pipelined depth 2, "
@@ -2730,10 +2761,35 @@ def region_phase(x, queries, extra, gt, nlist, card, dev) -> dict:
               + f"; peak host RSS of the process {out['peak_rss'] / 2**30:.2f}"
               " GiB", flush=True)
 
+        # -- the cluster phase on this region ----------------------------------
+        captured = a_ = kw_ = None         # B3's arguments hold the IVF view
+        live_ids = np.concatenate([np.arange(n, dtype=np.int64),
+                                   wid[CO_DELETE_ROWS:],
+                                   [n + CO_WRITE_ROWS]])
+        live_vecs = np.concatenate([x, rows_w[CO_DELETE_ROWS:],
+                                    rows_w[:1]])
+        l_before = {f"{kf.__name__}{attr[len('launches'):]}": getattr(kf,
+                                                                       attr)
+                    for kf, attr in counters}
+        out["cluster"] = cluster_phase(coord, nodes, rid, live_ids,
+                                       live_vecs, extra, card, dev)
+        live_ids = live_vecs = None
+        out["cluster"]["launches"] = {
+            f"{kf.__name__}{attr[len('launches'):]}":
+            getattr(kf, attr) - l_before[
+                f"{kf.__name__}{attr[len('launches'):]}"]
+            for kf, attr in counters}
+        print(f"[{card}] cluster phase launches "
+              f"{out['cluster']['launches']}", flush=True)
+        check(out["cluster"]["launches"]["ivf_pruned_topk"] > 0,
+              "cluster phase: the share-served, own-index, sibling-merged "
+              "and rebuilt searches ran on B3")
+        lead = leader()
+
         # -- failover: the leader's node stops --------------------------------
         settle()
         want_ids = ids_of(search(lead, queries, **kw))
-        want_count = n + CO_WRITE_ROWS - CO_DELETE_ROWS + 1
+        want_count = out["cluster"]["count"]
         t0 = time.perf_counter()
         nodes[lead].stop()
         live_peers.remove(lead)
@@ -2771,6 +2827,451 @@ def region_phase(x, queries, extra, gt, nlist, card, dev) -> dict:
     return out
 
 
+#: the cluster phase: on each side of the split, rows upserted (new
+#: vectors for existing ids) and deleted while the child is served
+#: through the parent's index, proposed in chunks
+CLUSTER_UPSERTS, CLUSTER_DELETES, CLUSTER_CHUNK = 8192, 4096, 512
+
+
+def exact_topk_masked(vecs, ids, mask, q, k: int, dev):
+    """Exact L2 top-k ids (from `ids`) of q over the rows of `vecs` where
+    `mask` holds, computed on `dev` in f32 in row chunks: the cluster
+    phase's ground truth on a region's live rows."""
+    import torch
+
+    qt = torch.from_numpy(q).to(dev)
+    qsq = (qt * qt).sum(1)
+    best_d = best_i = None
+    for lo in range(0, len(vecs), 262_144):
+        sel = np.flatnonzero(mask[lo:lo + 262_144]) + lo
+        if not len(sel):
+            continue
+        xt = torch.from_numpy(vecs[sel]).to(dev)
+        d2 = qsq[:, None] - 2.0 * (qt @ xt.T) + (xt * xt).sum(1)[None, :]
+        v, i = torch.topk(d2, min(k, d2.shape[1]), dim=1, largest=False)
+        i = torch.from_numpy(ids[sel]).to(dev)[i]
+        if best_d is not None:
+            v, pos = torch.topk(torch.cat([best_d, v], 1), k, dim=1,
+                                largest=False)
+            i = torch.cat([best_i, i], 1).gather(1, pos)
+        best_d, best_i = v, i
+    return best_i.cpu().numpy()
+
+
+def cluster_phase(coord, nodes, rid, live_ids, live_vecs, extra, card,
+                  dev) -> dict:
+    """The in-process control plane on the region phase's trained region
+    (BASELINE.json config 2 under a coordinator): one split_check tick
+    (PreSplitChecker at split_check_approximate_keys, its default
+    1,000,000: the checker proposes the median id to the coordinator),
+    heartbeats deliver SPLIT and the raft group applies it on every
+    replica; the child searched through the parent's shared index (recall
+    @10 at nprobe 32 against exact top-10 over its range, equal ids on
+    every replica); CLUSTER_UPSERTS upserts and CLUSTER_DELETES deletes
+    proposed on each side while split, each visible when acknowledged and
+    on every replica once applied; HOLD_VECTOR_INDEX on each replica in
+    turn (the child's own index); coord.merge_region delivered by
+    heartbeats; the sibling-merged search (== numpy's merge of the two
+    indexes' answers, recall, replicas agree, no deleted id back);
+    finish_merge_index on each replica in turn; then a leader transfer
+    through the coordinator. `live_ids`/`live_vecs` are the region's rows
+    (updated here as the phase writes). Returns the phase's numbers; the
+    region's live row count under "count"."""
+    import torch
+
+    from dingo_tpu_torch.common.config import FLAGS
+    from dingo_tpu_torch.coordinator.balance import BalanceLeaderScheduler
+    from dingo_tpu_torch.coordinator.control import RegionCmd, RegionCmdType
+    from dingo_tpu_torch.index import codec as vcodec
+    from dingo_tpu_torch.index.base import FilterSpec
+    from dingo_tpu_torch.raft import NotLeader
+    from dingo_tpu_torch.store.checker import PreSplitChecker
+
+    k, kw = 10, {"nprobe": REGION_NPROBE}
+    d = live_vecs.shape[1]
+    sids = list(nodes)
+    cuda = dev.type == "cuda"
+    out: dict = {}
+    t_phase = time.perf_counter()
+    if cuda:
+        torch.cuda.synchronize()
+        # the region phase's own peak, then this phase's
+        out["region_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated() if cuda else 0
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def beat():
+        for nd in nodes.values():
+            nd.heartbeat_once()
+        return True
+
+    def wait(cond, what, timeout=120.0):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if cond():
+                return
+            time.sleep(0.05)
+        raise SmokeFailure(f"cluster phase: {what} within {timeout:.0f} s")
+
+    def leader_of(r, timeout=60.0):
+        got: list = []
+
+        def one():
+            got[:] = [s for s in sids
+                      if (rn := nodes[s].engine.get_node(r)) is not None
+                      and rn.is_leader()]
+            return len(got) == 1
+
+        wait(one, f"one raft leader of region {r}", timeout)
+        return got[0]
+
+    def on_leader(r, fn, attempts=20):
+        for _ in range(attempts):
+            s = leader_of(r)
+            try:
+                return s, fn(nodes[s], nodes[s].get_region(r))
+            except NotLeader:
+                time.sleep(0.1)
+        raise SmokeFailure(f"cluster phase: region {r}'s leadership never "
+                           "stabilized")
+
+    def settle(r):
+        target = nodes[leader_of(r)].engine.get_node(r).commit_index
+        wait(lambda: all(nodes[s].engine.get_node(r).last_applied >= target
+                         for s in sids),
+             f"every replica applied region {r}'s commit index", 300.0)
+
+    def search(s, r, q):
+        return nodes[s].storage.vector_batch_search(nodes[s].get_region(r),
+                                                    q, k, **kw)
+
+    def ids_of(rows):
+        return [[v.id for v in row] for row in rows]
+
+    def recall(got, gt):
+        return sum(len(set(g_) & set(w_.tolist()))
+                   for g_, w_ in zip(got, gt)) / (len(gt) * k)
+
+    def replicas(r, q, gt, what):
+        """Every replica's ids for q on region r: recall against gt on
+        each, the replicas' ids equal. Returns the first replica's ids."""
+        got = {s: ids_of(search(s, r, q)) for s in sids}
+        rec = {s: recall(got[s], gt) for s in sids}
+        same = all(got[s] == got[sids[0]] for s in sids)
+        print(f"[{card}] cluster {what}: recall@{k} at nprobe "
+              f"{REGION_NPROBE} " + ", ".join(f"{s} {v:.4f}"
+                                              for s, v in rec.items())
+              + f"; the replicas' ids equal {same}", flush=True)
+        check(min(rec.values()) >= 0.95 and same,
+              f"cluster {what}: recall@{k} >= 0.95 on every replica and "
+              "the replicas return the same ids")
+        out.setdefault("recall", {})[what] = rec
+        return got[sids[0]]
+
+    def timed(fn):
+        fn()
+        reads = []
+        for _ in range(ROUNDS):
+            t0 = time.perf_counter()
+            for _ in range(10):
+                fn()
+            reads.append((time.perf_counter() - t0) * 100.0)
+        return reads
+
+    def visibility(r, what, writes, on=None):
+        """Each upsert found by its own vector (top-1 its id), no deleted
+        id in the answer to its old vector, on every replica (or `on`)."""
+        for s in on or sids:
+            found = leaked = total_up = total_del = 0
+            for up_pos, del_pos in writes:
+                for lo in range(0, len(up_pos), 64):
+                    p_ = up_pos[lo:lo + 64]
+                    res = search(s, r, live_vecs[p_])
+                    found += sum(bool(row) and row[0].id == i for row, i in
+                                 zip(res, live_ids[p_]))
+                for lo in range(0, len(del_pos), 64):
+                    p_ = del_pos[lo:lo + 64]
+                    dead = set(live_ids[p_].tolist())
+                    res = search(s, r, live_vecs[p_])
+                    leaked += sum(v.id in dead for row in res for v in row)
+                total_up += len(up_pos)
+                total_del += len(del_pos)
+            check(found == total_up and leaked == 0,
+                  f"cluster {what}: {s} finds every upsert by its own "
+                  f"vector ({found}/{total_up}) and no deleted id "
+                  f"({leaked} of {total_del} deleted rows answered)")
+
+    alive = np.ones(len(live_ids), bool)
+    rng = np.random.default_rng(41)
+    beat()                      # the leader reports the region's leadership
+    lead = leader_of(rid)
+
+    # -- one split_check tick ------------------------------------------------
+    count = int(alive.sum())
+    flag = FLAGS.get("split_check_approximate_keys")
+    lowered = count < flag
+    if lowered:                 # a smaller run than config 2's million rows
+        FLAGS.set("split_check_approximate_keys", count)
+    try:
+        t0 = time.perf_counter()
+        proposals = PreSplitChecker(nodes[lead]).run()
+        check_s = time.perf_counter() - t0
+    finally:
+        if lowered:
+            FLAGS.set("split_check_approximate_keys", flag)
+    t_split = time.perf_counter()
+    median_id = int(np.sort(live_ids)[count // 2])
+    split_key = vcodec.encode_vector_key(0, median_id)
+    splits = [c for c in coord.jobs if c.cmd_type is RegionCmdType.SPLIT
+              and c.region_id == rid]
+    child = splits[-1].child_region_id if splits else None
+    print(f"[{card}] cluster split check: region {rid} holds {count} rows, "
+          f"split_check_approximate_keys {FLAGS.get('split_check_approximate_keys')}"
+          + (f" (lowered to {count} for this smaller run)" if lowered else "")
+          + f"; the checker proposed "
+          + (", ".join(f"id {vcodec.decode_vector_key(p_.split_key)[1]}"
+                       for p_ in proposals) or "nothing")
+          + f" (numpy's median id {median_id}) in {check_s:.2f} s; the "
+          f"coordinator queued SPLIT -> child {child}", flush=True)
+    check(len(proposals) == 1 and proposals[0].region_id == rid
+          and proposals[0].split_key == split_key and child is not None
+          and (lowered or flag == 1_000_000),
+          "cluster: the split checker proposed the median id by itself at "
+          "the default split_check_approximate_keys (1,000,000)")
+    if child is None:
+        raise SmokeFailure("cluster phase: no split was queued")
+
+    # -- heartbeats deliver SPLIT; the raft group applies it -----------------
+    wait(lambda: beat() and all(nodes[s].get_region(child) is not None
+                                for s in sids),
+         "every replica hosts the child")
+    lead_c = leader_of(child)
+    out["split_s"] = time.perf_counter() - t_split
+    parent_def, child_def = coord.regions[rid], coord.regions.get(child)
+    shared = [nodes[s].get_region(child).vector_index_wrapper.share_index
+              is not None for s in sids]
+    print(f"[{card}] cluster split: every replica hosts child {child} "
+          f"{out['split_s']:.2f} s after the proposal (its raft leader "
+          f"{lead_c}); coordinator: parent epoch version "
+          f"{parent_def.epoch.version}, child start == split key "
+          f"{child_def is not None and child_def.start_key == split_key}; "
+          f"child served through the parent's index on {sum(shared)}/3 "
+          "replicas", flush=True)
+    check(child_def is not None and child_def.start_key == split_key
+          and parent_def.end_key == split_key and all(shared),
+          "cluster split: the coordinator's map holds parent and child at "
+          "the split key, every replica serves the child through the "
+          "parent's index")
+
+    # -- the child through the share -----------------------------------------
+    in_child = live_ids >= median_id
+
+    def near(mask):
+        """64 queries near live rows where `mask` holds (the smoke's
+        recipe: a stored row + 0.05 noise)."""
+        rows_ = live_vecs[rng.choice(np.flatnonzero(mask), 64, replace=False)]
+        return (rows_ + 0.05 * rng.standard_normal(
+            (64, d), dtype=np.float32)).astype(np.float32)
+
+    qc, qp = near(in_child), near(~in_child)
+    replicas(child, qc, exact_topk_masked(live_vecs, live_ids,
+                                          alive & in_child, qc, k, dev),
+             "child through the share")
+    replicas(rid, qp, exact_topk_masked(live_vecs, live_ids,
+                                        alive & ~in_child, qp, k, dev),
+             "parent after the split")
+
+    # -- writes on each side while split ---------------------------------------
+    writes = []
+    t0 = time.perf_counter()
+    for side, r, in_side in (("parent", rid, ~in_child),
+                             ("child", child, in_child)):
+        cand = np.flatnonzero(alive & in_side)
+        sel = rng.choice(cand, CLUSTER_UPSERTS + CLUSTER_DELETES,
+                         replace=False)
+        up_pos, del_pos = sel[:CLUSTER_UPSERTS], sel[CLUSTER_UPSERTS:]
+        new = (extra[rng.integers(0, len(extra), CLUSTER_UPSERTS)]
+               + 0.35 * rng.standard_normal((CLUSTER_UPSERTS, d),
+                                            dtype=np.float32)
+               ).astype(np.float32)
+        seen_up = seen_del = 0
+        for lo in range(0, CLUSTER_UPSERTS, CLUSTER_CHUNK):
+            p_ = up_pos[lo:lo + CLUSTER_CHUNK]
+            s, _ = on_leader(r, lambda nd, reg: nd.storage.vector_add(
+                reg, live_ids[p_], new[lo:lo + CLUSTER_CHUNK]))
+            row = search(s, r, new[lo:lo + 1])[0]
+            seen_up += bool(row) and row[0].id == live_ids[p_[0]]
+        live_vecs[up_pos] = new
+        for lo in range(0, CLUSTER_DELETES, CLUSTER_CHUNK):
+            p_ = del_pos[lo:lo + CLUSTER_CHUNK]
+            s, _ = on_leader(r, lambda nd, reg: nd.storage.vector_delete(
+                reg, live_ids[p_].tolist()))
+            row = search(s, r, live_vecs[p_[:1]])[0]
+            seen_del += live_ids[p_[0]] not in [v.id for v in row]
+        alive[del_pos] = False
+        writes.append((up_pos, del_pos))
+        nup, ndel = CLUSTER_UPSERTS // CLUSTER_CHUNK, \
+            CLUSTER_DELETES // CLUSTER_CHUNK
+        print(f"[{card}] cluster writes while split, {side} side (region "
+              f"{r}): {CLUSTER_UPSERTS} upserts and {CLUSTER_DELETES} "
+              f"deletes in {CLUSTER_CHUNK}-row proposals; visible on the "
+              f"leader when acknowledged {seen_up}/{nup}, deleted rows gone "
+              f"{seen_del}/{ndel}", flush=True)
+        check(seen_up == nup and seen_del == ndel,
+              f"cluster writes ({side} side): each acknowledged write "
+              "visible on the leader")
+    out["writes_s"] = time.perf_counter() - t0
+    settle(rid)
+    settle(child)
+    visibility(rid, "parent side once applied", writes[:1])
+    visibility(child, "child side once applied (through the share)",
+               writes[1:])
+    gt_c = exact_topk_masked(live_vecs, live_ids, alive & in_child, qc, k,
+                             dev)
+    replicas(child, qc, gt_c, "child through the share after the writes")
+    reads_share = timed(lambda: search(lead_c, child, qc))
+
+    # -- HOLD_VECTOR_INDEX: the child's own index, one replica at a time ------
+    out["child_rebuild_s"] = {}
+    for i, s in enumerate(sids):
+        t0 = time.perf_counter()
+        nodes[s].execute_region_cmd(RegionCmd(
+            cmd_id=-(i + 1), region_id=child,
+            cmd_type=RegionCmdType.HOLD_VECTOR_INDEX))
+        sync()
+        out["child_rebuild_s"][s] = time.perf_counter() - t0
+        w = nodes[s].get_region(child).vector_index_wrapper
+        check(w.share_index is None and w.own_index is not None
+              and w.own_index.is_trained(),
+              f"cluster: HOLD_VECTOR_INDEX gave {s}'s child its own trained "
+              "index and dropped the share")
+    print(f"[{card}] cluster child rebuild (HOLD_VECTOR_INDEX, one replica "
+          "at a time): " + ", ".join(
+              f"{s} {v:.2f} s" for s, v in out["child_rebuild_s"].items()),
+          flush=True)
+    replicas(child, qc, gt_c, "child on its own index")
+    reads_own = timed(lambda: search(lead_c, child, qc))
+    visibility(child, "child side on its own index", writes[1:],
+               on=[lead_c])
+    out["share_ms"] = median_spread(reads_share)[0]
+    out["own_ms"] = median_spread(reads_own)[0]
+    print(f"[{card}] cluster child search, 64 queries, k {k}, nprobe "
+          f"{REGION_NPROBE} (host ms a search): through the parent's share "
+          f"{spread_text(reads_share)}, on its own index "
+          f"{spread_text(reads_own)}", flush=True)
+
+    # -- merge back -------------------------------------------------------------
+    end_key = parent_def.end_key if child_def is None else child_def.end_key
+    t0 = time.perf_counter()
+    coord.merge_region(rid, child)
+    wait(lambda: beat() and child not in coord.regions and all(
+        nodes[s].get_region(child) is None for s in sids),
+         "the child merged into its parent on every replica")
+    out["merge_s"] = time.perf_counter() - t0
+    lead = leader_of(rid)
+    sib = [nodes[s].get_region(rid).vector_index_wrapper.sibling_index
+           is not None for s in sids]
+    print(f"[{card}] cluster merge: child {child} absorbed on every replica "
+          f"{out['merge_s']:.2f} s after coord.merge_region; parent end key "
+          f"restored {coord.regions[rid].end_key == end_key}; sibling index "
+          f"attached on {sum(sib)}/3 replicas", flush=True)
+    check(coord.regions[rid].end_key == end_key and all(sib),
+          "cluster merge: the parent covers the whole range again and "
+          "serves the absorbed range through the sibling index")
+    qm = np.concatenate([qp[:32], qc[:32]])
+    gt_m = exact_topk_masked(live_vecs, live_ids, alive, qm, k, dev)
+    merged = replicas(rid, qm, gt_m, "merged region through the sibling")
+    # the sibling merge against numpy's merge of the two indexes' answers
+    region = nodes[lead].get_region(rid)
+    w = region.vector_index_wrapper
+    spec = FilterSpec(ranges=[region.id_window()])
+    a_ = w.own_index.search(qm, k, spec, **kw)
+    b_ = w.sibling_index.active().search(qm, k, spec, **kw)
+    want = []
+    for ra, rb in zip(a_, b_):
+        ids_ = np.concatenate([ra.ids, rb.ids])
+        dist = np.concatenate([ra.distances, rb.distances])
+        order = np.argsort(dist, kind="stable")
+        keep = []
+        for j in order:
+            if ids_[j] >= 0 and ids_[j] not in keep:
+                keep.append(int(ids_[j]))
+        want.append(keep[:k])
+    got = ids_of(search(lead, rid, qm))
+    check(got == want and got == merged,
+          "cluster merge: the sibling-merged search == numpy's merge of the "
+          "own and sibling indexes' answers (each id once)")
+    visibility(rid, "merged region through the sibling", writes)
+    reads_merged = timed(lambda: search(lead, rid, qm))
+
+    # -- finish_merge_index, one replica at a time ----------------------------
+    out["merge_rebuild_s"] = {}
+    for s in sids:
+        t0 = time.perf_counter()
+        nodes[s].finish_merge_index(rid)
+        sync()
+        out["merge_rebuild_s"][s] = time.perf_counter() - t0
+        w = nodes[s].get_region(rid).vector_index_wrapper
+        check(w.sibling_index is None and w.own_index.is_trained(),
+              f"cluster: finish_merge_index rebuilt {s}'s index whole and "
+              "dropped the sibling")
+    print(f"[{card}] cluster merge rebuild (finish_merge_index, one "
+          "replica at a time): " + ", ".join(
+              f"{s} {v:.2f} s" for s, v in out["merge_rebuild_s"].items()),
+          flush=True)
+    rebuilt = replicas(rid, qm, gt_m, "merged region on its rebuilt index")
+    visibility(rid, "merged region on its rebuilt index", writes,
+               on=[lead])
+    reads_rebuilt = timed(lambda: search(lead, rid, qm))
+    out["merged_ms"] = median_spread(reads_merged)[0]
+    out["rebuilt_ms"] = median_spread(reads_rebuilt)[0]
+    print(f"[{card}] cluster merged-region search, 64 queries (host ms a "
+          f"search): through the sibling merge {spread_text(reads_merged)}, "
+          f"on the rebuilt index {spread_text(reads_rebuilt)}", flush=True)
+
+    # -- a leader transfer through the coordinator -----------------------------
+    beat()
+    moved = BalanceLeaderScheduler(coord).dispatch()
+    old = leader_of(rid)
+    target = next(s for s in sids if s != old)
+    if not moved:
+        coord.transfer_leader(rid, target)
+    t0 = time.perf_counter()
+    wait(lambda: beat() and any(
+        nodes[s].engine.get_node(rid).is_leader() for s in sids if s != old),
+         "leadership moved off the old leader", 60.0)
+    new = leader_of(rid)
+    out["transfer_s"] = time.perf_counter() - t0
+    after = ids_of(search(new, rid, qm))
+    print(f"[{card}] cluster leader transfer: BalanceLeaderScheduler "
+          f"dispatched {moved} (one region: nothing to balance), "
+          f"coord.transfer_leader {old} -> {target}; {new} leads after "
+          f"{out['transfer_s']:.2f} s; its search returns the rebuilt ids "
+          f"{after == rebuilt}", flush=True)
+    check(new != old and after == rebuilt,
+          "cluster: leadership moved and the new leader's searches answer "
+          "with the same ids")
+
+    out["count"] = int(alive.sum())
+    out["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                       if cuda else 0.0)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[{card}] cluster phase: device peak {out['peak_gib']:.2f} GiB "
+          f"({base_bytes / 2**30:.2f} GiB held at its start); "
+          f"{out['seconds']:.1f} s", flush=True)
+    if out["peak_gib"] > 60.0:
+        print(f"[{card}] cluster phase: device holders (MiB) " + ", ".join(
+            f"{nm_} {b_ / 2**20:.1f}" for nm_, b_ in sorted(
+                device_holders(locals()).items(), key=lambda kv_: -kv_[1])),
+            flush=True)
+    recovery_quiet("cluster phase", card)
+    return out
+
+
 # -- HNSW on the card (BASELINE.json config 4) and the recovery ladder -------
 
 #: BASELINE.json config 4: HNSW 1M x 768, M = 32 (level-0 degree 64),
@@ -2778,14 +3279,15 @@ def region_phase(x, queries, extra, gt, nlist, card, dev) -> dict:
 HNSW_NLINKS = 32
 HNSW_EFC = 200
 HNSW_EF = 200
-#: rows of the HNSW phase's device bulk build: BASELINE's 1M (a quick pass
-#: at 131,072 rows built at 5,781 rows/s, so 1M fits well under 300 s;
-#: PERF.md section 4)
-HNSW_N = 1_000_000
+#: rows of the HNSW phase's device bulk build: half of BASELINE's 1M. The
+#: whole smoke with the cluster phase and a 1M build took 1059.7 s of its
+#: 1200 s limit (the HNSW phase 295.0 s; PERF.md sections 4 and 6), so the
+#: build's depth is cut; `--hnsw-n 1000000` runs config 4 whole
+HNSW_N = 500_000
 #: rows of the HNSW writes phase: its host graph inserts one row at a time
 #: on one thread (the JAX package's native graph; 9.60-17.29 ms a row at
 #: d 768 and 4,096 rows on the card's hosts, PERF.md section 4), so the
-#: inserts run in a thread beside the HNSW phase
+#: inserts run in a thread beside the region and HNSW phases
 HNSW_WRITE_N = 20_000
 #: the recovery phase's FLAT region
 RECOVERY_N = 65_536
@@ -3963,25 +4465,34 @@ def run(args) -> int:
     peak_gist = torch.cuda.max_memory_allocated()
 
     # -- the replicated region path: three StoreNodes over the same rows,
-    # every earlier phase's device state released first -------------------
+    # every earlier phase's device state released first: the last
+    # references into the fp32 phases' indexes, B3's argument tuple (the
+    # IVF view), the last pipelined FLAT index, resolved thunks (their
+    # closures hold the IVF wrapper) and kernel outputs. The HNSW writes
+    # phase's one-thread host graph inserts start here and run beside the
+    # region and HNSW phases ----------------------------------------------
+    a_ = idx_ = thunks = th = nsk = None
+    kv = ki = pv = pi = ks = ps = qpsq = bfilt = bfew = valid_ = None
+    rows_ = cols_ = live = None
+    import gc
+
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    print(f"[{card}] device memory held at the region phase's start: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    t_writes = time.perf_counter()
+    writes = hnsw_writes_start(HNSW_WRITE_N)
     region = region_phase(x, queries, extra, gt, nlist, card, dev)
-    peak_region = torch.cuda.max_memory_allocated()
+    peak_region = max(region["cluster"].get("region_peak_gib", 0.0) * 2**30,
+                      torch.cuda.max_memory_allocated())
 
     # -- HNSW (BASELINE.json config 4) on its own rows, then the HNSW writes
     # phase and the recovery ladder; every earlier phase's device state
     # released first ---------------------------------------------------------
     recovery_quiet("region phase", card)
-    # the last references into the fp32 phases' indexes: B3's argument
-    # tuple (the IVF view), the last pipelined FLAT index, resolved thunks
-    # (their closures hold the IVF wrapper) and kernel outputs
-    x = queries = extra = gt = a_ = idx_ = thunks = th = nsk = None
-    kv = ki = pv = pi = ks = ps = qpsq = bfilt = bfew = valid_ = None
-    rows_ = cols_ = live = None
-    import gc
-
+    x = queries = extra = gt = None
     gc.collect()                  # the stopped replicas' reference cycles
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -4002,10 +4513,10 @@ def run(args) -> int:
           f"before the HNSW phase ({held / 2**30:.2f} GiB held, less than "
           f"one {n} x {d} f32 store)")
     t0 = time.perf_counter()
-    writes = hnsw_writes_start(HNSW_WRITE_N)
     hnsw = hnsw_phase(args.hnsw_n, card)
     print(f"HNSW phase: {time.perf_counter() - t0:.1f} s (the writes "
-          "phase's host graph inserts ran beside it on another core)",
+          "phase's host graph inserts ran beside it and the region phase "
+          f"on another core, started {t0 - t_writes:.1f} s before it)",
           flush=True)
     recovery_quiet("HNSW phase", card)
     peak_hnsw = torch.cuda.max_memory_allocated()
@@ -4095,6 +4606,8 @@ def run(args) -> int:
     kernels.append(e)
     for e_ in kernels:
         e_["launches_region_phase"] = region["launches"].get(e_["name"], 0)
+        e_["launches_cluster_phase"] = region["cluster"]["launches"].get(
+            e_["name"], 0)
         e_["launches_recovery_phase"] = recovery["launches"].get(
             e_["name"], 0)
     check(len(kernels) == 13 and all(e_["parity"] for e_ in kernels),
@@ -4106,7 +4619,8 @@ def run(args) -> int:
           f"{peak_fp32 / 2**30:.2f} GiB, tier phase "
           f"{peak_tiers / 2**30:.2f} GiB, d {GIST_D} phase "
           f"{peak_gist / 2**30:.2f} GiB, region phase "
-          f"{peak_region / 2**30:.2f} GiB, HNSW phase "
+          f"{peak_region / 2**30:.2f} GiB (its cluster phase "
+          f"{region['cluster']['peak_gib']:.2f} GiB), HNSW phase "
           f"{peak_hnsw / 2**30:.2f} GiB ({held / 2**30:.2f} GiB of it "
           "held from before)", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

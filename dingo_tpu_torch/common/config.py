@@ -231,6 +231,44 @@ FLAGS.define("device_recovery_remat_precision", "sq8", mutable=True,
                    "re-materialized at (the region definition keeps its "
                    "declared precision)")
 
+# the control plane: heartbeats, the split checker, the metrics collector,
+# the balance/replica planners, the capacity plane and the view-compaction
+# crontab (the JAX package's names and defaults)
+FLAGS.define("server_heartbeat_interval_s", 10, mutable=True)
+FLAGS.define("region_max_size_bytes", 256 * 1024 * 1024, mutable=True)
+FLAGS.define("split_check_approximate_keys", 1_000_000, mutable=True)
+FLAGS.define("metrics_collect_interval_s", 5.0, mutable=True,
+             help_="StoreMetricsCollector crontab period; heartbeats also "
+                   "refresh snapshots older than this so beats never ship "
+                   "stale figures even without the crontab")
+FLAGS.define("balance_mode", "count", mutable=True,
+             help_="leader balancing signal: 'count' (leader tallies) or "
+                   "'load' (measured per-region QPS + memory bytes from "
+                   "store metrics; falls back to count while metrics are "
+                   "missing or stale)")
+FLAGS.define("balance_replica_mode", "off", mutable=True,
+             help_="coordinator replica planning: 'off' or 'auto' (scale "
+                   "a region's read-replica count from its measured QPS "
+                   "via the store-metrics plane; placement picks the "
+                   "least-loaded stores)")
+FLAGS.define("balance_replica_qps_target", 50.0, mutable=True,
+             help_="replica planning aims for at most this many QPS per "
+                   "replica before adding another (auto mode)")
+FLAGS.define("capacity_advise", True, mutable=True,
+             help_="coordinator capacity plane: roll per-store device "
+                   "headroom vs heartbeat working-set demand and emit "
+                   "advisory tier/split recommendations (capacity.* "
+                   "metrics); never actuates")
+FLAGS.define("capacity_headroom_target", 0.2, mutable=True,
+             help_="fraction of a store's device memory the capacity plane "
+                   "wants free: below it the coldest region (most resident "
+                   "bytes outside its working set) draws a demote "
+                   "advisory")
+FLAGS.define("ivf_compact_interval_s", 60.0, mutable=True,
+             help_="period of the IVF view-compaction crontab: restores "
+                   "the dense bucket layout (full rebuild) off the search "
+                   "path once tombstone/spill garbage accumulates")
+
 
 def _parse_tri(flag) -> Optional[bool]:
     """Tri-state crossover flag: None = 'auto', True/False force. FLAGS.set

@@ -140,6 +140,18 @@ def _series_key(name: str, region_id: Optional[int],
     return name + "{" + ",".join(f"{k}={v}" for k, v in parts) + "}"
 
 
+def split_series_key(key: str) -> Tuple[str, List[Tuple[str, str]]]:
+    """Inverse of _series_key: `name{k=v,...}` -> (name, [(k, v), ...])."""
+    if not key.endswith("}") or "{" not in key:
+        return key, []
+    name, _, rest = key.partition("{")
+    pairs = []
+    for item in rest[:-1].split(","):
+        k, _, v = item.partition("=")
+        pairs.append((k, v))
+    return name, pairs
+
+
 class MetricsRegistry:
     """Named counters, gauges and latency recorders with a region
     dimension plus labels."""
@@ -170,6 +182,19 @@ class MetricsRegistry:
             if rec is None:
                 rec = self._latencies[key] = LatencyRecorder()
             return rec
+
+    def drop_region(self, region_id: int) -> int:
+        """Forget every series labeled region=<id> (a departed region's
+        gauges must not report its last values forever)."""
+        tag = ("region", str(region_id))
+        n = 0
+        with self._lock:
+            for d in (self._counters, self._gauges, self._latencies):
+                dead = [k for k in d if tag in split_series_key(k)[1]]
+                for k in dead:
+                    del d[k]
+                n += len(dead)
+        return n
 
     def dump(self) -> Dict[str, object]:
         """/vars-style dump: series key -> value (a latency series -> its

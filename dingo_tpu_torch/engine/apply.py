@@ -12,8 +12,9 @@ then the vector index is updated iff log_id > wrapper.apply_log_id — the
 in-memory ANN index is an apply-log-tracked materialized view that can always
 be rebuilt from the engine.
 
-Ported: kv put/delete/delete-range, vector add/delete and region install.
-Split, merge, documents and transactions raise NotPorted.
+Ported: kv put/delete/delete-range, vector add/delete, region install, and
+split and merge (routed to the hosting StoreNode's handlers). Documents and
+transactions raise NotPorted.
 """
 
 from __future__ import annotations
@@ -55,8 +56,20 @@ def apply_write(
     from dingo_tpu_torch.common.failpoint import failpoint
 
     failpoint("before_apply")
-    if isinstance(data, (wd.SplitRegionData, wd.MergeRegionData,
-                         wd.DocumentAddData, wd.DocumentDeleteData,
+    if isinstance(data, wd.SplitRegionData):
+        if context is None:
+            raise NotImplementedError(
+                "region split needs a StoreNode context (mono engines do "
+                "not host split topology)"
+            )
+        context.handle_split(region, data, log_id)
+        return None
+    if isinstance(data, wd.MergeRegionData):
+        if context is None:
+            raise NotImplementedError("region merge needs a StoreNode context")
+        context.handle_merge(region, data, log_id)
+        return None
+    if isinstance(data, (wd.DocumentAddData, wd.DocumentDeleteData,
                          wd.TxnRaftData)):
         raise NotPorted(f"{type(data).__name__} apply is not ported yet")
     if isinstance(data, wd.RegionInstallData):

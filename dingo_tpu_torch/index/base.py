@@ -111,6 +111,24 @@ def resolve_precision(parameter: IndexParameter) -> str:
     return tier
 
 
+_ATOMS = (int, float, str, bytes, np.generic, type(None))
+
+
+def _members(values) -> list:
+    """The non-scalar members of a dict's values or a list, copied first:
+    the raft apply threads change an index's maps while a reader walks
+    them. list() copies a dict view or a list in C, without a thread
+    switch between items; a resize that lands in it all the same is
+    retried."""
+    while True:
+        try:
+            items = list(values)
+            break
+        except RuntimeError:  # changed size during the copy
+            continue
+    return [v for v in items if not isinstance(v, _ATOMS)]
+
+
 def tensor_bytes(root) -> int:
     """Bytes of the distinct torch tensors reachable from an index: its
     own attributes and those of the port's objects it holds (store, view,
@@ -133,12 +151,15 @@ def tensor_bytes(root) -> int:
             continue
         seen_obj.add(id(obj))
         if isinstance(obj, dict):
-            stack.extend(obj.values())
+            # scalars hold no tensor: an id -> slot map of a million rows
+            # must not cost a million stack visits (the metrics collector
+            # calls this on every heartbeat's collection)
+            stack.extend(_members(obj.values()))
         elif isinstance(obj, (list, tuple)):
-            stack.extend(obj)
+            stack.extend(_members(obj))
         elif type(obj).__module__.startswith("dingo_tpu_torch"):
-            stack.extend(vars(obj).values() if hasattr(obj, "__dict__")
-                         else ())
+            if hasattr(obj, "__dict__"):
+                stack.extend(_members(vars(obj).values()))
     return total
 
 

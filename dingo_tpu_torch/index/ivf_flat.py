@@ -248,6 +248,12 @@ class IvfViewMaintenance:
         path)."""
         self._rebuild_view()
 
+    def maybe_compact(self) -> bool:
+        if self.need_compact():
+            self.compact()
+            return True
+        return False
+
     def view_stats(self) -> dict:
         out = {"built": self._view is not None, "dirty": self._view_dirty}
         if self._view is not None:

@@ -20,8 +20,9 @@ device; DeviceUnavailable without one) and keeps the last build's split
 may take a ``param_override`` (the device recovery's re-materialization
 narrows the precision this way, leaving the region definition alone), and
 an index with a bulk session (HNSW behind ``hnsw_device_build``) builds
-its graph on the device from the same scan pages. The tiering plane's
-rebuilds and the view-compaction crontab are not ported.
+its graph on the device from the same scan pages. ``compact_views`` is the
+view-compaction crontab's entry point. The tiering plane's rebuilds are
+not ported.
 """
 
 from __future__ import annotations
@@ -167,12 +168,17 @@ class VectorIndexManager:
             self.replay_wal(index, region, raft_log,
                             index.apply_log_id + 1, target)
         with wrapper._lock:
-            self.replay_wal(index, region, raft_log,
-                            index.apply_log_id + 1, wrapper.apply_log_id)
-            wrapper.own_index = index
-            wrapper.ready = True
-            wrapper.build_error = False
-            wrapper.share_index = None
+            wrapper.is_switching = True
+            try:
+                self.replay_wal(index, region, raft_log,
+                                index.apply_log_id + 1,
+                                wrapper.apply_log_id)
+                wrapper.own_index = index
+                wrapper.ready = True
+                wrapper.build_error = False
+                wrapper.share_index = None
+            finally:
+                wrapper.is_switching = False
 
     def rebuild(self, region: Region,
                 raft_log: Optional[RaftLog] = None,
@@ -363,6 +369,28 @@ class VectorIndexManager:
                 # tick retries (wrapper.build_error carries the state)
                 actions["error"] = str(e)
         return actions
+
+    # ---------------- IVF view compaction ----------------
+    def compact_views(self, regions) -> int:
+        """Crontab entry point (registered at ivf_compact_interval_s):
+        compact every region index whose incrementally-maintained IVF view
+        crossed its tombstone/spill thresholds. Cheaper cadence than scrub
+        (no rebuild/save checks) so garbage never waits a full scrub
+        period."""
+        n = 0
+        for region in regions:
+            wrapper = region.vector_index_wrapper
+            own = wrapper.own_index if wrapper is not None else None
+            if own is None or not hasattr(own, "maybe_compact"):
+                continue
+            try:
+                if own.maybe_compact():
+                    n += 1
+                    region_log(_log, region.id).info("ivf view compacted")
+            except Exception:  # noqa: BLE001 — best-effort maintenance
+                _log.exception("view compaction failed (region %d)",
+                               region.id)
+        return n
 
     # ---------------- helpers ----------------
     def _reader(self, region: Region) -> VectorReader:

@@ -27,9 +27,10 @@ advisory-lower tier ``device_recovery_remat_precision`` (the region
 definition keeps its declared precision). On success the region leaves
 degraded mode.
 
-Not ported: the heartbeat's ``device_degraded`` flag and the flight
-recorder's events (the control and observability planes), and the
-scrub-corruption rebuild, which needs the integrity scrub
+The store's metrics collector reports a degraded region to the
+coordinator (``RegionMetricsSnapshot.device_degraded``) in every
+heartbeat. Not ported: the flight recorder's events (the observability
+planes) and the scrub-corruption rebuild, which needs the integrity scrub
 (``_rebuild_corrupted`` raises NotPorted if a scrub verdict ever reaches
 it).
 """

@@ -30,10 +30,20 @@ from dingo_tpu_torch.ops.distance import metric_ascending
 
 
 def _merge_results(a: SearchResult, b: SearchResult, topk: int, metric):
+    """The post-merge sibling merge: both answers in score order, each id
+    once. The target's own index still holds the absorbed range's rows
+    from before the split, so an id can come from both indexes; the JAX
+    package keeps both copies (its top-k then repeats ids), the port keeps
+    the better-scored one (stable: the target's on a tie)."""
     ids = np.concatenate([a.ids, b.ids])
     d = np.concatenate([a.distances, b.distances])
-    order = np.argsort(d if metric_ascending(metric) else -d)[:topk]
-    return SearchResult(ids[order], d[order])
+    order = np.argsort(d if metric_ascending(metric) else -d, kind="stable")
+    ids, d = ids[order], d[order]
+    _, first = np.unique(ids, return_index=True)
+    keep = np.zeros(len(ids), bool)
+    keep[first] = True
+    keep |= ids < 0
+    return SearchResult(ids[keep][:topk], d[keep][:topk])
 
 
 class VectorIndexWrapper:
@@ -51,6 +61,9 @@ class VectorIndexWrapper:
         self.ready = False
         self.stopped = False
         self.build_error = False
+        #: set while the manager installs a rebuilt or loaded index (the
+        #: final catch-up round and the switch, under the wrapper lock)
+        self.is_switching = False
         self.apply_log_id = 0
         self.snapshot_log_id = 0
         self.write_count = 0
@@ -220,3 +233,9 @@ class VectorIndexWrapper:
     def get_memory_size(self) -> int:
         idx = self.own_index
         return idx.get_memory_size() if idx else 0
+
+    def get_device_memory_size(self) -> int:
+        """Device bytes of the OWN index (a shared parent's tensors are
+        accounted on the parent's region, not double-counted here)."""
+        idx = self.own_index
+        return idx.get_device_memory_size() if idx else 0

@@ -1,0 +1,123 @@
+"""The crontab schedules of the coordinator and store roles (the
+in-process half of dingo_tpu/server/main.py, reference
+src/server/main.cc:526-541 and server.cc:506-700).
+
+``coordinator_crontab`` and ``store_crontab`` take an in-process
+coordinator (a CoordinatorControl, or a RaftMetaCoordinator whose proxies
+route mutations through its raft group) or a StoreNode and return a
+CrontabManager carrying the jobs of the JAX package's schedule that the
+port has: the coordinator's store-state update, lease GC and the three
+balance/replica planners; the store's heartbeat, split check, vector-index
+scrub, IVF view compaction and metrics collection. The gRPC serving of
+either role, and the store jobs whose modules are not ported (MVCC and
+scan GC, the quality tuner, load shedding, the integrity scrub, tiering),
+are not carried.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Callable, Optional
+
+from dingo_tpu_torch.common.config import FLAGS
+from dingo_tpu_torch.common.crontab import CrontabManager
+from dingo_tpu_torch.common.log import get_logger
+from dingo_tpu_torch.coordinator.balance import (
+    BalanceLeaderScheduler,
+    BalanceRegionScheduler,
+    ReplicaPlanScheduler,
+)
+from dingo_tpu_torch.store.checker import PreSplitChecker
+
+_log = get_logger("server.main")
+
+
+def coordinator_crontab(control, kv_control,
+                        is_leader: Optional[Callable[[], bool]] = None
+                        ) -> CrontabManager:
+    """The coordinator's schedule (reference main.py serve_coordinator):
+    mutations run only where `is_leader()` holds (a follower of a
+    replicated coordinator would bounce with NotLeader); a single
+    coordinator passes no `is_leader`."""
+    is_leader = is_leader or (lambda: True)
+
+    def when_leader(fn):
+        return lambda: fn() if is_leader() else None
+
+    crontab = CrontabManager()
+    crontab.add("update_store_state", 5.0,
+                when_leader(control.update_store_states))
+    crontab.add("lease_gc", 10.0, when_leader(kv_control.lease_gc))
+    balance_leader = BalanceLeaderScheduler(control)
+
+    def dispatch_balance_leader():
+        # balance_mode is hot-changeable — re-read per tick
+        balance_leader.mode = str(FLAGS.get("balance_mode"))
+        return balance_leader.dispatch()
+
+    crontab.add("balance_leader", 30.0, when_leader(dispatch_balance_leader))
+    crontab.add("balance_region", 60.0,
+                when_leader(BalanceRegionScheduler(control).dispatch))
+    # the replica planner reads balance_replica_mode/qps_target per tick
+    # and no-ops while the mode is off or the metrics are stale
+    crontab.add("replica_plan", 30.0,
+                when_leader(ReplicaPlanScheduler(control).dispatch))
+    crontab.start()
+    return crontab
+
+
+def store_crontab(node) -> CrontabManager:
+    """The store's schedule (reference main.py serve_store) over an
+    in-process node: the heartbeat reaches ``node.coordinator`` directly."""
+    crontab = CrontabManager()
+    if node.coordinator is not None:
+        crontab.add("heartbeat",
+                    float(FLAGS.get("server_heartbeat_interval_s")),
+                    node.heartbeat_once, immediately=True)
+    crontab.add("split_check", 60.0,
+                lambda: PreSplitChecker(node).run()
+                if node.coordinator else None)
+    scrub_worker = {"thread": None}
+
+    def scrub_all():
+        # rebuilds/saves can take minutes; run them OFF the shared crontab
+        # thread so the other jobs keep ticking, one worker at a time
+        t = scrub_worker["thread"]
+        if t is not None and t.is_alive():
+            return
+
+        def work():
+            for r in node.meta.get_all_regions():
+                raft = node.engine.get_node(r.id)
+                actions = node.index_manager.scrub(
+                    r, act=True, raft_log=raft.log if raft else None
+                )
+                if actions.get("error"):
+                    _log.warning("scrub region %d: %s", r.id,
+                                 actions["error"])
+
+        t = threading.Thread(target=work, name="scrub", daemon=True)
+        scrub_worker["thread"] = t
+        t.start()
+
+    crontab.add("scrub_vector_index", 60.0, scrub_all)
+    # IVF view compaction: restores the dense bucket layout once the
+    # incrementally-maintained view accumulates tombstone/spill garbage,
+    # off the search path (index/manager.py compact_views)
+    crontab.add(
+        "ivf_compact",
+        float(FLAGS.get("ivf_compact_interval_s")),
+        lambda: node.index_manager.compact_views(
+            node.meta.get_all_regions()
+        ),
+    )
+    # metrics collection rides its own crontab so heartbeats reuse the
+    # cached snapshot instead of paying a full region sweep per beat
+    crontab.add(
+        "store_metrics",
+        float(FLAGS.get("metrics_collect_interval_s")),
+        node.metrics.collect,
+        immediately=True,
+    )
+    crontab.start()
+    return crontab

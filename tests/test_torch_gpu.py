@@ -1856,3 +1856,150 @@ def test_recovery_retry_and_degrade_on_card_region():
         DEVFAULT.disarm()
         RECOVERY.clear()
         node.stop()
+
+
+# ---------------- the control plane: split and merge on the card -----------
+
+def _wait(cond, what, timeout=30.0):
+    import time
+
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if cond():
+            return
+        time.sleep(0.02)
+    raise AssertionError(f"timed out: {what}")
+
+
+def _leader_of(nodes, rid):
+    out = []
+
+    def one():
+        out[:] = [s for s, n in nodes.items()
+                  if (r := n.engine.get_node(rid)) is not None
+                  and r.is_leader()]
+        return len(out) == 1
+
+    _wait(one, f"a leader of region {rid}")
+    return out[0]
+
+
+def _assert_exact(rows, x, ids, q, k=10):
+    """Each reply row is a valid exact top-k of `q` over rows `x` (with
+    ids `ids`): the same id set, or the same sorted distances (ties)."""
+    pos = {int(i): j for j, i in enumerate(ids)}
+    for qi, row in enumerate(rows):
+        got = [v.id for v in row]
+        assert len(got) == k and len(set(got)) == k, (qi, got)
+        d2 = ((x - q[qi][None, :]) ** 2).sum(1)
+        want = np.argsort(d2, kind="stable")[:k]
+        have = np.sort(d2[[pos[i] for i in got]])
+        assert set(got) == set(ids[want].tolist()) or np.allclose(
+            have, np.sort(d2[want]), rtol=1e-4), (qi, got)
+
+
+def test_region_split_and_merge_on_the_card():
+    """A coordinator and three stores on the card: an IVF_FLAT region
+    created by the coordinator and delivered by heartbeats, trained on
+    every replica, split at id 3000 by a coordinator command, its child
+    served through the parent's shared index, then by its own index, then
+    merged back and served through the sibling merge, then rebuilt whole.
+    Each search (nprobe = nlist) equals numpy's exact top-10 modulo ties;
+    B4 serves the untrained scan and B3 every trained search."""
+    from dingo_tpu_torch.coordinator.control import CoordinatorControl
+    from dingo_tpu_torch.engine.raw_engine import MemEngine
+    from dingo_tpu_torch.index import codec as vcodec
+    from dingo_tpu_torch.index.base import IndexParameter, IndexType
+    from dingo_tpu_torch.ops import kernel_ivf_pruned, kernel_topk_pruned
+    from dingo_tpu_torch.raft import LocalTransport
+    from dingo_tpu_torch.store.node import StoreNode
+    from dingo_tpu_torch.store.region import RegionType
+
+    _cuda()
+    x, q = _region_data()
+    n, nlist, mid = len(x), 16, 3000
+    ids = np.arange(n)
+    transport = LocalTransport()
+    coord = CoordinatorControl(MemEngine(), replication=3)
+    nodes = {sid: StoreNode(sid, transport, coord, raft_kw={
+        "seed": i, "election_timeout": (1.0, 2.0),
+        "heartbeat_interval": 0.1}) for i, sid in enumerate(
+            ("s0", "s1", "s2"))}
+    b3 = kernel_ivf_pruned.ivf_pruned_topk
+    b4 = kernel_topk_pruned.pruned_fused_topk
+
+    def beat(rounds=2):
+        for _ in range(rounds):
+            for nd in nodes.values():
+                nd.heartbeat_once()
+
+    def search(rid, **kw):
+        return {s: nd.storage.vector_batch_search(nd.get_region(rid), q, 10,
+                                                  **kw)
+                for s, nd in nodes.items()}
+
+    try:
+        d = coord.create_region(
+            vcodec.encode_vector_key(0, 0), vcodec.encode_vector_key(1),
+            region_type=RegionType.INDEX, index_parameter=IndexParameter(
+                index_type=IndexType.IVF_FLAT, dimension=x.shape[1],
+                ncentroids=nlist, default_nprobe=nlist))
+        rid = d.region_id
+        beat()
+        _wait(lambda: all(nd.get_region(rid) for nd in nodes.values()),
+              "every store hosts the region")
+        lead = _leader_of(nodes, rid)
+        for lo in range(0, n, 1000):
+            nodes[lead].storage.vector_add(
+                nodes[lead].get_region(rid), ids[lo:lo + 1000],
+                x[lo:lo + 1000])
+        commit = nodes[lead].engine.get_node(rid).commit_index
+        _wait(lambda: all(nd.engine.get_node(rid).last_applied >= commit
+                          for nd in nodes.values()), "replicas applied")
+        l4 = b4.launches
+        for rows in search(rid).values():
+            _assert_exact(rows, x, ids, q)
+        assert b4.launches >= l4 + 3
+        for nd in nodes.values():
+            nd.index_manager.rebuild(nd.get_region(rid),
+                                     raft_log=nd.engine.get_node(rid).log)
+        beat()                       # the leader reports its region
+        child = coord.split_region(rid, vcodec.encode_vector_key(0, mid))
+        _wait(lambda: (beat(1) or True) and all(
+            nd.get_region(child) is not None for nd in nodes.values()),
+            "every store hosts the child")
+        assert coord.regions[child].start_key == \
+            vcodec.encode_vector_key(0, mid)
+        xc, ic = x[mid:], ids[mid:]
+        for stage in ("share", "own"):
+            l3 = b3.launches
+            got = search(child, nprobe=nlist)
+            assert b3.launches >= l3 + 3, stage
+            for s, rows in got.items():
+                w = nodes[s].get_region(child).vector_index_wrapper
+                assert (w.share_index is not None) == (stage == "share")
+                _assert_exact(rows, xc, ic, q)
+            if stage == "share":
+                for nd in nodes.values():
+                    nd.finish_child_index(child)
+        for rows in search(rid, nprobe=nlist).values():
+            _assert_exact(rows, x[:mid], ids[:mid], q)
+        coord.merge_region(rid, child)
+        _wait(lambda: (beat(1) or True) and all(
+            nd.get_region(child) is None for nd in nodes.values()),
+            "the child merged away")
+        assert child not in coord.regions
+        for stage in ("sibling", "rebuilt"):
+            l3 = b3.launches
+            got = search(rid, nprobe=nlist)
+            assert b3.launches >= l3 + 3, stage
+            for s, rows in got.items():
+                w = nodes[s].get_region(rid).vector_index_wrapper
+                assert (w.sibling_index is not None) == (stage == "sibling")
+                _assert_exact(rows, x, ids, q)
+            if stage == "sibling":
+                for nd in nodes.values():
+                    nd.finish_merge_index(rid)
+    finally:
+        for nd in nodes.values():
+            nd.stop()
