@@ -54,7 +54,27 @@ route at GIST1M's width (1,000,000 x 960 f32 from the same recipe, nlist
 1024, every flag at its default): 960 does not tile into 128-column
 blocks, so a FLAT index serves on B1 and an IVF_FLAT region on B2 (B3 and
 B4 must not launch), with recall@10, each kernel against its plain
-version, both timed in turns and pipelined ms/batch with a profile. The
+version, both timed in turns and pipelined ms/batch with a profile.
+Before it, VectorIndex.range_search on the fp32 IVF_FLAT region (a radius
+per query midway between two rows' f64 distances near its 300th
+neighbour; the hits == the exact set). After it, the binary family on the
+same rows binarized by sign (768 bits, 96 packed bytes a row): a
+BINARY_FLAT index (the exact int8 +/-1 product's ms and temporary bytes,
+hamming top-10 == a popcount reference on the card, ids modulo ties,
+pipelined ms, device bytes against the packed size, range search == the
+exact set and the 1,024 cap), a BINARY_IVF_FLAT index at nlist 1024
+(train, recall@10 modulo ties at nprobe 16/32/64 with the gate >= 0.95,
+full probe == FLAT, pipelined ms), 8,192 upserts and 4,096 deletes on
+both, and a binary region through Storage and IndexService(node) (the
+brute force untrained, the index after the manager's rebuild, a filter
+and a radius request, the pipelined arm's staged misses); no B1-B5 launch
+in the phase. Then the diskann role's core at config 3's widths (m 96)
+on the 1M rows under tempfile.gettempdir(): push_data, the build split
+into coarse fit / PQ fit / encode, the load's device bytes, searches at
+nprobe 32 with rerank factor 32 (ms split into ADC scan, disk gather and
+rerank; recall@10 >= 0.95; distances == f64), a restart, upserts in place
+and the item manager's asynchronous rebuild, then close, reset and
+destroy. The
 tensor-core instructions of B1's and B2's arms (cuobjdump) are counted
 and checked (TF32 in the f32 arms, bf16 in the bf16 arms). Every kernel is
 held against its plain PyTorch version on the card (B3/B4 for L2 and IP,
@@ -2358,13 +2378,7 @@ def region_phase(x, queries, extra, gt, nlist, card, dev) -> dict:
     from dingo_tpu_torch.index import codec as vcodec
     from dingo_tpu_torch.index.base import IndexParameter, IndexType
     from dingo_tpu_torch.index.vector_reader import VectorReader
-    from dingo_tpu_torch.ops import (
-        kernel_ivf,
-        kernel_ivf_pruned,
-        kernel_pq,
-        kernel_topk,
-        kernel_topk_pruned,
-    )
+    from dingo_tpu_torch.ops import kernel_ivf_pruned, kernel_topk_pruned
     from dingo_tpu_torch.ops.distance import Metric
     from dingo_tpu_torch.raft import LocalTransport, NotLeader
     from dingo_tpu_torch.server.services import IndexService
@@ -2375,15 +2389,7 @@ def region_phase(x, queries, extra, gt, nlist, card, dev) -> dict:
     k = 10
     t_phase = time.perf_counter()
     # every arm's launch counter, zeroed: the phase's own launches
-    counters = [(kf, attr) for kf in (
-        kernel_topk.fused_topk, kernel_ivf.ivf_list_topk,
-        kernel_ivf_pruned.ivf_pruned_topk,
-        kernel_topk_pruned.pruned_fused_topk, kernel_pq.ivf_pq_adc_topk,
-        kernel_pq.ivfpq_adc_lut)
-        for attr in ("launches", "launches_bf16", "launches_sq8")
-        if hasattr(kf, attr)]
-    for kf, attr in counters:
-        setattr(kf, attr, 0)
+    counters = zero_launches()
     b3 = kernel_ivf_pruned.ivf_pruned_topk
     b4 = kernel_topk_pruned.pruned_fused_topk
     out: dict = {}
@@ -2768,17 +2774,13 @@ def region_phase(x, queries, extra, gt, nlist, card, dev) -> dict:
                                    [n + CO_WRITE_ROWS]])
         live_vecs = np.concatenate([x, rows_w[CO_DELETE_ROWS:],
                                     rows_w[:1]])
-        l_before = {f"{kf.__name__}{attr[len('launches'):]}": getattr(kf,
-                                                                       attr)
-                    for kf, attr in counters}
+        l_before = read_launches(counters)
         out["cluster"] = cluster_phase(coord, nodes, rid, live_ids,
                                        live_vecs, extra, card, dev)
         live_ids = live_vecs = None
         out["cluster"]["launches"] = {
-            f"{kf.__name__}{attr[len('launches'):]}":
-            getattr(kf, attr) - l_before[
-                f"{kf.__name__}{attr[len('launches'):]}"]
-            for kf, attr in counters}
+            name: v - l_before[name]
+            for name, v in read_launches(counters).items()}
         print(f"[{card}] cluster phase launches "
               f"{out['cluster']['launches']}", flush=True)
         check(out["cluster"]["launches"]["ivf_pruned_topk"] > 0,
@@ -2816,8 +2818,7 @@ def region_phase(x, queries, extra, gt, nlist, card, dev) -> dict:
         raft_engine.apply_write = orig_apply
         for s in REGION_PEERS:
             nodes[s].stop()
-    out["launches"] = {kf.__name__ + attr[len("launches"):]:
-                       getattr(kf, attr) for kf, attr in counters}
+    out["launches"] = read_launches(counters)
     check(out["launches"]["ivf_pruned_topk"] > 0
           and out["launches"]["pruned_fused_topk"] > 0,
           f"region phase launched B3 and B4 {out['launches']}")
@@ -2825,6 +2826,38 @@ def region_phase(x, queries, extra, gt, nlist, card, dev) -> dict:
     print(f"[{card}] region phase launches {out['launches']}; "
           f"{out['seconds']:.1f} s", flush=True)
     return out
+
+
+def launch_counters():
+    """Every kernel arm's launch counter, as (wrapper, attribute)."""
+    from dingo_tpu_torch.ops import (
+        kernel_beam,
+        kernel_ivf,
+        kernel_ivf_pruned,
+        kernel_pq,
+        kernel_topk,
+        kernel_topk_pruned,
+    )
+
+    return [(kf, attr) for kf in (
+        kernel_topk.fused_topk, kernel_ivf.ivf_list_topk,
+        kernel_ivf_pruned.ivf_pruned_topk,
+        kernel_topk_pruned.pruned_fused_topk, kernel_pq.ivf_pq_adc_topk,
+        kernel_pq.ivfpq_adc_lut, kernel_beam.candidate_scores)
+        for attr in ("launches", "launches_bf16", "launches_sq8")
+        if hasattr(kf, attr)]
+
+
+def zero_launches() -> list:
+    counters = launch_counters()
+    for kf, attr in counters:
+        setattr(kf, attr, 0)
+    return counters
+
+
+def read_launches(counters) -> dict:
+    return {kf.__name__ + attr[len("launches"):]: getattr(kf, attr)
+            for kf, attr in counters}
 
 
 #: the cluster phase: on each side of the split, rows upserted (new
@@ -3810,6 +3843,633 @@ def recovery_phase(card: str) -> dict:
     return out
 
 
+#: the binary phase: rows upserted (new packed rows for existing ids) and
+#: deleted, on FLAT and on IVF_FLAT, and the radius search's target count
+BIN_UPSERTS, BIN_DELETES, BIN_RANGE_MAX = 8192, 4096, 1024
+#: DiskANN (BASELINE.json config 3's widths): subspaces, probes, and the
+#: rows each push carries
+DK_M, DK_NPROBE, DK_PUSH = 96, 32, 65536
+
+
+def exact_hamming_device(qb, xb, dev, chunk: int = 8192):
+    """[b, n] exact hamming distances of packed rows on the card: a
+    popcount table over the XOR of the bytes (a reference independent of
+    the indexes' +/-1 product)."""
+    import torch
+
+    lut = torch.tensor([bin(i).count("1") for i in range(256)],
+                       dtype=torch.int32, device=dev)
+    q = torch.from_numpy(qb).to(dev)
+    out = torch.empty((len(qb), len(xb)), dtype=torch.int32, device=dev)
+    for lo in range(0, len(xb), chunk):
+        xc = torch.from_numpy(xb[lo:lo + chunk]).to(dev)
+        out[:, lo:lo + chunk] = lut[(q[:, None, :] ^ xc[None]).int()].sum(
+            -1, dtype=torch.int32)
+    return out
+
+
+def hamming_reply_ok(res, kth, exact_of, k: int = 10) -> tuple:
+    """(ok, recall@k) of replies against exact distances: exact_of(qi,
+    ids) gives the exact distances of the returned ids, kth[qi] the exact
+    k-th distance. A returned id is a hit when its distance is at most the
+    k-th (hits counted modulo ties); ok when each reply has k rows and
+    every returned distance equals the exact distance of its id."""
+    ok, hits = True, 0
+    for qi, r in enumerate(res):
+        ex = exact_of(qi, np.asarray(r.ids, np.int64))
+        ok = ok and len(r.ids) == k and np.array_equal(
+            np.asarray(r.distances), ex)
+        hits += int((ex <= kth[qi]).sum())
+    return ok, hits / (len(res) * k)
+
+
+class Reply:
+    """A region reply row (VectorWithData) as ids and distances."""
+
+    def __init__(self, row):
+        self.ids = np.asarray([v.id for v in row], np.int64)
+        self.distances = np.asarray([v.distance for v in row], np.float32)
+
+
+def same_hamming(got, want) -> bool:
+    """Equal distances, and the same ids at every distance but a row's
+    last one (ties there may cross the k-th place)."""
+    return len(got) == len(want) and all(
+        np.array_equal(g.distances, w.distances)
+        and all(set(g.ids[g.distances == v].tolist())
+                == set(w.ids[w.distances == v].tolist())
+                for v in np.unique(w.distances)[:-1])
+        for g, w in zip(got, want))
+
+
+def fp32_range_phase(index, x, queries, card, dev) -> None:
+    """VectorIndex.range_search on the fp32 IVF_FLAT region (default
+    nprobe 32): per query a radius midway between two neighbours' f64
+    distances around the query's 300th nearest row, so that an f32 sum
+    cannot move a row across it; the hits must equal the exact set within
+    the radius (1 to 1,024 of them). k = 1,024 is past the kernels' lists:
+    the search takes the plain arm (ivf_scan_scores), as the JAX package's
+    k > 64 crossover does."""
+    import torch
+
+    from dingo_tpu_torch.index.ivf_flat import ivf_scan_scores
+
+    t0 = time.perf_counter()
+    xd = torch.from_numpy(x).to(dev)
+    calls = ivf_scan_scores.calls
+    oks, counts, ms = [], [], []
+    for qi in range(8):
+        q = queries[qi]
+        qd = torch.from_numpy(q).to(dev)
+        d32 = ((xd - qd) ** 2).sum(1)
+        t = float(torch.kthvalue(d32, 300).values)
+        cand = torch.nonzero(d32 <= t + 5.0).flatten().cpu().numpy()
+        d64 = ((x[cand].astype(np.float64) - q.astype(np.float64)) ** 2
+               ).sum(1)
+        s = np.sort(d64)
+        j0, j1 = 250, min(len(s) - 1, 350)
+        j = j0 + int(np.argmax(np.diff(s[j0:j1 + 1])))
+        radius = float((s[j] + s[j + 1]) / 2)
+        want = set(cand[d64 <= radius].tolist())
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = index.range_search(q[None, :], radius)[0]
+        ms.append((time.perf_counter() - t1) * 1e3)
+        counts.append(len(got.ids))
+        oks.append(set(got.ids.tolist()) == want
+                   and bool((got.distances <= radius).all()))
+    xd = None
+    plain = ivf_scan_scores.calls - calls
+    print(f"[{card}] fp32 IVF_FLAT range_search (nprobe 32, limit 1024): "
+          f"hits per query {counts}, equal to the exact set {oks}; "
+          f"{np.median(ms):.2f} ms a query (median, synchronous); plain-arm "
+          f"searches {plain}; {time.perf_counter() - t0:.1f} s", flush=True)
+    check(all(oks), "fp32 IVF_FLAT range_search: the hits equal the exact "
+          "set within the radius")
+    check(all(1 <= c <= BIN_RANGE_MAX for c in counts),
+          "fp32 IVF_FLAT range_search: every radius returns 1 to 1024 hits")
+    check(plain == 8, "fp32 range_search took the plain arm (k 1024)")
+
+
+def binary_phase(x, queries, extra, nlist, card, dev) -> dict:
+    """The binary family at BASELINE.json config 2's corpus binarized by
+    sign (768 bits, 96 packed bytes a row; the queries likewise): a
+    BINARY_FLAT index (ingest, the exact int8 product's time and
+    temporary bytes, exact hamming against a popcount reference on the
+    card with ids modulo ties, pipelined ms, writes, device bytes against
+    the packed size), a BINARY_IVF_FLAT index at nlist (train, recall@10
+    modulo ties at nprobe 16/32/64, full probe == FLAT, pipelined ms,
+    writes in place), range_search on the FLAT (hits == the exact set, the
+    1024 cap), and a binary region through Storage and IndexService(node)
+    (the brute force untrained, the index trained, a filter and a radius
+    request; replies == the region's own index modulo ties). No B1-B5
+    launch: the family stays on the plain arms, as in the JAX package."""
+    import torch
+
+    from dingo_tpu_torch.common.metrics import METRICS
+    from dingo_tpu_torch.engine.storage import VECTOR_MAX_BATCH_COUNT
+    from dingo_tpu_torch.index import codec as vcodec
+    from dingo_tpu_torch.index.base import FilterSpec, IndexParameter, \
+        IndexType
+    from dingo_tpu_torch.index.factory import new_index
+    from dingo_tpu_torch.index.flat import flat_search_plain
+    from dingo_tpu_torch.index.ivf_flat import ivf_scan_scores
+    from dingo_tpu_torch.index.vector_reader import (
+        VectorFilterMode,
+        VectorReader,
+    )
+    from dingo_tpu_torch.ops.distance import Metric, _dot_pm1
+    from dingo_tpu_torch.server.services import IndexService
+    from dingo_tpu_torch.store.node import MonoStoreNode
+    from dingo_tpu_torch.store.region import RegionDefinition, RegionType
+
+    t_phase = time.perf_counter()
+    n, d = x.shape
+    k = 10
+    counters = zero_launches()
+    plain0 = (flat_search_plain.calls, ivf_scan_scores.calls)
+    out: dict = {}
+    t0 = time.perf_counter()
+    xb = np.packbits(x > 0, axis=1, bitorder="little")
+    qb = np.packbits(queries > 0, axis=1, bitorder="little")
+    eb = np.packbits(extra > 0, axis=1, bitorder="little")
+    hd = exact_hamming_device(qb, xb, dev)
+    kth_all = torch.topk(hd, k, dim=1, largest=False).values
+    kth = kth_all[:, -1].cpu().numpy()
+    hd_h = hd.cpu().numpy()
+    hd = None
+    print(f"[{card}] binary phase: {n} x {d} f32 rows binarized by sign to "
+          f"{xb.shape[1]} bytes a row, {len(qb)} queries; exact hamming "
+          f"(popcount on the card) {time.perf_counter() - t0:.1f} s; the "
+          f"queries' nearest rows at {hd_h.min(1)[:8].tolist()} bits, "
+          f"10th at {kth[:8].tolist()}", flush=True)
+
+    def exact_of(qi, ids):
+        return hd_h[qi, ids]
+
+    def param(itype, **kw):
+        return IndexParameter(index_type=itype, dimension=d,
+                              metric=Metric.HAMMING, **kw)
+
+    # -- BINARY_FLAT ----------------------------------------------------------
+    flat = new_index(11, param(IndexType.BINARY_FLAT), device=dev)
+    flat.store.reserve(n)
+    t0 = time.perf_counter()
+    for lo in range(0, n, 65536):
+        flat.upsert(np.arange(lo, min(n, lo + 65536), dtype=np.int64),
+                    xb[lo:lo + 65536])
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    dev_bytes = flat.get_device_memory_size()
+    packed = n * xb.shape[1]
+    print(f"[{card}] BINARY_FLAT ingest {n} rows: {ingest_s:.1f} s "
+          f"({n / ingest_s:.0f} rows/s); device bytes {dev_bytes} "
+          f"({dev_bytes / packed:.2f}x the {packed} packed bytes: the "
+          f"+/-1 int8 store, capacity {flat.store.capacity}, and its norms "
+          "and mask)", flush=True)
+    check(flat.store.vecs.dtype == torch.int8 and flat.store.vecs_blk is None,
+          "BINARY_FLAT keeps a +/-1 int8 store and no blocked mirror")
+    res = flat.search(qb, k)
+    ok = hamming_reply_ok(res, kth, exact_of)[0]
+    same_k = all(np.array_equal(r.distances, kth_all[qi].cpu().numpy())
+                 for qi, r in enumerate(res))
+    check(ok and same_k, "BINARY_FLAT: distances equal the exact hamming "
+          "top-10 and every id's exact distance (ids modulo ties)")
+    # the exact +/-1 product alone: ms and temporary bytes
+    qpad = torch.from_numpy(flat._unpack_pm1(qb).astype(np.float32)).to(dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _dot_pm1(qpad, flat.store.vecs)
+    torch.cuda.synchronize()
+    tmp_bytes = torch.cuda.max_memory_allocated() - base
+    pm1_ms = time_ms(lambda: _dot_pm1(qpad, flat.store.vecs), torch,
+                     iters=10)
+    plain_ms = time_ms(lambda: flat_search_plain(
+        flat.store.vecs, flat.store.sqnorm, flat.store.device_mask(), qpad,
+        k, Metric.INNER_PRODUCT), torch, iters=10)
+    cap = flat.store.capacity
+    pm1_bound, pm1_by = bound_of(cap * d + len(qb) * d + len(qb) * cap * 4,
+                                 2.0 * len(qb) * cap * d, 1979e12)
+    print(f"[{card}] exact +/-1 product (torch._int_mm, int8 x int8 -> "
+          f"int32, as f32) [{len(qb)}, {d}] x [{cap}, {d}]: {pm1_ms:.4f} ms, "
+          f"temporary bytes {tmp_bytes} (int32 and f32 [{max(24, len(qb))}, "
+          f"{cap}] and the padded int8 query); bound {pm1_bound:.4f} ms "
+          f"({pm1_by}); the whole plain-arm search (product + masked top-"
+          f"{k}) {plain_ms:.4f} ms", flush=True)
+    out["pm1_ms"], out["pm1_tmp_bytes"] = pm1_ms, tmp_bytes
+    out["flat_plain_ms"] = plain_ms
+    reads = []
+    for _ in range(ROUNDS):
+        reads.append(pipelined_ms(flat, qb, k, None))
+    out["flat_ms"] = median_spread(reads)[0]
+    print(f"[{card}] BINARY_FLAT pipelined ms per {len(qb)}-query batch: "
+          f"{spread_text(reads)}", flush=True)
+    print(f"[{card}] BINARY_FLAT profile of a pipelined window: "
+          + device_profile(pipelined_window(flat, qb, k, None, reps=5)),
+          flush=True)
+
+    # -- range search on the FLAT: the exact counts within each radius from
+    # the popcount reference; the largest radius giving every query 1 to
+    # 1,024 hits
+    cum = np.cumsum(np.stack([np.bincount(row, minlength=d + 1)
+                              for row in hd_h]), axis=1)
+    fits = [r_ for r_ in range(d + 1)
+            if cum[:, r_].max() <= BIN_RANGE_MAX and cum[:, r_].min() >= 1]
+    check(bool(fits), "binary range_search: a radius gives every query 1 "
+          "to 1024 rows")
+    radius = float(max(fits or [int(kth.max())]))
+    t0 = time.perf_counter()
+    rres = flat.range_search(qb, radius)
+    range_ms = (time.perf_counter() - t0) * 1e3
+    counts = [len(r.ids) for r in rres]
+    exact_sets = all(set(r.ids.tolist()) == set(
+        np.flatnonzero(hd_h[qi] <= radius).tolist())
+        for qi, r in enumerate(rres))
+    capped = flat.range_search(qb[:4], float(d))
+    print(f"[{card}] BINARY_FLAT range_search at radius {radius:.0f} bits: "
+          f"hits per query min {min(counts)} max {max(counts)}, equal to "
+          f"the exact set {exact_sets}, {range_ms:.1f} ms (64 queries, "
+          f"synchronous); radius {d}: {[len(r.ids) for r in capped]} hits",
+          flush=True)
+    check(exact_sets and 1 <= min(counts) and max(counts) <= BIN_RANGE_MAX,
+          "binary range_search: 1-1024 hits a query, equal to the exact set")
+    check(all(len(r.ids) == BIN_RANGE_MAX for r in capped),
+          "binary range_search: the 1024 cap holds")
+    out["range_ms"] = range_ms
+
+    # -- BINARY_IVF_FLAT ------------------------------------------------------
+    ivf = new_index(12, param(IndexType.BINARY_IVF_FLAT, ncentroids=nlist,
+                              default_nprobe=32), device=dev)
+    ivf.store.reserve(n)
+    t0 = time.perf_counter()
+    for lo in range(0, n, 65536):
+        ivf.upsert(np.arange(lo, min(n, lo + 65536), dtype=np.int64),
+                   xb[lo:lo + 65536])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ivf.train()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ivf.search(qb[:1], k, nprobe=1)            # builds the bucketed view
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    view = ivf._view
+    print(f"[{card}] BINARY_IVF_FLAT (nlist {nlist}): ingest "
+          f"{t1 - t0:.1f} s, train {t2 - t1:.1f} s (float k-means over "
+          f"+/-1 space, float centroids), view {t3 - t2:.1f} s ({view.nbuckets}"
+          f" buckets of {view.cap_list} rows, max spill {view.max_spill}); "
+          f"block norms {ivf._bucket_bsq is not None}", flush=True)
+    out["train_s"] = t2 - t1
+    check(ivf._bucket_bsq is None and ivf._buckets.dtype == torch.int8,
+          "BINARY_IVF_FLAT: int8 buckets and no pruning metadata")
+    recalls = {}
+    for nprobe in (16, 32, 64):
+        ok, rec = hamming_reply_ok(ivf.search(qb, k, nprobe=nprobe), kth,
+                                   exact_of)
+        recalls[nprobe] = rec
+        check(ok, f"BINARY_IVF_FLAT nprobe {nprobe}: every returned "
+              "distance equals its id's exact hamming distance")
+    print(f"[{card}] BINARY_IVF_FLAT recall@10 (hits at most the exact "
+          f"10th distance): " + ", ".join(
+              f"nprobe {p_} {r_:.4f}" for p_, r_ in recalls.items()),
+          flush=True)
+    out["recall"] = recalls
+    check(max(recalls.values()) >= 0.95,
+          "BINARY_IVF_FLAT recall@10 >= 0.95 at some nprobe")
+    full = ivf.search(qb, k, nprobe=nlist)
+    check(all(np.array_equal(a.distances, b.distances)
+              for a, b in zip(full, res))
+          and hamming_reply_ok(full, kth, exact_of)[0],
+          "BINARY_IVF_FLAT at full probe == BINARY_FLAT (distances equal, "
+          "ids modulo ties)")
+    gate = min(p_ for p_, r_ in recalls.items()
+               if r_ >= 0.95) if max(recalls.values()) >= 0.95 else 32
+    reads = []
+    for _ in range(ROUNDS):
+        reads.append(pipelined_ms(ivf, qb, k, gate))
+    out["ivf_ms"], out["ivf_nprobe"] = median_spread(reads)[0], gate
+    print(f"[{card}] BINARY_IVF_FLAT pipelined ms per {len(qb)}-query batch "
+          f"at nprobe {gate}: {spread_text(reads)}", flush=True)
+    print(f"[{card}] BINARY_IVF_FLAT profile of a pipelined window: "
+          + device_profile(pipelined_window(ivf, qb, k, gate, reps=5)),
+          flush=True)
+
+    # -- writes on both -----------------------------------------------------
+    up_ids = np.arange(BIN_UPSERTS, dtype=np.int64)
+    del_ids = np.arange(BIN_UPSERTS, BIN_UPSERTS + BIN_DELETES,
+                        dtype=np.int64)
+    rebuilds = ivf.full_rebuilds
+    t0 = time.perf_counter()
+    for idx in (flat, ivf):
+        idx.upsert(up_ids, eb[:BIN_UPSERTS])
+        idx.delete(del_ids)
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - t0
+    probe_up, probe_del = eb[:64], xb[BIN_UPSERTS:BIN_UPSERTS + 64]
+    for name, idx, kw in (("BINARY_FLAT", flat, {}),
+                          ("BINARY_IVF_FLAT", ivf, {"nprobe": gate})):
+        r_up = idx.search(probe_up, k, **kw)
+        r_del = idx.search(probe_del, k, **kw)
+        vis = all(r.distances[0] == 0.0 and i in r.ids[r.distances == 0]
+                  for i, r in enumerate(r_up))
+        gone = not any(set(r.ids.tolist()) & set(del_ids.tolist())
+                       for r in r_del)
+        check(vis and gone, f"{name}: {BIN_UPSERTS} upserts and "
+              f"{BIN_DELETES} deletes visible to the next search")
+    check(ivf.full_rebuilds == rebuilds and not ivf._view_dirty,
+          "BINARY_IVF_FLAT: the writes landed in the view in place")
+    print(f"[{card}] binary writes: {BIN_UPSERTS} upserts + {BIN_DELETES} "
+          f"deletes on both indexes in {write_s:.2f} s", flush=True)
+
+    flat = ivf = None
+    torch.cuda.empty_cache()
+
+    # -- a binary region through Storage and IndexService(node) --------------
+    node = MonoStoreNode(device=dev)
+    region = node.create_region(RegionDefinition(
+        region_id=21, start_key=vcodec.encode_vector_key(0, 0),
+        end_key=vcodec.encode_vector_key(1), region_type=RegionType.INDEX,
+        index_parameter=param(IndexType.BINARY_IVF_FLAT, ncentroids=nlist,
+                              default_nprobe=32)))
+    t0 = time.perf_counter()
+    for lo in range(0, n, VECTOR_MAX_BATCH_COUNT):
+        node.storage.vector_add(
+            region, np.arange(lo, min(n, lo + VECTOR_MAX_BATCH_COUNT),
+                              dtype=np.int64), xb[lo:lo + VECTOR_MAX_BATCH_COUNT])
+    ingest_s = time.perf_counter() - t0
+    brute = []
+    bf = VectorReader._brute_force_search
+
+    def spy(self, *a, **kw):
+        brute.append(1)
+        return bf(self, *a, **kw)
+
+    orig_async = VectorReader.vector_batch_search_async
+    VectorReader._brute_force_search = spy
+    try:
+        t0 = time.perf_counter()
+        rows_u = node.storage.vector_batch_search(region, qb, k)
+        untrained_s = time.perf_counter() - t0
+        ok_u = hamming_reply_ok([Reply(r) for r in rows_u], kth,
+                                exact_of)[0]
+        t0 = time.perf_counter()
+        node.index_manager.rebuild(region)
+        rebuild_s = time.perf_counter() - t0
+        n_brute = len(brute)
+        own = region.vector_index_wrapper.own_index
+        direct = own.search(qb, k, nprobe=32)
+        miss0 = METRICS.counter("pipeline.staged_miss").get()
+        dispatches = {"async": 0, "sync_fallback": 0}
+
+        def spy_async(self, *a, **kw_):
+            thunk = orig_async(self, *a, **kw_)
+            dispatches["sync_fallback" if thunk.__name__ == "sync_thunk"
+                       else "async"] += 1
+            return thunk
+
+        VectorReader.vector_batch_search_async = spy_async
+        # max_batch 128: the 64 rows stay under the cap, so the window's
+        # timer flushes them through the pipelined arm (a full batch runs
+        # inline on the serial arm, as in the JAX package)
+        svc = IndexService(node, window_ms=2.0, max_batch=128)
+        try:
+            futs = [svc.submit(21, qb[i:i + 4], k, nprobe=32)
+                    for i in range(0, len(qb), 4)]
+            replies = [row for f in futs for row in f.result(timeout=120)]
+            plain_dispatches = dict(dispatches)
+            filt_ids = np.arange(0, n, 7, dtype=np.int64)[:50000]
+            fut_f = svc.submit(21, qb[:8], k, nprobe=32,
+                               filter_mode=VectorFilterMode.VECTOR_ID,
+                               vector_ids=filt_ids.tolist())
+            rrad = float(kth.max())
+            fut_r = svc.submit(21, qb[:8], 64, nprobe=32, radius=rrad)
+            got_f, got_r = fut_f.result(timeout=120), fut_r.result(
+                timeout=120)
+        finally:
+            svc.close()
+        misses = METRICS.counter("pipeline.staged_miss").get() - miss0
+        direct_f = own.search(qb[:8], k, FilterSpec(include_ids=filt_ids),
+                              nprobe=32)
+        direct_r = own.range_search(qb[:8], rrad, limit=64)
+    finally:
+        VectorReader._brute_force_search = bf
+        VectorReader.vector_batch_search_async = orig_async
+        node.stop()
+
+    def same(rows, want):
+        return same_hamming([Reply(r) for r in rows], want)
+
+    check(n_brute >= 1 and ok_u, "binary region untrained: the reader's "
+          "brute force (a temporary BINARY_FLAT) serves exact hamming")
+    check(n_brute == len(brute), "binary region trained: the index serves "
+          "(no brute force after the rebuild)")
+    check(same(replies, direct), "binary region: IndexService replies == "
+          "the region's own index (distances equal, ids modulo ties)")
+    check(plain_dispatches["async"] > 0
+          and plain_dispatches["sync_fallback"] == 0
+          and misses >= plain_dispatches["async"],
+          "binary region: the coalesced uint8 batches dispatch on the "
+          "pipelined arm, and each staged upload is missed by the packed "
+          "queries' unpacking (the index pads its own, as the JAX "
+          f"package's does) ({plain_dispatches}, {misses} misses)")
+    check(same(got_f, direct_f) and all(v.id % 7 == 0 for row in got_f
+                                        for v in row),
+          "binary region: a VECTOR_ID filter request passes through")
+    check(same(got_r, direct_r) and all(v.distance <= rrad for row in got_r
+                                        for v in row),
+          "binary region: a radius request passes through")
+    print(f"[{card}] binary region ({n} rows, BINARY_IVF_FLAT nlist {nlist})"
+          f": ingest through Storage.vector_add {ingest_s:.1f} s, untrained "
+          f"search (brute force) {untrained_s:.2f} s, rebuild {rebuild_s:.1f}"
+          f" s ({node.index_manager.build_stats.get(21)}); "
+          f"reader dispatches {dispatches} (the radius request falls back "
+          f"to the sync path by design), pipeline.staged_miss {misses}",
+          flush=True)
+    own = None
+    out["launches"] = read_launches(counters)
+    plain = (flat_search_plain.calls - plain0[0],
+             ivf_scan_scores.calls - plain0[1])
+    out["plain"] = plain
+    check(not any(out["launches"].values()),
+          f"binary phase: no kernel launched ({out['launches']})")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[{card}] binary phase: plain-arm searches FLAT {plain[0]}, IVF "
+          f"{plain[1]}; kernel launches {out['launches']}; "
+          f"{out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def diskann_phase(x, queries, extra, gt, nlist, card, dev) -> dict:
+    """The diskann role's core at BASELINE.json config 3's widths (d 768,
+    m 96, nbits 8) over the smoke's rows, nlist `nlist`, L2, under
+    tempfile.gettempdir(): push_data in 65,536-row batches (rows/s, file
+    bytes), the build (coarse fit, PQ fit, encode), the load (device
+    bytes: codes and centroids only), searches at nprobe 32 with the
+    default rerank factor 32 (ms a 64-query batch split into the ADC
+    scan, the disk gather and the rerank; recall@10 >= 0.95; every
+    distance against the f64 distance of its id), a restart that serves
+    the same ids, upserts in place and the item manager's asynchronous
+    rebuild, then reset, close and destroy (the files gone). The ADC scan
+    is the IVF_PQ XLA arm (plain torch), as in the JAX package."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from dingo_tpu_torch.diskann import CoreState, DiskAnnCore, \
+        DiskAnnItemManager
+    from dingo_tpu_torch.index.base import IndexParameter, IndexType, \
+        tensor_bytes
+    from dingo_tpu_torch.index.ivf_pq import _ivfpq_scan_kernel
+    from dingo_tpu_torch.ops.distance import Metric
+
+    t_phase = time.perf_counter()
+    n, d = x.shape
+    k = 10
+    counters = zero_launches()
+    root = tempfile.gettempdir()
+    free = shutil.disk_usage(root).free
+    need = int(n * d * 4 * 1.25) + (1 << 30)
+    n_dk = n
+    if free < need:
+        n_dk = int((free - (1 << 30)) / (d * 4 * 1.25)) // DK_PUSH * DK_PUSH
+    print(f"[{card}] DiskANN phase: {free} bytes free under {root}; "
+          + (f"the rows cut from {n} to {n_dk} to fit" if n_dk < n else
+             f"{n} rows need ~{need} bytes"), flush=True)
+    check(n_dk > 0, "DiskANN phase: the disk holds its rows")
+    xs = x[:n_dk]
+    gt_dk = gt if n_dk == n else exact_topk(xs, queries, k)
+    tmp = tempfile.mkdtemp(prefix="dingo-diskann-", dir=root)
+    out: dict = {"rows": n_dk}
+    param = IndexParameter(index_type=IndexType.DISKANN, dimension=d,
+                           metric=Metric.L2, ncentroids=nlist,
+                           nsubvector=DK_M, nbits_per_idx=8,
+                           default_nprobe=DK_NPROBE)
+    mgr = DiskAnnItemManager(os.path.join(tmp, "items"), device=dev)
+    try:
+        core = mgr.create(1, param)
+        t0 = time.perf_counter()
+        ids = np.arange(n_dk, dtype=np.int64)
+        for lo in range(0, n_dk, DK_PUSH):
+            core.push_data(ids[lo:lo + DK_PUSH], xs[lo:lo + DK_PUSH],
+                           has_more=lo + DK_PUSH < n_dk)
+        push_s = time.perf_counter() - t0
+        fbytes = os.path.getsize(core._data_path())
+        check(core.status() is CoreState.IMPORTED and core.count == n_dk
+              and fbytes == n_dk * d * 4, "DiskANN: every row pushed, the "
+              "file holds them, the import ended")
+        t0 = time.perf_counter()
+        core.build()
+        build_s = time.perf_counter() - t0
+        bt = core.build_timings
+        t0 = time.perf_counter()
+        core.load()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        dbytes = tensor_bytes(core)
+        print(f"[{card}] DiskANN push_data {n_dk} rows in "
+              f"{n_dk // DK_PUSH + (n_dk % DK_PUSH > 0)} pushes: "
+              f"{push_s:.1f} s ({n_dk / push_s:.0f} rows/s), vectors.f32 "
+              f"{fbytes} bytes; build {build_s:.1f} s (sample read "
+              f"{bt['sample_s']:.1f}, coarse fit {bt['coarse_fit_s']:.1f}, "
+              f"PQ fit {bt['pq_fit_s']:.1f}, encode {bt['encode_s']:.1f}, "
+              f"save {bt['save_s']:.1f}); load {load_s:.1f} s, device bytes "
+              f"{dbytes} ({dbytes / fbytes:.3f} of the rows' bytes)",
+              flush=True)
+        out.update(push_s=push_s, build_s=build_s, load_s=load_s,
+                   device_bytes=dbytes, build=dict(bt))
+        check(dbytes < fbytes / 4, "DiskANN: the device holds codes and "
+              "centroids, not rows")
+        calls = _ivfpq_scan_kernel.calls
+        res = core.search(queries, k, nprobe=DK_NPROBE)
+        got_ids = [r[0] for r in res]
+        rec = sum(len(set(g.tolist()) & set(w.tolist()))
+                  for g, w in zip(got_ids, gt_dk)) / (len(queries) * k)
+        dist_ok = all(np.allclose(r[1], exact_dists(xs, queries[qi], r[0]),
+                                  rtol=1e-4, atol=1e-3)
+                      for qi, r in enumerate(res))
+        check(rec >= 0.95, f"DiskANN recall@10 >= 0.95 at nprobe "
+              f"{DK_NPROBE} (got {rec:.4f})")
+        check(dist_ok and all(len(r[0]) == k for r in res),
+              "DiskANN: every returned distance == the f64 distance of its "
+              "id (rtol 1e-4, atol 1e-3)")
+        splits, walls = [], []
+        for _ in range(ROUNDS):
+            t0 = time.perf_counter()
+            core.search(queries, k, nprobe=DK_NPROBE)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            splits.append(dict(core.search_timings))
+        med = {key: float(np.median([s_[key] for s_ in splits]))
+               for key in splits[0]}
+        out.update(recall=rec, ms=float(np.median(walls)), split=med)
+        print(f"[{card}] DiskANN search nprobe {DK_NPROBE}, rerank factor "
+              f"32 (k' {k * 32}): recall@10 {rec:.4f}; ms per "
+              f"{len(queries)}-query batch {spread_text(walls)}; split "
+              f"(medians): ADC scan {med['adc_ms']:.2f}, disk gather "
+              f"{med['gather_ms']:.2f}, rerank {med['rerank_ms']:.2f}",
+              flush=True)
+        print(f"[{card}] DiskANN profile of one search: " + device_profile(
+            lambda: core.search(queries, k, nprobe=DK_NPROBE)), flush=True)
+        check(_ivfpq_scan_kernel.calls - calls == ROUNDS + 2,
+              "DiskANN: each search ran the IVF_PQ XLA arm once")
+        # a restart: a new core on the same directory
+        core2 = DiskAnnCore(1, param, core.dir, device=dev)
+        adopted = core2.count
+        loaded = core2.try_load()
+        res2 = core2.search(queries, k, nprobe=DK_NPROBE)
+        core2.close()
+        core2 = None
+        check(adopted == n_dk and loaded and all(
+            np.array_equal(a[0], b[0]) for a, b in zip(res, res2)),
+            "DiskANN restart: a new core adopts the count and try_load "
+            "serves the same ids")
+        # upserts in place, then the item manager's asynchronous rebuild
+        up = extra[:4096]
+        core.reset()
+        core.push_data(ids[:len(up)], up, has_more=False)
+        check(core.count == n_dk and os.path.getsize(core._data_path())
+              == fbytes, "DiskANN upsert: rows replaced in place")
+        t0 = time.perf_counter()
+        mgr.submit_build(1)
+        deadline = time.monotonic() + 600
+        while core.status() in (CoreState.IMPORTED, CoreState.BUILDING) \
+                and time.monotonic() < deadline:
+            time.sleep(0.2)
+        rebuild_s = time.perf_counter() - t0
+        check(core.status() is CoreState.BUILT, "DiskANN: the item "
+              f"manager's asynchronous build reaches built "
+              f"({core.status().value} {core.last_error})")
+        core.load()
+        res3 = core.search(up[:64], k, nprobe=DK_NPROBE)
+        check(all(int(r[0][0]) == i and float(r[1][0]) <= 1e-3
+                  for i, r in enumerate(res3)),
+              "DiskANN: the upserted rows are found after the rebuild")
+        core.close()
+        st_close = core.status()
+        core.reset()
+        st_reset = core.status()
+        path = core.dir
+        mgr.destroy(1)
+        check(st_close is CoreState.BUILT and st_reset is CoreState.IMPORTED
+              and not os.path.exists(path) and mgr.get(1) is None,
+              "DiskANN close -> built, reset -> imported, destroy removes "
+              "the files")
+        out["rebuild_s"] = rebuild_s
+        print(f"[{card}] DiskANN restart served the same ids; asynchronous "
+              f"rebuild after {len(up)} upserts {rebuild_s:.1f} s",
+              flush=True)
+    finally:
+        mgr.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = read_launches(counters)
+    check(not any(out["launches"].values()),
+          f"DiskANN phase: no kernel launched ({out['launches']})")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[{card}] DiskANN phase: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def run(args) -> int:
     import torch
 
@@ -4452,6 +5112,9 @@ def run(args) -> int:
     tiers = {e["name"]: e for e in tier_entries}
     peak_tiers = torch.cuda.max_memory_allocated()
 
+    # -- VectorIndex.range_search on the fp32 IVF_FLAT region ---------------
+    fp32_range_phase(index, x, queries, card, dev)
+
     # -- GIST1M's width on the default route (B1, B2), the fp32 region and
     # the tiers' state released first -----------------------------------
     wrapper = index = view = vprobes = probes = qpad = None
@@ -4463,6 +5126,21 @@ def run(args) -> int:
     gist = gist_phase(args.n, nlist, card)
     print(f"d {GIST_D} phase: {time.perf_counter() - t0:.1f} s", flush=True)
     peak_gist = torch.cuda.max_memory_allocated()
+
+    # -- the binary family over the rows binarized, then the diskann role's
+    # core over the rows themselves --------------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    binary = binary_phase(x, queries, extra, nlist, card, dev)
+    recovery_quiet("binary phase", card)
+    peak_binary = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    diskann = diskann_phase(x, queries, extra, gt, nlist, card, dev)
+    peak_diskann = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
 
     # -- the replicated region path: three StoreNodes over the same rows,
     # every earlier phase's device state released first: the last
@@ -4610,6 +5288,9 @@ def run(args) -> int:
             e_["name"], 0)
         e_["launches_recovery_phase"] = recovery["launches"].get(
             e_["name"], 0)
+        e_["launches_binary_phase"] = binary["launches"].get(e_["name"], 0)
+        e_["launches_diskann_phase"] = diskann["launches"].get(
+            e_["name"], 0)
     check(len(kernels) == 13 and all(e_["parity"] for e_ in kernels),
           "the kernels line lists 13 entries, each with parity")
     print(f"[{card}] serving-path ivf.pruned_dim_fraction: IVF (B3) "
@@ -4618,7 +5299,9 @@ def run(args) -> int:
     print(f"[{card}] peak device memory: fp32 and IVF_PQ phases "
           f"{peak_fp32 / 2**30:.2f} GiB, tier phase "
           f"{peak_tiers / 2**30:.2f} GiB, d {GIST_D} phase "
-          f"{peak_gist / 2**30:.2f} GiB, region phase "
+          f"{peak_gist / 2**30:.2f} GiB, binary phase "
+          f"{peak_binary / 2**30:.2f} GiB, DiskANN phase "
+          f"{peak_diskann / 2**30:.2f} GiB, region phase "
           f"{peak_region / 2**30:.2f} GiB (its cluster phase "
           f"{region['cluster']['peak_gib']:.2f} GiB), HNSW phase "
           f"{peak_hnsw / 2**30:.2f} GiB ({held / 2**30:.2f} GiB of it "

@@ -112,6 +112,11 @@ FLAGS.define("ivfpq_rerank_factor", 8, mutable=True,
                    "the device for a device store, from host rows at "
                    "resolve for host_vectors); 1 disables. The fused ADC "
                    "kernel (B5) serves only max(topk*factor, k) <= 64")
+FLAGS.define("diskann_rerank_io_rows", 8192, mutable=True,
+             help_="DiskANN's exact-rerank disk gathers read at most this "
+                   "many (sorted, deduplicated) rows per memmap access: an "
+                   "IO budget, so a big batch*k*rerank_factor fan-out "
+                   "reads in bounded steps, never one unbounded burst")
 FLAGS.define("vector_precision", "fp32", mutable=True,
              help_="default precision tier of float FLAT/IVF_FLAT indexes "
                    "whose parameter leaves precision unset: 'fp32', 'bf16' "

@@ -271,6 +271,22 @@ class VectorIndex(abc.ABC):
                ) -> List[SearchResult]:
         ...
 
+    def range_search(self, queries: np.ndarray, radius: float,
+                     filter_spec: Optional[FilterSpec] = None,
+                     limit: int = 1024) -> List[SearchResult]:
+        """Results within `radius`, at most `limit` a query
+        (FLAGS_vector_max_range_search_result_count = 1024): the top-limit
+        search, then the radius cut on the host (<= for L2 and HAMMING,
+        >= for the similarities)."""
+        results = self.search(queries, limit, filter_spec)
+        ascending = self.metric in (Metric.L2, Metric.HAMMING)
+        out = []
+        for r in results:
+            keep = (r.distances <= radius) if ascending \
+                else (r.distances >= radius)
+            out.append(SearchResult(r.ids[keep], r.distances[keep]))
+        return out
+
     def need_train(self) -> bool:
         return False
 

@@ -1,9 +1,11 @@
 """Carry index state across from the JAX package.
 
-The JAX package's snapshot (``meta.json`` + ``flat.npz``, ``ivf_flat.npz``
-or ``ivf_pq.npz`` holding ``ids``, ``vectors`` (an sq8 index: ``codes``
-with its codec ``sq_vmin``/``sq_scale`` instead) and, once trained,
-``centroids`` plus ``assign`` (IVF_FLAT) or ``codebooks`` (IVF_PQ)) is the
+The JAX package's snapshot (``meta.json`` + ``flat.npz``, ``ivf_flat.npz``,
+``ivf_pq.npz``, ``binary_flat.npz`` or ``binary_ivf_flat.npz`` holding
+``ids``, ``vectors`` (an sq8 index: ``codes`` with its codec
+``sq_vmin``/``sq_scale`` instead; a binary index: its packed uint8 rows)
+and, once trained, ``centroids`` plus ``assign`` (IVF_FLAT and
+BINARY_IVF_FLAT) or ``codebooks`` (IVF_PQ)) is the
 interchange format, and the snapshot's precision tier carries over: the
 port's ``load`` reads it, and ``index_from_reference`` builds a port index from a snapshot directory or
 from the same arrays given as numpy. Rows go into slots in snapshot order,
@@ -41,6 +43,9 @@ from dingo_tpu_torch.ops.distance import Metric
 from dingo_tpu_torch.ops.sq import SqParams
 
 
+_BINARY_TYPES = (IndexType.BINARY_FLAT, IndexType.BINARY_IVF_FLAT)
+
+
 def index_from_reference(source: Union[str, os.PathLike, Mapping],
                          device=None,
                          parameter: Optional[IndexParameter] = None,
@@ -49,11 +54,13 @@ def index_from_reference(source: Union[str, os.PathLike, Mapping],
     arrays (``ids``, ``vectors`` and optionally ``centroids`` with
     ``assign`` for IVF_FLAT, or ``centroids``, ``codebooks`` and optionally
     ``codes``/``assign`` for IVF_PQ; an sq8 FLAT/IVF_FLAT gives ``codes``,
-    ``sq_vmin`` and ``sq_scale`` in place of ``vectors``; ``parameter``
-    describes the index, inferred when absent: IVF_PQ when codebooks are
-    given, IVF_FLAT when only centroids are, else FLAT, L2, in the
-    snapshot's tier: its ``precision`` entry, sq8 for codes, else fp32).
-    Rows are taken as stored (cosine rows already normalized)."""
+    ``sq_vmin`` and ``sq_scale`` in place of ``vectors``; a binary index
+    gives packed uint8 ``vectors``; ``parameter`` describes the index,
+    inferred when absent: IVF_PQ when codebooks are given, IVF_FLAT when
+    only centroids are, else FLAT, L2, in the snapshot's tier: its
+    ``precision`` entry, sq8 for codes, else fp32; uint8 ``vectors`` mean
+    the binary family, HAMMING over 8 bits a byte). Rows are taken as
+    stored (cosine rows already normalized)."""
     if isinstance(source, (str, os.PathLike)):
         with open(os.path.join(source, "meta.json")) as f:
             meta = json.load(f)
@@ -73,6 +80,26 @@ def index_from_reference(source: Union[str, os.PathLike, Mapping],
 
     arrays = source
     centroids = arrays.get("centroids")
+    binary = (parameter.index_type in _BINARY_TYPES if parameter is not None
+              else np.asarray(arrays.get("vectors", ())).dtype == np.uint8)
+    if binary:
+        packed = np.asarray(arrays["vectors"], np.uint8)
+        if parameter is None:
+            parameter = IndexParameter(
+                index_type=(IndexType.BINARY_FLAT if centroids is None
+                            else IndexType.BINARY_IVF_FLAT),
+                dimension=packed.shape[1] * 8, metric=Metric.HAMMING,
+                ncentroids=len(centroids) if centroids is not None else 1)
+        index = new_index(index_id, parameter, device=device)
+        if parameter.index_type is IndexType.BINARY_IVF_FLAT:
+            if centroids is not None and "assign" not in arrays:
+                raise InvalidParameter("centroids given without assign")
+            index.restore_arrays(arrays["ids"], packed, centroids,
+                                 arrays.get("assign"))
+        else:
+            index.restore_arrays(arrays["ids"], packed)
+        index.apply_log_id = int(arrays.get("apply_log_id", 0))
+        return index
     codebooks = arrays.get("codebooks")
     sq_codes = codebooks is None and "codes" in arrays
     if sq_codes:

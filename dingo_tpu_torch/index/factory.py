@@ -1,13 +1,16 @@
 """Index factory (port of dingo_tpu/index/factory.py): FLAT, BRUTEFORCE,
-IVF_FLAT, IVF_PQ and HNSW. Every other type raises NotPorted until it is
-ported."""
+BINARY_FLAT, IVF_FLAT, BINARY_IVF_FLAT, IVF_PQ and HNSW. DISKANN raises
+NotPorted: its index is a gRPC proxy to the diskann role (the role's core,
+``dingo_tpu_torch.diskann``, is ported)."""
 
 from __future__ import annotations
 
 from dingo_tpu_torch.index.base import (
     IndexParameter,
     IndexType,
+    InvalidParameter,
     NotPorted,
+    NotSupported,
     VectorIndex,
 )
 
@@ -25,16 +28,31 @@ def new_index(index_id: int, parameter: IndexParameter,
         from dingo_tpu_torch.index.flat import TpuBruteforce
 
         return TpuBruteforce(index_id, parameter, device=device)
+    if t is IndexType.BINARY_FLAT:
+        from dingo_tpu_torch.index.flat import TpuBinaryFlat
+
+        return TpuBinaryFlat(index_id, parameter, device=device)
     if t is IndexType.IVF_FLAT:
         from dingo_tpu_torch.index.ivf_flat import TpuIvfFlat
 
         return TpuIvfFlat(index_id, parameter, device=device)
+    if t is IndexType.BINARY_IVF_FLAT:
+        from dingo_tpu_torch.index.ivf_flat import TpuBinaryIvfFlat
+
+        return TpuBinaryIvfFlat(index_id, parameter, device=device)
     if t is IndexType.IVF_PQ:
         from dingo_tpu_torch.index.ivf_pq import TpuIvfPq
 
         return TpuIvfPq(index_id, parameter, device=device)
+    if t is IndexType.DISKANN:
+        raise NotPorted("DISKANN indexes are gRPC proxies to the diskann "
+                        "role; they come with the gRPC front end")
     if t is IndexType.HNSW:
+        if parameter.host_vectors:
+            # the device walk and its rerank read the store's device rows;
+            # host_vectors fits only indexes that serve from codes
+            raise InvalidParameter("HNSW does not support host_vectors")
         from dingo_tpu_torch.index.hnsw import TpuHnsw
 
         return TpuHnsw(index_id, parameter, device=device)
-    raise NotPorted(f"index type {t} is not ported yet")
+    raise NotSupported(f"index type {t} not implemented")

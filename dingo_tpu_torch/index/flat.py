@@ -1,5 +1,6 @@
 """TpuFlat: exact brute-force index (port of dingo_tpu/index/flat.py, float
-metrics, in the fp32, bf16 and sq8 precision tiers).
+metrics, in the fp32, bf16 and sq8 precision tiers), and TpuBinaryFlat,
+exact hamming search over bit-packed rows.
 
 The whole search is one scan of the slot store, by the first arm that
 applies to an L2/IP index with k <= the kernels' K_MAX when the fused
@@ -17,6 +18,12 @@ else the JAX package's own XLA arm (score matrix + masked top-k) as plain
 torch ops: flat_search_plain for float rows, sq_flat_search_plain for
 codes (an empty, untrained sq8 store scans with an identity codec). Query
 batches pad to powers of two, as in the JAX package.
+
+The binary family (BinaryPm1Mixin) unpacks rows once at write time into an
+int8 +/-1 store and scans it on the plain arm as an inner product (an
+exact int8 product, ops/distance._dot_pm1): hamming(a, b) = (nbits -
+<pm(a), pm(b)>) / 2 at resolve. B1 and B4 never see int8 rows, as the
+JAX package keeps them off its fused kernels.
 
 The bf16/sq8 tiers may rerank: with a rerank cache (rerank_cache_rows > 0)
 a search scans topk * quantized_rerank_factor candidates and reranks them
@@ -44,7 +51,6 @@ from dingo_tpu_torch.index.base import (
     FilterSpec,
     IndexParameter,
     InvalidParameter,
-    NotPorted,
     NotSupported,
     SearchResult,
     VectorIndex,
@@ -76,7 +82,8 @@ def flat_search_plain(vecs, sqnorm, mask, queries, k: int, metric: Metric):
     return scores_to_distances(vals, metric), slots
 
 
-#: searches that took the plain arm (crossover off, COSINE, or k > K_MAX)
+#: searches that took the plain arm (crossover off, COSINE, k > K_MAX, or
+#: the binary family's int8 rows)
 flat_search_plain.calls = 0
 
 
@@ -317,12 +324,18 @@ class _SlotStoreIndex(VectorIndex):
                 if stats is not None:
                     self._note_prune_stats(fetched[2][:b])
                 ids = store.ids_of_slots(slots_h[:b].astype(np.int64))
-                return [strip_invalid(i, d)
-                        for i, d in zip(ids, dists_h[:b])]
+                dists_h = self._convert_distances(dists_h[:b])
+                return [strip_invalid(i, d) for i, d in zip(ids, dists_h)]
             finally:
                 lease.release()
 
         return resolve
+
+    def _convert_distances(self, dists: np.ndarray) -> np.ndarray:
+        """Scan distances -> wire distances at resolve: the identity for
+        float metrics; the binary family turns its +/-1 inner products
+        into hamming distances."""
+        return dists
 
     def _run_search_kernel(self, qpad: torch.Tensor, mask: torch.Tensor,
                            k: int):
@@ -333,10 +346,13 @@ class _SlotStoreIndex(VectorIndex):
         rows when only the first two hold; else the plain arm of the
         tier."""
         store = self.store
+        # the binary family's int8 rows stay on the plain arm, as the JAX
+        # package keeps them off its fused kernels (flat.py:544-546)
         fused_on = (
             fused_kernel_enabled(store.capacity, self.device)
             and self._kernel_metric in (Metric.L2, Metric.INNER_PRODUCT)
             and k <= kernel_topk.K_MAX
+            and store.dtype != torch.int8
         )
         pruned_on = fused_on and store.vecs_blk is not None \
             and prune_scan_enabled()
@@ -478,10 +494,10 @@ class TpuFlat(_SlotStoreIndex):
         super().__init__(index_id, parameter)
         if parameter.dimension <= 0:
             raise InvalidParameter(f"dimension {parameter.dimension}")
-        if parameter.metric is Metric.HAMMING:
-            raise NotPorted("binary/hamming FLAT is not ported yet")
         self.device = resolve_device(device)
         tier = resolve_precision(parameter)
+        if tier == "sq8" and parameter.metric is Metric.HAMMING:
+            raise InvalidParameter("sq8 tier needs a float metric")
         self.store = _new_tier_store(tier, parameter.dimension, self.device)
         self._init_precision(tier)
         self._kernel_metric = parameter.metric
@@ -514,6 +530,106 @@ class TpuFlat(_SlotStoreIndex):
         already normalized, so they go in as they are), or an sq8 store's
         codes with their codec."""
         self._restore_store(ids, vectors, codes, sq_params)
+        self.write_count_since_save = 0
+
+
+class BinaryPm1Mixin:
+    """The binary indexes' codec (TpuBinaryFlat, TpuBinaryIvfFlat):
+    dimension is in bits and wire rows are dimension // 8 uint8 bytes.
+    Rows unpack once at write time (little-endian bits within a byte)
+    into a +/-1 int8 store, so a search is one exact int8 product and
+    hamming(a, b) = (nbits - <pm(a), pm(b)>) / 2. Snapshots hold the
+    packed rows, in the JAX package's format."""
+
+    dimension: int
+    nbytes: int
+
+    def _unpack_pm1(self, packed: np.ndarray) -> np.ndarray:
+        bits = np.unpackbits(packed, axis=1, bitorder="little")
+        bits = bits[:, : self.dimension]
+        return bits.astype(np.int8) * 2 - 1
+
+    def _repack(self, pm1: np.ndarray) -> np.ndarray:
+        return np.packbits(pm1 > 0, axis=1, bitorder="little")
+
+    def _convert_distances(self, dists: np.ndarray) -> np.ndarray:
+        # the scan returned +/-1 inner products (descending); hamming
+        # distances ascend
+        return (self.dimension - dists) * 0.5
+
+    def _prep_vectors(self, vectors: np.ndarray) -> np.ndarray:
+        vectors = np.asarray(vectors, np.uint8)
+        if vectors.ndim != 2 or vectors.shape[1] != self.nbytes:
+            raise InvalidParameter(f"binary vector shape {vectors.shape}")
+        return self._unpack_pm1(vectors)
+
+    def _prep_queries(self, queries: np.ndarray) -> np.ndarray:
+        queries = np.asarray(queries, np.uint8)
+        if queries.ndim == 1:
+            queries = queries[None, :]
+        if queries.shape[1] != self.nbytes:
+            raise InvalidParameter(f"binary query shape {queries.shape}")
+        return self._unpack_pm1(queries).astype(np.float32)
+
+    def _binary_store(self, capacity: int = 0) -> SlotStore:
+        """An empty +/-1 int8 store on the index's device."""
+        kw = {"capacity": capacity} if capacity else {}
+        return SlotStore(self.dimension, self.device, dtype=torch.int8, **kw)
+
+    def _save_rows(self) -> dict:
+        """The snapshot's rows, packed (the JAX package's format)."""
+        snap = self.store.to_host()
+        snap["vectors"] = self._repack(snap["vectors"])
+        return snap
+
+    def _restore_store(self, ids, vectors=None, codes=None,
+                       sq_params=None) -> np.ndarray:
+        """A fresh +/-1 store holding the packed snapshot rows; returns
+        their slots."""
+        ids = np.asarray(ids, np.int64)
+        self.store = self._binary_store(max(len(ids), 1))
+        if not len(ids):
+            return np.empty(0, np.int64)
+        return self.store.put(ids, self._unpack_pm1(
+            np.asarray(vectors, np.uint8)))
+
+
+def _check_binary_dimension(parameter: IndexParameter) -> None:
+    if parameter.dimension <= 0 or parameter.dimension % 8:
+        raise InvalidParameter("binary dimension must be multiple of 8")
+
+
+class TpuBinaryFlat(BinaryPm1Mixin, _SlotStoreIndex):
+    """Exact hamming search over bit-packed rows (the reference's
+    faiss::IndexBinaryFlat arm; the JAX package's TpuBinaryFlat)."""
+
+    def __init__(self, index_id: int, parameter: IndexParameter,
+                 device=None):
+        super().__init__(index_id, parameter)
+        _check_binary_dimension(parameter)
+        self.nbytes = parameter.dimension // 8
+        self.device = resolve_device(device)
+        self.store = self._binary_store()
+        self._kernel_metric = Metric.INNER_PRODUCT
+
+    def save(self, path: str) -> None:
+        os.makedirs(path, exist_ok=True)
+        np.savez(os.path.join(path, "binary_flat.npz"), **self._save_rows())
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump(self._save_meta(), f)
+
+    def load(self, path: str) -> None:
+        """Reads the JAX package's snapshot format as well as its own."""
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+        self._check_meta(meta)
+        data = np.load(os.path.join(path, "binary_flat.npz"))
+        self.restore_arrays(data["ids"], data["vectors"])
+        self.apply_log_id = meta["apply_log_id"]
+
+    def restore_arrays(self, ids, vectors) -> None:
+        """Install packed uint8 rows as a snapshot load does."""
+        self._restore_store(ids, vectors)
         self.write_count_since_save = 0
 
 

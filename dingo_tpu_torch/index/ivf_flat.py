@@ -1,5 +1,6 @@
 """TpuIvfFlat: inverted-file index (port of dingo_tpu/index/ivf_flat.py,
-float metrics, in the fp32, bf16 and sq8 precision tiers).
+float metrics, in the fp32, bf16 and sq8 precision tiers), and
+TpuBinaryIvfFlat, its hamming counterpart over bit-packed rows.
 
   train  — Lloyd k-means on the device (ops/kmeans.py) over a sampled
            subset, deterministic farthest-first init.
@@ -23,6 +24,14 @@ float metrics, in the fp32, bf16 and sq8 precision tiers).
            the scan over-fetches max(topk, topk * factor) and the
            shortlist is reranked on the device under the same lock.
 
+  binary — TpuBinaryIvfFlat keeps the binary family's int8 +/-1 store
+           (flat.BinaryPm1Mixin): float k-means over +/-1 space with float
+           centroids, probes by float L2, and the list scan on the plain
+           arm as a +/-1 inner product (int8 buckets widen after the
+           gather, as in the JAX package), converted to hamming at
+           resolve. HAMMING is outside the kernels' route, and int8 views
+           carry no pruning metadata (JAX ivf_flat.py:722, :878-885).
+
 An untrained index raises NotTrained, the reader's brute-force contract.
 """
 
@@ -45,7 +54,6 @@ from dingo_tpu_torch.index.base import (
     FilterSpec,
     IndexParameter,
     InvalidParameter,
-    NotPorted,
     NotTrained,
     SearchResult,
     VectorIndex,
@@ -53,7 +61,9 @@ from dingo_tpu_torch.index.base import (
     strip_invalid,
 )
 from dingo_tpu_torch.index.flat import (
+    BinaryPm1Mixin,
     _SlotStoreIndex,
+    _check_binary_dimension,
     _new_tier_store,
     _resolve_train_cap,
     _staged_or_upload,
@@ -300,7 +310,7 @@ class IvfViewMaintenance:
         self._filter_cache[fp] = (view.version, bmask)
         return bmask
 
-    # -- shape bucketing ---------------------------------------------------
+    # -- shape bucketing and warmup ----------------------------------------
     def _shape_buckets(self, topk: int, nprobe: int):
         """(k_eff, nprobe_eff) on the {1, 1.5}x-pow2 ladder; results slice
         back to topk."""
@@ -308,8 +318,24 @@ class IvfViewMaintenance:
             return topk, nprobe
         return shape_bucket(topk), min(shape_bucket(nprobe), self.nlist)
 
+    def _warmup_queries(self, b: int) -> np.ndarray:
+        return np.ones((b, self.dimension), np.float32)
+
+    def warmup(self, batches=(1, 8, 64), topk: int = 10,
+               nprobe: Optional[int] = None) -> int:
+        """One search per batch bucket, so that steady-state serving meets
+        no new shape; returns the searches run (0 untrained)."""
+        if not self.is_trained():
+            return 0
+        self._ensure_view()
+        for bsz in batches:
+            self.search(self._warmup_queries(int(bsz)), topk, nprobe=nprobe)
+        return len(batches)
+
 
 class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
+    _snapshot_file = "ivf_flat.npz"
+
     def __init__(self, index_id: int, parameter: IndexParameter,
                  device=None):
         VectorIndex.__init__(self, index_id, parameter)
@@ -317,8 +343,8 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
             raise InvalidParameter(f"dimension {parameter.dimension}")
         if parameter.ncentroids <= 0:
             raise InvalidParameter(f"ncentroids {parameter.ncentroids}")
-        if parameter.metric is Metric.HAMMING:
-            raise NotPorted("binary IVF is not ported yet")
+        if parameter.metric is Metric.HAMMING and type(self) is TpuIvfFlat:
+            raise InvalidParameter("use BINARY_IVF_FLAT for hamming")
         self.device = resolve_device(device)
         self._kernel_metric = parameter.metric
         tier = resolve_precision(parameter)
@@ -360,7 +386,7 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
         self._offer_rerank(slots, vectors)
         self._grow_assign()
         if self.is_trained():
-            rows = torch.from_numpy(vectors).to(self.device)
+            rows = torch.from_numpy(vectors).to(self.device, torch.float32)
             assign = kmeans_assign(rows, self.centroids).cpu().numpy()
             self._assign_h[slots] = assign
             if self._view is not None and not self._view_dirty:
@@ -436,8 +462,9 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
     def _prune_dim_block(self) -> Optional[int]:
         """Dimension-block width the pruned scan would use for this index,
         or None when pruning cannot apply (kernel crossover or flag off;
-        sq8 + COSINE, whose plain arm divides by the decoded norm and the
-        kernel does not; or a dimension that does not block). Read at each
+        HAMMING, the binary family's metric; sq8 + COSINE, whose plain arm
+        divides by the decoded norm and the kernel does not; or a
+        dimension that does not block). Read at each
         view rebuild, so a flag flip takes effect at the next one."""
         if not ivf_kernel_enabled(self.dimension, self.device):
             return None
@@ -598,8 +625,8 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
                 # shape bucketing may have run a larger k; slice back
                 ids = store.ids_of_slots(
                     slots_h[:b, :topk].astype(np.int64))
-                return [strip_invalid(i, d)
-                        for i, d in zip(ids, dists_h[:b, :topk])]
+                dists_h = self._convert_distances(dists_h[:b, :topk])
+                return [strip_invalid(i, d) for i, d in zip(ids, dists_h)]
             finally:
                 lease.release()
 
@@ -614,7 +641,7 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
             extras["centroids"] = self.centroids.cpu().numpy()
             live = self.store.ids_by_slot >= 0
             extras["assign"] = self._assign_h[np.flatnonzero(live)]
-        np.savez(os.path.join(path, "ivf_flat.npz"), **snap, **extras)
+        np.savez(os.path.join(path, self._snapshot_file), **snap, **extras)
         meta = self._save_meta()
         meta["nlist"] = self.nlist
         meta["trained"] = self.is_trained()
@@ -630,7 +657,7 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
             raise InvalidParameter(
                 f"snapshot nlist {meta['nlist']} != {self.nlist}"
             )
-        data = np.load(os.path.join(path, "ivf_flat.npz"))
+        data = np.load(os.path.join(path, self._snapshot_file))
         trained = bool(meta.get("trained"))
         self.restore_arrays(
             data["ids"],
@@ -659,3 +686,39 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
         self._view_dirty = True
         self._filter_cache.clear()
         self.write_count_since_save = 0
+
+
+class TpuBinaryIvfFlat(BinaryPm1Mixin, TpuIvfFlat):
+    """Binary (bit-packed) IVF with a hamming list scan (the reference's
+    faiss::IndexBinaryIVF arm; the JAX package's TpuBinaryIvfFlat).
+    dimension is in bits; wire rows are dimension // 8 uint8 bytes. Rows
+    unpack once into the +/-1 int8 store, so the coarse quantizer is float
+    k-means over +/-1 space (its centroids stay float) and the list scan
+    is a +/-1 inner product. Snapshots (save, load, restore_arrays) are
+    IVF_FLAT's with packed rows."""
+
+    _snapshot_file = "binary_ivf_flat.npz"
+
+    def __init__(self, index_id: int, parameter: IndexParameter,
+                 device=None):
+        _check_binary_dimension(parameter)
+        super().__init__(index_id, parameter, device=device)
+        self.nbytes = parameter.dimension // 8
+        self.store = self._binary_store()
+        # the +/-1 store is the family's quantized form: the float tiers
+        # and their rerank cache do not apply on top of it
+        self._precision = "fp32"
+        self._rerank_cache = None
+        self._kernel_metric = Metric.INNER_PRODUCT
+        self._assign_h = np.full((self.store.capacity,), -1, np.int32)
+
+    def _warmup_queries(self, b: int) -> np.ndarray:
+        return np.ones((b, self.nbytes), np.uint8)   # the packed wire rows
+
+    def train(self, vectors: Optional[np.ndarray] = None) -> None:
+        """Float k-means over +/-1 space: an explicit train set arrives
+        packed (the wire format); the implicit one samples the unpacked
+        store."""
+        if vectors is not None:
+            vectors = self._prep_vectors(vectors)
+        super().train(vectors)

@@ -5,15 +5,17 @@ dingo_tpu/index/slot_store.py).
   host side   — ids_by_slot int64[capacity] (-1 = empty) + dict id->slot +
                 free-slot list + validity bitmap. 64-bit external ids never
                 go on the device; kernels work in slot space.
-  device side — vecs[capacity, d] in the tier's dtype (f32, bf16, or uint8
-                codes in SqSlotStore) and sqnorm[capacity] f32, the norms of
-                what the scans accumulate: the stored bf16 rows, or the f32
-                decode of the codes. Writes land in place, one slice
+  device side — vecs[capacity, d] in the tier's dtype (f32, bf16, int8 +/-1
+                rows of the binary family, or uint8 codes in SqSlotStore)
+                and sqnorm[capacity] f32, the norms of what the scans
+                accumulate: the stored bf16 rows, the f32 decode of the
+                codes, or nbits for +/-1 rows. Writes land in place, one slice
                 assignment per contiguous slot run (fresh appends are one
                 run, free slots are handed out ascending); the JAX package
                 needed donated dynamic_update_slice programs for the same.
   blocked     — optional dimension-blocked mirror for the pruned FLAT scan
-                (kernel B4): vecs_blk[nblk, capacity, dblk] in the store's
+                (kernel B4; never for int8 rows, which stay off the
+                kernels as in the JAX package): vecs_blk[nblk, capacity, dblk] in the store's
                 dtype plus per-block norms bsq_blk[nblk, capacity] f32 (of
                 the same values as sqnorm), written in the same slot runs.
   host        — HostSlotStore keeps the same bookkeeping with rows and
@@ -58,6 +60,9 @@ def _next_pow2(n: int) -> int:
 
 #: row dtypes of the float stores (SqSlotStore holds uint8 codes)
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)
+#: row dtypes of SlotStore: the float tiers and the binary family's +/-1
+#: int8 rows
+ROW_DTYPES = FLOAT_DTYPES + (torch.int8,)
 
 
 class SlotStore:
@@ -139,12 +144,13 @@ class SlotStore:
         return self._dmask
 
     def _row_dtypes(self):
-        return FLOAT_DTYPES
+        return ROW_DTYPES
 
     def _blocked_dtype_ok(self) -> bool:
         """Tiers whose scan kernel (B4) reads a blocked mirror: f32, bf16
-        and sq8 codes (SqSlotStore), all of them."""
-        return True
+        and sq8 codes (SqSlotStore); the binary family's int8 rows stay on
+        the plain arm, as in the JAX package."""
+        return self.dtype != torch.int8
 
     def memory_size(self) -> int:
         itemsize = torch.empty((), dtype=self.dtype).element_size()
@@ -191,7 +197,12 @@ class SlotStore:
         """(rows as the device stores them, the f32 values the scans
         accumulate) for a batch of prepped rows: f32 rows as they are,
         bf16 rows rounded (their norms are those of the rounded rows, the
-        JAX package's stored-row convention)."""
+        JAX package's stored-row convention); int8 +/-1 rows go up as they
+        are, a quarter of the bytes."""
+        if self.dtype == torch.int8:
+            stored = torch.from_numpy(np.ascontiguousarray(
+                rows_h, np.int8)).to(self.device)
+            return stored, stored.to(torch.float32)
         rows = torch.from_numpy(np.ascontiguousarray(
             rows_h, np.float32)).to(self.device)
         stored = rows.to(self.dtype)

@@ -24,8 +24,10 @@ JAX package; NotPorted propagates. A device OOM walks the recovery ladder
 (index/recovery.py), and a device-degraded region is served by an exact
 numpy scan of the engine (``_host_exact_search``); every other error
 propagates. Search parameters (``nprobe``, HNSW's ``ef``) pass through
-to the index. TABLE filters (the coprocessor) and
-binary regions raise NotPorted. The async arm fills ``stage_us`` with the
+to the index. TABLE filters (the coprocessor) raise NotPorted. A binary
+region (BINARY_FLAT, BINARY_IVF_FLAT) keeps its rows and queries as
+packed uint8: its brute force scans a temporary TpuBinaryFlat and its
+degraded host path counts differing bits. The async arm fills ``stage_us`` with the
 device wait and fetch (``search_us``) apart from the whole resolve
 (``total_us``), which also builds the reply rows.
 """
@@ -57,7 +59,7 @@ from dingo_tpu_torch.index.base import (
     SearchResult,
     VectorIndexError,
 )
-from dingo_tpu_torch.index.flat import TpuFlat
+from dingo_tpu_torch.index.flat import TpuBinaryFlat, TpuFlat
 from dingo_tpu_torch.index.recovery import RECOVERY, DeviceDegraded
 from dingo_tpu_torch.index.wrapper import VectorIndexWrapper
 from dingo_tpu_torch.mvcc.codec import MAX_TS
@@ -155,8 +157,7 @@ class VectorReader:
         self._data = MvccReader(ctx.engine, CF_DEFAULT)
         self._scalar = MvccReader(ctx.engine, CF_VECTOR_SCALAR)
         self._speedup = MvccReader(ctx.engine, CF_VECTOR_SCALAR_SPEEDUP)
-        if is_binary_dim_param(ctx.parameter):
-            raise NotPorted("binary regions are not ported yet")
+        self._binary = is_binary_dim_param(ctx.parameter)
 
     def _scalar_source(
         self, scalar_filter: Optional[ScalarFilter]
@@ -180,7 +181,11 @@ class VectorReader:
         return self._scalar
 
     def _deser(self, blob: bytes) -> np.ndarray:
-        return deserialize_vector(blob, self.ctx.parameter.dimension)
+        return deserialize_vector(blob, self.ctx.parameter.dimension,
+                                  binary=self._binary)
+
+    def _query_dtype(self):
+        return np.uint8 if self._binary else np.float32
 
     # ---------------- public entry points (vector_reader.h:44-88) ----------
 
@@ -230,7 +235,7 @@ class VectorReader:
         stage is accounted separately)."""
         import time as _time
 
-        queries = np.asarray(queries, np.float32)
+        queries = np.asarray(queries, self._query_dtype())
         if queries.ndim == 1:
             queries = queries[None, :]
 
@@ -296,7 +301,7 @@ class VectorReader:
 
         t_start = _time.perf_counter_ns()
         prefilter_ns = postfilter_ns = backfill_ns = 0
-        queries = np.asarray(queries, np.float32)
+        queries = np.asarray(queries, self._query_dtype())
         if queries.ndim == 1:
             queries = queries[None, :]
         base = FilterSpec(ranges=[self.ctx.id_window()])
@@ -513,9 +518,16 @@ class VectorReader:
             ids = np.asarray(ids_l, np.int64)
             valid = self._spec_mask(ids, spec)
             metric = param.metric
-            vecs = np.stack(rows).astype(np.float32)
-            q = np.asarray(queries, np.float32)
-            if metric is Metric.L2:
+            if self._binary:
+                db = np.unpackbits(np.stack(rows).astype(np.uint8), axis=1)
+                qb = np.unpackbits(
+                    np.asarray(queries, np.uint8).reshape(nq, -1), axis=1)
+                # hamming distance from products of the {0, 1} planes
+                scores = -(qb @ (1 - db).T.astype(np.float32)
+                           + (1 - qb) @ db.T.astype(np.float32))
+            elif metric is Metric.L2:
+                vecs = np.stack(rows).astype(np.float32)
+                q = np.asarray(queries, np.float32)
                 scores = -(
                     (q ** 2).sum(1)[:, None]
                     - 2.0 * q @ vecs.T
@@ -524,7 +536,8 @@ class VectorReader:
             else:
                 # COSINE rows are stored normalized by the write path, as
                 # in the JAX package: the inner product is the score
-                scores = q @ vecs.T
+                scores = np.asarray(queries, np.float32) @ np.stack(
+                    rows).astype(np.float32).T
             scores = np.where(valid[None, :], scores, -np.inf)
             kk = min(int(topk), scores.shape[1])
             part = np.argpartition(-scores, kk - 1, axis=1)[:, :kk]
@@ -576,12 +589,15 @@ class VectorReader:
     ) -> List[SearchResult]:
         if self.ctx.parameter is None:
             raise VectorIndexError("brute force needs index parameter (dim)")
+        # a binary region scans a temporary binary FLAT
+        itype, cls = ((IndexType.BINARY_FLAT, TpuBinaryFlat) if self._binary
+                      else (IndexType.FLAT, TpuFlat))
         param = IndexParameter(
-            index_type=IndexType.FLAT,
+            index_type=itype,
             dimension=self.ctx.parameter.dimension,
             metric=self.ctx.parameter.metric,
         )
-        temp = TpuFlat(self.ctx.region_id, param, device=self.device)
+        temp = cls(self.ctx.region_id, param, device=self.device)
         for ids, vecs in self.scan_pages(BRUTEFORCE_BATCH):
             temp.upsert(ids, vecs)
         if temp.get_count() == 0:

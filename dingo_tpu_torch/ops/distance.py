@@ -1,9 +1,11 @@
 """Batched distances on torch tensors (port of dingo_tpu/ops/distance.py;
-f32 rows, and bf16 rows paired with a bf16-rounded query).
+f32 rows, bf16 rows paired with a bf16-rounded query, and the binary
+family's int8 +/-1 rows).
 
     L2sqr(q, x)  = ||q||^2 - 2 q.x + ||x||^2
     IP(q, x)     =  q.x
     cosine(q, x) =  q.x / (||q|| ||x||)     (normalize, then IP)
+    hamming(a,b) = (nbits - pm(a).pm(b)) / 2  (pm: bits -> +/-1)
 
 Scores are "larger is better" for every metric (negated L2) so one top-k
 serves the whole index family; ``scores_to_distances`` converts back to the
@@ -27,7 +29,8 @@ torch.backends.cudnn.allow_tf32 = False
 
 
 class Metric(enum.Enum):
-    """pb::common::MetricType equivalents (HAMMING is not ported yet)."""
+    """pb::common::MetricType equivalents, plus HAMMING for the binary
+    index family."""
 
     L2 = "l2"
     INNER_PRODUCT = "ip"
@@ -46,8 +49,31 @@ def squared_norms(x: torch.Tensor) -> torch.Tensor:
 DOT_BLOCK = 128
 
 
+def _dot_pm1(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """[b, d] @ [n, d]^T for int8 rows and a query of integers in int8
+    range (the binary family's +/-1 values, 0 in padded rows), exact: one
+    int8 x int8 -> int32 product (torch._int_mm: int8 tensor cores on the
+    card), returned as f32. Hamming distances are integers and must come
+    out exact; a bf16 product rounds them past 256 and widening the rows
+    to f32 copies the whole store per search. The CUDA product wants more
+    than 16 query rows and every other extent a multiple of 8: the query
+    pads to a multiple of 8 and at least 24 rows, and zero columns or rows
+    pad d and n where needed (never on an index's path: binary dimensions
+    are multiples of 8 and store capacities powers of two)."""
+    (b, d), n = q.shape, x.shape[0]
+    m, dp, np_ = max(24, -(-b // 8) * 8), -(-d // 8) * 8, -(-n // 8) * 8
+    qi = torch.zeros((m, dp), dtype=torch.int8, device=q.device)
+    qi[:b, :d] = q.to(torch.int8)
+    if (dp, np_) != (d, n):
+        xp = torch.zeros((np_, dp), dtype=torch.int8, device=x.device)
+        xp[:n, :d] = x
+        x = xp
+    return torch._int_mm(qi, x.T)[:b, :n].to(torch.float32)
+
+
 def _dot(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """[b, d] @ [n, d]^T accumulated in f32. bf16 rows pair with the query
+    """[b, d] @ [n, d]^T accumulated in f32 (int8 rows: _dot_pm1, exact).
+    bf16 rows pair with the query
     rounded to bf16, as the JAX package's bf16 matmul does; a bf16 x bf16
     product is exact in f32, so only the summation order can differ. That
     order is one partial dot per DOT_BLOCK columns, summed block by block:
@@ -55,6 +81,8 @@ def _dot(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     up to 1.8e-3 against the f64 distance, the blocked sum by 3.8e-4
     (chip_smoke.py's f64 witness). Only bf16 rows take the blocked form
     (f32 rows, and so k-means and the probes, keep one product)."""
+    if x.dtype == torch.int8:
+        return _dot_pm1(q, x)
     q = q.to(torch.float32)
     if x.dtype != torch.bfloat16:
         return q @ x.to(torch.float32).T
@@ -92,6 +120,26 @@ def np_normalize(x, eps: float = 1e-30) -> np.ndarray:
     return np.ascontiguousarray(x / n[:, None])
 
 
+def bits_to_pm1(packed: torch.Tensor, nbits: int) -> torch.Tensor:
+    """uint8-packed bits [n, nbytes] -> +/-1 f32 [n, nbits]; bit j of a
+    byte is (byte >> j) & 1, little-endian within the byte as in the JAX
+    package (and numpy's unpackbits(bitorder="little"))."""
+    n, nbytes = packed.shape
+    shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
+    bits = (packed.to(torch.uint8)[:, :, None] >> shifts) & 1
+    bits = bits.reshape(n, nbytes * 8)[:, :nbits]
+    return bits.to(torch.float32) * 2.0 - 1.0
+
+
+def pairwise_hamming(q_packed: torch.Tensor, x_packed: torch.Tensor,
+                     nbits: int) -> torch.Tensor:
+    """Hamming distance matrix [b, n] (ascending = better) over
+    uint8-packed bit vectors: (nbits - <pm(q), pm(x)>) / 2, exact."""
+    qp = bits_to_pm1(q_packed, nbits)
+    xp = bits_to_pm1(x_packed, nbits).to(torch.int8)
+    return (nbits - _dot_pm1(qp, xp)) * 0.5
+
+
 def metric_ascending(metric: Metric) -> bool:
     """True when smaller distance means better (L2, hamming)."""
     return metric in (Metric.L2, Metric.HAMMING)
@@ -99,8 +147,10 @@ def metric_ascending(metric: Metric) -> bool:
 
 def score_matrix(q: torch.Tensor, x: torch.Tensor, metric: Metric,
                  x_sqnorm: Optional[torch.Tensor] = None,
-                 x_is_normalized: bool = False) -> torch.Tensor:
-    """Unified 'larger is better' score matrix [b, n]."""
+                 x_is_normalized: bool = False,
+                 nbits: int = 0) -> torch.Tensor:
+    """Unified 'larger is better' score matrix [b, n] (HAMMING: q and x
+    are uint8-packed bits, ``nbits`` of them a row)."""
     if metric is Metric.L2:
         return -pairwise_l2sqr(q, x, x_sqnorm)
     if metric is Metric.INNER_PRODUCT:
@@ -113,7 +163,9 @@ def score_matrix(q: torch.Tensor, x: torch.Tensor, metric: Metric,
             x_sqnorm = squared_norms(x)
         inv = torch.rsqrt(torch.clamp_min(x_sqnorm, 1e-30))
         return _dot(qn, x) * inv[None, :]
-    raise ValueError(f"metric {metric} is not ported")
+    if metric is Metric.HAMMING:
+        return -pairwise_hamming(q, x, nbits)
+    raise ValueError(f"unknown metric {metric}")
 
 
 def scores_to_distances(scores: torch.Tensor, metric: Metric) -> torch.Tensor:

@@ -2003,3 +2003,198 @@ def test_region_split_and_merge_on_the_card():
     finally:
         for nd in nodes.values():
             nd.stop()
+
+
+# ---------------- the binary family, range search and DiskANN -------------
+
+def _packed(n, nbytes, seed, protos=64):
+    """Clustered packed rows: prototypes with a few bytes flipped."""
+    g = np.random.default_rng(seed)
+    base = g.integers(0, 256, (protos, nbytes), dtype=np.uint8)
+    x = base[g.integers(0, protos, n)]
+    flip = g.integers(0, nbytes, (n, 4))
+    x[np.arange(n)[:, None], flip] ^= g.integers(
+        1, 256, (n, 4)).astype(np.uint8)
+    return x
+
+
+def _hamming(q, x):
+    return np.unpackbits(q[:, None, :] ^ x[None, :, :], axis=-1).sum(-1)
+
+
+def _assert_exact_hamming(res, q, x, ids, k):
+    """Distances equal the exact top-k's and every id's exact distance
+    (ids modulo ties)."""
+    pos = {int(v): i for i, v in enumerate(ids)}
+    hd = _hamming(q, x)
+    for qi, r in enumerate(res):
+        want = np.sort(hd[qi])[:k]
+        np.testing.assert_array_equal(r.distances, want)
+        got = hd[qi, [pos[int(i)] for i in r.ids]]
+        np.testing.assert_array_equal(r.distances, got)
+
+
+def test_pm1_product_exact_on_device():
+    """The int8 product (torch._int_mm) on the card is exact at 768 and
+    1024 bits for 1, 17 and 64 query rows, and a ragged row count."""
+    from dingo_tpu_torch.ops.distance import _dot, pairwise_hamming
+
+    dev = _cuda()
+    g = np.random.default_rng(1)
+    for d, n in ((768, 4096), (1024, 1000)):
+        x = (g.integers(0, 2, (n, d)) * 2 - 1).astype(np.int8)
+        for b in (1, 17, 64):
+            q = (g.integers(0, 2, (b, d)) * 2 - 1).astype(np.float32)
+            got = _dot(torch.from_numpy(q).to(dev),
+                       torch.from_numpy(x).to(dev)).cpu().numpy()
+            want = q.astype(np.int64) @ x.astype(np.int64).T
+            np.testing.assert_array_equal(got, want)
+    qp, xp = _packed(5, 96, 2), _packed(333, 96, 3)
+    got = pairwise_hamming(torch.from_numpy(qp).to(dev),
+                           torch.from_numpy(xp).to(dev), 768).cpu().numpy()
+    np.testing.assert_array_equal(got, _hamming(qp, xp))
+
+
+def test_binary_indexes_serve_exact_hamming_on_device():
+    """BINARY_FLAT and BINARY_IVF_FLAT at 768 bits on the card: exact
+    hamming top-10 (full probe on IVF), range search equal to the exact
+    set, writes visible, and only the plain arms launched (no B1-B5)."""
+    from dingo_tpu_torch.index.base import IndexParameter, IndexType
+    from dingo_tpu_torch.index.factory import new_index
+    from dingo_tpu_torch.index.flat import flat_search_plain
+    from dingo_tpu_torch.index.ivf_flat import ivf_scan_scores
+    from dingo_tpu_torch.ops import (kernel_ivf, kernel_ivf_pruned,
+                                     kernel_pq, kernel_topk,
+                                     kernel_topk_pruned)
+    from dingo_tpu_torch.ops.distance import Metric
+
+    dev = _cuda()
+    n = 20000
+    x = _packed(n, 96, 4)
+    ids = np.arange(n, dtype=np.int64)
+    q = x[:64].copy()
+    q[:, 5] ^= 0x11
+    kernels = (kernel_topk.fused_topk, kernel_ivf.ivf_list_topk,
+               kernel_ivf_pruned.ivf_pruned_topk,
+               kernel_topk_pruned.pruned_fused_topk,
+               kernel_pq.ivf_pq_adc_topk)
+    before = [kf.launches for kf in kernels]
+    flat = new_index(1, IndexParameter(index_type=IndexType.BINARY_FLAT,
+                                       dimension=768, metric=Metric.HAMMING))
+    ivf = new_index(2, IndexParameter(
+        index_type=IndexType.BINARY_IVF_FLAT, dimension=768,
+        metric=Metric.HAMMING, ncentroids=32, default_nprobe=32))
+    assert flat.device == dev and flat.store.vecs.is_cuda
+    for idx in (flat, ivf):
+        idx.add(ids, x)
+    ivf.train()
+    f0, i0 = flat_search_plain.calls, ivf_scan_scores.calls
+    _assert_exact_hamming(flat.search(q, 10), q, x, ids, 10)
+    _assert_exact_hamming(ivf.search(q, 10, nprobe=32), q, x, ids, 10)
+    assert flat_search_plain.calls == f0 + 1
+    assert ivf_scan_scores.calls == i0 + 1
+    hd = _hamming(q[:2], x)
+    radius = float(np.sort(hd[0])[40])
+    for idx in (flat, ivf):
+        r = idx.range_search(q[:2], radius)
+        assert set(r[0].ids.tolist()) == set(ids[hd[0] <= radius].tolist())
+    new_rows = _packed(100, 96, 5)
+    for idx in (flat, ivf):
+        idx.upsert(ids[:100], new_rows)
+        idx.delete(ids[100:200])
+    x2 = x.copy()
+    x2[:100] = new_rows
+    keep = np.ones(n, bool)
+    keep[100:200] = False
+    q2 = np.concatenate([new_rows[:4], x[150:152]])
+    for idx, kw in ((flat, {}), (ivf, {"nprobe": 32})):
+        res = idx.search(q2, 10, **kw)
+        _assert_exact_hamming(res, q2, x2[keep], ids[keep], 10)
+    assert [kf.launches for kf in kernels] == before
+
+
+def test_binary_region_serves_through_the_reader_on_device():
+    """A BINARY_IVF_FLAT region on a MonoStoreNode: untrained, the
+    reader's brute force over a temporary binary FLAT on the card; after
+    the manager's rebuild, the index; both exact at full probe."""
+    from dingo_tpu_torch.index import codec as vcodec
+    from dingo_tpu_torch.index.base import IndexParameter, IndexType
+    from dingo_tpu_torch.ops.distance import Metric
+    from dingo_tpu_torch.store.node import MonoStoreNode
+    from dingo_tpu_torch.store.region import RegionDefinition, RegionType
+
+    _cuda()
+    n = 6000
+    x = _packed(n, 96, 6)
+    ids = np.arange(n, dtype=np.int64)
+    node = MonoStoreNode()
+    try:
+        region = node.create_region(RegionDefinition(
+            region_id=4, start_key=vcodec.encode_vector_key(1, 0),
+            end_key=vcodec.encode_vector_key(1, 1 << 40), partition_id=1,
+            region_type=RegionType.INDEX, index_parameter=IndexParameter(
+                index_type=IndexType.BINARY_IVF_FLAT, dimension=768,
+                metric=Metric.HAMMING, ncentroids=16, default_nprobe=16)))
+        for lo in range(0, n, 2000):
+            node.storage.vector_add(region, ids[lo:lo + 2000],
+                                    x[lo:lo + 2000])
+        q = x[:8].copy()
+        q[:, 0] ^= 3
+
+        class R:
+            def __init__(self, row):
+                self.ids = np.asarray([v.id for v in row])
+                self.distances = np.asarray([v.distance for v in row],
+                                            np.float32)
+
+        for stage in ("brute force", "index"):
+            if stage == "index":
+                node.index_manager.rebuild(region)
+            rows = node.storage.vector_batch_search(region, q, 10)
+            _assert_exact_hamming([R(r) for r in rows], q, x, ids, 10)
+    finally:
+        node.stop()
+
+
+def test_diskann_core_on_device(tmp_path):
+    """DiskAnnCore on the card: push, build, load (codes on the device),
+    a search whose distances equal the f64 distances of their ids, a
+    restart that serves the same ids, and destroy removing the files."""
+    import os
+
+    from dingo_tpu_torch.diskann import CoreState, DiskAnnCore
+    from dingo_tpu_torch.index.base import IndexParameter, IndexType
+
+    _cuda()
+    g = np.random.default_rng(7)
+    n, d = 20000, 64
+    centers = g.standard_normal((64, d)).astype(np.float32)
+    x = (centers[g.integers(0, 64, n)]
+         + 0.2 * g.standard_normal((n, d))).astype(np.float32)
+    ids = np.arange(10, 10 + n, dtype=np.int64)
+    param = IndexParameter(index_type=IndexType.DISKANN, dimension=d,
+                           ncentroids=32, nsubvector=16, default_nprobe=8)
+    path = str(tmp_path / "dk")
+    core = DiskAnnCore(1, param, path)
+    core.push_data(ids, x, has_more=False)
+    core.build()
+    core.load()
+    assert core._codes.is_cuda and core._code_buckets.is_cuda
+    q = x[:64] + 0.01
+    res = core.search(q, 10, nprobe=8)
+    d64 = ((q[:, None, :].astype(np.float64) - x[None].astype(np.float64))
+           ** 2).sum(-1)
+    gt = np.argsort(d64, axis=1)[:, :10]
+    hits = 0
+    for qi, (r_ids, r_d) in enumerate(res):
+        np.testing.assert_allclose(r_d, d64[qi, r_ids - 10], rtol=RTOL,
+                                   atol=ATOL)
+        hits += len(set(r_ids.tolist()) & set((gt[qi] + 10).tolist()))
+    assert hits / (64 * 10) >= 0.95
+    core2 = DiskAnnCore(1, param, path)
+    assert core2.count == n and core2.try_load()
+    res2 = core2.search(q, 10, nprobe=8)
+    assert [r[0].tolist() for r in res2] == [r[0].tolist() for r in res]
+    core2.close()
+    core.destroy()
+    assert core.status() is CoreState.UNINIT and not os.path.exists(path)

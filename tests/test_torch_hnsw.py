@@ -464,6 +464,20 @@ def test_factory_builds_port_hnsw_and_auto_is_host_on_cpu(corpus, port):
     assert h.get() == h0 + 1
 
 
+def test_hnsw_host_vectors_rejected_by_both_factories():
+    """HNSW serves from the store's device rows: both factories refuse
+    host_vectors with the same error (the port's built such an index)."""
+    for name in PKGS:
+        base = importlib.import_module(f"{name}.index.base")
+        factory = importlib.import_module(f"{name}.index.factory")
+        param = base.IndexParameter(index_type=base.IndexType.HNSW,
+                                    dimension=8, host_vectors=True)
+        kw = {"device": "cpu"} if name == "dingo_tpu_torch" else {}
+        with pytest.raises(base.InvalidParameter,
+                           match="HNSW does not support host_vectors"):
+            factory.new_index(1, param, **kw)
+
+
 def test_region_search_passes_ef_to_hnsw(corpus, port):
     """An HNSW region on a MonoStoreNode: the reader and the wrapper pass
     the request's ef to the index, as the JAX package's do."""

@@ -84,6 +84,10 @@ _BLOCKED_IMPORT = textwrap.dedent("""
             "dingo_tpu_torch.metrics.collector",
             "dingo_tpu_torch.store.checker",
             "dingo_tpu_torch.server.main"} <= set(names), names
+    # the diskann role's core and its item manager (its service is gRPC
+    # and comes with the front end)
+    assert {"dingo_tpu_torch.diskann", "dingo_tpu_torch.diskann.core",
+            "dingo_tpu_torch.diskann.item"} <= set(names), names
     import chip_smoke  # the on-card smoke script imports nothing of JAX either
     import precision_check  # nor does the f32-against-f64 check
     bad = [m for m in sys.modules
@@ -112,7 +116,8 @@ def test_new_index_without_device_raises_when_no_cuda(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for t in (IndexType.FLAT, IndexType.IVF_FLAT, IndexType.BRUTEFORCE,
-              IndexType.HNSW):
+              IndexType.HNSW, IndexType.BINARY_FLAT,
+              IndexType.BINARY_IVF_FLAT):
         param = IndexParameter(index_type=t, dimension=8, ncentroids=4)
         with pytest.raises(DeviceUnavailable):
             new_index(1, param)

@@ -71,6 +71,10 @@ class Pkg:
 def _reset(p):
     p.DEVFAULT.disarm()
     p.RECOVERY.clear()
+    # the ladder count is process-wide and clear() keeps it: a test file
+    # run earlier in the same worker (test_torch_cluster.py's heartbeat
+    # case walks the ladder in both packages) must not leak into this one
+    p.RECOVERY.ladder_runs = 0
 
 
 @pytest.fixture(params=PKGS)

@@ -767,19 +767,30 @@ def test_region_from_reference(replicated):
 # ---------------- NotPorted: unported features fail loudly -----------------
 
 def test_not_ported_raise_sites():
-    from dingo_tpu_torch.index.base import IndexParameter, IndexType
+    from dingo_tpu_torch.index.base import (
+        IndexParameter,
+        IndexType,
+        InvalidParameter,
+    )
     from dingo_tpu_torch.index.factory import new_index
-    from dingo_tpu_torch.index.flat import TpuFlat
-    from dingo_tpu_torch.index.ivf_flat import TpuIvfFlat
+    from dingo_tpu_torch.index.flat import TpuBinaryFlat, TpuFlat
+    from dingo_tpu_torch.index.ivf_flat import TpuBinaryIvfFlat, TpuIvfFlat
     from dingo_tpu_torch.ops.distance import Metric
 
-    with pytest.raises(NotPorted):                  # factory.py
+    with pytest.raises(NotPorted, match="gRPC"):    # factory.py
         new_index(1, IndexParameter(index_type=IndexType.DISKANN,
                                     dimension=8), device="cpu")
-    with pytest.raises(NotPorted):                  # flat.py
-        TpuFlat(1, IndexParameter(dimension=8, metric=Metric.HAMMING),
-                device="cpu")
-    with pytest.raises(NotPorted):                  # ivf_flat.py
+    # HAMMING is ported: the FLAT constructor takes it as the JAX
+    # package's does, the binary families build, and a plain IVF_FLAT
+    # refuses it as the JAX package's does
+    assert TpuFlat(1, IndexParameter(dimension=8, metric=Metric.HAMMING),
+                   device="cpu").metric is Metric.HAMMING
+    for itype, cls in ((IndexType.BINARY_FLAT, TpuBinaryFlat),
+                       (IndexType.BINARY_IVF_FLAT, TpuBinaryIvfFlat)):
+        param = IndexParameter(index_type=itype, dimension=8,
+                               metric=Metric.HAMMING, ncentroids=2)
+        assert isinstance(new_index(1, param, device="cpu"), cls)
+    with pytest.raises(InvalidParameter):
         TpuIvfFlat(1, IndexParameter(index_type=IndexType.IVF_FLAT,
                                      dimension=8, metric=Metric.HAMMING),
                    device="cpu")
@@ -814,9 +825,18 @@ def test_not_ported_stubs_of_this_slice():
         p.regm.Region(p.regm.RegionDefinition(
             region_id=3, start_key=b"a", end_key=b"b",
             region_type=p.regm.RegionType.DOCUMENT), device="cpu")
-    with pytest.raises(NotPorted):                  # binary region reader
-        bin_def = p.definition(index_type="binary_flat", dimension=64)
-        engine.new_vector_reader(p.regm.Region(bin_def, device="cpu"))
+    # a binary region's reader is ported: it reads packed uint8 rows
+    bin_def = p.definition(index_type="binary_flat", dimension=64,
+                           metric=p.dist.Metric.HAMMING)
+    bin_region = p.region(bin_def)
+    reader = engine.new_vector_reader(bin_region)
+    assert reader._binary and reader._query_dtype() is np.uint8
+    rows = np.arange(16, dtype=np.uint8).reshape(2, 8)
+    storage.vector_add(bin_region, np.arange(2, dtype=np.int64), rows)
+    got = storage.vector_batch_search(bin_region, rows[1], 2)
+    assert [(v.id, v.distance) for v in got[0]][0] == (1, 0.0)
+    assert storage.vector_batch_query(bin_region, [0])[0].vector.tolist() \
+        == rows[0].tolist()
     # the control plane is ported: a node takes a coordinator, and only
     # the gRPC snapshot pull is left
     transport = p.raft.LocalTransport()

@@ -204,9 +204,16 @@ def test_unported_features_raise_not_supported():
     from dingo_tpu_torch.index.base import InvalidParameter, NotPorted
     from dingo_tpu_torch.index.factory import new_index
 
-    for t in (TType.DISKANN, TType.BINARY_FLAT):
-        with pytest.raises(NotPorted):
-            new_index(1, TParam(index_type=t, dimension=8), device="cpu")
+    # DISKANN is a gRPC proxy (its core is ported: dingo_tpu_torch.diskann);
+    # the binary family is ported and builds
+    with pytest.raises(NotPorted, match="gRPC"):
+        new_index(1, TParam(index_type=TType.DISKANN, dimension=8),
+                  device="cpu")
+    for t in (TType.BINARY_FLAT, TType.BINARY_IVF_FLAT):
+        idx = new_index(1, TParam(index_type=t, dimension=8,
+                                  metric=TMetric.HAMMING, ncentroids=2),
+                        device="cpu")
+        assert idx.index_type is t and idx.store.dtype == torch.int8
     # sq8 is invalid for IVF_PQ, as in the JAX package (its codes are
     # already quantized)
     with pytest.raises(InvalidParameter):
