@@ -123,8 +123,18 @@ IndexService(node) on the leader under the pipeline_sweep traffic while
 when acknowledged and on a follower once applied; no dispatch falls back
 to the reader's sync path); one region search's B3 launch against its
 plain version; the reader's dispatch under the sync-debug mode; device
-bytes per replica and peak host RSS; then the cluster phase on the same
-region (one split_check tick at the default 1,000,000 keys proposes the
+bytes per replica and peak host RSS; then the observability phase on the
+same region (obs_phase: the three replicas' heartbeat digests equal, one
+replica's full integrity scrub with the search p99 beside it, a flipped
+byte in its device rows named by the scrub, flagged by the coordinator and
+rebuilt by the recovery plane; live recall intervals at nprobe 8 and 32
+against numpy, shadow ids, shadow and served ms, the sq8 mirror arm; the
+SLO tuner's walk with its events and explain; skewed against uniform
+heat; the cost model against measured run times; the HBM ledger; a flight
+bundle of a forced slow query; the shed ladder under overload; a
+Prometheus scrape; the ledger runs at the JAX package's defaults there and
+in the ingest, and is off in the other phases); then the cluster phase on
+the same region (one split_check tick at the default 1,000,000 keys proposes the
 median id, heartbeats deliver SPLIT, the child is served through the
 parent's index, 8,192 upserts and 4,096 deletes proposed on each side
 while split, HOLD_VECTOR_INDEX on each replica in turn, coord.merge_region
@@ -1770,6 +1780,51 @@ def f64_witness(res_a, res_b, queries, store) -> str:
                 f"; {t}" for t in apart[:8]))
 
 
+def sq8_mirror_arm(ivf, queries, gt, card) -> None:
+    """The quality plane's mirror arm on the tier phase's sq8 IVF_FLAT
+    (its oracle attached at the first write, fed the original rows): a
+    window of scored searches at nprobe 32, the live recall interval
+    against numpy's recall of the same queries, the mirror's device
+    bytes beside the index's; then the oracle is dropped."""
+    from dingo_tpu_torch.common.config import FLAGS
+    from dingo_tpu_torch.index.base import tensor_bytes
+    from dingo_tpu_torch.obs.quality import QUALITY
+
+    k = gt.shape[1]
+    oracle = QUALITY._attached_oracle(ivf)
+    QUALITY.flush(timeout=300)     # the ingest's own sampled search
+    QUALITY.reset_region(ivf.id)
+    FLAGS.set("quality_sample_rate", 1.0)
+    try:
+        for _ in range(OBS_WINDOW_BATCHES):
+            res = ivf.search(queries, k, nprobe=32)
+        QUALITY.flush(timeout=300)
+    finally:
+        FLAGS.set("quality_sample_rate", 0.0)
+    est = QUALITY.region_estimate(ivf.id)
+    num = sum(len(set(r.ids.tolist()) & set(g.tolist()))
+              for r, g in zip(res[:16], gt[:16])) / (16 * k)
+    mirror_b = tensor_bytes(oracle._mirror) if oracle is not None else 0
+    idx_b = ivf.get_device_memory_size()
+    print(f"[{card}] obs quality, sq8 IVF_FLAT (the tier phase's "
+          f"{len(ivf.store)} rows, sampling on from the first write): "
+          f"oracle arm {oracle.mode if oracle else None}, live recall@{k} "
+          "at nprobe 32 "
+          + (f"{est['recall']:.4f} [{est['ci_low']:.4f}, "
+             f"{est['ci_high']:.4f}] over {est['queries']} scored queries"
+             if est else "none")
+          + f" against the mirror's original rows, numpy's {num:.4f}; "
+          f"mirror device bytes {mirror_b} beside the index's {idx_b}",
+          flush=True)
+    check(oracle is not None and oracle.mode == "mirror" and est is not None
+          and est["ci_low"] <= num <= est["ci_high"]
+          and mirror_b >= len(ivf.store) * ivf.dimension * 4,
+          "obs quality sq8: the fp32 mirror arm scores against the original "
+          "rows (the interval contains numpy's recall) and holds them on "
+          "the device")
+    QUALITY.forget_region(ivf.id)
+
+
 def tier_phase(x, queries, extra, gt, nlist, card, fp32) -> list:
     """The bf16 and sq8 precision tiers at full width on the smoke's rows:
     for each tier a FLAT index searched before training (B4's arm of the
@@ -1912,7 +1967,14 @@ def tier_phase(x, queries, extra, gt, nlist, card, fp32) -> list:
 
         # -- IVF_FLAT through the wrapper -----------------------------------
         t0 = time.perf_counter()
-        w = ingest_ivf(50 + ti, tier)
+        if tier == "sq8":
+            # the quality plane's mirror arm: sampling on from the first
+            # write, so the fp32 mirror holds the original rows
+            FLAGS.set("quality_sample_rate", 1.0)
+        try:
+            w = ingest_ivf(50 + ti, tier)
+        finally:
+            FLAGS.set("quality_sample_rate", 0.0)
         torch.cuda.synchronize()
         ivf = w.own_index
         print(f"{tier} IVF_FLAT ingest + train + view: "
@@ -1929,6 +1991,8 @@ def tier_phase(x, queries, extra, gt, nlist, card, fp32) -> list:
         plain_calls[f"B3-{tier}"] = ivf_scan_scores.calls
         check(launches[f"B3-{tier}"] > 0 and ivf_scan_scores.calls == 0,
               f"{tier} IVF searches ran B3's {tier} arm")
+        if tier == "sq8":
+            sq8_mirror_arm(ivf, queries, gt, card)
         saved = route_flags(False)
         try:
             ivf.compact()
@@ -2347,7 +2411,8 @@ REGION_PROPOSAL_ROWS = 4096
 REGION_NPROBE = 32
 
 
-def region_phase(x, queries, extra, gt, nlist, card, dev) -> dict:
+def region_phase(x, queries, extra, gt, nlist, card, dev,
+                 before_cluster=None) -> dict:
     """The replicated region path at full width and depth: a coordinator
     and three StoreNodes, an IVF_FLAT region created by the coordinator
     and delivered by heartbeats; the rows go through the leader's
@@ -2469,7 +2534,11 @@ def region_phase(x, queries, extra, gt, nlist, card, dev) -> dict:
         return [[v.id for v in row] for row in rows]
 
     try:
-        # -- ingest: 4,096-row proposals in ascending ids ---------------------
+        # -- ingest: 4,096-row proposals in ascending ids, under the JAX
+        # package's defaults (the integrity ledger folds every write) ------
+        FLAGS.set("integrity_enabled", True)
+        print(f"[{card}] region phase: integrity_enabled True for the "
+              "ingest (the JAX package's default)", flush=True)
         leader()
         t0 = time.perf_counter()
         for lo in range(0, n, REGION_PROPOSAL_ROWS):
@@ -2499,6 +2568,11 @@ def region_phase(x, queries, extra, gt, nlist, card, dev) -> dict:
               f"region: every replica's index holds the {n} rows {counts}")
 
         # -- untrained: the reader's brute-force scan on B4 -------------------
+        # (its temporary FLAT indexes measure no plane: no ledger for them)
+        FLAGS.set("integrity_enabled", False)
+        print(f"[{card}] region phase: integrity_enabled False for the "
+              "untrained brute-force searches (temporary FLAT indexes)",
+              flush=True)
         l4 = b4.launches
         t0 = time.perf_counter()
         with first_launch(kernel_topk_pruned, "pruned_fused_topk") as b4_call:
@@ -2534,6 +2608,11 @@ def region_phase(x, queries, extra, gt, nlist, card, dev) -> dict:
               f"version (max abs err {err:.3e})")
 
         # -- train: each replica's VectorIndexManager.rebuild -----------------
+        # (the ledger on again: the rebuilt indexes carry it into the
+        # observability phase)
+        FLAGS.set("integrity_enabled", True)
+        print(f"[{card}] region phase: integrity_enabled True from the "
+              "rebuilds through the observability phase", flush=True)
         builds = {}
         for s in REGION_PEERS:
             t0 = time.perf_counter()
@@ -2549,6 +2628,12 @@ def region_phase(x, queries, extra, gt, nlist, card, dev) -> dict:
                   f"{st['train_ms'] / 1e3:.2f} s, whole rebuild "
                   f"{st['total_ms'] / 1e3:.2f} s", flush=True)
         out["rebuild"] = builds
+        print(f"[{card}] region with the integrity ledger on: acknowledged "
+              f"ingest {out['ingest_rows_per_s']:.1f} rows/s (without it, "
+              "PERF.md section 5: 24906.3), rebuild a replica " + ", ".join(
+                  f"{s_} {b_['total_ms'] / 1e3:.2f} s"
+                  for s_, b_ in builds.items())
+              + " (without it: 10.81 s)", flush=True)
         fails = METRICS.counter("build.train_failures",
                                 region_id=rid).get()
         check(fails == 0 and all(
@@ -2774,6 +2859,19 @@ def region_phase(x, queries, extra, gt, nlist, card, dev) -> dict:
                                    [n + CO_WRITE_ROWS]])
         live_vecs = np.concatenate([x, rows_w[CO_DELETE_ROWS:],
                                     rows_w[:1]])
+        # -- the observability planes on this region --------------------------
+        out["obs"] = obs_phase(coord, nodes, regions, rid, live_ids,
+                               live_vecs, queries, nlist, card, dev)
+        recovery_quiet("obs phase", card)
+        FLAGS.set("integrity_enabled", False)
+        print(f"[{card}] cluster phase: integrity_enabled False (it "
+              "measures no plane; indexes that carry a ledger keep "
+              "folding their writes)", flush=True)
+        if before_cluster is not None:
+            # run() starts the HNSW writes phase's one-thread host inserts
+            # here: with a core busy beside them, the ledger's fold and the
+            # scrub ran 2-3.5x slower on the card's host (PERF.md section 6)
+            before_cluster()
         l_before = read_launches(counters)
         out["cluster"] = cluster_phase(coord, nodes, rid, live_ids,
                                        live_vecs, extra, card, dev)
@@ -3307,6 +3405,652 @@ def cluster_phase(coord, nodes, rid, live_ids, live_vecs, extra, card,
 
 # -- HNSW on the card (BASELINE.json config 4) and the recovery ladder -------
 
+#: the observability phase: scored batches a quality window, requests a
+#: cost ladder point, seconds of overload for the shed ladder
+OBS_WINDOW_BATCHES = 8
+#: searches of the p99 without a scrub (the p99 during one takes as many as
+#: the scrub's wall time allows, ~3,500)
+OBS_CALM_SEARCHES = 1000
+OBS_COST_BURSTS = 24
+OBS_OVERLOAD_S = 4.0
+
+
+def obs_phase(coord, nodes, regions, rid, live_ids, live_vecs, queries,
+              nlist, card, dev) -> dict:
+    """The observability planes on the region phase's three replicas of
+    config 2 (1M x 768, IVF_FLAT nlist 1024, B3) under its coordinator,
+    at the JAX package's defaults (integrity, cost and events on):
+    integrity (the replicas' heartbeat digests equal, one replica's full
+    scrub with the search p99 beside it, a flipped byte in one replica's
+    device rows named by the scrub, flagged by the coordinator, rebuilt
+    by the recovery plane and cleared by a clean pass); quality (live
+    recall intervals at nprobe 8 and 32 against numpy, shadow ids against
+    numpy, shadow and served ms; the sq8 mirror arm is measured on the
+    tier phase's sq8 index, sq8_mirror_arm); the SLO tuner's
+    walk with its events and ``explain``; heat and cost; the HBM ledger
+    and device peak; a flight bundle of a forced slow query; the shed
+    ladder under overload; a scrape of the Prometheus sidecar. Returns
+    the phase's numbers."""
+    import re as re_
+    import threading
+    import urllib.request
+    import warnings
+
+    import torch
+
+    from dingo_tpu_torch.common.config import FLAGS
+    from dingo_tpu_torch.common.metrics import METRICS
+    from dingo_tpu_torch.index.base import tensor_bytes
+    from dingo_tpu_torch.index.recovery import RECOVERY
+    from dingo_tpu_torch.metrics.http import MetricsHttpServer
+    from dingo_tpu_torch.obs.cost import COST, kernel_id
+    from dingo_tpu_torch.obs.flight import FLIGHT
+    from dingo_tpu_torch.obs.hbm import HBM
+    from dingo_tpu_torch.obs.heat import HEAT
+    from dingo_tpu_torch.obs import integrity as integrity_mod
+    from dingo_tpu_torch.obs.integrity import INTEGRITY
+    from dingo_tpu_torch.obs.pressure import PRESSURE, ShedController
+    from dingo_tpu_torch.obs.quality import QUALITY, ShadowOracle
+    from dingo_tpu_torch.obs.sentinel import SENTINEL
+    from dingo_tpu_torch.obs.tuner import SloTuner, ladder_values
+    from dingo_tpu_torch.ops import kernel_ivf_pruned, shadow
+    from dingo_tpu_torch.server.services import IndexService
+    from dingo_tpu_torch.trace import TRACER
+
+    k = 10
+    t_phase = time.perf_counter()
+    out: dict = {}
+    peers = sorted(nodes)
+    b3 = kernel_ivf_pruned.ivf_pruned_topk
+    l3_start = b3.launches
+    shadow_start = shadow.shadow_exact_topk.calls
+    print(f"[{card}] obs phase: integrity_enabled "
+          f"{FLAGS.get('integrity_enabled')}, cost_enabled "
+          f"{FLAGS.get('cost_enabled')}, events_enabled "
+          f"{FLAGS.get('events_enabled')}, quality_sample_rate "
+          f"{FLAGS.get('quality_sample_rate')}, heat_enabled "
+          f"{FLAGS.get('heat_enabled')}, qos_enabled "
+          f"{FLAGS.get('qos_enabled')} (the JAX package's defaults)",
+          flush=True)
+
+    def raft(sid):
+        return nodes[sid].engine.get_node(rid)
+
+    def leader():
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            lead = [s for s in peers if raft(s).is_leader()]
+            if len(lead) == 1:
+                return lead[0]
+            time.sleep(0.02)
+        raise SmokeFailure("obs phase: no unique raft leader")
+
+    def settle():
+        target = raft(leader()).commit_index
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            if all(raft(s).last_applied >= target for s in peers):
+                return
+            time.sleep(0.02)
+        raise SmokeFailure("obs phase: replicas did not settle")
+
+    def search(sid, q, **kw):
+        return nodes[sid].storage.vector_batch_search(regions[sid], q, k,
+                                                      **kw)
+
+    def ids_of(rows):
+        return [[v.id for v in row] for row in rows]
+
+    def beat():
+        for nd in nodes.values():
+            nd.metrics._latest_mono = 0.0
+            nd.heartbeat_once()
+
+    def coord_rows():
+        return {s: rm for s, _stale, rm in coord.get_region_metrics(rid)}
+
+    def index_of(sid):
+        return regions[sid].vector_index_wrapper.own_index
+
+    qsub = queries[:16]
+    cuda = dev.type == "cuda"
+    exact_pos = exact_topk_device(live_vecs, queries, k, dev)
+    exact_ids = live_ids[exact_pos]
+
+    def recall_vs_exact(got, rows=None):
+        want = exact_ids if rows is None else exact_ids[rows]
+        return sum(len(set(g) & set(w.tolist()))
+                   for g, w in zip(got, want)) / (len(want) * k)
+
+    def exact_dists_live(q, ids):
+        pos = np.searchsorted(live_ids, np.asarray(ids, np.int64))
+        diff = live_vecs[pos].astype(np.float64) - q.astype(np.float64)
+        return np.sort((diff * diff).sum(1))
+
+    def ties_ok(got, q):
+        for qi in range(len(q)):
+            if set(got[qi]) == set(exact_ids[qi].tolist()):
+                continue
+            if not np.allclose(exact_dists_live(q[qi], got[qi]),
+                               exact_dists_live(q[qi], exact_ids[qi]),
+                               rtol=TIE_RTOL, atol=0.0):
+                return False
+        return True
+
+    lead = leader()
+    settle()
+    follower = next(s for s in peers if s != lead)
+
+    # -- integrity: replica digests, a scrub, a flipped byte ------------------
+    beat()
+    rows_ = coord_rows()
+    digests = {s: rows_[s].integrity_digests for s in peers}
+    applied = {s: rows_[s].integrity_applied_index for s in peers}
+    print(f"[{card}] obs integrity: heartbeat digest vectors at applied "
+          f"indices {applied}: " + "; ".join(
+              f"{s} {digests[s]}" for s in peers), flush=True)
+    check(all(digests[s] for s in peers)
+          and len(set(digests.values())) == 1
+          and len(set(applied.values())) == 1
+          and coord.diverged_regions() == [],
+          "obs integrity: the three replicas' heartbeat digests are equal "
+          "at equal applied indices and diverged_regions() == []")
+
+    fidx = index_of(follower)
+    lat_scrub: list = []
+    scrub_out: dict = {}
+
+    def scrubber():
+        scrub_out["res"] = INTEGRITY.scrub_index(fidx)
+
+    search(follower, queries, nprobe=REGION_NPROBE)             # warm
+    th = threading.Thread(target=scrubber, name="smoke-scrub", daemon=True)
+    t0 = time.perf_counter()
+    th.start()
+    while th.is_alive():
+        t1 = time.perf_counter()
+        search(follower, queries, nprobe=REGION_NPROBE)
+        lat_scrub.append((time.perf_counter() - t1) * 1e3)
+    th.join()
+    scrub_s = time.perf_counter() - t0
+    lat_calm = []
+    for _ in range(OBS_CALM_SEARCHES):
+        t1 = time.perf_counter()
+        search(follower, queries, nprobe=REGION_NPROBE)
+        lat_calm.append((time.perf_counter() - t1) * 1e3)
+    res = scrub_out["res"]
+    out["scrub"] = {
+        "seconds": scrub_s,
+        "artifacts": {a: {key: r.get(key) for key in (
+            "status", "slots", "seconds", "d2h_bytes", "max_lock_ms")}
+            for a, r in res.items()},
+        "p99_during_ms": float(np.percentile(lat_scrub, 99)),
+        "p99_calm_ms": float(np.percentile(lat_calm, 99)),
+        "searches_during": len(lat_scrub)}
+    print(f"[{card}] obs integrity: full scrub of {follower}'s index "
+          f"{scrub_s:.2f} s: " + "; ".join(
+              f"{a} {r['status']} {r['slots']} slots {r['seconds']:.2f} s "
+              f"({r['slots'] / max(r['seconds'], 1e-9):.1f} rows/s), D2H "
+              f"{r['d2h_bytes']} B, longest device-lock hold "
+              f"{r['max_lock_ms']:.2f} ms" for a, r in res.items())
+          + f"; search p99 on {follower} during the scrub "
+          f"{out['scrub']['p99_during_ms']:.3f} ms over "
+          f"{len(lat_scrub)} searches, without one "
+          f"{out['scrub']['p99_calm_ms']:.3f} ms over {len(lat_calm)}",
+          flush=True)
+    check(set(res) >= {"rows", "blocked", "ivf_buckets"}
+          and all(r["status"] == "ok" for r in res.values()),
+          "obs integrity: a full scrub of a replica finds every artifact "
+          f"(rows, blocked, ivf_buckets) ok {sorted(res)}")
+
+    def rows_pass(idx):
+        """The scrub's pass over the `rows` artifact alone, from the
+        plane's own reader and digest against the ledger, its verdict
+        recorded as scrub_index records it (the flag the heartbeat
+        carries). The other artifacts were scrubbed whole above."""
+        led = INTEGRITY.ledger(idx)
+        with led.lock:
+            art = led.artifacts["rows"]
+            version, muts = art.version, led.mutations
+        t1 = time.perf_counter()
+        actual, _fp, n = integrity_mod._digest_chunks(
+            "rows", integrity_mod._iter_rows(idx, integrity_mod.SCRUB_CHUNK))
+        secs = time.perf_counter() - t1
+        with led.lock:
+            raced = (led.pending or led.mutations != muts
+                     or art.version != version)
+            expected = art.digest.copy()
+        status = ("raced" if raced else "ok" if actual == expected
+                  else "mismatch")
+        r = {"status": status, "slots": n, "seconds": secs,
+             "expected": expected.hex(), "actual": actual.hex()}
+        INTEGRITY._finish_scrub(idx.id, {"rows": r}, secs)
+        return {"rows": r}
+
+    slot = int(fidx.store.slots_of(np.asarray([int(exact_ids[0][0])],
+                                              np.int64))[0])
+    with fidx.store.device_lock:
+        fidx.store.vecs.view(torch.int32)[slot, 0] ^= 1 << 24
+    if cuda:
+        torch.cuda.synchronize()
+    res = rows_pass(fidx)
+    beat()
+    flagged = coord_rows()[follower].integrity_mismatch
+    print(f"[{card}] obs integrity: one byte of row "
+          f"{int(exact_ids[0][0])} flipped in {follower}'s device rows: "
+          f"scrub rows {res['rows']['status']} "
+          f"({res['rows']['seconds']:.2f} s); coordinator's row for "
+          f"{follower} integrity_mismatch {flagged}", flush=True)
+    check(res["rows"]["status"] == "mismatch" and flagged
+          and INTEGRITY.region_report(None, rid)[2],
+          "obs integrity: the scrub names `rows` and the coordinator flags "
+          "the region")
+    t0 = time.perf_counter()
+    rebuilt = RECOVERY._rebuild_corrupted(nodes[follower])
+    rebuild_s = time.perf_counter() - t0
+    res = rows_pass(index_of(follower))
+    beat()
+    cleared = not coord_rows()[follower].integrity_mismatch
+    got = ids_of(search(follower, queries, nprobe=REGION_NPROBE))
+    want = ids_of(search(lead, queries, nprobe=REGION_NPROBE))
+    rec_f = recall_vs_exact(got)
+    out["corruption_rebuild_s"] = rebuild_s
+    print(f"[{card}] obs integrity: _rebuild_corrupted rebuilt {rebuilt} "
+          f"region(s) in {rebuild_s:.2f} s (engine rebuild, ledger fold "
+          f"and a recompute from the device); clean pass rows "
+          f"{res['rows']['status']}; the flag cleared on the coordinator "
+          f"{cleared}; {follower}'s replies == the leader's {got == want}, "
+          f"recall@{k} against numpy over the live rows {rec_f:.4f}",
+          flush=True)
+    check(rebuilt == 1 and res["rows"]["status"] == "ok" and cleared
+          and got == want and rec_f >= 0.95,
+          "obs integrity: _rebuild_corrupted rebuilds the replica, a clean "
+          "pass clears the flag and the replies equal the leader's and "
+          "numpy's (recall@10 >= 0.95)")
+
+    # -- quality: live recall, shadow ids, costs, the sq8 mirror ---------------
+    lidx = index_of(lead)
+    oracle = ShadowOracle(lidx)
+    got_s, _d = oracle.exact_topk(qsub, k)
+    shadow_ms = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        oracle.exact_topk(qsub, k)
+        shadow_ms.append((time.perf_counter() - t1) * 1e3)
+    out["shadow_ms"] = float(np.median(shadow_ms))
+    check(oracle.mode == "store" and ties_ok(got_s.tolist(), qsub),
+          "obs quality: the shadow scan's ids for 16 queries == numpy's "
+          "exact top-10 over the live rows modulo ties (store arm)")
+    windows = {}
+    for nprobe in (8, 32):
+        QUALITY.reset_region(rid)
+        FLAGS.set("quality_sample_rate", 1.0)
+        served = []
+        for _ in range(OBS_WINDOW_BATCHES):
+            served = ids_of(search(lead, queries, nprobe=nprobe))
+        QUALITY.flush(timeout=120)
+        FLAGS.set("quality_sample_rate", 0.0)
+        est = QUALITY.region_estimate(rid)
+        num = recall_vs_exact(served[:16], rows=slice(0, 16))
+        windows[nprobe] = (est, num)
+        print(f"[{card}] obs quality nprobe {nprobe}: live recall@{k} "
+              f"{est['recall']:.4f} [{est['ci_low']:.4f}, "
+              f"{est['ci_high']:.4f}] over {est['queries']} scored "
+              f"queries; numpy's recall of the same queries {num:.4f}",
+              flush=True)
+        check(est["ci_low"] <= num <= est["ci_high"],
+              f"obs quality nprobe {nprobe}: the live recall interval "
+              "contains numpy's recall of the same queries")
+    out["quality_windows"] = {p: (e["recall"], e["ci_low"], e["ci_high"], n_)
+                              for p, (e, n_) in windows.items()}
+    served_ms = {}
+    for rate in (0.0, 0.05, 1.0):
+        FLAGS.set("quality_sample_rate", rate)
+        search(lead, queries, nprobe=REGION_NPROBE)
+        QUALITY.flush(timeout=120)
+        reads = []
+        for _ in range(20):
+            t1 = time.perf_counter()
+            search(lead, queries, nprobe=REGION_NPROBE)
+            reads.append((time.perf_counter() - t1) * 1e3)
+            QUALITY.flush(timeout=120)      # untimed: the lane's work
+        served_ms[rate] = float(np.median(reads))
+    FLAGS.set("quality_sample_rate", 0.0)
+    out["served_ms"] = served_ms
+    print(f"[{card}] obs quality: shadow scan {out['shadow_ms']:.3f} ms a "
+          "scored batch (16 queries over the store, with its read-back); "
+          "served ms a 64-query batch at sample rate " + ", ".join(
+              f"{r}: {v:.3f}" for r, v in served_ms.items()), flush=True)
+    check(served_ms[1.0] < served_ms[0.0] + out["shadow_ms"],
+          "obs quality: the served reply does not wait for its shadow "
+          "scoring (served ms at rate 1.0 < rate 0 + one shadow scan)")
+
+    # -- the SLO tuner and its events -----------------------------------------
+    for v in ladder_values(min(64, nlist)):
+        lidx.warmup(batches=(len(queries),), topk=k, nprobe=v)
+    lidx.tuning["nprobe"] = 1
+    # midpoints of two rows of different clusters: their neighbours lie in
+    # two lists, so nprobe 1 misses about half of them. Batches of 16, so
+    # that the shadow scan scores every query (it takes a batch's first
+    # 16) and the interval and numpy's recall cover the same queries.
+    nh = 256
+    hard = (0.5 * (live_vecs[np.arange(nh) * 997 % len(live_vecs)]
+                   + live_vecs[np.arange(nh) * 7919 % len(live_vecs)])
+            ).astype(np.float32)
+    hard_pos = exact_topk_device(live_vecs, hard, k, dev)
+    hard_ids = live_ids[hard_pos]
+    for v in ladder_values(min(64, nlist)):
+        lidx.warmup(batches=(16,), topk=k, nprobe=v)
+    FLAGS.set("quality_sample_rate", 1.0)
+    search(lead, hard[:16])              # the shadow scan's shapes
+    QUALITY.flush(timeout=120)
+    QUALITY.reset_region(rid)
+    shapes0 = SENTINEL.new_shapes()
+    tuner = SloTuner(slo_recall=0.95, latency_budget_ms=0.0,
+                     min_queries=nh)
+    steps = []
+    est = None
+    for _tick in range(16):
+        got_t = []
+        for lo in range(0, nh, 16):
+            got_t += ids_of(search(lead, hard[lo:lo + 16]))
+        QUALITY.flush(timeout=120)
+        est = QUALITY.region_estimate(rid)
+        if est is not None and est["ci_low"] >= 0.95:
+            break
+        op = tuner.step_index(lidx, est)
+        if op is not None:
+            steps.append((op.knob, op.old, op.new))
+    FLAGS.set("quality_sample_rate", 0.0)
+    new_shapes = SENTINEL.new_shapes() - shapes0
+    num = sum(len(set(g) & set(w.tolist()))
+              for g, w in zip(got_t, hard_ids)) / (len(hard) * k)
+    beat()
+    events = coord.cluster_events(region_id=rid, actor="tuner")
+    report = coord.explain_region_overrides(rid)
+    out["tuner"] = {"steps": steps, "recall": num,
+                    "ci_low": est["ci_low"] if est else None,
+                    "new_shapes": new_shapes,
+                    "orphans": report["orphans"]}
+    print(f"[{card}] obs tuner: nprobe override 1, {nh} midpoint queries "
+          "a tick; "
+          f"steps {steps}; stopped at nprobe {lidx.tuning.get('nprobe')} "
+          f"with live recall@{k} interval low end "
+          f"{est['ci_low'] if est else float('nan'):.4f}, numpy's recall "
+          f"there {num:.4f}; tuner events on the coordinator "
+          f"{[(e.knob, e.old, e.new) for e in events]}; explain orphans "
+          f"{report['orphans']}; kernel.new_shapes across the walk "
+          f"{new_shapes}", flush=True)
+    check(len(steps) >= 1 and est is not None and est["ci_low"] >= 0.95
+          and num >= 0.95,
+          "obs tuner: from a low nprobe the ticks walk up until the live "
+          "interval's low end is >= 0.95, where numpy's recall is >= 0.95")
+    check([(e.knob, e.old, e.new) for e in events][-len(steps):]
+          == [(kn, str(o), str(n_)) for kn, o, n_ in steps]
+          and report["orphans"] == [] and new_shapes == 0,
+          "obs tuner: each step is an event on the coordinator's timeline, "
+          "explain_region_overrides rebuilds the episode with zero "
+          "orphans, and kernel.new_shapes stays 0")
+    tuned_nprobe = lidx.tuning.get("nprobe")
+
+    # -- heat: skewed against uniform traffic, no extra sync ------------------
+    FLAGS.set("heat_enabled", True)
+    assign = lidx._assign_h
+    live_slots = np.flatnonzero(lidx.store.ids_by_slot >= 0)
+    hot_lists = np.random.default_rng(3).choice(nlist, nlist // 10,
+                                                replace=False)
+    hot_rows = live_slots[np.isin(assign[live_slots], hot_lists)]
+    rng = np.random.default_rng(5)
+
+    def heat_batch(slots_, n_hot=0):
+        """64 queries near stored rows: `n_hot` of them from the hot
+        lists' rows, the rest from `slots_`."""
+        pick = np.concatenate([rng.choice(hot_rows, n_hot),
+                               rng.choice(slots_, 64 - n_hot)])
+        ids_ = lidx.store.ids_by_slot[pick]
+        pos = np.searchsorted(live_ids, ids_)
+        return (live_vecs[pos] + 0.05 * rng.standard_normal(
+            live_vecs[pos].shape, dtype=np.float32)).astype(np.float32)
+
+    # skewed: 58 of each 64 queries (90%) drawn from the rows of 10% of
+    # the lists, the rest uniform; at nprobe 1 a query reads its own list
+    heat_stats = {}
+    for name_, n_hot in (("skewed", 58), ("uniform", 0)):
+        HEAT.forget_region(rid)
+        for _ in range(32):
+            search(lead, heat_batch(live_slots, n_hot), nprobe=1)
+        HEAT.flush()
+        heat_stats[name_] = HEAT.region_stats(rid)
+    syncs = {}
+    real_sync = torch.cuda.Event.synchronize
+    for heat_on in (False, True):
+        FLAGS.set("heat_enabled", heat_on)
+        count = {"event": 0}
+
+        def counting(self_, count=count):
+            count["event"] += 1
+            return real_sync(self_)
+
+        torch.cuda.Event.synchronize = counting
+        if cuda:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                for _ in range(8):
+                    search(lead, queries, nprobe=REGION_NPROBE)
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.Event.synchronize = real_sync
+        syncs[heat_on] = (count["event"], len(caught))
+    beat()
+    rm = coord_rows()[lead]
+    FLAGS.set("heat_enabled", False)
+    out["heat"] = {k_: (v["hot_fraction"], v["gini"], v["touches"])
+                   for k_, v in heat_stats.items()}
+    print(f"[{card}] obs heat (nprobe 1, 2,048 queries each): skewed "
+          f"(90% from the rows of {nlist // 10} of {nlist} lists) "
+          f"hot fraction {heat_stats['skewed']['hot_fraction']:.4f}, Gini "
+          f"{heat_stats['skewed']['gini']:.4f}; uniform "
+          f"{heat_stats['uniform']['hot_fraction']:.4f}, "
+          f"{heat_stats['uniform']['gini']:.4f}; heartbeat heat_touches "
+          f"{rm.heat_touches}; 8 searches' event waits and sync-debug "
+          f"warnings, heat off {syncs[False]}, on {syncs[True]}",
+          flush=True)
+    check(heat_stats["skewed"]["hot_fraction"]
+          > heat_stats["uniform"]["hot_fraction"]
+          and heat_stats["skewed"]["gini"] > heat_stats["uniform"]["gini"],
+          "obs heat: skewed queries read a higher hot fraction and Gini "
+          "than uniform ones")
+    check(syncs[True] == syncs[False],
+          "obs heat: the sync spy sees no extra synchronization with heat "
+          "on (the probe ids ride the reply's one fetch)")
+
+    # -- cost: the coalescer's model against measured run times ---------------
+    notes: list = []
+    real_note = COST.note
+
+    def spy_note(kid, rows, run_ms, region_id=None):
+        notes.append((kid, rows, run_ms))
+        return real_note(kid, rows, run_ms, region_id=region_id)
+
+    COST.note = spy_note
+    svc = IndexService(nodes[lead], window_ms=2.0, max_batch=64)
+    try:
+        pool = heat_batch(live_slots)
+        for m_ in (1, 4, 16):
+            for _ in range(OBS_COST_BURSTS):
+                futs = [svc.submit(rid, pool[(j * 4) % 64:(j * 4) % 64 + 4],
+                                   k, nprobe=REGION_NPROBE)
+                        for j in range(m_)]
+                for f_ in futs:
+                    f_.result(timeout=60)
+    finally:
+        svc.close()
+        COST.note = real_note
+    kid = kernel_id((rid, k, (("nprobe", REGION_NPROBE),)))
+    by_rows: dict = {}
+    for kid_, rows, ms in notes:
+        if kid_ == kid:
+            by_rows.setdefault(rows, []).append(ms)
+    ratios = {r: COST.estimate_run_ms(kid, r) / float(np.median(v))
+              for r, v in sorted(by_rows.items()) if len(v) >= 3}
+    beat()
+    rm = coord_rows()[lead]
+    out["cost"] = {"row_us": rm.cost_row_us, "ratios": ratios}
+    print(f"[{card}] obs cost: heartbeat cost_row_us {rm.cost_row_us:.3f}; "
+          "model estimate / measured median run ms by batch rows: "
+          + ", ".join(f"{r}: {v:.3f} ({len(by_rows[r])} runs)"
+                      for r, v in ratios.items()), flush=True)
+    check(rm.cost_row_us > 0 and ratios
+          and all(0.5 <= v <= 2.0 for v in ratios.values()),
+          "obs cost: cost_row_us > 0 in the heartbeat and the model's "
+          "estimate is within 2x of the measured median at each ladder "
+          "point served")
+
+    # -- HBM ledger and the device peak ---------------------------------------
+    owners = HBM.account_index(rid, regions[lead].vector_index_wrapper)
+    tb = tensor_bytes(lidx)
+    beat()
+    rm = coord_rows()[lead]
+    out["hbm"] = {"owners": owners, "tensor_bytes": tb,
+                  "device_peak_bytes": rm.device_peak_bytes}
+    print(f"[{card}] obs hbm: the leader's region owners {owners} sum "
+          f"{sum(owners.values())} B, tensor_bytes {tb} B; heartbeat "
+          f"device_peak_bytes {rm.device_peak_bytes}", flush=True)
+    check(sum(owners.values()) == tb and rm.device_peak_bytes >= tb > 0,
+          "obs hbm: HbmLedger's region bytes == tensor_bytes of the index "
+          "and device_peak_bytes rides the heartbeat")
+
+    # -- flight: a forced slow query ------------------------------------------
+    saved = set_flags(FLAGS, trace_sampling_rate=1.0, slow_query_ms=0.001)
+    FLIGHT.clear()
+    FLIGHT.tick()
+    try:
+        with TRACER.start_span("rpc.IndexService.VectorSearch") as span:
+            search(lead, queries, nprobe=REGION_NPROBE)
+            trace_id = f"{span.trace_id:016x}"
+    finally:
+        for f_, v_ in saved.items():
+            FLAGS.set(f_, v_)
+    metas = [m_ for m_ in FLIGHT.bundles_meta()
+             if m_["reason"] == "slow_query"]
+    bundle = FLIGHT.get_json(metas[-1]["id"]) if metas else {}
+    print(f"[{card}] obs flight: {len(metas)} slow-query bundle(s); spans "
+          f"{sorted({s_['name'] for s_ in bundle.get('spans', [])})}; "
+          f"metric deltas {len(bundle.get('metrics', {}).get('deltas', {}))}"
+          f", hbm regions {sorted(bundle.get('hbm', {}).get('regions', {}))}"
+          f", quality series {len(bundle.get('quality', {}))}, events "
+          f"{len(bundle.get('events', []))}", flush=True)
+    check(len(metas) == 1 and bundle.get("trace_id") == trace_id
+          and any(s_["name"] == "rpc.IndexService.VectorSearch"
+                  for s_ in bundle.get("spans", []))
+          and bundle["metrics"]["deltas"] and bundle["hbm"]["regions"]
+          and bundle["quality"] and bundle["events"],
+          "obs flight: a forced slow query writes one bundle with spans, "
+          "metric deltas, the HBM ledger, the quality state and the events")
+
+    # -- shedding under overload ----------------------------------------------
+    saved = set_flags(FLAGS, qos_enabled=True, qos_shed_policy="degrade",
+                      qos_max_queue_ms=1.0)
+    ctl = ShedController(nodes[lead])
+    svc = IndexService(nodes[lead], window_ms=2.0, max_batch=64)
+    shed0 = PRESSURE.region_stats(rid)["shed_total"]
+    levels, fails, served_n = [], [], [0]
+    stop = threading.Event()
+
+    def flood():
+        while not stop.is_set():
+            futs = [svc.submit(rid, pool[j * 4:j * 4 + 4], k,
+                               nprobe=REGION_NPROBE) for j in range(16)]
+            for f_ in futs:
+                try:
+                    f_.result(timeout=60)
+                    served_n[0] += 1
+                except Exception as e:  # noqa: BLE001 — counted
+                    fails.append(repr(e))
+
+    try:
+        threads = [threading.Thread(target=flood, daemon=True)
+                   for _ in range(6)]
+        for t_ in threads:
+            t_.start()
+        t0 = time.perf_counter()
+        # overload for OBS_OVERLOAD_S, and on until the ladder has climbed
+        # two levels (20 s at most)
+        while time.perf_counter() - t0 < 20.0 and (
+                time.perf_counter() - t0 < OBS_OVERLOAD_S
+                or max(levels, default=0) < 2):
+            time.sleep(0.5)
+            ctl.tick()
+            levels.append(ctl.degrade_level(rid))
+        stop.set()
+        for t_ in threads:
+            t_.join(timeout=60)
+        t0 = time.perf_counter()
+        while ctl.degrade_level(rid) > 0 and time.perf_counter() - t0 < 30:
+            time.sleep(0.5)
+            ctl.tick()
+            levels.append(ctl.degrade_level(rid))
+        shed = PRESSURE.region_stats(rid)["shed_total"] - shed0
+    finally:
+        svc.close()
+        for f_, v_ in saved.items():
+            FLAGS.set(f_, v_)
+    out["shed"] = {"levels": levels, "served": served_n[0],
+                   "failed": len(fails), "shed": shed}
+    print(f"[{card}] obs shed: degrade levels a tick {levels}; requests "
+          f"served {served_n[0]}, failed {len(fails)}, shed {shed}; nprobe "
+          f"override back to {lidx.tuning.get('nprobe')} (the tuner's "
+          f"{tuned_nprobe})", flush=True)
+    check(max(levels) >= 1 and levels[-1] == 0 and not fails and shed == 0
+          and lidx.tuning.get("nprobe") == tuned_nprobe,
+          "obs shed: under overload the ShedController raises the degrade "
+          "level and walks it back, and no request is dropped")
+    lidx.tuning.pop("nprobe", None)
+
+    # -- a Prometheus scrape ---------------------------------------------------
+    srv = MetricsHttpServer(port=0)
+    port = srv.start()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=30) as r_:
+            body = r_.read().decode()
+    finally:
+        srv.stop()
+    line_re = re_.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^{}]*\})? "
+                          r"(-?[0-9.eE+\-]+|[Nn]a[Nn]|[+-]?[Ii]nf)$")
+    bad = [ln for ln in body.splitlines()
+           if ln and not ln.startswith("#") and not line_re.match(ln)]
+    names = {line_re.match(ln).group(1) for ln in body.splitlines()
+             if ln and not ln.startswith("#") and line_re.match(ln)}
+    fams = ("quality_", "consistency_", "hbm_", "heat_", "cost_", "event_",
+            "qos_", "kernel_", "ivf_", "vector_search")
+    missing = [f_ for f_ in fams if not any(n_.startswith(f_)
+                                            for n_ in names)]
+    print(f"[{card}] obs prometheus: scrape of {len(body)} B, "
+          f"{len(names)} series names, unparseable lines {len(bad)}, "
+          f"curated families missing {missing}", flush=True)
+    check(not bad and not missing,
+          "obs prometheus: a scrape of MetricsHttpServer parses back and "
+          "holds the curated families")
+
+    # the planes' per-region state (the heat plane's layout providers are
+    # bound methods of the indexes) goes as the collector's retire loop
+    # would drop it: the stopped replicas' device state must not outlive
+    # the region phase
+    HEAT.forget_region(rid)
+    QUALITY.forget_region(rid)
+    out["b3_launches"] = b3.launches - l3_start
+    out["shadow_scans"] = shadow.shadow_exact_topk.calls - shadow_start
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[{card}] obs phase: B3 launches {out['b3_launches']}, shadow "
+          f"scans (plain torch) {out['shadow_scans']}; "
+          f"{out['seconds']:.1f} s", flush=True)
+    return out
+
+
 #: BASELINE.json config 4: HNSW 1M x 768, M = 32 (level-0 degree 64),
 #: efConstruction 200, searched at ef 200 (beam 256 on the shape ladder)
 HNSW_NLINKS = 32
@@ -3320,18 +4064,19 @@ HNSW_N = 500_000
 #: rows of the HNSW writes phase: its host graph inserts one row at a time
 #: on one thread (the JAX package's native graph; 9.60-17.29 ms a row at
 #: d 768 and 4,096 rows on the card's hosts, PERF.md section 4), so the
-#: inserts run in a thread beside the region and HNSW phases
+#: inserts run in a thread beside the cluster and HNSW phases (started
+#: after the observability phase, whose latencies they would disturb)
 HNSW_WRITE_N = 20_000
 #: the recovery phase's FLAT region
 RECOVERY_N = 65_536
 
 
-def exact_topk_device(x, q, k: int):
-    """Exact L2 top-k ids of q against x, computed on the card in f32
-    (TF32 off) in row chunks: the HNSW phases' ground truth."""
+def exact_topk_device(x, q, k: int, dev=None):
+    """Exact L2 top-k ids of q against x, computed on the card (or `dev`)
+    in f32 (TF32 off) in row chunks: the HNSW phases' ground truth."""
     import torch
 
-    dev = torch.device("cuda")
+    dev = torch.device("cuda") if dev is None else dev
     qt = torch.from_numpy(q).to(dev)
     qsq = (qt * qt).sum(1)
     best_d = best_i = None
@@ -4512,6 +5257,14 @@ def run(args) -> int:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}", flush=True)
+    # the phases before the region phase (kernels, IVF_PQ, coalesced, the
+    # tiers, d 960, binary, DiskANN) measure no plane: the integrity
+    # ledger's host fold stays off there; the region phase's ingest and
+    # the observability phase run under the JAX package's defaults
+    FLAGS.set("integrity_enabled", False)
+    print("integrity_enabled False for the kernel, IVF_PQ, coalesced, "
+          "tier, d 960, binary and DiskANN phases (they measure no plane; "
+          "the region phase turns it on)", flush=True)
     print(f"torch.cuda.get_device_name(0): {kind}; torch {torch.__version__}"
           f" cuda {torch.version.cuda}", flush=True)
 
@@ -5160,9 +5913,17 @@ def run(args) -> int:
     torch.cuda.reset_peak_memory_stats()
     print(f"[{card}] device memory held at the region phase's start: "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
-    t_writes = time.perf_counter()
-    writes = hnsw_writes_start(HNSW_WRITE_N)
-    region = region_phase(x, queries, extra, gt, nlist, card, dev)
+    started: dict = {}
+
+    def start_writes():
+        started["t"] = time.perf_counter()
+        started["writes"] = hnsw_writes_start(HNSW_WRITE_N)
+
+    region = region_phase(x, queries, extra, gt, nlist, card, dev,
+                          before_cluster=start_writes)
+    if "writes" not in started:       # a region phase cut short
+        start_writes()
+    t_writes, writes = started["t"], started["writes"]
     peak_region = max(region["cluster"].get("region_peak_gib", 0.0) * 2**30,
                       torch.cuda.max_memory_allocated())
 

@@ -54,10 +54,12 @@ enqueue cost under ``dispatch``. stop(drain=True) resolves queued
 handoffs; stop(drain=False) abandons them (futures fail fast, the fetch
 still runs so device-side search leases are released).
 
-The JAX package's per-shape cost model, in-flight dedupe and edge-cache
-hooks are not ported yet: the wait estimate is the per-row and per-batch
-EWMA of measured runs (0 before the first run), and every row of a batch
-is dispatched.
+The wait estimate prices the rows ahead with the per-shape cost model
+(obs/cost.py) once a key's kernel has been measured, with the per-row
+EWMA of measured runs otherwise, and before any run with the
+``cost_prior_row_ms`` prior (never 0, so a cold region's first overload
+burst sheds). The JAX package's in-flight dedupe and edge-cache hooks are
+not ported yet: every row of a batch is dispatched.
 """
 
 from __future__ import annotations
@@ -77,6 +79,7 @@ from dingo_tpu_torch.common.config import (
 )
 from dingo_tpu_torch.common.device import resolve_device
 from dingo_tpu_torch.common.pipeline import CompletionLane, KeyedStaging
+from dingo_tpu_torch.obs import cost as _cost
 from dingo_tpu_torch.obs import pressure as qp
 from dingo_tpu_torch.obs.pressure import PRESSURE
 from dingo_tpu_torch.trace import NOOP_SPAN, TRACER
@@ -202,24 +205,41 @@ class SearchCoalescer:
         return (sum(b.rows() for b in self._pending.values())
                 + sum(b.rows() for _, b in self._ready))
 
-    def estimated_wait_ms(self, extra_rows: int = 0) -> float:
-        """Admission estimate: the rows ahead priced at the per-row EWMA
-        plus one batch run; 0 before the first measured run."""
+    def estimated_wait_ms(self, extra_rows: int = 0,
+                          key: Any = None) -> float:
+        """Admission estimate: the rows ahead priced by the per-shape cost
+        model (obs/cost.py) when this key's kernel has been measured, by
+        the per-row EWMA otherwise, plus one batch run. Before any sample
+        it is the ``cost_prior_row_ms`` prior, never 0. With the cost
+        model off and nothing measured it is 0."""
         with self._lock:
             rows = self._queued_rows()
+        total = rows + extra_rows
+        if _cost.cost_enabled():
+            kid = _cost.kernel_id(key) if key is not None else None
+            if _cost.COST.has_model(kid):
+                return (_cost.COST.estimate_run_ms(kid, total)
+                        + self._ewma_run_ms)
+            if self._ewma_row_ms <= 0:
+                return total * _cost.prior_row_ms()
         if self._ewma_row_ms <= 0:
             return 0.0
-        return (rows + extra_rows) * self._ewma_row_ms + self._ewma_run_ms
+        return total * self._ewma_row_ms + self._ewma_run_ms
 
-    def _est_run_ms(self, rows: int) -> float:
-        """Expected run time of a batch of `rows`: the per-batch EWMA
-        floor, scaled up by the per-row cost for batches larger than
+    def _est_run_ms(self, rows: int, key: Any = None) -> float:
+        """Expected run time of a batch of `rows`: the key's measured
+        per-shape surface when the cost model has one; else the per-batch
+        EWMA floor, scaled up by the per-row cost for batches larger than
         recent history."""
+        if key is not None and _cost.cost_enabled():
+            kid = _cost.kernel_id(key)
+            if _cost.COST.has_model(kid):
+                return _cost.COST.estimate_run_ms(kid, rows)
         if self._ewma_row_ms <= 0:
             return self._ewma_run_ms
         return max(self._ewma_run_ms, rows * self._ewma_row_ms)
 
-    def _note_run(self, rows: int, run_ms: float) -> None:
+    def _note_run(self, rows: int, run_ms: float, key: Any = None) -> None:
         if rows <= 0 or run_ms <= 0:
             return
         row_ms = run_ms / rows
@@ -228,8 +248,12 @@ class SearchCoalescer:
                              else a * row_ms + (1 - a) * self._ewma_row_ms)
         self._ewma_run_ms = (run_ms if self._ewma_run_ms == 0
                              else a * run_ms + (1 - a) * self._ewma_run_ms)
+        if key is not None:
+            _cost.COST.note(_cost.kernel_id(key), rows, run_ms,
+                            region_id=_cost.kernel_region(key))
 
-    def _admission_reject(self, budget, n_rows: int, region_id: int):
+    def _admission_reject(self, budget, n_rows: int, region_id: int,
+                          key: Any = None):
         """QoS admission decision for one submit: an exception to set on
         the future (already counted), or None = admit. Called outside the
         queue lock; only estimates are read here."""
@@ -251,7 +275,7 @@ class SearchCoalescer:
                     f"tenant {budget.tenant} over queue cap "
                     f"({queued}+{n_rows} > {tenant_cap} rows)"
                 )
-        est_ms = self.estimated_wait_ms(extra_rows=n_rows)
+        est_ms = self.estimated_wait_ms(extra_rows=n_rows, key=key)
         if budget is not None and budget.deadline_ms > 0 \
                 and est_ms > budget.remaining_ms():
             # hopeless: it would expire in queue, and serving it late only
@@ -295,7 +319,7 @@ class SearchCoalescer:
         budget = qp.current_budget() if qos else None
         if qos:
             rejection = self._admission_reject(budget, len(queries),
-                                               region_id)
+                                               region_id, key=key)
             if rejection is not None:
                 wait_span.end()
                 fut.set_exception(rejection)
@@ -362,7 +386,7 @@ class SearchCoalescer:
                     self._tenant_rows.pop(e.tenant, None)
 
     def _expire_dead(self, entries: List[_Entry], region_id: int,
-                     now: float) -> List[_Entry]:
+                     now: float, key: Any = None) -> List[_Entry]:
         """Expiry before dispatch: fail entries that died in queue (or
         whose remaining budget cannot cover the estimated run) and return
         the survivors."""
@@ -370,7 +394,7 @@ class SearchCoalescer:
         # hopeless arm is a drop and obeys the admission policy gate
         drops = qp._policy_drops()
         rows = sum(len(e.queries) for e in entries)
-        est_run = _EXPIRY_RUN_MARGIN * self._est_run_ms(rows)
+        est_run = _EXPIRY_RUN_MARGIN * self._est_run_ms(rows, key=key)
         live: List[_Entry] = []
         for e in entries:
             if e.budget is None or e.budget.deadline_ms <= 0:
@@ -392,7 +416,8 @@ class SearchCoalescer:
                 live.append(e)
         return live
 
-    def _begin_flush(self, batch: _PendingBatch, flush_t0: float):
+    def _begin_flush(self, batch: _PendingBatch, flush_t0: float,
+                     key: Any = None):
         """Shared flush prologue of both arms: end the queue-wait spans,
         mirror the QoS dequeue accounting, expire dead entries (at the
         real dispatch time, cap-displaced batches included), sort the
@@ -424,7 +449,8 @@ class SearchCoalescer:
                 PRESSURE.observe_wait(e.region_id, waits_ms[id(e)],
                                       e.budget)
         if qos:
-            entries = self._expire_dead(entries, region_id, flush_t0)
+            entries = self._expire_dead(entries, region_id, flush_t0,
+                                        key=key)
             if not entries:
                 if run_span is not NOOP_SPAN:
                     run_span.set_attr("all_expired", True)
@@ -472,7 +498,7 @@ class SearchCoalescer:
         """Serial arm: run one batch to its results on this thread."""
         flush_t0 = time.monotonic()
         entries, run_span, waits_ms, qos = self._begin_flush(batch,
-                                                             flush_t0)
+                                                             flush_t0, key)
         if not entries:
             return
         token = run_span.attach()
@@ -488,7 +514,7 @@ class SearchCoalescer:
             else:
                 results = self.run_fn(key, stacked)
             run_ms = (time.monotonic() - run_t0) * 1000.0
-            self._note_run(len(stacked), run_ms)
+            self._note_run(len(stacked), run_ms, key=key)
             self._fan_out(entries, results)
             if qos:
                 self._account_stages(entries, waits_ms, form_ms, run_ms,
@@ -547,7 +573,7 @@ class SearchCoalescer:
         wait per reply is in _Handoff.resolve() on the lane thread."""
         flush_t0 = time.monotonic()
         entries, run_span, waits_ms, qos = self._begin_flush(batch,
-                                                             flush_t0)
+                                                             flush_t0, key)
         if not entries:
             return None
         token = run_span.attach()
@@ -576,7 +602,7 @@ class SearchCoalescer:
             run_span.detach(token)
             return _Handoff(self, entries, waits_ms, form_ms, dispatch_ms,
                             run_span, staged, thunk, stage_us, qos,
-                            len(stacked))
+                            len(stacked), key)
         except Exception as exc:  # noqa: BLE001 — the waiters get it
             run_span.set_error(exc)
             run_span.detach(token)
@@ -680,10 +706,11 @@ class _Handoff:
 
     __slots__ = ("coalescer", "entries", "waits_ms", "form_ms",
                  "dispatch_ms", "run_span", "staged", "thunk", "stage_us",
-                 "qos", "rows")
+                 "qos", "rows", "key")
 
     def __init__(self, coalescer, entries, waits_ms, form_ms, dispatch_ms,
-                 run_span, staged, thunk, stage_us, qos, rows):
+                 run_span, staged, thunk, stage_us, qos, rows, key=None):
+        self.key = key
         self.coalescer = coalescer
         self.entries = entries
         self.waits_ms = waits_ms
@@ -703,7 +730,8 @@ class _Handoff:
         try:
             results = self.thunk()
             resolve_ms = (time.monotonic() - t0) * 1000.0
-            c._note_run(self.rows, self.dispatch_ms + resolve_ms)
+            c._note_run(self.rows, self.dispatch_ms + resolve_ms,
+                        key=self.key)
             kernel_ms, rerank_ms = c._split_stages(self.stage_us,
                                                    resolve_ms)
             c._note_stage_totals(kernel=kernel_ms, rerank=rerank_ms,

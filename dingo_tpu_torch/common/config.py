@@ -175,12 +175,140 @@ FLAGS.define("qos_max_queue_ms", 50.0, mutable=True,
 FLAGS.define("qos_shed_policy", "degrade_drop", mutable=True,
              help_="pressure response: 'off' (observe only), 'degrade' "
                    "(knob ladder only), 'drop' (admission shed only), "
-                   "'degrade_drop' (both, default). The knob ladder "
-                   "(ShedController) is not ported yet")
+                   "'degrade_drop' (both, default)")
 FLAGS.define("qos_tenant_queue_rows", 0, mutable=True,
              help_="per-tenant cap on queued query rows inside the "
                    "coalescer (admission sheds the excess with "
                    "reason=tenant_limit); 0 = unlimited")
+# the observability planes (obs/): the JAX package's names and defaults
+FLAGS.define("obs_flight_buffer_s", 30.0, mutable=True,
+             help_="flight-recorder metrics window: bundles carry metric "
+                   "deltas over the last this-many seconds of ticks (the "
+                   "store-metrics crontab drives the tick ring)")
+FLAGS.define("obs_flight_max_bundles", 16, mutable=True,
+             help_="flight-recorder retention: newest N compressed "
+                   "bundles kept in memory (0 disables capturing)")
+FLAGS.define("obs_exemplars", True, mutable=True,
+             help_="attach trace-id exemplars to latency-series outliers "
+                   "in the Prometheus exposition (OpenMetrics syntax) so "
+                   "a scrape links a bad bucket to its trace/flight "
+                   "bundle")
+FLAGS.define("hbm_watermark_interval_s", 10.0, mutable=True,
+             help_="period of the process device-memory watermark poll (allocator "
+                   "bytes-in-use/limit/peak -> hbm.* gauges); per-region "
+                   "owner ledgers additionally refresh with every "
+                   "store-metrics collection pass")
+FLAGS.define("metrics_http_port", 0, mutable=False,
+             help_="bind a plain-HTTP sidecar on this port serving "
+                   "/metrics (Prometheus text format) and /vars (JSON); "
+                   "0 disables")
+FLAGS.define("quality_sample_rate", 0.0, mutable=True,
+             help_="fraction of live searches re-answered EXACTLY by the "
+                   "shadow scan and scored for recall/RBO/score-gap "
+                   "(obs/quality.py). Head-sampled like tracing: 0 "
+                   "(default) is a zero-alloc noop — no shadow kernels, "
+                   "no mirrors, no estimator state; 1 scores every batch "
+                   "(benchmarks, tests). Scoring runs on an async lane off the "
+                   "request's critical path")
+FLAGS.define("quality_slo_recall", 0.95, mutable=True,
+             help_="recall@k service-level objective the quality plane "
+                   "reports against and the SLO tuner steers toward: the "
+                   "tuner tightens knobs while the live estimate's CI "
+                   "upper bound sits below this, relaxes when the lower "
+                   "bound clears it with margin")
+FLAGS.define("quality_window_s", 60.0, mutable=True,
+             help_="sliding window of the live quality estimators: "
+                   "samples older than this age out of the recall "
+                   "estimate/CI (longer = tighter CI, slower reaction)")
+FLAGS.define("tuner_enabled", False, mutable=True,
+             help_="run the closed-loop SLO parameter controller "
+                   "(obs/tuner.py) on the store crontab: one "
+                   "cheap-to-expensive ladder step per tick per region, "
+                   "driven by the live recall CI vs quality.slo_recall. "
+                   "Requires quality.sample_rate > 0 to have a sensor")
+FLAGS.define("tuner_interval_s", 30.0, mutable=True,
+             help_="period of the quality_tuner crontab (one knob step "
+                   "at most per region per tick; the estimator window "
+                   "reset after each step is the hysteresis)")
+FLAGS.define("tuner_latency_budget_ms", 0.0, mutable=True,
+             help_="vector_search p99 budget the tuner respects: it "
+                   "never tightens past it, and relaxes while over it "
+                   "(if recall allows). 0 = no latency constraint")
+FLAGS.define("qos_shed_interval_s", 2.0, mutable=True,
+             help_="period of the qos_shed crontab driving the graduated "
+                   "degrade ladder (one level per tick each way)")
+FLAGS.define("integrity_enabled", True, mutable=True,
+             help_="maintain incremental per-artifact state digests "
+                   "(obs/integrity.py): every index write folds its batch "
+                   "into an order-invariant set digest per artifact (rows, "
+                   "sq8 codes, blocked mirror, HNSW adjacency, IVF bucket "
+                   "assignment) with O(batch) host work; digests ride "
+                   "heartbeats for replica divergence detection and gate "
+                   "snapshot restores. Off = no ledgers, no scrub, no "
+                   "restore verification")
+FLAGS.define("integrity_scrub_interval_s", 60.0, mutable=True,
+             help_="period of the consistency_scrub crontab: recompute "
+                   "full digests from device state (chunked under "
+                   "store.device_lock) and check them against the "
+                   "incremental ledger — catches silent HBM/restore "
+                   "corruption AND ledger bookkeeping bugs")
+FLAGS.define("integrity_flight_on_divergence", True, mutable=True,
+             help_="capture a flight-recorder bundle (rate-limited per "
+                   "reason) when the scrub finds a corrupted artifact or "
+                   "the coordinator sees replicas diverge at equal "
+                   "applied indices; the bundle carries the digest "
+                   "vectors of both sides")
+FLAGS.define("heat_enabled", False, mutable=True,
+             help_="workload-heat plane (obs/heat.py): per-region "
+                   "exponential-decay access sketches fed from data the "
+                   "resolve paths already hold on host (probed IVF "
+                   "buckets, FLAT/HNSW result slot ranges) — zero new "
+                   "device syncs — plus the derived working-set "
+                   "estimator. Off = observe nothing, allocate nothing "
+                   "(the quality-plane sampling discipline)")
+FLAGS.define("heat_decay_s", 300.0, mutable=True,
+             help_="e-folding time constant of the heat sketches: a "
+                   "unit untouched for this long keeps 1/e of its mass. "
+                   "~5 min tracks traffic shifts faster than the "
+                   "coordinator acts on them while riding out "
+                   "second-scale burstiness")
+FLAGS.define("heat_max_entries", 4096, mutable=True,
+             help_="bound on live sketch entries per region: past it the "
+                   "coldest units are evicted (their mass is the least "
+                   "informative). Memory per region stays O(max_entries)")
+FLAGS.define("cost_enabled", True, mutable=True,
+             help_="per-(kernel, padded-shape-ladder-point) dispatch "
+                   "cost model (obs/cost.py) learned from the completion "
+                   "lane's stage timings; consulted by QoS "
+                   "estimated_wait_ms and the SLO tuner's latency "
+                   "budget. Off = the coalescer falls back to its single "
+                   "scalar per-row EWMA")
+FLAGS.define("cost_prior_row_ms", 0.5, mutable=True,
+             help_="conservative per-row service-time prior the wait "
+                   "estimator sheds on before the first measured sample "
+                   "lands — the first overload burst must not ride in on "
+                   "a 0ms estimate (pessimistic on purpose: over-shedding "
+                   "a cold store beats serving it into collapse)")
+FLAGS.define("events_enabled", True, mutable=True,
+             help_="control-plane flight recorder (obs/events.py): every "
+                   "controller actuation — tuner step, shed ladder move, "
+                   "tier transition, recovery rung, replica scale, "
+                   "capacity advisory, cache stale rung — records a "
+                   "structured event with the evidence it decided on. "
+                   "Events ride heartbeats to the coordinator for the "
+                   "cluster timeline and `cluster explain`. Off = emit "
+                   "is one flag read, nothing is allocated or shipped")
+FLAGS.define("events_max_entries", 1024, mutable=True,
+             help_="bound on the per-node event ring AND the "
+                   "coordinator's merged timeline: past it the oldest "
+                   "events fall off (never-shipped ones count into "
+                   "event.dropped). Controller decisions are crontab-"
+                   "paced, so 1024 covers hours of history")
+FLAGS.define("events_heartbeat_batch", 128, mutable=True,
+             help_="max events one heartbeat carries to the coordinator "
+                   "(each ships exactly once — the collector keeps a "
+                   "harvest cursor). 0 keeps the ledger node-local "
+                   "(EventDump/flight bundles still see it)")
 FLAGS.define("pipeline_enabled", "auto", mutable=True,
              help_="overlapped serving pipeline: the coalescer's flush "
                    "thread dispatches every due batch's kernels before any "

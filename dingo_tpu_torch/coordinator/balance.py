@@ -285,8 +285,8 @@ class ReplicaPlanScheduler:
         return ops
 
     def dispatch(self) -> int:
-        # the JAX package also records each op in its control-plane event
-        # ledger (obs/events.py), which the port does not have yet
+        from dingo_tpu_torch.obs.events import EVENTS
+
         ops = self.plan()
         for op in ops:
             peers = list(self.control.regions[op.region_id].peers)
@@ -296,6 +296,17 @@ class ReplicaPlanScheduler:
             for s in op.drop_stores:
                 peers = [p for p in peers if p != s]
                 self.control.change_peer(op.region_id, peers)
+            EVENTS.emit(
+                "planner", op.region_id, "replicas", op.current, op.target,
+                trigger="scale",
+                evidence={
+                    "qps": round(op.qps, 3),
+                    "target_qps": op.target_qps,
+                    "floor": op.floor,
+                    "add": list(op.add_stores),
+                    "drop": list(op.drop_stores),
+                },
+            )
         return len(ops)
 
 

@@ -19,12 +19,10 @@ Ported: store registration, heartbeats and liveness; the command queue
 with acks, nacks, stalls and requeue; region create/drop/split/merge and
 their done reports; leader transfer, peer change, the GC safe point,
 region health; the capacity plane; persistence and recovery from CF_META
-(the persisted bytes equal the JAX package's). Not ported yet: the
-replica-digest integrity comparison, the control-plane event timeline and
-the flight captures, which consume observability planes the port does not
-have; the heartbeat skips them (the port's snapshots carry no digests and
-no events), and ``cluster_events``, ``explain_region_overrides`` and
-``diverged_regions`` raise NotPorted.
+(the persisted bytes equal the JAX package's); the replica-digest
+integrity comparison (``diverged_regions``), the control-plane event
+timeline (``cluster_events``, ``explain_region_overrides``) and the flight
+captures of a divergence and of a dropped command.
 """
 
 from __future__ import annotations
@@ -43,7 +41,7 @@ from dingo_tpu_torch.common.metrics import METRICS
 # any log replay decodes one, so import them eagerly here
 from dingo_tpu_torch.metrics import snapshot as _metrics_snapshot  # noqa: F401
 from dingo_tpu_torch.engine.raw_engine import CF_META, RawEngine
-from dingo_tpu_torch.index.base import IndexParameter, NotPorted
+from dingo_tpu_torch.index.base import IndexParameter
 from dingo_tpu_torch.store.region import (
     RegionDefinition,
     RegionEpoch,
@@ -155,6 +153,16 @@ class CoordinatorControl:
         #: beat that re-derives the same one
         self._capacity_advised: set = set()
         self.jobs: List[RegionCmd] = []
+        #: region id -> the evidence of a replica divergence at equal
+        #: applied indices (state-integrity plane, obs/integrity.py)
+        self.integrity_diverged: Dict[int, Dict] = {}
+        #: control-plane flight recorder (obs/events.py): the merged
+        #: cluster timeline of controller decisions harvested from
+        #: heartbeats plus the coordinator's own emissions (in memory,
+        #: like store_metrics)
+        from dingo_tpu_torch.obs.events import ClusterTimeline
+
+        self.events = ClusterTimeline()
         self._next_region_id = 1000
         self._next_cmd_id = 1
         self._recover()
@@ -295,12 +303,23 @@ class CoordinatorControl:
                                 j.cmd_id, j.cmd_type.value, 5)
                             # a dropped command is a silent topology-change
                             # failure (split/merge/peer move never happens)
-                            # — make it loud (the JAX package also captures
-                            # a flight bundle)
+                            # — make it loud: counter + flight bundle
+                            from dingo_tpu_torch.obs.flight import FLIGHT
+
                             METRICS.counter(
                                 "fault.cmd_retry_exhausted",
                                 region_id=j.region_id,
                             ).add(1)
+                            FLIGHT.trigger(
+                                "cmd_retry_exhausted",
+                                name=f"cmd_{j.cmd_id}_"
+                                     f"{j.cmd_type.value}",
+                                region_id=j.region_id,
+                                extra={"cmd_id": j.cmd_id,
+                                       "cmd_type": str(j.cmd_type.value),
+                                       "store_id": store_id,
+                                       "retries": 5},
+                            )
             # stalled: delivery landed somewhere that cannot act YET (e.g.
             # region mid-election, requeue RPC failed) — re-arm without
             # charging the poison budget; leadership churn is not a
@@ -315,12 +334,17 @@ class CoordinatorControl:
                 c.status = "sent"
             if pending or done_cmd_ids or failed_cmd_ids or stalled_cmd_ids:
                 self._persist_ops()
-        # capacity rollups OUTSIDE the lock: headroom vs working-set demand
-        # + advisory tier/split recommendations; never raises. (The JAX
-        # package also compares replica digests and merges the beat's
-        # events here; the port's snapshots carry neither.)
+        # replica digest comparison OUTSIDE the lock: it parses digest
+        # vectors and (on a fresh divergence) captures a flight bundle
         if metrics is not None:
+            self._check_integrity(store_id, metrics)
+            # capacity rollups ride the same beat: headroom vs working-
+            # set demand + advisory tier/split recommendations; never
+            # raises
             self._update_capacity(store_id, metrics)
+            # control-plane events harvested by the store's collector
+            # fold into the merged cluster timeline
+            self._merge_events(store_id, metrics, beat_ms)
         return pending
 
     def reset_sent_cmds(self) -> int:
@@ -368,19 +392,112 @@ class CoordinatorControl:
                 if s.state is StoreState.NORMAL
             ]
 
-    # ---------------- observability consumers: not ported -------------------
+    # ---------------- state-integrity comparison ----------------------------
+    def _check_integrity(self, store_id: str, metrics) -> None:
+        """Compare the arriving store's per-region digest vectors against
+        every other store's cached snapshot AT EQUAL APPLIED INDICES
+        (state-integrity plane, obs/integrity.py). Replicas that applied
+        the same raft prefix hold the same logical data by contract, so
+        differing digests mean one of them silently corrupted — raise the
+        consistency.* family, flag the region DIVERGED, and capture a
+        rate-limited flight bundle carrying BOTH digest vectors. A clean
+        agreement at equal applied indices clears the flag. Runs OUTSIDE
+        the coordinator lock (takes it briefly to snapshot/update state);
+        never raises (heartbeats must not die on telemetry)."""
+        try:
+            self._check_integrity_inner(store_id, metrics)
+        except Exception:  # noqa: BLE001 — observability must not re-raise
+            _log.exception("integrity comparison failed")
+
+    def _check_integrity_inner(self, store_id: str, metrics) -> None:
+        from dingo_tpu_torch.common.metrics import METRICS
+        from dingo_tpu_torch.obs.integrity import diverged_artifacts
+
+        regions = getattr(metrics, "regions", None) or []
+        with self._lock:
+            peers = {
+                sid: snap for sid, (snap, _at) in self.store_metrics.items()
+                if sid != store_id
+            }
+        for rm in regions:
+            digests = getattr(rm, "integrity_digests", "")
+            if not digests:
+                continue
+            rid = rm.region_id
+            applied = int(getattr(rm, "integrity_applied_index", 0))
+            diverging = []
+            agreeing = 0
+            for sid, snap in peers.items():
+                other = next(
+                    (r for r in getattr(snap, "regions", [])
+                     if r.region_id == rid), None,
+                )
+                if other is None:
+                    continue
+                o_digests = getattr(other, "integrity_digests", "")
+                o_applied = int(
+                    getattr(other, "integrity_applied_index", 0)
+                )
+                if not o_digests or o_applied != applied:
+                    continue          # unequal applied = lag, not damage
+                if o_digests == digests:
+                    # canonical JSON (sorted keys, fixed separators):
+                    # string equality IS vector equality — the common
+                    # healthy path never pays a parse
+                    agreeing += 1
+                    continue
+                arts = diverged_artifacts(digests, o_digests)
+                if arts:
+                    diverging.append(
+                        {"store": sid, "artifacts": arts,
+                         "digests": o_digests}
+                    )
+                else:
+                    agreeing += 1
+            if diverging:
+                evidence = {
+                    "applied_index": applied,
+                    "store": store_id,
+                    "digests": digests,
+                    "peers": diverging,
+                    "detected_ms": int(time.time() * 1000),
+                }
+                with self._lock:
+                    newly = rid not in self.integrity_diverged
+                    self.integrity_diverged[rid] = evidence
+                if newly:
+                    METRICS.counter(
+                        "consistency.divergence", region_id=rid
+                    ).add(1)
+                    region_log(_log, rid).error(
+                        "replica state DIVERGED at applied index %d: "
+                        "%s vs %s", applied, store_id,
+                        [d["store"] for d in diverging])
+                    from dingo_tpu_torch.common.config import FLAGS
+                    if bool(FLAGS.get("integrity_flight_on_divergence")):
+                        from dingo_tpu_torch.obs.flight import FLIGHT
+
+                        FLIGHT.trigger(
+                            "divergence",
+                            name=f"region_{rid}",
+                            region_id=rid,
+                            extra=evidence,
+                        )
+            elif agreeing:
+                with self._lock:
+                    was = self.integrity_diverged.pop(rid, None)
+                if was is not None:
+                    # replicas re-converged (rebuild/restore healed the
+                    # bad copy): clear the flag
+                    region_log(_log, rid).info(
+                        "replica state digests re-converged")
+        with self._lock:
+            n = len(self.integrity_diverged)
+        METRICS.gauge("consistency.diverged_regions").set(float(n))
+
     def diverged_regions(self) -> List[int]:
-        raise NotPorted("the replica-digest integrity comparison is not "
-                        "ported yet")
-
-    def cluster_events(self, region_id: int = 0, actor: str = "",
-                       limit: int = 0) -> List:
-        raise NotPorted("the control-plane event timeline is not ported "
-                        "yet")
-
-    def explain_region_overrides(self, region_id: int) -> Dict:
-        raise NotPorted("the control-plane event timeline is not ported "
-                        "yet")
+        with self._lock:
+            return sorted(self.integrity_diverged)
 
     # ---------------- capacity plane ----------------------------------------
     def _update_capacity(self, store_id: str, metrics) -> None:
@@ -438,13 +555,86 @@ class CoordinatorControl:
             plan["resident_bytes"])
         g("capacity.advice_count", labels=labels).set(
             len(plan["advice"]))
+        from dingo_tpu_torch.obs.events import EVENTS
+
         for _sid, rid, kind in fresh:
             METRICS.counter("capacity.advisories", region_id=rid,
                             labels={"kind": kind}).add(1)
             advice = next(a for a in plan["advice"]
                           if a.region_id == rid and a.kind == kind)
+            EVENTS.emit(
+                "capacity", rid, "advisory", "", kind,
+                trigger="headroom",
+                evidence={
+                    "store": store_id,
+                    "headroom_frac": round(plan["headroom_frac"], 4),
+                    "demand_p99_bytes": plan["demand_p99_bytes"],
+                    "bytes_at_stake": advice.bytes_at_stake,
+                    "reason": advice.reason,
+                },
+            )
             region_log(_log, rid).info(
                 "capacity advisory (%s): %s", kind, advice.reason)
+
+    # ---------------- control-plane event timeline ---------------------------
+    def _merge_events(self, store_id: str, metrics, recv_ms: int) -> None:
+        """Fold one beat's harvested control-plane events into the merged
+        cluster timeline. Receive-clock normalization: each event's
+        store-stamped wall clock is adjusted by recv_ms - collected_at_ms
+        (the METRICS_STALE_MS discipline — skewed store clocks must not
+        scramble cross-node causality). Never raises."""
+        try:
+            evs = list(getattr(metrics, "events", ()) or ())
+            if not evs:
+                return
+            collected = int(getattr(metrics, "collected_at_ms", 0) or 0)
+            offset = recv_ms - collected if collected else 0
+            self.events.merge(store_id, evs, offset_ms=offset)
+        except Exception:  # noqa: BLE001 — telemetry must not kill beats
+            _log.exception("event timeline merge failed")
+
+    def _fold_local_events(self) -> None:
+        """The coordinator is a controller too (replica planner, capacity
+        advisor): harvest its OWN ledger into the timeline so `cluster
+        events` shows store and coordinator decisions in one order. Its
+        clock needs no offset — it IS the merge clock."""
+        from dingo_tpu_torch.obs.events import EVENTS
+
+        local = EVENTS.harvest(node_id="coordinator")
+        if local:
+            self.events.merge("coordinator", local)
+
+    def cluster_events(self, region_id: int = 0, actor: str = "",
+                       limit: int = 0) -> List:
+        """Merged cluster timeline, oldest first (region_id 0 / actor ""
+        = no filter)."""
+        self._fold_local_events()
+        return self.events.events(
+            region_id=region_id or None, actor=actor, limit=limit
+        )
+
+    def explain_region_overrides(self, region_id: int) -> Dict:
+        """`cluster explain <region>`: reconcile the region's live
+        overrides (freshest non-stale replica rows, leader preferred)
+        against the merged event timeline — every live knob should be
+        accounted for by a decision chain; the rest are orphans
+        (event.orphan_knobs gauge)."""
+        from dingo_tpu_torch.common.metrics import METRICS
+        from dingo_tpu_torch.obs.events import explain_region, live_overrides
+
+        self._fold_local_events()
+        live: Dict[str, str] = {}
+        for _sid, stale, rm in self.get_region_metrics(region_id):
+            if stale:
+                continue
+            if getattr(rm, "is_leader", False) or not live:
+                live = live_overrides(rm)
+        report = explain_region(
+            region_id, live, self.events.events(region_id=region_id)
+        )
+        METRICS.gauge("event.orphan_knobs", region_id=region_id).set(
+            len(report["orphans"]))
+        return report
 
     def capacity_report(self) -> List[Dict]:
         """Per-store capacity plans, store-id ordered (DebugService /

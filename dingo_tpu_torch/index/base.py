@@ -55,6 +55,14 @@ class InvalidParameter(VectorIndexError):
     """EILLEGAL_PARAMTETERS [sic — the reference spells it this way]."""
 
 
+class SnapshotCorruption(VectorIndexError):
+    """A restored snapshot's recomputed state digests diverge from the
+    digest vector in its meta.json (obs/integrity.py): the files rotted at
+    rest or the restore mangled them. load() raises it before the index
+    can serve; the manager's load-or-build path then rebuilds from the
+    engine."""
+
+
 @dataclasses.dataclass(frozen=True)
 class IndexParameter:
     """Union of pb::common::VectorIndexParameter fields (the same fields as
@@ -129,14 +137,17 @@ def _members(values) -> list:
     return [v for v in items if not isinstance(v, _ATOMS)]
 
 
-def tensor_bytes(root) -> int:
+def tensor_bytes(root, seen: Optional[Tuple[set, set]] = None) -> int:
     """Bytes of the distinct torch tensors reachable from an index: its
     own attributes and those of the port's objects it holds (store, view,
     rerank cache), through dicts, lists and tuples. The port's counterpart
-    of the JAX package's live_device_bytes."""
+    of the JAX package's live_device_bytes. `seen` (visited objects,
+    visited storages) is shared across calls to charge each storage once
+    (the HBM ledger's per-owner attribution)."""
     import torch
 
-    seen_obj, seen_mem, total = set(), set(), 0
+    seen_obj, seen_mem = seen if seen is not None else (set(), set())
+    total = 0
     stack = [root]
     while stack:
         obj = stack.pop()

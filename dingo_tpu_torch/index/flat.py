@@ -58,11 +58,15 @@ from dingo_tpu_torch.index.base import (
     strip_invalid,
 )
 from dingo_tpu_torch.index.rerank_cache import DeviceRerankCache
+from dingo_tpu_torch.obs.heat import HEAT, heat_enabled
+from dingo_tpu_torch.obs.integrity import INTEGRITY
+from dingo_tpu_torch.obs.quality import QUALITY
 from dingo_tpu_torch.index.slot_store import SlotStore, SqSlotStore, _next_pow2
 from dingo_tpu_torch.ops import kernel_topk, kernel_topk_pruned
 from dingo_tpu_torch.ops.devfault import DEVFAULT
 from dingo_tpu_torch.ops.distance import (
     Metric,
+    device_wait_span,
     metric_ascending,
     np_normalize,
     score_matrix,
@@ -123,6 +127,25 @@ def _resolve_train_cap(derived: int) -> int:
     if derived <= 0:
         return conf
     return min(conf, derived)
+
+
+def integrity_mutation(fn):
+    """Bracket an index write path for the state-integrity plane
+    (obs/integrity.py): bumps the ledger's pending and mutation counters
+    before any device state can change and closes the bracket when the
+    method exits, even on error. While it is open a concurrent scrub
+    classes its pass as raced and the heartbeat withholds the digest
+    vector. No-op while the index is untracked."""
+    import functools
+
+    @functools.wraps(fn)
+    def wrapped(self, *args, **kwargs):
+        self._integrity_begin()
+        try:
+            return fn(self, *args, **kwargs)
+        finally:
+            self._integrity_end()
+    return wrapped
 
 
 def _pad_batch(q: np.ndarray) -> np.ndarray:
@@ -234,6 +257,63 @@ class _SlotStoreIndex(VectorIndex):
             live = np.sort(live[sel])
         return self.store.rows_device(live)
 
+    # -- state-integrity ledger hooks (obs/integrity.py) -------------------
+    def _integrity_begin(self) -> None:
+        INTEGRITY.note_mutation_begin(self)
+
+    def _integrity_end(self) -> None:
+        INTEGRITY.note_mutation_end(self)
+
+    def _integrity_write(self, ids: np.ndarray, vectors: np.ndarray) -> None:
+        """Fold a write batch into the region's digests: 'rows' always
+        (the stored bytes: codes for sq8, bf16 bit patterns for bf16),
+        'blocked' when the store keeps the dimension-blocked mirror.
+        O(batch) host hashing, no device work."""
+        if len(ids) == 0 or not INTEGRITY.tracking(self):
+            return
+        stored = self.store.canonical_rows(vectors)
+        ids = np.asarray(ids, np.int64)
+        # the blocked mirror holds the same values a slot, digested under
+        # its own tag so the scrub can tell which copy rotted (one hash
+        # of the bytes serves both)
+        arts = ("rows", "blocked") \
+            if getattr(self.store, "vecs_blk", None) is not None \
+            else ("rows",)
+        INTEGRITY.note_write_tags(self, arts, ids, stored)
+
+    def _integrity_delete(self, ids: np.ndarray) -> None:
+        INTEGRITY.note_delete(self, np.asarray(ids, np.int64))
+
+    def _integrity_on_restore(self, meta: dict) -> None:
+        """Recompute the digests from the restored state and verify them
+        against the snapshot's (raises SnapshotCorruption; the manager
+        then rebuilds from the engine). A precision flip across the
+        snapshot (fp32 <-> bf16, or a snapshot without a precision key)
+        re-casts every stored byte: the ledger rebuilds, the check is
+        skipped, and the next scrub covers it."""
+        integ = meta.get("integrity")
+        if meta.get("precision") != self._precision:
+            integ = None
+        INTEGRITY.verify_restore(self, integ)
+
+    def _count_search(self) -> None:
+        METRICS.counter(
+            "vector.search_by_precision", region_id=self.id,
+            labels={"precision": self._precision}).add(1)
+
+    def _heat_layout(self) -> dict:
+        """Heat-plane layout provider: FLAT heat units are SLOT_BLOCK slot
+        ranges priced at this tier's bytes a row (heat worker thread)."""
+        from dingo_tpu_torch.obs.heat import SLOT_BLOCK, TIER_BYTES
+
+        tier = getattr(self, "_precision", "fp32")
+        return {
+            "rows_per_unit": SLOT_BLOCK,
+            "row_bytes": self.dimension * TIER_BYTES.get(tier, 4.0),
+            "tier": tier,
+            "dim": self.dimension,
+        }
+
     def _note_prune_stats(self, stats_h) -> None:
         """Fold a pruned-scan stats block ([b, 4] host array: scanned
         pairs, total pairs, full scans, candidates) into the metrics.
@@ -262,17 +342,26 @@ class _SlotStoreIndex(VectorIndex):
             raise InvalidParameter(f"duplicate ids {dup[:5]} (use upsert)")
         self.upsert(ids, vectors)
 
+    @integrity_mutation
     def upsert(self, ids: np.ndarray, vectors: np.ndarray) -> None:
         vectors = self._prep_vectors(vectors)
         if len(ids) != len(vectors):
             raise InvalidParameter("ids/vectors length mismatch")
         slots = self.store.put(np.asarray(ids, np.int64), vectors)
         self._offer_rerank(slots, vectors)
+        # quantized tiers keep an fp32 ground-truth mirror fed the rows
+        # before quantization (no-op while sampling is off)
+        QUALITY.observe_write(self, np.asarray(ids, np.int64), vectors)
+        self._integrity_write(ids, vectors)
         self.write_count_since_save += len(ids)
 
+    @integrity_mutation
     def delete(self, ids: np.ndarray) -> None:
-        slots = self.store.remove_slots(np.asarray(ids, np.int64))
+        ids = np.asarray(ids, np.int64)
+        slots = self.store.remove_slots(ids)
         self._invalidate_rerank(slots)
+        QUALITY.observe_delete(self, ids)
+        self._integrity_delete(ids)
         self.write_count_since_save += int((slots >= 0).sum())
 
     # -- search ------------------------------------------------------------
@@ -296,6 +385,7 @@ class _SlotStoreIndex(VectorIndex):
         # lease BEFORE dispatch: result slots stay limbo-parked until
         # resolve translates them
         lease = store.begin_search()
+        self._count_search()
         try:
             with store.device_lock:
                 if filter_spec is None or filter_spec.is_empty():
@@ -314,8 +404,16 @@ class _SlotStoreIndex(VectorIndex):
         except Exception:
             lease.release()
             raise
+        if kprime is not None:
+            # a sampled trace gets an ops.rerank span of kernel time
+            # (outside the lock; nothing for an unsampled request)
+            device_wait_span("rerank", (dists, slots))
         # one D2H group for the whole reply, the prune stats included
         fetch = begin_host_fetch(dists, slots, stats)
+        device_wait_span("flat_scan", (dists, slots))
+        heat_on = heat_enabled()
+        if heat_on:
+            HEAT.register_layout(self.id, "slot", self._heat_layout)
 
         def resolve() -> List[SearchResult]:
             try:
@@ -323,8 +421,18 @@ class _SlotStoreIndex(VectorIndex):
                 dists_h, slots_h = fetched[0], fetched[1]
                 if stats is not None:
                     self._note_prune_stats(fetched[2][:b])
+                if heat_on:
+                    # result slots -> slot-block heat units, from the array
+                    # this resolve already fetched (no new sync)
+                    HEAT.observe(self.id, "slot", slots_h[:b])
                 ids = store.ids_of_slots(slots_h[:b].astype(np.int64))
                 dists_h = self._convert_distances(dists_h[:b])
+                # head-sampled shadow scoring (async lane; nothing at rate
+                # 0); a filtered search carries its spec so the truth is
+                # restricted to the same candidates
+                QUALITY.observe_search(
+                    self, queries, topk, ids, dists_h, bucket="flat",
+                    filter_spec=filter_spec)
                 return [strip_invalid(i, d) for i, d in zip(ids, dists_h)]
             finally:
                 lease.release()
@@ -400,7 +508,7 @@ class _SlotStoreIndex(VectorIndex):
         return self.store.memory_size()
 
     def _save_meta(self) -> dict:
-        return {
+        meta = {
             "index_type": self.index_type.value,
             "dimension": self.dimension,
             "metric": self.metric.value,
@@ -412,14 +520,21 @@ class _SlotStoreIndex(VectorIndex):
             "blocked_layout": self.store.vecs_blk is not None,
             "dim_block": int(self.store.dim_block or 0),
         }
+        # the state-integrity digest vector: a restore recomputes it from
+        # the loaded state and refuses to serve a mismatch (only the
+        # artifacts a snapshot carries; the scrub covers the mirror)
+        integ = INTEGRITY.snapshot_artifacts(self)
+        if integ:
+            meta["integrity"] = integ
+        return meta
 
     def _check_meta(self, meta: dict) -> None:
         """Snapshot compatibility. fp32 and bf16 snapshots share the f32
         row format and load across that flip (rows re-cast into the new
         store); sq8 holds codes and its codec, so crossing it raises.
-        Snapshots without a precision key load under any tier. The JAX
-        package's `integrity` digests are ignored until that plane is
-        ported."""
+        Snapshots without a precision key load under any tier. The
+        snapshot's `integrity` digests are checked after the rows load
+        (`_integrity_on_restore`)."""
         if meta["dimension"] != self.dimension:
             raise InvalidParameter(
                 f"snapshot dimension {meta['dimension']} != {self.dimension}"
@@ -523,6 +638,7 @@ class TpuFlat(_SlotStoreIndex):
         data = np.load(os.path.join(path, "flat.npz"))
         self.restore_arrays(data["ids"], **self._snapshot_rows(data))
         self.apply_log_id = meta["apply_log_id"]
+        self._integrity_on_restore(meta)
 
     def restore_arrays(self, ids, vectors=None, codes=None,
                        sq_params: Optional[SqParams] = None) -> None:
@@ -626,6 +742,7 @@ class TpuBinaryFlat(BinaryPm1Mixin, _SlotStoreIndex):
         data = np.load(os.path.join(path, "binary_flat.npz"))
         self.restore_arrays(data["ids"], data["vectors"])
         self.apply_log_id = meta["apply_log_id"]
+        self._integrity_on_restore(meta)
 
     def restore_arrays(self, ids, vectors) -> None:
         """Install packed uint8 rows as a snapshot load does."""

@@ -30,7 +30,10 @@ adjacency the native graph does not hold; the first host-path use (a
 write, a host search, ``save``) replays every row into the native graph
 and re-exports its level 0 as the mirror (``_ensure_native_graph``).
 
-The JAX package's quality, heat and integrity hooks are not ported.
+The quality, heat and integrity hooks are the JAX package's: writes fold
+into the digest ledger (rows, and the adjacency at each mirror install, by
+external id), searches feed the heat sketch from their fetched slots and
+the quality plane's sampler.
 """
 
 from __future__ import annotations
@@ -60,13 +63,17 @@ from dingo_tpu_torch.index.base import (
 )
 from dingo_tpu_torch.index.flat import (
     _SlotStoreIndex,
+    integrity_mutation,
     _new_tier_store,
     _staged_or_upload,
 )
 from dingo_tpu_torch.index.ivf_layout import shape_bucket
 from dingo_tpu_torch.native import load_hnsw
 from dingo_tpu_torch.ops.beam import beam_search
-from dingo_tpu_torch.ops.distance import Metric, np_normalize
+from dingo_tpu_torch.obs.heat import HEAT, heat_enabled
+from dingo_tpu_torch.obs.integrity import INTEGRITY
+from dingo_tpu_torch.obs.quality import QUALITY
+from dingo_tpu_torch.ops.distance import Metric, device_wait_span, np_normalize
 from dingo_tpu_torch.ops.rerank import exact_rerank_device, sq_rerank_device
 from dingo_tpu_torch.ops.topk import begin_host_fetch
 
@@ -143,6 +150,7 @@ class TpuHnsw(_SlotStoreIndex):
         if self._precision == "sq8" and vectors is not None:
             self.store.maybe_train(self._prep_vectors(vectors))
 
+    @integrity_mutation
     def upsert(self, ids: np.ndarray, vectors: np.ndarray) -> None:
         self._ensure_native_graph()
         vectors = self._prep_vectors(vectors)
@@ -151,14 +159,19 @@ class TpuHnsw(_SlotStoreIndex):
             raise InvalidParameter("ids/vectors length mismatch")
         slots = self.store.put(ids, vectors)
         self._offer_rerank(slots, vectors)
+        QUALITY.observe_write(self, ids, vectors)
+        self._integrity_write(ids, vectors)
         self._lib.hnsw_add(self._graph, len(ids), _i64p(ids), _f32p(vectors))
         self.write_count_since_save += len(ids)
 
+    @integrity_mutation
     def delete(self, ids: np.ndarray) -> None:
         self._ensure_native_graph()
         ids = np.ascontiguousarray(ids, np.int64)
         slots = self.store.remove_slots(ids)
         self._invalidate_rerank(slots)
+        QUALITY.observe_delete(self, ids)
+        self._integrity_delete(ids)
         self._lib.hnsw_delete(self._graph, len(ids), _i64p(ids))
         self.write_count_since_save += int((slots >= 0).sum())
 
@@ -192,6 +205,36 @@ class TpuHnsw(_SlotStoreIndex):
                 entry = int(live_slots[0])
         self._entry_slot = entry
         METRICS.gauge("hnsw.graph_nodes", region_id=self.id).set(float(n))
+        self._integrity_adjacency(full)
+
+    def _integrity_adjacency(self, full: np.ndarray) -> None:
+        """The adjacency artifact resets with every mirror install (a full
+        swap, not an incremental write). Neighbour slots translate to
+        external ids, so the digest survives the slot renumbering of a
+        snapshot load: the form the scrub recomputes from the mirror."""
+        if not INTEGRITY.tracking(self):
+            return
+        store = self.store
+        INTEGRITY.reset_artifact(self, "adjacency")
+        live_slots = np.flatnonzero(store.ids_by_slot >= 0)
+        if len(live_slots):
+            INTEGRITY.note_write(
+                self, "adjacency", store.ids_by_slot[live_slots],
+                store.ids_of_slots(full[live_slots]))
+
+    def _heat_layout(self) -> dict:
+        """Heat-plane layout provider: HNSW heat units are SLOT_BLOCK slot
+        ranges of the store (adjacency bytes ride with their rows), priced
+        at this tier's bytes a row."""
+        from dingo_tpu_torch.obs.heat import SLOT_BLOCK, TIER_BYTES
+
+        tier = getattr(self, "_precision", "fp32")
+        return {
+            "rows_per_unit": SLOT_BLOCK,
+            "row_bytes": self.dimension * TIER_BYTES.get(tier, 4.0),
+            "tier": tier,
+            "dim": self.dimension,
+        }
 
     def _export_level0(self):
         """(labels [n], adjacency [n, deg]) of the native level-0 graph in
@@ -240,6 +283,7 @@ class TpuHnsw(_SlotStoreIndex):
             return None
         return _HnswBulkSession(self, expect_rows)
 
+    @integrity_mutation
     def _bulk_put(self, ids: np.ndarray, vectors: np.ndarray) -> np.ndarray:
         """upsert() without the native add: the device builder makes the
         edges and the native graph back-fills later."""
@@ -249,6 +293,8 @@ class TpuHnsw(_SlotStoreIndex):
             raise InvalidParameter("ids/vectors length mismatch")
         slots = self.store.put(ids, vectors)
         self._offer_rerank(slots, vectors)
+        QUALITY.observe_write(self, ids, vectors)
+        self._integrity_write(ids, vectors)
         self.write_count_since_save += len(ids)
         return slots
 
@@ -258,18 +304,24 @@ class TpuHnsw(_SlotStoreIndex):
         the mirror serves device searches at once, ``_graph_key`` pins it
         against a lazy native re-export (which would install the still
         empty native graph), and ``_native_pending`` arms the back-fill."""
-        store = self.store
-        with store.device_lock:
-            store.set_graph(adj, self._graph_deg)
-            entry = int(entry_slot)
-            if entry < 0 or not store.valid_h[entry]:
-                live_slots = np.flatnonzero(store.valid_h)
-                entry = int(live_slots[0]) if len(live_slots) else -1
-            self._entry_slot = entry
-            self._graph_key = self._graph_version()
-            self._native_pending = True
-        METRICS.gauge("hnsw.graph_nodes", region_id=self.id).set(
-            float(len(store)))
+        self._integrity_begin()
+        try:
+            store = self.store
+            with store.device_lock:
+                store.set_graph(adj, self._graph_deg)
+                entry = int(entry_slot)
+                if entry < 0 or not store.valid_h[entry]:
+                    live_slots = np.flatnonzero(store.valid_h)
+                    entry = int(live_slots[0]) if len(live_slots) else -1
+                self._entry_slot = entry
+                self._graph_key = self._graph_version()
+                self._native_pending = True
+            METRICS.gauge("hnsw.graph_nodes", region_id=self.id).set(
+                float(len(store)))
+            if INTEGRITY.tracking(self):
+                self._integrity_adjacency(store.adj.cpu().numpy())
+        finally:
+            self._integrity_end()
 
     def _ensure_native_graph(self) -> None:
         """Replay the store's rows into the native graph after a device
@@ -354,6 +406,7 @@ class TpuHnsw(_SlotStoreIndex):
         max(64, efconstruction / 2)), at least topk."""
         queries = self._prep_queries(queries)
         b = queries.shape[0]
+        self._count_search()
         ef = max(int(ef or self.tuned("ef", self.ef_search_default)),
                  int(topk))
         if self._device_search_on():
@@ -411,13 +464,26 @@ class TpuHnsw(_SlotStoreIndex):
             raise
         # the walk's diagnostics join the reply's one fetch group
         fetch = begin_host_fetch(dists, out_slots, hops, vcount, occ)
+        device_wait_span("beam_search", (dists, out_slots))
+        heat_on = heat_enabled()
+        if heat_on:
+            HEAT.register_layout(self.id, "slot", self._heat_layout)
 
         def resolve() -> List[SearchResult]:
             try:
                 dists_h, slots_h, hops_h, vc_h, occ_h = fetch.get()
                 self._note_walk_stats(hops_h[:b], vc_h[:b], occ_h[:b], cap,
                                       beam)
+                if heat_on:
+                    # result slots mark the neighbourhoods the walk landed
+                    # in, weighted by how much of the graph it crossed
+                    # (both arrays were in this fetch group)
+                    w = float(max(1.0, np.mean(vc_h[:b]) / max(1, beam)))
+                    HEAT.observe(self.id, "slot", slots_h[:b], weight=w)
                 ids = store.ids_of_slots(slots_h[:b].astype(np.int64))
+                QUALITY.observe_search(
+                    self, queries, topk, ids, dists_h[:b],
+                    bucket=f"ef={beam}", filter_spec=filter_spec)
                 return [strip_invalid(i, d)
                         for i, d in zip(ids, dists_h[:b])]
             finally:
@@ -460,11 +526,21 @@ class TpuHnsw(_SlotStoreIndex):
             lease.release()
             raise
         fetch = begin_host_fetch(dists, out_slots)
+        heat_on = heat_enabled()
+        if heat_on:
+            HEAT.register_layout(self.id, "slot", self._heat_layout)
 
         def resolve() -> List[SearchResult]:
             try:
                 dists_h, slots_h = fetch.get()
+                if heat_on:
+                    HEAT.observe(self.id, "slot", slots_h[:b])
                 ids = store.ids_of_slots(slots_h[:b].astype(np.int64))
+                # the bucket is the ladder value, as on the device path
+                QUALITY.observe_search(
+                    self, queries, topk, ids, dists_h[:b],
+                    bucket=f"ef={self._beam_width(ef, topk)}",
+                    filter_spec=filter_spec)
                 return [strip_invalid(i, d)
                         for i, d in zip(ids, dists_h[:b])]
             finally:
@@ -590,6 +666,7 @@ class TpuHnsw(_SlotStoreIndex):
                 self._graph_key = self._graph_version()
         self.apply_log_id = meta["apply_log_id"]
         self.write_count_since_save = 0
+        self._integrity_on_restore(meta)
 
 
 class _HnswBulkSession:

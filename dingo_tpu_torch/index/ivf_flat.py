@@ -50,6 +50,7 @@ from dingo_tpu_torch.common.config import (
     prune_scan_enabled,
 )
 from dingo_tpu_torch.common.device import resolve_device, upload
+from dingo_tpu_torch.common.metrics import METRICS
 from dingo_tpu_torch.index.base import (
     FilterSpec,
     IndexParameter,
@@ -67,6 +68,7 @@ from dingo_tpu_torch.index.flat import (
     _new_tier_store,
     _resolve_train_cap,
     _staged_or_upload,
+    integrity_mutation,
 )
 from dingo_tpu_torch.index.ivf_layout import (
     MutableIvfView,
@@ -82,6 +84,7 @@ from dingo_tpu_torch.ops.blocked import (
 )
 from dingo_tpu_torch.ops.distance import (
     Metric,
+    device_wait_span,
     metric_ascending,
     np_normalize,
     scores_to_distances,
@@ -100,6 +103,10 @@ from dingo_tpu_torch.ops.scatter import (
 )
 from dingo_tpu_torch.ops.sq import sq_bucket_scores, sq_decode_device
 from dingo_tpu_torch.ops.topk import begin_host_fetch, merge_topk
+from dingo_tpu_torch.obs.heat import HEAT, heat_enabled
+from dingo_tpu_torch.obs.integrity import INTEGRITY
+from dingo_tpu_torch.obs.quality import QUALITY
+from dingo_tpu_torch.trace import TRACER
 
 #: rows per chunk when (re)assigning the whole store after training
 ASSIGN_CHUNK = 1 << 18
@@ -189,21 +196,39 @@ class IvfViewMaintenance:
     def _ensure_view(self) -> None:
         """Hot-path entry: rebuild only when there is no usable view."""
         if self._view is None or self._view_dirty:
-            self._rebuild_view()
+            self._rebuild_view("search")
 
-    def _rebuild_view(self) -> None:
+    def _rebuild_view(self, reason: str = "search") -> None:
         """Full dense rebuild (build_layout + gather), all under one
         device_lock hold so no write lands between snapshot and swap."""
-        with self.store.device_lock:
-            view = MutableIvfView.build(
-                self._assign_h, self.store.valid_h, self.nlist,
-                self.store.capacity, self.device,
-            )
-            self._materialize_view_data(view)
-            self._view = view
-            self._view_dirty = False
-            self._filter_cache.clear()
+        compacting = reason == "compact"
+        name = "ivf.compact" if compacting else "ivf.full_rebuild"
+        with TRACER.start_span(name) as span:
+            with self.store.device_lock:
+                view = MutableIvfView.build(
+                    self._assign_h, self.store.valid_h, self.nlist,
+                    self.store.capacity, self.device,
+                )
+                self._materialize_view_data(view)
+                self._view = view
+                self._view_dirty = False
+                self._filter_cache.clear()
+            if span.sampled:
+                span.set_attr("region_id", self.id)
+                span.set_attr("buckets", view.nbuckets)
+                span.set_attr("rows", view.live_rows)
         self.full_rebuilds += 1
+        METRICS.counter(
+            "ivf.compactions" if compacting else "ivf.full_rebuild",
+            region_id=self.id,
+        ).add(1)
+        self._update_view_gauges()
+
+    def _update_view_gauges(self) -> None:
+        v = self._view
+        if v is not None:
+            METRICS.gauge("ivf.tombstone_ratio", region_id=self.id).set(
+                v.tombstone_ratio())
 
     def _invalidate_view(self) -> None:
         with self.store.device_lock:
@@ -218,17 +243,24 @@ class IvfViewMaintenance:
             return
         # stage (host) + apply (device) under ONE hold: a concurrent search
         # never sees staged host state ahead of the device arrays
-        with self.store.device_lock:
-            view = self._view
-            if view is None or self._view_dirty:
-                self._view_dirty = True
-                return
-            view.ensure_slot_capacity(self.store.capacity)
-            upd = view.stage_upsert(slots, np.asarray(assign))
-            if upd is None:
-                return
-            view.apply_device(upd)
-            self._scatter_view_data(upd, rows)
+        with TRACER.start_span("ivf.append_inplace") as span:
+            with self.store.device_lock:
+                view = self._view
+                if view is None or self._view_dirty:
+                    self._view_dirty = True
+                    return
+                view.ensure_slot_capacity(self.store.capacity)
+                upd = view.stage_upsert(slots, np.asarray(assign))
+                if upd is None:
+                    return
+                view.apply_device(upd)
+                self._scatter_view_data(upd, rows)
+            if span.sampled:
+                span.set_attr("region_id", self.id)
+                span.set_attr("rows", int(len(slots)))
+        METRICS.counter("ivf.inplace_appends", region_id=self.id).add(
+            len(upd.appended))
+        self._update_view_gauges()
 
     def _view_apply_delete(self, slots) -> None:
         with self.store.device_lock:
@@ -240,6 +272,9 @@ class IvfViewMaintenance:
             if upd is None:
                 return
             view.apply_device(upd)
+        METRICS.counter("ivf.tombstones", region_id=self.id).add(
+            len(upd.touched))
+        self._update_view_gauges()
 
     # -- compaction --------------------------------------------------------
     def need_compact(self) -> bool:
@@ -256,7 +291,7 @@ class IvfViewMaintenance:
     def compact(self) -> None:
         """Rebuild the dense layout now (O(N); keep it off the serving
         path)."""
-        self._rebuild_view()
+        self._rebuild_view("compact")
 
     def maybe_compact(self) -> bool:
         if self.need_compact():
@@ -295,6 +330,7 @@ class IvfViewMaintenance:
         )
         hit = self._filter_cache.get(fp)
         if hit is not None and hit[0] == view.version:
+            METRICS.counter("ivf.filter_mask_hits", region_id=self.id).add(1)
             return hit[1]
         if mask is None or ver != view.version:
             mask = filter_spec.slot_mask(self.store.ids_by_slot)
@@ -308,6 +344,7 @@ class IvfViewMaintenance:
             while len(self._filter_cache) >= FILTER_CACHE_SIZE:
                 self._filter_cache.pop(next(iter(self._filter_cache)))
         self._filter_cache[fp] = (view.version, bmask)
+        METRICS.counter("ivf.filter_mask_misses", region_id=self.id).add(1)
         return bmask
 
     # -- shape bucketing and warmup ----------------------------------------
@@ -327,9 +364,13 @@ class IvfViewMaintenance:
         no new shape; returns the searches run (0 untrained)."""
         if not self.is_trained():
             return 0
-        self._ensure_view()
-        for bsz in batches:
-            self.search(self._warmup_queries(int(bsz)), topk, nprobe=nprobe)
+        with TRACER.start_span("ivf.warmup") as span:
+            self._ensure_view()
+            for bsz in batches:
+                self.search(self._warmup_queries(int(bsz)), topk,
+                            nprobe=nprobe)
+            if span.sampled:
+                span.set_attr("searches", len(batches))
         return len(batches)
 
 
@@ -377,18 +418,68 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
             grown[: self._assign_h.shape[0]] = self._assign_h
             self._assign_h = grown
 
+    def _heat_layout(self) -> Optional[dict]:
+        """Heat-plane layout provider: rows per IVF list from the host
+        assignment array, priced at this tier's bytes a row (run on the
+        heat plane's worker thread, never a serving thread)."""
+        assign = self._assign_h
+        if assign is None:
+            return None
+        from dingo_tpu_torch.obs.heat import TIER_BYTES
+
+        rows = np.bincount(assign[assign >= 0].astype(np.int64),
+                           minlength=self.nlist)
+        return {
+            "unit_rows": rows,
+            "row_bytes": self.dimension * TIER_BYTES.get(
+                self._precision, 4.0),
+            "tier": self._precision,
+            "dim": self.dimension,
+        }
+
+    # -- state-integrity: the bucket-assignment artifact -------------------
+    def _integrity_assign(self, ids: np.ndarray, assign: np.ndarray) -> None:
+        """Fold a write batch's coarse-list assignments into the
+        'ivf_buckets' digest (the ledger tracks the assignment truth; the
+        scrub reads the device view's arrangement back and compares)."""
+        if len(ids) == 0 or not INTEGRITY.tracking(self):
+            return
+        ids = np.asarray(ids, np.int64)
+        assign = np.asarray(assign, np.int32)
+        placed = assign >= 0
+        if placed.any():
+            INTEGRITY.note_write(self, "ivf_buckets", ids[placed],
+                                 assign[placed])
+
+    def _integrity_reset_assign(self) -> None:
+        """Rebuild the assignment digest from _assign_h (train and load
+        reassign every stored row at once)."""
+        if not INTEGRITY.tracking(self):
+            return
+        INTEGRITY.reset_artifact(self, "ivf_buckets")
+        live = np.flatnonzero(self.store.ids_by_slot >= 0)
+        if len(live):
+            assign = self._assign_h[live].astype(np.int32)
+            self._integrity_assign(self.store.ids_by_slot[live], assign)
+
     # -- mutation: track assignments ---------------------------------------
+    @integrity_mutation
     def upsert(self, ids: np.ndarray, vectors: np.ndarray) -> None:
         vectors = self._prep_vectors(vectors)
         if len(ids) != len(vectors):
             raise InvalidParameter("ids/vectors length mismatch")
         slots = self.store.put(np.asarray(ids, np.int64), vectors)
         self._offer_rerank(slots, vectors)
+        # quantized tiers mirror the rows before quantization for the
+        # shadow ground truth (no-op while sampling is off)
+        QUALITY.observe_write(self, np.asarray(ids, np.int64), vectors)
+        self._integrity_write(ids, vectors)
         self._grow_assign()
         if self.is_trained():
             rows = torch.from_numpy(vectors).to(self.device, torch.float32)
             assign = kmeans_assign(rows, self.centroids).cpu().numpy()
             self._assign_h[slots] = assign
+            self._integrity_assign(ids, assign)
             if self._view is not None and not self._view_dirty:
                 self._view_apply_upsert(slots, assign, vectors)
             else:
@@ -397,10 +488,14 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
             self._view_dirty = True
         self.write_count_since_save += len(ids)
 
+    @integrity_mutation
     def delete(self, ids: np.ndarray) -> None:
-        slots = self.store.remove_slots(np.asarray(ids, np.int64))
+        ids = np.asarray(ids, np.int64)
+        slots = self.store.remove_slots(ids)
         removed = int((slots >= 0).sum())
         self._invalidate_rerank(slots)
+        QUALITY.observe_delete(self, ids)
+        self._integrity_delete(ids)
         if removed:
             if self._view is not None and not self._view_dirty:
                 self._view_apply_delete(slots[slots >= 0])
@@ -415,6 +510,7 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
     def is_trained(self) -> bool:
         return self.centroids is not None
 
+    @integrity_mutation
     def train(self, vectors: Optional[np.ndarray] = None) -> None:
         """Train the coarse quantizer; with no train set, sample the
         stored rows on the device (only slot indices cross the bus)."""
@@ -455,6 +551,7 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
             self._assign_h[sl] = kmeans_assign(
                 self.store.rows_device(sl), self.centroids
             ).cpu().numpy()
+        self._integrity_reset_assign()
         self._invalidate_view()
         self.store.mutation_version += 1
 
@@ -545,6 +642,7 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
             raise NotTrained("IVF_FLAT not trained")   # reader falls back
         queries = self._prep_queries(queries)
         self._ensure_view()
+        self._count_search()
         b = queries.shape[0]
         topk = int(topk)
         nprobe = min(
@@ -612,9 +710,19 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
         except Exception:
             lease.release()
             raise
+        if kprime is not None:
+            # a sampled trace times the scan and rerank as ops.rerank
+            # (outside the lock; nothing for an unsampled request)
+            device_wait_span("rerank", (dists, slots))
         store = self.store
-        # one D2H group for the whole reply, the prune stats included
-        fetch = begin_host_fetch(dists, slots, stats)
+        # one D2H group for the whole reply, the prune stats included; the
+        # heat plane's probed-list ids ride the same group (no extra sync)
+        heat_on = heat_enabled()
+        if heat_on:
+            HEAT.register_layout(self.id, "ivf", self._heat_layout)
+        fetch = begin_host_fetch(dists, slots, stats,
+                                 probes if heat_on else None)
+        device_wait_span("ivf_scan", (dists, slots))
 
         def resolve() -> List[SearchResult]:
             try:
@@ -622,10 +730,18 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
                 dists_h, slots_h = fetched[0], fetched[1]
                 if stats is not None:
                     self._note_prune_stats(fetched[2][:b])
+                if heat_on:
+                    # probed list ids: which partitions this batch read
+                    HEAT.observe(self.id, "ivf", fetched[-1][:b])
                 # shape bucketing may have run a larger k; slice back
                 ids = store.ids_of_slots(
                     slots_h[:b, :topk].astype(np.int64))
                 dists_h = self._convert_distances(dists_h[:b, :topk])
+                # head-sampled shadow scoring, attributed to the nprobe
+                # bucket scanned (async lane; nothing at rate 0)
+                QUALITY.observe_search(
+                    self, queries, topk, ids, dists_h,
+                    bucket=f"nprobe={nprobe}", filter_spec=filter_spec)
                 return [strip_invalid(i, d) for i, d in zip(ids, dists_h)]
             finally:
                 lease.release()
@@ -666,6 +782,7 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
             **self._snapshot_rows(data),
         )
         self.apply_log_id = meta["apply_log_id"]
+        self._integrity_on_restore(meta)
 
     def restore_arrays(self, ids, vectors=None, centroids=None, assign=None,
                        codes=None, sq_params=None) -> None:

@@ -52,8 +52,13 @@ from dingo_tpu_torch.index.flat import (
     _resolve_train_cap,
     _staged_or_upload,
     flat_search_plain,
+    integrity_mutation,
 )
-from dingo_tpu_torch.index.ivf_flat import IvfViewMaintenance, coarse_probes
+from dingo_tpu_torch.index.ivf_flat import (
+    IvfViewMaintenance,
+    TpuIvfFlat,
+    coarse_probes,
+)
 from dingo_tpu_torch.index.ivf_layout import (
     MutableIvfView,
     expand_probes_ranked,
@@ -91,6 +96,9 @@ from dingo_tpu_torch.ops.pq import (
 from dingo_tpu_torch.ops.rerank import _topk_epilogue, exact_rerank_device
 from dingo_tpu_torch.ops.scatter import pad_buckets, scatter_bucket_update
 from dingo_tpu_torch.ops.topk import begin_host_fetch, merge_topk
+from dingo_tpu_torch.obs.heat import HEAT, heat_enabled
+from dingo_tpu_torch.obs.integrity import INTEGRITY
+from dingo_tpu_torch.obs.quality import QUALITY
 
 #: host rows per step of the untrained host-store scan
 HOST_SCAN_CHUNK = 65536
@@ -280,12 +288,17 @@ class TpuIvfPq(IvfViewMaintenance, _SlotStoreIndex):
             self._codes[torch.as_tensor(np.asarray(slots, np.int64),
                                         device=self.device)] = codes
 
+    @integrity_mutation
     def upsert(self, ids: np.ndarray, vectors: np.ndarray) -> None:
         vectors = self._prep_vectors(vectors)
         if len(ids) != len(vectors):
             raise InvalidParameter("ids/vectors length mismatch")
         slots = self.store.put(np.asarray(ids, np.int64), vectors)
         self._ensure_code_capacity()
+        # the fp32 store (or host) rows are IVF_PQ's shadow ground truth,
+        # so this only feeds a mirror-mode oracle
+        QUALITY.observe_write(self, np.asarray(ids, np.int64), vectors)
+        self._integrity_write(ids, vectors)
         if self.is_trained():
             dv = torch.from_numpy(vectors).to(self.device)
             assign = kmeans_assign(dv, self.centroids)
@@ -294,6 +307,8 @@ class TpuIvfPq(IvfViewMaintenance, _SlotStoreIndex):
             assign_h = assign.cpu().numpy()
             self._assign_h[slots] = assign_h
             self._set_codes(slots, codes)
+            self._integrity_assign(ids, assign_h)
+            self._integrity_codes(ids, codes)
             if self._view is not None and not self._view_dirty:
                 # the fresh codes go into the bucketed view in place
                 self._view_apply_upsert(slots, assign_h, codes)
@@ -303,9 +318,13 @@ class TpuIvfPq(IvfViewMaintenance, _SlotStoreIndex):
             self._view_dirty = True
         self.write_count_since_save += len(ids)
 
+    @integrity_mutation
     def delete(self, ids: np.ndarray) -> None:
-        slots = self.store.remove_slots(np.asarray(ids, np.int64))
+        ids = np.asarray(ids, np.int64)
+        slots = self.store.remove_slots(ids)
         removed = int((slots >= 0).sum())
+        QUALITY.observe_delete(self, ids)
+        self._integrity_delete(ids)
         if removed:
             if self._view is not None and not self._view_dirty:
                 self._view_apply_delete(slots[slots >= 0])
@@ -320,6 +339,7 @@ class TpuIvfPq(IvfViewMaintenance, _SlotStoreIndex):
     def is_trained(self) -> bool:
         return self.codebooks is not None
 
+    @integrity_mutation
     def train(self, vectors: Optional[np.ndarray] = None) -> None:
         """Coarse k-means, then m PQ fits on the residuals of the same
         sample, then re-encode every stored row chunk by chunk."""
@@ -371,8 +391,55 @@ class TpuIvfPq(IvfViewMaintenance, _SlotStoreIndex):
             self._assign_h[sl] = a.cpu().numpy()
             self._set_codes(sl, _encode_residual(rows, a, self.centroids,
                                                  self.codebooks))
+        # training reassigned and re-encoded every row: rebuild both
+        self._integrity_reset_assign()
+        self._integrity_reset_codes()
         self._invalidate_view()
         self.store.mutation_version += 1
+
+    # -- state-integrity: the bucket-assignment and PQ-code artifacts ------
+    _integrity_assign = TpuIvfFlat._integrity_assign
+    _integrity_reset_assign = TpuIvfFlat._integrity_reset_assign
+
+    def _integrity_codes(self, ids: np.ndarray, codes) -> None:
+        """Fold freshly encoded codes into the 'pq_codes' digest (one
+        bounded read-back of the batch's codes, off the search path)."""
+        if len(ids) == 0 or not INTEGRITY.tracking(self):
+            return
+        if isinstance(codes, torch.Tensor):
+            codes = codes.cpu().numpy()
+        INTEGRITY.note_write(self, "pq_codes", np.asarray(ids, np.int64),
+                             np.asarray(codes, np.uint8))
+
+    def _integrity_reset_codes(self) -> None:
+        if self._codes is None or not INTEGRITY.tracking(self):
+            return
+        INTEGRITY.reset_artifact(self, "pq_codes")
+        live = np.flatnonzero(self.store.ids_by_slot >= 0)
+        if len(live):
+            codes_h = self._codes.cpu().numpy()
+            self._integrity_codes(self.store.ids_by_slot[live],
+                                  codes_h[live])
+
+    def _heat_layout(self) -> Optional[dict]:
+        """Heat-plane layout provider: rows per coarse list from the host
+        assignment array; a resident PQ row costs its m code bytes plus
+        the store row kept for the rerank (heat worker thread)."""
+        assign = self._assign_h
+        if assign is None:
+            return None
+        from dingo_tpu_torch.obs.heat import TIER_BYTES
+
+        rows = np.bincount(assign[assign >= 0].astype(np.int64),
+                           minlength=self.nlist)
+        tier = self._precision
+        return {
+            "unit_rows": rows,
+            "row_bytes": self.m + self.dimension * TIER_BYTES.get(
+                tier, 4.0),
+            "tier": tier,
+            "dim": self.dimension,
+        }
 
     # -- bucketed view (IvfViewMaintenance data hooks) ---------------------
     def _materialize_view_data(self, view: MutableIvfView) -> None:
@@ -414,7 +481,12 @@ class TpuIvfPq(IvfViewMaintenance, _SlotStoreIndex):
         # lease before any dispatch: result slots stay limbo-parked until
         # resolve translates them (and, on a host store, gathers their rows)
         lease = store.begin_search()
+        self._count_search()
         rerank_host = False
+        probes = None
+        # quality-estimator bucket: the untrained arm scans exactly
+        # whatever nprobe was asked for
+        quality_bucket = "exact"
         try:
             if not self.is_trained():
                 # hybrid contract: exact whole-store scan until trained
@@ -436,17 +508,25 @@ class TpuIvfPq(IvfViewMaintenance, _SlotStoreIndex):
                             store.vecs, store.sqnorm, mask, qpad, topk,
                             self.metric)
             else:
-                dists, slots, rerank_host = self._search_trained(
-                    qpad, b, topk, filter_spec, nprobe)
+                dists, slots, rerank_host, probes, nprobe_run = \
+                    self._search_trained(qpad, b, topk, filter_spec, nprobe)
+                quality_bucket = f"nprobe={nprobe_run}"
         except Exception:
             lease.release()
             raise
-        # one D2H group for the whole reply
-        fetch = begin_host_fetch(dists, slots)
+        # one D2H group for the whole reply; the probed-list ids join it
+        # when the heat plane is on (no extra sync)
+        heat_on = heat_enabled() and probes is not None
+        if heat_on:
+            HEAT.register_layout(self.id, "ivf", self._heat_layout)
+        fetch = begin_host_fetch(dists, slots, probes if heat_on else None)
 
         def resolve() -> List[SearchResult]:
             try:
-                dists_h, slots_h = fetch.get()
+                fetched = fetch.get()
+                dists_h, slots_h = fetched[0], fetched[1]
+                if heat_on:
+                    HEAT.observe(self.id, "ivf", fetched[-1][:b])
                 if rerank_host:
                     # the ADC scan was a prune and the exact rows sit in
                     # host memory: the candidates must reach the host
@@ -458,6 +538,10 @@ class TpuIvfPq(IvfViewMaintenance, _SlotStoreIndex):
                 # shape bucketing may have run a larger k; slice back
                 ids = store.ids_of_slots(
                     slots_h[:b, :topk].astype(np.int64))
+                # head-sampled shadow scoring (async lane; nothing at 0)
+                QUALITY.observe_search(
+                    self, queries, topk, ids, dists_h[:b, :topk],
+                    bucket=quality_bucket, filter_spec=filter_spec)
                 return [strip_invalid(i, d)
                         for i, d in zip(ids, dists_h[:b, :topk])]
             finally:
@@ -469,7 +553,7 @@ class TpuIvfPq(IvfViewMaintenance, _SlotStoreIndex):
                         filter_spec: Optional[FilterSpec],
                         nprobe: Optional[int]):
         """Dispatch the trained search -> (dists, slots, rerank at
-        resolve)."""
+        resolve, the coarse probes, the nprobe run)."""
         self._ensure_view()
         store = self.store
         host = isinstance(store, HostSlotStore)
@@ -523,7 +607,7 @@ class TpuIvfPq(IvfViewMaintenance, _SlotStoreIndex):
             if rerank_dev:
                 dists, slots = exact_rerank_device(
                     store.vecs, store.sqnorm, qpad, slots, topk, self.metric)
-        return dists, slots, rerank_host
+        return dists, slots, rerank_host, probes, nprobe
 
     # -- lifecycle -----------------------------------------------------------
     def save(self, path: str) -> None:
@@ -557,6 +641,7 @@ class TpuIvfPq(IvfViewMaintenance, _SlotStoreIndex):
             data["codebooks"] if trained else None,
         )
         self.apply_log_id = meta["apply_log_id"]
+        self._integrity_on_restore(meta)
 
     def restore_arrays(self, ids, vectors, centroids=None, codebooks=None,
                        codes=None, assign=None) -> None:

@@ -29,10 +29,10 @@ degraded mode.
 
 The store's metrics collector reports a degraded region to the
 coordinator (``RegionMetricsSnapshot.device_degraded``) in every
-heartbeat. Not ported: the flight recorder's events (the observability
-planes) and the scrub-corruption rebuild, which needs the integrity scrub
-(``_rebuild_corrupted`` raises NotPorted if a scrub verdict ever reaches
-it).
+heartbeat. Each rung and each degrade/re-materialization is an event of
+the control-plane ledger (obs/events.py), and ``_rebuild_corrupted``
+rebuilds from the engine every region whose integrity scrub confirmed
+corrupt device state (obs/integrity.py).
 """
 
 from __future__ import annotations
@@ -46,7 +46,6 @@ import torch
 
 from dingo_tpu_torch.common.log import get_logger, region_log
 from dingo_tpu_torch.common.metrics import METRICS
-from dingo_tpu_torch.index.base import NotPorted
 
 _log = get_logger("index.recovery")
 
@@ -122,10 +121,23 @@ class DeviceRecoveryPlane:
         if fresh:
             self._reg.counter("fault.oom_recoveries",
                               labels={"rung": RUNG_DEGRADE}).add(1)
+            from dingo_tpu_torch.obs.events import EVENTS
+
+            EVENTS.emit(
+                "recovery", region_id, "device_degraded", 0, 1,
+                trigger="oom",
+                evidence={"rung": RUNG_DEGRADE, "reason": reason},
+            )
             region_log(_log, region_id).error(
                 "region device-degraded (%s): serving host-exact, "
                 "device writes deferred to re-materialization", reason)
         self._reg.gauge("fault.degraded_regions").set(float(n))
+        # published (digest, applied) pairs can be torn by the partial
+        # device write that stranded us here: withhold this region's
+        # verdict until the re-materialized index re-primes the ledger
+        from dingo_tpu_torch.obs.integrity import INTEGRITY
+
+        INTEGRITY.forget_region(region_id)
 
     def clear_degraded(self, region_id: int) -> None:
         with self._lock:
@@ -173,15 +185,23 @@ class DeviceRecoveryPlane:
         return out
 
     def _run_ladder(self, wrapper, region_id: int) -> None:
+        from dingo_tpu_torch.obs.events import EVENTS
+
         idx = getattr(wrapper, "own_index", None) if wrapper else None
         if idx is None:
             return
         if self._drop_rerank(idx):
             self._reg.counter("fault.oom_recoveries",
                               labels={"rung": RUNG_DROP_RERANK}).add(1)
+            EVENTS.emit("recovery", region_id, "recovery_rung", "",
+                        RUNG_DROP_RERANK, trigger="oom",
+                        evidence={"rung": RUNG_DROP_RERANK})
         if self._evict_mirrors(idx):
             self._reg.counter("fault.oom_recoveries",
                               labels={"rung": RUNG_EVICT_MIRRORS}).add(1)
+            EVENTS.emit("recovery", region_id, "recovery_rung", "",
+                        RUNG_EVICT_MIRRORS, trigger="oom",
+                        evidence={"rung": RUNG_EVICT_MIRRORS})
         _release_cached_blocks()
 
     @staticmethod
@@ -246,6 +266,12 @@ class DeviceRecoveryPlane:
             return False
         self._reg.counter("fault.rematerializations").add(1)
         self._reg.counter("build.remat_rebuilds", region_id=rid).add(1)
+        from dingo_tpu_torch.obs.events import EVENTS
+
+        EVENTS.emit(
+            "recovery", rid, "device_degraded", 1, 0, trigger="remat",
+            evidence={"precision": target or "default"},
+        )
         self.clear_degraded(rid)
         region_log(_log, rid).info(
             "re-materialized from engine at precision=%s: degraded "
@@ -255,9 +281,8 @@ class DeviceRecoveryPlane:
     def run_rematerializations(self, node) -> int:
         """Maintenance pass: re-materialize every degraded region of
         `node` (a StoreNode, or a MonoStoreNode, whose regions have no raft
-        log). Returns the number rebuilt. (The JAX package's pass also
-        rebuilds scrub-confirmed corrupt regions; no ported path has a
-        scrub verdict, see _rebuild_corrupted.)"""
+        log), and rebuild from the engine every region whose scrub
+        confirmed corrupt device state. Returns the number rebuilt."""
         n = 0
         for rid, info in self.degraded_regions().items():
             if not info.get("remat_pending"):
@@ -273,13 +298,39 @@ class DeviceRecoveryPlane:
             if self.rematerialize(node.index_manager, region,
                                   raft_log=raft_log):
                 n += 1
+        n += self._rebuild_corrupted(node)
         return n
 
     def _rebuild_corrupted(self, node) -> int:
-        """The JAX package's rebuild of scrub-confirmed corrupt regions.
-        It reads the integrity scrub's verdicts, which are not ported."""
-        raise NotPorted("the integrity scrub's corruption rebuild is not "
-                        "ported yet")
+        """Scrub-confirmed mismatches: rebuild the poisoned index from the
+        engine. The fresh index starts a fresh ledger, and the stale
+        verdict, which belongs to the index that no longer serves, is
+        forgotten."""
+        from dingo_tpu_torch.obs.integrity import INTEGRITY
+
+        n = 0
+        get_node = getattr(node.engine, "get_node", None)
+        for region in node.meta.get_all_regions():
+            _a, _d, mismatch = INTEGRITY.region_report(None, region.id)
+            if not mismatch:
+                continue
+            wrapper = region.vector_index_wrapper
+            if wrapper is None or wrapper.own_index is None:
+                continue
+            raft_node = get_node(region.id) if get_node is not None else None
+            raft_log = raft_node.log if raft_node is not None else None
+            try:
+                if node.index_manager.rebuild(region, raft_log=raft_log):
+                    self._reg.counter("fault.rebuilds").add(1)
+                    INTEGRITY.forget_region(region.id)
+                    INTEGRITY.rebuild_from_index(wrapper.own_index)
+                    region_log(_log, region.id).warning(
+                        "corrupted device state rebuilt from engine")
+                    n += 1
+            except Exception:
+                region_log(_log, region.id).exception(
+                    "corruption rebuild failed")
+        return n
 
     def clear(self) -> None:
         with self._lock:

@@ -65,6 +65,14 @@ FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 ROW_DTYPES = FLOAT_DTYPES + (torch.int8,)
 
 
+def host_bits(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values on the host in their canonical byte form: bf16 as
+    its uint16 bit patterns (numpy has no bf16), any other dtype as is."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).cpu().numpy().view(np.uint16)
+    return t.cpu().numpy()
+
+
 class SlotStore:
     def __init__(self, dim: int, device: torch.device,
                  capacity: int = MIN_CAPACITY,
@@ -207,6 +215,20 @@ class SlotStore:
             rows_h, np.float32)).to(self.device)
         stored = rows.to(self.dtype)
         return stored, stored.to(torch.float32)
+
+    def canonical_rows(self, rows: np.ndarray) -> np.ndarray:
+        """The stored form of prepped rows as host bytes: what the device
+        rows hold after a put() of `rows` (the integrity ledger digests
+        these, so the incremental digest and a device read-back agree bit
+        for bit). f32 and int8 rows as they are; bf16 rows rounded, as
+        their 16-bit patterns (numpy has no bf16: the same bytes as the
+        JAX package's ml_dtypes rows). SqSlotStore encodes."""
+        if self.dtype == torch.int8:
+            return np.ascontiguousarray(rows, np.int8)
+        rows = np.ascontiguousarray(rows, np.float32)
+        if self.dtype == torch.float32:
+            return rows
+        return host_bits(torch.from_numpy(rows).to(self.dtype))
 
     def _write_runs(self, runs, rows_h: np.ndarray) -> None:
         """Write rows sorted by slot; runs = [(lo, hi, first slot)] of
@@ -427,6 +449,11 @@ class SqSlotStore(SlotStore):
     def put(self, ids: np.ndarray, vectors: np.ndarray) -> np.ndarray:
         self.maybe_train(vectors)
         return super().put(ids, self.encode(np.asarray(vectors, np.float32)))
+
+    def canonical_rows(self, rows: np.ndarray) -> np.ndarray:
+        """The stored form of prepped rows: their sq8 codes (the integrity
+        ledger's 'rows' artifact of an sq8 store digests codes)."""
+        return self.encode(np.asarray(rows, np.float32))
 
     def put_codes(self, ids: np.ndarray, codes: np.ndarray) -> np.ndarray:
         """Raw-code ingest (snapshot load): a saved code array goes back

@@ -26,6 +26,7 @@ from dingo_tpu_torch.index.base import (
 )
 from dingo_tpu_torch.index.factory import new_index
 from dingo_tpu_torch.index.recovery import RECOVERY, DeviceDegraded
+from dingo_tpu_torch.obs.integrity import INTEGRITY
 from dingo_tpu_torch.ops.distance import metric_ascending
 
 
@@ -136,6 +137,11 @@ class VectorIndexWrapper:
             self.apply_log_id = log_id
             if idx is self.own_index:
                 idx.apply_log_id = log_id
+                # stamp the integrity ledger with the applied index this
+                # write advanced to, still inside the lock and the pending
+                # bracket: a heartbeat reads a consistent (digest, applied
+                # index) pair, so replicas compare at equal indices
+                INTEGRITY.tag_applied(idx, log_id)
         self.write_count += len(ids)
 
     def _apply(self, idx: VectorIndex, ids: np.ndarray, log_id: int,
@@ -150,8 +156,19 @@ class VectorIndexWrapper:
             return
 
         def op():
-            mutate()
-            self._advance(idx, ids, log_id)
+            # the pending-write bracket spans the index mutation and its
+            # applied-index tag: between the ledger fold and the tag the
+            # pair is torn, and the ledger withholds its digest vector
+            # while the bracket is open (obs/integrity.py heartbeat_view)
+            own = idx is self.own_index
+            if own:
+                INTEGRITY.note_mutation_begin(idx)
+            try:
+                mutate()
+                self._advance(idx, ids, log_id)
+            finally:
+                if own:
+                    INTEGRITY.note_mutation_end(idx)
 
         try:
             # mutations are upserts/deletes, idempotent: the ladder's retry

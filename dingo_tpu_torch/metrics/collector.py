@@ -10,20 +10,21 @@ Every figure is double-published:
 - as a StoreMetricsSnapshot cached on the collector, attached to the next
   heartbeat so the coordinator aggregates cluster-wide state.
 
-The port fills the fields whose sources it has: engine key counts and
-sampled bytes, the index's state (ready, building or switching, build
-error, apply and snapshot log ids, vector count, host bytes, the own
-index's device bytes), raft leadership and apply lag, the allocator's
-bytes in use, limit and peak on a CUDA store, and ``device_degraded``
-from the recovery ladder. The fields fed by the observability and tiering
-planes the port does not have yet (quality, pressure, integrity, cost,
-heat, events, the flight recorder, the memory-tier ladder and the edge
-cache; also the search QPS, recorded by the gRPC services) keep the
-snapshot types' defaults.
+The port fills every field but those of the memory-tier ladder and the
+edge cache (``serving_tier`` and the three ``cache_*`` fields keep the
+snapshot types' defaults): engine key counts and sampled bytes, the
+index's state, raft leadership and apply lag, the allocator's bytes in
+use, limit and peak on a CUDA store (through the HBM ledger's poll), the
+per-region device bytes and their peak (``HbmLedger``), the search QPS
+(IndexService's ``vector_search`` series), ``device_degraded``, and the
+observability planes: quality, pressure, integrity, heat, cost, the
+events harvested since the last beat and the live knobs they explain. A
+collection pass ticks the flight recorder's metric ring.
 """
 
 from __future__ import annotations
 
+import json
 import threading
 import time
 from typing import Optional
@@ -37,27 +38,14 @@ from dingo_tpu_torch.metrics.snapshot import (
     StoreMetricsSnapshot,
 )
 from dingo_tpu_torch.mvcc.codec import Codec
+from dingo_tpu_torch.obs.flight import FLIGHT
+from dingo_tpu_torch.obs.hbm import HBM
 
 _log = get_logger("metrics.collector")
 
 #: bytes estimation samples at most this many kvs per region per tick,
 #: then extrapolates by key count (a full scan would be O(dataset) per tick)
 SIZE_SAMPLE_KVS = 1024
-
-
-def device_allocator_bytes(device) -> dict:
-    """The caching allocator's bytes in use, the card's total bytes and the
-    peak in use on a CUDA `device`; zeros for a CPU store (it keeps no
-    device state)."""
-    if device is None or getattr(device, "type", "cpu") != "cuda":
-        return {"bytes_in_use": 0, "bytes_limit": 0, "peak_bytes_in_use": 0}
-    import torch
-
-    return {
-        "bytes_in_use": int(torch.cuda.memory_allocated(device)),
-        "bytes_limit": int(torch.cuda.mem_get_info(device)[1]),
-        "peak_bytes_in_use": int(torch.cuda.max_memory_allocated(device)),
-    }
 
 
 class StoreMetricsCollector:
@@ -104,7 +92,13 @@ class StoreMetricsCollector:
         )
         ok = True
         try:
-            dev = device_allocator_bytes(node.device)
+            # one allocator query serves both the snapshot and the hbm
+            # watermark gauges (a CPU store keeps no device state)
+            if getattr(node.device, "type", "cpu") == "cuda":
+                dev = HBM.poll_process()
+            else:
+                dev = {"bytes_in_use": 0, "bytes_limit": 0,
+                       "peak_bytes_in_use": 0}
             snap.device_bytes_in_use = dev["bytes_in_use"]
             snap.device_bytes_limit = dev["bytes_limit"]
             snap.device_peak_bytes = dev["peak_bytes_in_use"]
@@ -115,6 +109,19 @@ class StoreMetricsCollector:
                 except Exception:  # noqa: BLE001
                     self.collect_errors += 1
                     _log.exception("collect failed for region %d", region.id)
+            # control-plane events emitted since the last beat: each ships
+            # exactly once; a failed pass before this point leaves them
+            # pending for the next one
+            from dingo_tpu_torch.obs.events import EVENTS
+
+            evs = EVENTS.harvest(node_id=node.store_id)
+            if evs:
+                snap.events = list(evs)
+                self.registry.gauge("event.heartbeat_bytes").set(sum(
+                    len(e.actor) + len(e.knob) + len(e.old) + len(e.new)
+                    + len(e.trigger) + len(e.evidence) + len(e.node_id)
+                    + len(e.trace_id) + len(e.flight_bundle_id) + 24
+                    for e in evs))
             self._publish(snap)
         except Exception:  # noqa: BLE001
             ok = False
@@ -127,7 +134,10 @@ class StoreMetricsCollector:
             # not burn a full sweep attempt on every single heartbeat
             self._latest_mono = time.monotonic()
             self.collect_total += 1
-            return self._latest
+            latest = self._latest
+        # feed the flight recorder's metric-delta ring outside the lock
+        FLIGHT.tick()
+        return latest
 
     # ---------------- per-region ----------------
     def _collect_region(self, region) -> RegionMetricsSnapshot:
@@ -164,9 +174,81 @@ class StoreMetricsCollector:
             except Exception:  # noqa: BLE001 — index mid-build
                 pass
             # own index only — a post-split share serves from the PARENT's
-            # tensors; counting them on both regions would double-book them
-            rm.device_memory_bytes = wrapper.get_device_memory_size()
+            # tensors; counting them on both regions would double-book
+            # them. One walk serves both figures: the ledger's owners sum
+            # to the index's bytes (shared dedup set)
+            owners = HBM.account_index(region.id, wrapper)
+            rm.device_memory_bytes = (
+                sum(owners.values()) if owners
+                else wrapper.get_device_memory_size())   # share/mid-build
+            rm.device_peak_bytes = HBM.region_peak(region.id)
+        rm.search_qps = self.registry.latency(
+            "vector_search", region.id).windowed_qps()
+        # live quality estimate (obs/quality.py)
+        from dingo_tpu_torch.obs.quality import QUALITY
+
+        est = QUALITY.region_estimate(region.id)
+        if est is not None:
+            rm.quality_recall = est["recall"]
+            rm.quality_recall_ci_low = est["ci_low"]
+            rm.quality_recall_ci_high = est["ci_high"]
+            rm.quality_samples = int(est["queries"])
+        # serving-pressure rollup (obs/pressure.py)
+        from dingo_tpu_torch.obs.pressure import PRESSURE
+
+        qs = PRESSURE.region_stats(region.id)
+        rm.qos_queue_depth = int(qs["queue_depth"])
+        rm.qos_queue_wait_ms = float(qs["queue_wait_ms"])
+        rm.qos_shed_total = int(qs["shed_total"])
+        rm.qos_degrade_level = int(self.registry.gauge(
+            "qos.degrade_level", region.id).get())
+        # state-integrity digest vector (obs/integrity.py), tagged with
+        # the raft applied index it describes: the coordinator compares
+        # replicas at equal applied indices
+        from dingo_tpu_torch.obs.integrity import INTEGRITY
+
+        own = wrapper.own_index if wrapper is not None else None
+        applied, digests, mismatch = INTEGRITY.region_report(
+            own, region_id=region.id)
+        rm.integrity_applied_index = applied
+        rm.integrity_digests = digests
+        rm.integrity_mismatch = mismatch
         rm.device_degraded = RECOVERY.is_degraded(region.id)
+        # workload-heat rollup (obs/heat.py): traffic concentration and
+        # the working-set curve at the region's own tier (touches == 0:
+        # no evidence)
+        from dingo_tpu_torch.obs.cost import COST
+        from dingo_tpu_torch.obs.heat import HEAT
+
+        hs = HEAT.region_stats(region.id)
+        if hs is not None:
+            rm.heat_hot_fraction = float(hs["hot_fraction"])
+            rm.heat_gini = float(hs["gini"])
+            rm.heat_working_set_p50 = int(hs["ws_bytes"][50])
+            rm.heat_working_set_p90 = int(hs["ws_bytes"][90])
+            rm.heat_working_set_p99 = int(hs["ws_bytes"][99])
+            rm.heat_touches = int(hs["touches"])
+        rm.cost_row_us = float(COST.region_row_us(region.id))
+        # the live overrides in force now, as compact JSON: `explain`
+        # reconciles them against the merged event timeline. Without the
+        # memory-tier ladder a region serves at its resident rung
+        from dingo_tpu_torch.obs.events import events_enabled
+
+        if events_enabled():
+            tier = ("hbm_sq8" if getattr(own, "_precision", "") == "sq8"
+                    else "hbm")
+            advisory = self.registry.gauge(
+                "qos.precision_advisory", region.id).get()
+            rm.live_knobs = json.dumps({
+                "tuning": dict(getattr(own, "tuning", None) or {}),
+                "advisory_precision": "sq8" if advisory > 0 else "",
+                "tier": tier,
+                "tier_base": tier,
+            }, sort_keys=True, separators=(",", ":"))
+        last = INTEGRITY.last_verified_ms(region.id)
+        self.registry.gauge(
+            "consistency.digest_age_s", region.id
+        ).set((time.time() * 1000 - last) / 1000.0 if last else -1.0)
         return rm
 
     def _approximate_bytes(self, start: bytes, end, key_count: int) -> int:
@@ -194,6 +276,20 @@ class StoreMetricsCollector:
         current = {rm.region_id for rm in snap.regions}
         for rid in self._published_regions - current:
             self.registry.drop_region(rid)
+            from dingo_tpu_torch.obs.cost import COST
+            from dingo_tpu_torch.obs.events import EVENTS
+            from dingo_tpu_torch.obs.heat import HEAT
+            from dingo_tpu_torch.obs.integrity import INTEGRITY
+            from dingo_tpu_torch.obs.pressure import PRESSURE
+            from dingo_tpu_torch.obs.quality import QUALITY
+
+            HBM.forget_region(rid)
+            QUALITY.forget_region(rid)
+            PRESSURE.forget_region(rid)
+            INTEGRITY.forget_region(rid)
+            HEAT.forget_region(rid)
+            COST.forget_region(rid)
+            EVENTS.forget_region(rid)
         self._published_regions = current
         g = self.registry.gauge
         g("store.device.bytes_in_use").set(snap.device_bytes_in_use)
@@ -224,3 +320,6 @@ class StoreMetricsCollector:
             g("store.region.index_building", rid).set(
                 1.0 if rm.index_building else 0.0)
             g("store.region.document_count", rid).set(rm.document_count)
+            # scrapeable pressure watermark (the depth gauge itself is
+            # kept live by the coalescer's admit/dequeue accounting)
+            g("qos.queue_wait_watermark_ms", rid).set(rm.qos_queue_wait_ms)

@@ -173,3 +173,24 @@ def scores_to_distances(scores: torch.Tensor, metric: Metric) -> torch.Tensor:
     if metric_ascending(metric):
         return -scores
     return scores
+
+
+def device_wait_span(name: str, value):
+    """Trace hook at a device dispatch site: when the current trace is
+    sampled, wait for the tensors in `value` inside an ``ops.<name>``
+    span (a CUDA event recorded after them and synchronized), so the span
+    measures kernel time instead of dispatch time. Otherwise `value`
+    passes through untouched: one sampled check, no event, no sync, no
+    allocation. A dispatch outside a request trace is never timed."""
+    from dingo_tpu_torch.trace import TRACER, current_span
+
+    cur = current_span()
+    if cur is None or not cur.sampled:
+        return value
+    with TRACER.start_span("ops." + name):
+        tensors = value if isinstance(value, (tuple, list)) else (value,)
+        if any(isinstance(t, torch.Tensor) and t.is_cuda for t in tensors):
+            ev = torch.cuda.Event()
+            ev.record()
+            ev.synchronize()
+    return value

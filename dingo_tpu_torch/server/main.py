@@ -8,10 +8,12 @@ route mutations through its raft group) or a StoreNode and return a
 CrontabManager carrying the jobs of the JAX package's schedule that the
 port has: the coordinator's store-state update, lease GC and the three
 balance/replica planners; the store's heartbeat, split check, vector-index
-scrub, IVF view compaction and metrics collection. The gRPC serving of
-either role, and the store jobs whose modules are not ported (MVCC and
-scan GC, the quality tuner, load shedding, the integrity scrub, tiering),
-are not carried.
+scrub, IVF view compaction, metrics collection, the quality tuner, the
+load-shedding ladder, the integrity scrub, the device-memory watermark
+poll and the flight recorder's node config. The gRPC serving of either
+role, and the store jobs whose modules are not ported (MVCC and scan GC,
+tiering), are not carried. ``maybe_metrics_http`` starts the plain-HTTP
+Prometheus sidecar when ``metrics_http_port`` is set.
 """
 
 from __future__ import annotations
@@ -119,5 +121,77 @@ def store_crontab(node) -> CrontabManager:
         node.metrics.collect,
         immediately=True,
     )
+    # closed-loop SLO parameter controller (obs/tuner.py): one ladder
+    # step per region per tick against the live recall interval; hot-gated
+    # on tuner_enabled per tick
+    from dingo_tpu_torch.obs.tuner import QualityTunerRunner
+
+    crontab.add(
+        "quality_tuner",
+        float(FLAGS.get("tuner_interval_s")),
+        QualityTunerRunner(node, crontab=crontab).tick,
+    )
+    # graduated load shedding (obs/pressure.py): one degrade level per
+    # tick per over-pressure region, one back per calm tick; hot-gated on
+    # qos_enabled and a 'degrade' shed policy
+    from dingo_tpu_torch.obs.pressure import ShedController
+
+    crontab.add(
+        "qos_shed",
+        float(FLAGS.get("qos_shed_interval_s")),
+        ShedController(node, crontab=crontab).tick,
+    )
+    # state-integrity scrub (obs/integrity.py): recompute the digests from
+    # device state in chunks under the store's device lock and check them
+    # against the write-path ledger, on its own worker; hot-gated on
+    # integrity_enabled
+    from dingo_tpu_torch.obs.integrity import IntegrityScrubRunner
+
+    crontab.add(
+        "consistency_scrub",
+        float(FLAGS.get("integrity_scrub_interval_s")),
+        IntegrityScrubRunner(node, crontab=crontab).tick,
+    )
+    # device-memory watermark poll (per-region owner ledgers refresh with
+    # each store_metrics pass) and the flight recorder's node config
+    from dingo_tpu_torch.obs.flight import FLIGHT
+    from dingo_tpu_torch.obs.hbm import HBM
+
+    crontab.add(
+        "hbm_watermark",
+        float(FLAGS.get("hbm_watermark_interval_s")),
+        HBM.poll_process,
+        immediately=True,
+    )
+
+    def flight_node_config():
+        regions = {}
+        for r in node.meta.get_all_regions():
+            raft = node.engine.get_node(r.id) \
+                if hasattr(node.engine, "get_node") else None
+            param = r.definition.index_parameter
+            regions[r.id] = {
+                "type": r.definition.region_type.name,
+                "index": param.index_type.name if param else None,
+                "leader": raft.is_leader() if raft is not None else False,
+            }
+        return {"store_id": node.store_id, "regions": regions}
+
+    FLIGHT.config_provider = flight_node_config
     crontab.start()
     return crontab
+
+
+def maybe_metrics_http():
+    """Start the plain-HTTP /metrics and /vars sidecar on
+    ``metrics_http_port`` (0 = off); returns it (call ``stop()``) or
+    None."""
+    port = int(FLAGS.get("metrics_http_port"))
+    if port <= 0:
+        return None
+    from dingo_tpu_torch.metrics.http import MetricsHttpServer
+
+    srv = MetricsHttpServer(port)
+    bound = srv.start()
+    _log.info("metrics http sidecar on 127.0.0.1:%d/metrics", bound)
+    return srv

@@ -23,6 +23,7 @@ takes the pipelined arm.
 from __future__ import annotations
 
 import threading
+import time
 from concurrent.futures import Future
 from typing import Optional
 
@@ -30,8 +31,10 @@ import numpy as np
 
 from dingo_tpu_torch.common.coalescer import SearchCoalescer
 from dingo_tpu_torch.common.config import FLAGS
+from dingo_tpu_torch.common.metrics import METRICS
 from dingo_tpu_torch.index.base import VectorIndexError
 from dingo_tpu_torch.obs import pressure as qp
+from dingo_tpu_torch.obs.flight import black_box_error
 from dingo_tpu_torch.store.region import Region
 
 
@@ -87,6 +90,7 @@ class IndexService:
         requests whose parameters are all scalars (nprobe) are coalesced,
         others (a filter) search directly, as in the JAX package's
         service."""
+        t0 = time.perf_counter_ns()
         plain = all(isinstance(v, (int, float, str, bool, type(None)))
                     for v in kw.values())
         if plain and self.window_ms > 0:
@@ -100,6 +104,20 @@ class IndexService:
                     self._region(region_id), queries, topk, **kw))
             except Exception as exc:  # noqa: BLE001 — the caller's future
                 fut.set_exception(exc)
+        # the region's search latency series: its windowed rate is the
+        # heartbeat's search_qps, its p99 the SLO tuner's latency budget
+        lat = METRICS.latency("vector_search", region_id)
+
+        def finished(f: Future) -> None:
+            lat.observe_us((time.perf_counter_ns() - t0) / 1000.0)
+            exc = f.exception()
+            if exc is not None:
+                # a failed search black-boxes the moment (a flight bundle;
+                # a device OOM is also counted by the HBM ledger)
+                black_box_error("rpc.IndexService.VectorSearch", exc,
+                                region_id=region_id)
+
+        fut.add_done_callback(finished)
         if qp.qos_enabled():
             # throughput against goodput: every reply counts served, only
             # those inside their budget count toward goodput

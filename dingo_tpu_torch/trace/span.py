@@ -234,16 +234,38 @@ class Tracer:
     def _finish(self, span: Span) -> None:
         rec = span.record()
         self.buffer.add(rec)
-        # every span name is a latency series
+        # every span name is a latency series; the trace id rides along as
+        # an exemplar candidate (outliers surface it in the Prometheus
+        # exposition)
         METRICS.latency(f"span.{span.name}").observe_us(
-            rec["dur_us"] or (span.end_ns - span.start_ns) / 1000.0)
+            rec["dur_us"] or (span.end_ns - span.start_ns) / 1000.0,
+            trace_id=rec["trace_id"])
         if self._slow_eligible(span.name, span.parent_id):
             slow_ms = FLAGS.get("slow_query_ms")
             if slow_ms > 0 and rec["dur_us"] >= slow_ms * 1000.0:
                 self.buffer.add_slow(rec)
-                _log.warning("slow query: %s took %.1f ms (trace %s)",
-                             span.name, rec["dur_us"] / 1000.0,
-                             rec["trace_id"])
+                bundle_id = self._capture_flight(rec)
+                if bundle_id:
+                    # pin the scrape exemplar to the sample a bundle was
+                    # captured for, not to a larger unbundled one
+                    METRICS.latency(f"span.{span.name}").pin_exemplar(
+                        rec["dur_us"], rec["trace_id"])
+                _log.warning(
+                    "slow query: %s took %.1f ms (trace %s%s)",
+                    span.name, rec["dur_us"] / 1000.0, rec["trace_id"],
+                    f", bundle {bundle_id}" if bundle_id else "")
+
+    @staticmethod
+    def _capture_flight(rec: Dict[str, Any]) -> str:
+        """Hand the slow-log record to the flight recorder (which
+        rate-limits); observability never fails the request that tripped
+        it."""
+        try:
+            from dingo_tpu_torch.obs.flight import FLIGHT
+
+            return FLIGHT.on_slow_query(rec)
+        except Exception:  # noqa: BLE001
+            return ""
 
     @classmethod
     def _slow_eligible(cls, name: str, parent_id: int = 0) -> bool:
@@ -282,8 +304,10 @@ class Tracer:
             "attrs": {"unsampled": True},
         }
         self.buffer.add_slow(rec)
-        _log.warning("slow query (unsampled): %s took %.1f ms", name,
-                     dur_us / 1000.0)
+        bundle_id = self._capture_flight(rec)
+        _log.warning("slow query (unsampled): %s took %.1f ms%s", name,
+                     dur_us / 1000.0,
+                     f" (bundle {bundle_id})" if bundle_id else "")
 
 
 # -- cross-process propagation (request metadata) ----------------------------

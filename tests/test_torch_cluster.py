@@ -16,6 +16,7 @@ values come from the wall clock and are held monotonic, not equal. The
 port runs on the CPU (``device="cpu"``); every wait has a deadline.
 """
 
+import json
 import time
 
 import numpy as np
@@ -468,10 +469,12 @@ def test_heartbeat_snapshot_carries_device_degraded():
 
 # -- the metrics snapshot ----------------------------------------------------
 
-#: the snapshot fields fed by planes the port does not have yet
-#: (quality, pressure, integrity, cost, heat, events, the flight
-#: recorder, tiering, the edge cache; the QPS recorded by the gRPC
-#: services); the port's collector leaves them at the types' defaults
+#: the snapshot fields fed by the observability planes (quality,
+#: pressure, integrity, heat, cost, events; the search QPS of
+#: IndexService): both packages fill them from the same state, equal;
+#: device_peak_bytes is held by its relation to the region's device bytes
+#: (each package's own layout), and the fields of the memory-tier ladder
+#: and the edge cache, not ported yet, keep the types' defaults
 PLANE_FIELDS = (
     "search_qps", "device_peak_bytes", "quality_recall",
     "quality_recall_ci_low", "quality_recall_ci_high", "quality_samples",
@@ -481,6 +484,9 @@ PLANE_FIELDS = (
     "heat_hot_fraction", "heat_gini", "heat_working_set_p50",
     "heat_working_set_p90", "heat_working_set_p99", "heat_touches",
     "cost_row_us", "serving_tier", "live_knobs")
+#: of PLANE_FIELDS, those of the tiering and cache planes (not ported)
+DEFAULT_FIELDS = ("cache_hits", "cache_misses", "cache_entries",
+                  "serving_tier")
 #: fields both packages fill from the same state
 SHARED_FIELDS = ("region_id", "key_count", "approximate_bytes",
                  "vector_count", "index_ready", "index_building",
@@ -528,7 +534,18 @@ def test_metrics_snapshot_fields():
                     continue     # the leader is whoever won the election
                 assert getattr(rm, f) == getattr(rrm, f), (sid, f)
             for f in PLANE_FIELDS:
-                assert getattr(rm, f) == getattr(defaults, f), (sid, f)
+                if f in DEFAULT_FIELDS:
+                    assert getattr(rm, f) == getattr(defaults, f), (sid, f)
+                elif f == "device_peak_bytes":
+                    for m in (rm, rrm):
+                        assert m.device_peak_bytes >= \
+                            m.device_memory_bytes > 0, (sid, f)
+                else:
+                    assert getattr(rm, f) == getattr(rrm, f), (sid, f)
+            # the integrity plane is on by default in both packages: the
+            # replicas' digest vectors of the same 64 rows are equal
+            assert json.loads(rm.integrity_digests)["rows"]
+            assert rm.integrity_applied_index > 0
             assert rm.index_ready and rm.vector_count == 64
             assert rm.device_memory_bytes > 0
         # a CPU store keeps no device state
@@ -622,12 +639,16 @@ def test_split_and_merge_apply_need_a_node(pkg):
 
 
 def test_observability_consumers_raise_not_ported():
-    p = Pkg("dingo_tpu_torch")
-    coord = p.coordinator()
-    for call in (coord.diverged_regions, coord.cluster_events,
-                 lambda: coord.explain_region_overrides(1)):
-        with pytest.raises(p.base.NotPorted):
-            call()
+    """The coordinator's observability consumers are ported: none raises
+    NotPorted any more, and on a fresh coordinator each answers as the
+    JAX package's does (no divergence, no event, no live knob)."""
+    got = {}
+    for name in PKGS:
+        coord = Pkg(name).coordinator()
+        got[name] = (coord.diverged_regions(), coord.cluster_events(),
+                     coord.explain_region_overrides(1))
+    assert got["dingo_tpu_torch"] == got["dingo_tpu"]
+    assert got["dingo_tpu_torch"][:2] == ([], [])
 
 
 def _plane_steps(p):
@@ -681,7 +702,9 @@ def test_server_crontab_schedules():
                                      "replica_plan"}
         assert set(stab.stats()) == {"heartbeat", "split_check",
                                      "scrub_vector_index", "ivf_compact",
-                                     "store_metrics"}
+                                     "store_metrics", "quality_tuner",
+                                     "qos_shed", "consistency_scrub",
+                                     "hbm_watermark"}
         wait_for(lambda: n.get_region(d.region_id) is not None,
                  what="the heartbeat job delivering CREATE")
         wait_for(lambda: bool(coord.get_store_metrics("s0")),
@@ -694,7 +717,7 @@ def test_server_crontab_schedules():
             with tab._lock:
                 for t in tab._crontabs.values():
                     t._next_due = 0.0
-            assert tab.run_pending() == 5
+            assert tab.run_pending() == len(tab.stats())
             assert all(s["errors"] == 0 for s in tab.stats().values()), \
                 tab.stats()
     finally:

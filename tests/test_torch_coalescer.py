@@ -330,12 +330,10 @@ def _batches(p, qos):
 
 @pytest.mark.parametrize("qos", [False, True])
 def test_same_submit_sequence_forms_same_batches(qos):
-    # the port has no per-shape cost model: the JAX package's admission
-    # estimate runs without it too
+    # both packages' admission estimates run under their default, the
+    # per-shape cost model
     saved = [(fl, f, fl.get(f)) for fl, f in (
-        (JFLAGS, "qos_enabled"), (TFLAGS, "qos_enabled"),
-        (JFLAGS, "cost_enabled"))]
-    JFLAGS.set("cost_enabled", False)
+        (JFLAGS, "qos_enabled"), (TFLAGS, "qos_enabled"))]
     try:
         jb = _batches(PKGS["jax"], qos)
         tb = _batches(PKGS["torch"], qos)

@@ -88,6 +88,15 @@ _BLOCKED_IMPORT = textwrap.dedent("""
     # and comes with the front end)
     assert {"dingo_tpu_torch.diskann", "dingo_tpu_torch.diskann.core",
             "dingo_tpu_torch.diskann.item"} <= set(names), names
+    # the observability planes: digests and the integrity scrub, the
+    # shadow scan and quality plane, the SLO tuner, events, heat, cost,
+    # the HBM ledger, the flight recorder and the Prometheus sidecar
+    assert {"dingo_tpu_torch.ops.digest", "dingo_tpu_torch.ops.shadow",
+            "dingo_tpu_torch.obs.integrity", "dingo_tpu_torch.obs.quality",
+            "dingo_tpu_torch.obs.tuner", "dingo_tpu_torch.obs.events",
+            "dingo_tpu_torch.obs.heat", "dingo_tpu_torch.obs.cost",
+            "dingo_tpu_torch.obs.flight", "dingo_tpu_torch.metrics.device",
+            "dingo_tpu_torch.metrics.http"} <= set(names), names
     import chip_smoke  # the on-card smoke script imports nothing of JAX either
     import precision_check  # nor does the f32-against-f64 check
     bad = [m for m in sys.modules

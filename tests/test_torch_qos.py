@@ -11,10 +11,10 @@ no new kernel shape (the JAX package: no recompile), and the 2-bucket
 watermark. One budget sequence gives the same decisions and touches the
 same ``qos.*`` series in both packages.
 
-The port has no per-shape cost model yet, so the JAX side runs with
-``cost_enabled`` off wherever the wait estimate decides. The degrade
-ladder (ShedController) and the SLO tuner are not ported yet; their cases
-stay in tests/test_qos.py."""
+These cases hold the scalar EWMA arm of the wait estimate, so both sides
+run with ``cost_enabled`` off; the per-shape cost model's cold-start shed
+is held in tests/test_torch_heat.py. The degrade ladder's
+(ShedController's) cases are at the end of this file."""
 
 import time
 import types
@@ -50,9 +50,8 @@ _FLAGS = ("qos_enabled", "qos_shed_policy", "qos_max_queue_ms",
 def _qos_on(p):
     """Set QoS on in one package; returns the saved flags."""
     saved = {f: p.flags.get(f) for f in _FLAGS}
-    if p.flags is JFLAGS:
-        saved["cost_enabled"] = JFLAGS.get("cost_enabled")
-        JFLAGS.set("cost_enabled", False)
+    saved["cost_enabled"] = p.flags.get("cost_enabled")
+    p.flags.set("cost_enabled", False)
     p.flags.set("qos_enabled", True)
     return saved
 
@@ -488,3 +487,128 @@ def test_same_budget_sequence_same_decisions_and_series():
     assert "RequestShed" in td and "DeadlineExceeded" in td and 1 in td
     assert ts == js
     assert any(k.startswith("qos.shed{") for k in ts)
+
+
+# -- the degrade ladder (ShedController) ---------------------------------------
+
+from torch_cluster_util import Pkg  # noqa: E402
+
+SHED = {name: Pkg(name) for name in ("dingo_tpu", "dingo_tpu_torch")}
+
+
+@pytest.fixture(params=sorted(SHED))
+def shed_pkg(request):
+    p = SHED[request.param]
+    p.config.FLAGS.set("qos_enabled", True)
+    yield p
+    for f, v in (("qos_enabled", False), ("qos_shed_policy", "degrade_drop"),
+                 ("qos_max_queue_ms", 50.0)):
+        p.config.FLAGS.set(f, v)
+    p.pressure.PRESSURE.reset()
+
+
+def _shed_ivf(p, region_id, n=128, d=8, nlist=8, nprobe=4):
+    x = np.random.default_rng(0).standard_normal((n, d)).astype(np.float32)
+    b = p.base
+    idx = p.new_index(region_id, b.IndexParameter(
+        index_type=b.IndexType.IVF_FLAT, dimension=d, ncentroids=nlist,
+        default_nprobe=nprobe))
+    idx.store.reserve(n)
+    idx.upsert(np.arange(n, dtype=np.int64), x)
+    idx.train()
+    return idx
+
+
+_PRESSURES = (200.0, 200.0, 200.0, 200.0, 40.0, 5.0, 5.0, 5.0)
+
+
+def _ladder_walk(p, rid):
+    idx = _shed_ivf(p, rid)
+    ctl = p.pressure.ShedController(node=None)
+    m = p.metrics.METRICS
+    walk = []
+    try:
+        for ms in _PRESSURES:
+            level = ctl.step_region(rid, idx, pressure_ms=ms,
+                                    max_queue_ms=50.0)
+            walk.append((level, idx.tuning.get("nprobe"),
+                         m.gauge("qos.precision_advisory", region_id=rid)
+                         .get(),
+                         m.gauge("qos.degrade_level", region_id=rid).get()))
+    finally:
+        m.gauge("qos.degrade_level", region_id=rid).set(0.0)
+    return walk
+
+
+def test_shed_controller_ladder_escalates_and_restores(shed_pkg):
+    walk = _ladder_walk(shed_pkg, 9401)
+    levels = [w[0] for w in walk]
+    assert levels == [1, 2, 3, 3, 3, 2, 1, 0]
+    assert walk[0][1] is None              # level 1: no rerank to drop
+    assert walk[1][1] < 4 and walk[3][1] < walk[1][1]
+    assert walk[4][1] == walk[3][1]        # hysteresis band holds
+    assert walk[2][2] == 1.0 and walk[2][3] == 3.0
+    assert walk[-1][1:] == (None, 0.0, 0.0)
+
+
+def test_shed_ladder_equals_the_reference():
+    walks = {n: _ladder_walk(p, 9404) for n, p in SHED.items()}
+    assert walks["dingo_tpu_torch"] == walks["dingo_tpu"]
+
+
+def test_disabling_qos_restores_degraded_regions(shed_pkg):
+    class _Wrapper:
+        def __init__(self, idx):
+            self.own_index = idx
+
+        def is_ready(self):
+            return True
+
+    class _Region:
+        def __init__(self, idx):
+            self.id = idx.id
+            self.vector_index_wrapper = _Wrapper(idx)
+
+    class _Meta:
+        def __init__(self, regions):
+            self._regions = regions
+
+        def get_all_regions(self):
+            return self._regions
+
+    class _Node:
+        def __init__(self, regions):
+            self.meta = _Meta(regions)
+
+    p = shed_pkg
+    idx = _shed_ivf(p, 9403)
+    ctl = p.pressure.ShedController(_Node([_Region(idx)]))
+    for _ in range(2):
+        ctl.step_region(9403, idx, pressure_ms=200.0, max_queue_ms=50.0)
+    assert ctl.degrade_level(9403) == 2 and idx.tuning.get("nprobe")
+    p.config.FLAGS.set("qos_enabled", False)
+    assert ctl.tick() == 0
+    assert ctl.degrade_level(9403) == 0
+    assert "nprobe" not in idx.tuning
+    assert p.pressure.degrade_level(9403) == 0
+
+
+def test_tuner_holds_while_region_degraded(shed_pkg):
+    p = shed_pkg
+    idx = _shed_ivf(p, 9402, nprobe=2)
+    tuner = p.tuner.SloTuner(slo_recall=0.95, latency_budget_ms=0.0)
+    estimate = {"recall": 0.5, "ci_low": 0.49, "ci_high": 0.51,
+                "queries": 100, "trials": 1000, "newest_ts": time.time(),
+                "oldest_ts": time.time() - 1.0}
+    m = p.metrics.METRICS
+    m.gauge("qos.degrade_level", region_id=9402).set(2.0)
+    blocked = m.counter("quality.tuner_blocked", region_id=9402)
+    b0 = blocked.get()
+    try:
+        assert tuner.step_index(idx, estimate) is None
+        assert blocked.get() == b0 + 1
+        assert "nprobe" not in idx.tuning
+    finally:
+        m.gauge("qos.degrade_level", region_id=9402).set(0.0)
+    op = tuner.step_index(idx, dict(estimate, newest_ts=time.time()))
+    assert op is not None and op.knob == "nprobe"

@@ -24,7 +24,15 @@ class Pkg:
             "metrics": "common.metrics", "persist": "common.persist",
             "recovery": "index.recovery", "devfault": "ops.devfault",
             "wd": "engine.write_data", "manager": "index.manager",
-            "apply": "engine.apply", "config": "common.config"}
+            "apply": "engine.apply", "config": "common.config",
+            "factory": "index.factory", "wrapper": "index.wrapper",
+            "digest": "ops.digest", "integrity": "obs.integrity",
+            "quality": "obs.quality", "tuner": "obs.tuner",
+            "events": "obs.events", "heat": "obs.heat", "cost": "obs.cost",
+            "flight": "obs.flight", "hbm": "obs.hbm",
+            "pressure": "obs.pressure", "coalescer": "common.coalescer",
+            "sentinel": "obs.sentinel", "collector": "metrics.collector",
+            "http": "metrics.http", "trace": "trace"}
 
     def __init__(self, name):
         self.name = name
@@ -47,6 +55,30 @@ class Pkg:
         nodes = {f"s{i}": self.store(f"s{i}", transport, coord, i, **raft_kw)
                  for i in range(n)}
         return transport, coord, nodes
+
+    @property
+    def torch(self) -> bool:
+        return self.name == "dingo_tpu_torch"
+
+    def new_index(self, index_id, param):
+        return self.factory.new_index(index_id, param, **self.kw)
+
+    def host(self, arr) -> np.ndarray:
+        """A device array's values on the host (a copy)."""
+        if self.torch:
+            return arr.cpu().numpy().copy()
+        return np.asarray(arr).copy()
+
+    def device_like(self, host, like):
+        """`host` as a device array where `like` lives."""
+        if self.torch:
+            import torch
+
+            return torch.from_numpy(np.ascontiguousarray(host)).to(
+                like.device)
+        import jax.numpy as jnp
+
+        return jnp.asarray(host)
 
     def index_param(self, index_type="flat", dim=8, **kw):
         b = self.base
