@@ -50,8 +50,9 @@ off), recall against the JAX package's gates, a rerank cache over every
 row, in-place writes on every route, device bytes beside fp32's,
 pipelined timing with fp32 and both tiers taking turns, a profile of the
 sq8 route, and five kernel-vs-plain cases per arm. Last, the default
-route at GIST1M's width (1,000,000 x 960 f32 from the same recipe, nlist
-1024, every flag at its default): 960 does not tile into 128-column
+route at GIST1M's width (500,000 x 960 f32 from the same recipe, GIST1M's
+1,000,000 rows cut for the smoke's time, nlist 1024, every flag at its
+default): 960 does not tile into 128-column
 blocks, so a FLAT index serves on B1 and an IVF_FLAT region on B2 (B3 and
 B4 must not launch), with recall@10, each kernel against its plain
 version, both timed in turns and pipelined ms/batch with a profile.
@@ -69,7 +70,8 @@ both, and a binary region through Storage and IndexService(node) (the
 brute force untrained, the index after the manager's rebuild, a filter
 and a radius request, the pipelined arm's staged misses); no B1-B5 launch
 in the phase. Then the diskann role's core at config 3's widths (m 96)
-on the 1M rows under tempfile.gettempdir(): push_data, the build split
+on the first 500,000 of the rows (cut for the smoke's time) under
+tempfile.gettempdir(): push_data, the build split
 into coarse fit / PQ fit / encode, the load's device bytes, searches at
 nprobe 32 with rerank factor 32 (ms split into ADC scan, disk gather and
 rerank; recall@10 >= 0.95; distances == f64), a restart, upserts in place
@@ -133,7 +135,24 @@ SLO tuner's walk with its events and explain; skewed against uniform
 heat; the cost model against measured run times; the HBM ledger; a flight
 bundle of a forced slow query; the shed ladder under overload; a
 Prometheus scrape; the ledger runs at the JAX package's defaults there and
-in the ingest, and is off in the other phases); then the cluster phase on
+in the ingest, and is off in the other phases); then the serving-edge
+cache on the same region (edge_cache_phase: IndexService(node) at nprobe
+32 under 4,096 four-row requests drawn Zipf(1.1) from 512 queries, cache
+off then on, rows/s, p50/p99, hit rate, B3 launches and kernel rows; hits
+against a fresh dispatch, a 4,096-row write's invalidation and refill,
+eight threads' identical rows deduped to one kernel batch, the
+heartbeat's cache_* fields); then the memory-tier ladder on the leader's
+replica (ladder_phase: hbm -> hbm_sq8 through a coordinator TIER_DEMOTE
+and the memory_tier tick, -> host_sq8 -> mmap_sq8, back up through a
+tick under search traffic and two promotions; per rung the transition's
+seconds, device and host bytes, memory_allocated following the serving
+index's device bytes (each replaced index freed), ms a batch, recall@10
+>= 0.95 and the heartbeat's serving_tier; B3-sq8 against its plain version, device bytes
+0 and no B3/B4 launch on the host rungs, the mmap file removed, ids
+after the round trip against before and the other replicas, six tier
+events and 0 orphans), and the same walk on a 131,072 x 768 FLAT region
+of a one-replica store (B4-sq8 against its plain version, one digest
+refusal, the staged put_codes pour); then the cluster phase on
 the same region (one split_check tick at the default 1,000,000 keys proposes the
 median id, heartbeats deliver SPLIT, the child is served through the
 parent's index, 8,192 upserts and 4,096 deletes proposed on each side
@@ -198,6 +217,10 @@ SPLIT_PASSES = 3
 #: gist-960-euclidean: 1,000,000 x 960): 960 does not tile into the pruned
 #: route's 128-column blocks, so FLAT serves on B1 and IVF_FLAT on B2
 GIST_D = 960
+#: rows of the d 960 phase: GIST1M's 1,000,000 cut to 500,000 for the
+#: smoke's 1,200 s limit once the ladder and edge-cache phases came in
+#: (PERF.md section 4)
+GIST_N = 500_000
 #: kernel-vs-plain tolerance: f32 sums land in a different order
 RTOL, ATOL = 1e-4, 1e-3
 #: the residual tables (entries ~1-100) against the torch composite: f32
@@ -1582,7 +1605,8 @@ def co_checks(node, region, kern, pool, extra, k, kw, card) -> dict:
 
 def gist_phase(n, nlist, card) -> dict:
     """The default route at GIST1M's width (ann-benchmarks'
-    gist-960-euclidean: 1,000,000 x 960), rows from make_data's recipe,
+    gist-960-euclidean: 1,000,000 x 960; the smoke runs GIST_N of them),
+    rows from make_data's recipe,
     batch 64, k 10, every flag at its default. 960 does not tile into the
     pruned route's 128-column blocks, so a FLAT index serves on B1 and a
     trained IVF_FLAT on B2 (B3 and B4 do not launch): recall@10 against
@@ -2470,7 +2494,8 @@ def region_phase(x, queries, extra, gt, nlist, card, dev,
             return orig_apply(engine, region, data, log_id, context=context,
                               want_result=want_result)
         finally:
-            apply_s[context.store_id] += time.perf_counter() - t
+            if context.store_id in apply_s:     # not the ladder's FLAT store
+                apply_s[context.store_id] += time.perf_counter() - t
 
     raft_engine.apply_write = timed_apply
     transport = LocalTransport()
@@ -2863,6 +2888,24 @@ def region_phase(x, queries, extra, gt, nlist, card, dev,
         out["obs"] = obs_phase(coord, nodes, regions, rid, live_ids,
                                live_vecs, queries, nlist, card, dev)
         recovery_quiet("obs phase", card)
+        # -- the serving-edge cache, then the memory-tier ladder, on the
+        # replica IndexService reads ----------------------------------------
+        lead = leader()
+        out["edge_cache"], launches_ = phase_launches(
+            lambda: edge_cache_phase(coord, nodes, regions, rid, lead,
+                                     live_ids, live_vecs, card, dev,
+                                     on_leader))
+        out["edge_cache"]["launches"] = launches_
+        recovery_quiet("edge cache phase", card)
+        settle()
+        out["ladder"], launches_ = phase_launches(
+            lambda: ladder_phase(coord, nodes, regions, rid, leader(),
+                                 live_ids, live_vecs, queries, card, dev))
+        out["ladder"]["launches"] = launches_
+        print(f"[{card}] edge cache phase launches "
+              f"{out['edge_cache']['launches']}; ladder phase launches "
+              f"{out['ladder']['launches']}", flush=True)
+        recovery_quiet("ladder phase", card)
         FLAGS.set("integrity_enabled", False)
         print(f"[{card}] cluster phase: integrity_enabled False (it "
               "measures no plane; indexes that carry a ledger keep "
@@ -2923,6 +2966,780 @@ def region_phase(x, queries, extra, gt, nlist, card, dev,
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[{card}] region phase launches {out['launches']}; "
           f"{out['seconds']:.1f} s", flush=True)
+    return out
+
+
+#: the edge-cache phase: 4-row requests (pipeline_sweep's shape) drawn
+#: Zipf(EDGE_ZIPF_S) from EDGE_QUERIES distinct queries, EDGE_REQUESTS of
+#: them, CO_IN_FLIGHT in flight a round, served once with the cache off
+#: and once with it on
+EDGE_QUERIES, EDGE_REQUESTS, EDGE_ZIPF_S = 512, 4096, 1.1
+#: rows of the FLAT region the ladder phase walks on a one-replica store:
+#: 262,144 cut to 131,072 for the smoke's 1,200 s limit (PERF.md section 4)
+LADDER_FLAT_N = 131_072
+#: at each ladder rung, torch.cuda.memory_allocated() against the hbm
+#: rung may exceed the serving index's device bytes against the fp32
+#: index's by at most this much (small live buffers of the reader); a
+#: replaced index still allocated exceeds it by its whole size
+LADDER_ALLOC_SLACK = 128 << 20
+
+
+def phase_launches(fn):
+    """Run fn() with every kernel arm's launch count set to 0 just before
+    it and read just after; the counts then go back to what they were plus
+    fn's own, so an enclosing phase's totals stay whole. Returns (fn's
+    result, {arm: launches in fn})."""
+    counters = launch_counters()
+    before = read_launches(counters)
+    zero_launches()
+    try:
+        res = fn()
+    finally:
+        got = read_launches(counters)
+        for kf, attr in counters:
+            nm = kf.__name__ + attr[len("launches"):]
+            setattr(kf, attr, before[nm] + got[nm])
+    return res, got
+
+
+def heartbeat_row(coord, node, rid):
+    """The region's row of the coordinator's view after one heartbeat of
+    `node` carrying a fresh metrics collection."""
+    node.metrics._latest_mono = 0.0
+    node.heartbeat_once()
+    rows = {s: rm for s, _stale, rm in coord.get_region_metrics(rid)}
+    return rows.get(node.store_id)
+
+
+def edge_cache_phase(coord, nodes, regions, rid, lead, live_ids, live_vecs,
+                     card, dev, on_leader) -> dict:
+    """The serving-edge cache on the region phase's 1M-row IVF_FLAT region
+    (B3, nprobe 32) through IndexService(node) on the leader: the same
+    4,096-request Zipf sequence served with cache_enabled off, then on
+    (rows/s, p50/p99, hit rate, B3 launches, kernel rows each); a sample
+    of hits against a fresh dispatch of the same rows; a 4,096-row write
+    that bumps the region's mutation_version, after which the same
+    requests miss and then refill; 8 threads submitting identical rows in
+    one window (kernel rows < rows submitted, every future the solo
+    answer); the next heartbeat's cache_* fields against
+    CACHE.region_stats."""
+    import threading
+
+    from dingo_tpu_torch.cache import edge as cache_edge
+    from dingo_tpu_torch.cache.edge import CACHE
+    from dingo_tpu_torch.common.config import FLAGS
+    from dingo_tpu_torch.ops import kernel_ivf_pruned
+    from dingo_tpu_torch.server.services import IndexService
+
+    k = 10
+    kw = {"nprobe": REGION_NPROBE}
+    t_phase = time.perf_counter()
+    out: dict = {}
+    b3 = kernel_ivf_pruned.ivf_pruned_topk
+    node, region = nodes[lead], regions[lead]
+    d = live_vecs.shape[1]
+    rng = np.random.default_rng(41)
+    pick = rng.choice(len(live_vecs), EDGE_QUERIES, replace=False)
+    qset = (live_vecs[pick] + 0.05 * rng.standard_normal(
+        (EDGE_QUERIES, d), dtype=np.float32)).astype(np.float32)
+    p = 1.0 / np.arange(1, EDGE_QUERIES + 1) ** EDGE_ZIPF_S
+    draws = rng.choice(EDGE_QUERIES, size=(EDGE_REQUESTS, CO_REQ_ROWS),
+                       p=p / p.sum())
+    reqs = [np.ascontiguousarray(qset[r]) for r in draws]
+    kernel_rows = [0]
+    st = node.storage
+    orig_async, orig_sync = st.vector_batch_search_async, \
+        st.vector_batch_search
+
+    def spy_async(r_, q_, topk, **kw_):
+        kernel_rows[0] += len(q_)
+        return orig_async(r_, q_, topk, **kw_)
+
+    def spy_sync(r_, q_, topk, **kw_):
+        kernel_rows[0] += len(q_)
+        return orig_sync(r_, q_, topk, **kw_)
+
+    saved = set_flags(FLAGS, cache_enabled=False)
+    st.vector_batch_search_async, st.vector_batch_search = spy_async, \
+        spy_sync
+    svc = IndexService(node, window_ms=CO_WINDOW_MS, max_batch=CO_MAX_BATCH)
+    try:
+        svc.submit(rid, reqs[0], k, **kw).result(timeout=60)      # warm
+
+        def serve(tag):
+            CACHE.reset()
+            s0 = dict(CACHE.region_stats(rid))
+            l3, kr = b3.launches, kernel_rows[0]
+            lat: list = []
+            t0 = time.perf_counter()
+            for lo in range(0, EDGE_REQUESTS, CO_IN_FLIGHT):
+                futs = []
+                for q_ in reqs[lo:lo + CO_IN_FLIGHT]:
+                    s = time.perf_counter()
+                    f = svc.submit(rid, q_, k, **kw)
+                    f.add_done_callback(lambda _f, s=s: lat.append(
+                        (time.perf_counter() - s) * 1e3))
+                    futs.append(f)
+                for f in futs:
+                    f.result(timeout=60)
+            wall = time.perf_counter() - t0
+            s1 = CACHE.region_stats(rid)
+            hits = s1["hits"] - s0["hits"]
+            misses = s1["misses"] - s0["misses"]
+            r_ = {"rows_per_s": EDGE_REQUESTS * CO_REQ_ROWS / wall,
+                  "p50_ms": float(np.percentile(lat, 50)),
+                  "p99_ms": float(np.percentile(lat, 99)),
+                  "hit_rate": hits / max(1, hits + misses),
+                  "b3_launches": b3.launches - l3,
+                  "kernel_rows": kernel_rows[0] - kr, "wall_s": wall}
+            print(f"[{card}] edge cache {tag}: {EDGE_REQUESTS} requests of "
+                  f"{CO_REQ_ROWS} rows (Zipf s {EDGE_ZIPF_S} over "
+                  f"{EDGE_QUERIES} queries), {r_['rows_per_s']:.1f} rows/s, "
+                  f"request p50 {r_['p50_ms']:.3f} ms, p99 "
+                  f"{r_['p99_ms']:.3f} ms, hit rate {r_['hit_rate']:.4f} "
+                  f"({hits} hits, {misses} misses), B3 launches "
+                  f"{r_['b3_launches']}, kernel rows {r_['kernel_rows']}, "
+                  f"{wall:.2f} s", flush=True)
+            return r_
+
+        out["off"] = serve("off")
+        FLAGS.set("cache_enabled", True)
+        out["on"] = serve("on")
+        check(out["on"]["hit_rate"] > 0.5 and out["off"]["hit_rate"] == 0
+              and out["on"]["kernel_rows"] < out["off"]["kernel_rows"],
+              "edge cache: the cache-on run hits (rate "
+              f"{out['on']['hit_rate']:.4f}) and dispatches fewer kernel rows "
+              f"({out['on']['kernel_rows']} against "
+              f"{out['off']['kernel_rows']})")
+
+        # -- hits against a fresh dispatch of the same rows -----------------
+        sample = [reqs[i] for i in range(0, EDGE_REQUESTS, 128)]
+        kr = kernel_rows[0]
+        hit_rows = [svc.submit(rid, q_, k, **kw).result(timeout=60)
+                    for q_ in sample]
+        served_by_cache = kernel_rows[0] == kr
+        fresh = [orig_sync(region, q_, k, **kw) for q_ in sample]
+        same_ids = all([[v.id for v in r] for r in a]
+                       == [[v.id for v in r] for r in b]
+                       for a, b in zip(hit_rows, fresh))
+        err = max(abs(u.distance - v.distance) for a, b in zip(hit_rows, fresh)
+                  for ra, rb in zip(a, b) for u, v in zip(ra, rb))
+        print(f"[{card}] edge cache: {len(sample)} sampled requests served "
+              f"from the cache without a kernel row {served_by_cache}; ids "
+              f"== a fresh dispatch of the same rows {same_ids}, distances "
+              f"max abs diff {err:.3e}", flush=True)
+        check(served_by_cache and same_ids and err <= 1e-4,
+              "edge cache: every sampled hit equals a fresh dispatch of the "
+              "same rows (ids equal, distances within 1e-4)")
+
+        # -- a write bumps the version: miss, then refill --------------------
+        v0 = cache_edge.region_version(region)
+        wsel = np.arange(0, len(live_ids), len(live_ids) // REGION_PROPOSAL_ROWS
+                         )[:REGION_PROPOSAL_ROWS]
+        on_leader(lambda nd, r: nd.storage.vector_add(
+            r, live_ids[wsel], live_vecs[wsel]))
+        deadline = time.monotonic() + 60
+        while cache_edge.region_version(region) == v0 and \
+                time.monotonic() < deadline:
+            time.sleep(0.01)
+        v1 = cache_edge.region_version(region)
+        s0 = dict(CACHE.region_stats(rid))
+        for q_ in sample:
+            svc.submit(rid, q_, k, **kw).result(timeout=60)
+        s1 = dict(CACHE.region_stats(rid))
+        for q_ in sample:
+            svc.submit(rid, q_, k, **kw).result(timeout=60)
+        s2 = CACHE.region_stats(rid)
+        nrow = len(sample) * CO_REQ_ROWS
+        # a row repeated within the sample hits once an earlier request
+        # refilled it (a repeat inside one request misses with it)
+        seen: set = set()
+        uniq = 0
+        for q_ in sample:
+            keys_ = [r.tobytes() for r in q_]
+            uniq += sum(key_ not in seen for key_ in keys_)
+            seen.update(keys_)
+        print(f"[{card}] edge cache: a {len(wsel)}-row write (the live rows' "
+              f"own vectors) moved mutation_version {v0} -> {v1}; the "
+              f"sampled requests ({uniq} of their {nrow} rows first seen) then "
+              f"missed {s1['misses'] - s0['misses']} rows and hit "
+              f"{s1['hits'] - s0['hits']}, then hit "
+              f"{s2['hits'] - s1['hits']}/{nrow} (refilled)", flush=True)
+        check(v1 > v0 and s1["misses"] - s0["misses"] == uniq
+              and s1["hits"] - s0["hits"] == nrow - uniq
+              and s2["hits"] - s1["hits"] == nrow,
+              "edge cache: a write bumps the version, the same queries miss "
+              "(each row until a request refills it) and then refill")
+
+        # -- in-flight dedupe: 8 threads, identical rows, one window --------
+        fresh_q = (qset[:CO_REQ_ROWS] + np.float32(0.011)).astype(np.float32)
+        solo = [[v.id for v in r] for r in orig_sync(region, fresh_q, k,
+                                                     **kw)]
+        svc2 = IndexService(node, window_ms=50.0, max_batch=CO_MAX_BATCH)
+        try:
+            svc2.submit(rid, reqs[1], k, **kw).result(timeout=60)   # warm
+            kr = kernel_rows[0]
+            c0 = CACHE.region_stats(rid)["dedup_collapsed"]
+            futs: list = []
+            lock = threading.Lock()
+            go = threading.Event()
+
+            def client():
+                go.wait()
+                f = svc2.submit(rid, fresh_q, k, **kw)
+                with lock:
+                    futs.append(f)
+
+            ths = [threading.Thread(target=client) for _ in range(8)]
+            for t_ in ths:
+                t_.start()
+            go.set()
+            for t_ in ths:
+                t_.join()
+            got = [[[v.id for v in r] for r in f.result(timeout=60)]
+                   for f in futs]
+            dispatched = kernel_rows[0] - kr
+            collapsed = CACHE.region_stats(rid)["dedup_collapsed"] - c0
+        finally:
+            svc2.close()
+        print(f"[{card}] edge cache dedupe: 8 threads x {CO_REQ_ROWS} "
+              f"identical rows in one window: kernel rows {dispatched} of "
+              f"{8 * CO_REQ_ROWS} submitted, dedup_collapsed {collapsed}; "
+              f"every future == the solo answer "
+              f"{all(g == solo for g in got)}", flush=True)
+        check(len(got) == 8 and dispatched < 8 * CO_REQ_ROWS
+              and all(g == solo for g in got),
+              "edge cache dedupe: fewer kernel rows than submitted, every "
+              "future resolves to the solo answer")
+
+        # -- the heartbeat's cache_* fields -----------------------------------
+        rm = heartbeat_row(coord, node, rid)
+        cs = CACHE.region_stats(rid)
+        print(f"[{card}] edge cache heartbeat: cache_hits {rm.cache_hits}, "
+              f"cache_misses {rm.cache_misses}, cache_entries "
+              f"{rm.cache_entries}; CACHE.region_stats {cs}", flush=True)
+        check((rm.cache_hits, rm.cache_misses, rm.cache_entries)
+              == (cs["hits"], cs["misses"], cs["entries"]),
+              "edge cache: the next heartbeat's cache_* fields == "
+              "CACHE.region_stats")
+    finally:
+        svc.close()
+        del st.vector_batch_search_async, st.vector_batch_search
+        for f_, v_ in saved.items():
+            FLAGS.set(f_, v_)
+        CACHE.reset()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[{card}] edge cache phase: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+class _LiveRows:
+    """Rows of the region's live set by external id (`x[ids]` for
+    same_modulo_ties); `ids` sorted ascending."""
+
+    def __init__(self, ids, vecs):
+        self.ids, self.vecs = ids, vecs
+
+    def __getitem__(self, ids):
+        return self.vecs[np.searchsorted(self.ids, ids)]
+
+
+def reader_ms(node, region, queries, k, kw, reps=20) -> float:
+    """ms a 64-query batch through the node's reader, pipelined: `reps`
+    dispatches (vector_batch_search_async), then their resolves, over the
+    wall with the card synchronized."""
+    import torch
+
+    for th in [node.storage.vector_batch_search_async(region, queries, k,
+                                                      **kw)
+               for _ in range(2)]:
+        th()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    thunks = [node.storage.vector_batch_search_async(region, queries, k,
+                                                     **kw)
+              for _ in range(reps)]
+    for th in thunks:
+        th()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def ladder_phase(coord, nodes, regions, rid, lead, live_ids, live_vecs,
+                 queries, card, dev) -> dict:
+    """The memory-tier ladder on the replica IndexService reads (the
+    leader's) of the region phase's 1M x 768 IVF_FLAT region, tier_enabled
+    on and the integrity ledger on (the digest gate): down hbm -> hbm_sq8
+    through a coordinator TIER_DEMOTE and the store's memory_tier tick,
+    then hbm_sq8 -> host_sq8 -> mmap_sq8; up mmap_sq8 -> host_sq8 through
+    a tick under search traffic above tier_promote_qps, then host_sq8 ->
+    hbm_sq8 -> hbm by direct promote. At each rung the transition's
+    seconds, device bytes (tensor_bytes) and the memory_allocated delta
+    (gated: it follows the serving index's device bytes, so every replaced
+    index was freed; memory_reserved printed), host and mmap bytes, ms a
+    64-query batch through the reader, recall@10
+    against the exact top-10 of the live rows, and the next heartbeat's
+    serving_tier. B3-sq8 at hbm_sq8 against its plain version; no B3/B4
+    launch on the host rungs; the mmap file gone after the promotion; ids
+    after the round trip against those before it and the other replicas';
+    the six tier events and 0 orphans. Then ladder_flat_phase."""
+    import gc
+    import threading
+
+    import torch
+
+    from dingo_tpu_torch.common.config import FLAGS
+    from dingo_tpu_torch.common.metrics import METRICS
+    from dingo_tpu_torch.coordinator.control import RegionCmd, RegionCmdType
+    from dingo_tpu_torch.index.tiering import TIERING, HostSqFlat, TierRunner
+    from dingo_tpu_torch.ops import kernel_ivf_pruned
+    from dingo_tpu_torch.server.services import IndexService
+
+    k = 10
+    kw = {"nprobe": REGION_NPROBE}
+    t_phase = time.perf_counter()
+    out: dict = {"rungs": {}}
+    node, region = nodes[lead], regions[lead]
+    w = region.vector_index_wrapper
+    rows_by_id = _LiveRows(live_ids, live_vecs)
+    exact = live_ids[exact_topk_device(live_vecs, queries, k, dev)]
+    saved = set_flags(FLAGS, tier_enabled=True, integrity_enabled=True)
+    print(f"[{card}] ladder phase: tier_enabled True, integrity_enabled "
+          "True (the digest gate)", flush=True)
+
+    def ids_of(rows):
+        return [[v.id for v in r] for r in rows]
+
+    def recall(got):
+        return sum(len(set(g) & set(e.tolist()))
+                   for g, e in zip(got, exact)) / (len(exact) * k)
+
+    gc.collect()
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated()
+    before = ids_of(node.storage.vector_batch_search(region, queries, k,
+                                                     **kw))
+    others = {s: ids_of(nodes[s].storage.vector_batch_search(
+        regions[s], queries, k, **kw)) for s in nodes if s != lead}
+
+    #: the fp32 index's device bytes, read at the hbm rung
+    dbytes0 = w.own_index.get_device_memory_size()
+
+    def rung_report(name, secs, full=True):
+        """The rung's numbers and checks; `full` False (the way up) runs
+        one search for recall instead of the timed batches."""
+        gc.collect()
+        torch.cuda.synchronize()
+        own = w.own_index
+        dbytes = own.get_device_memory_size()
+        alloc = torch.cuda.memory_allocated()
+        reserved = torch.cuda.memory_reserved()
+        host = own.get_memory_size() if isinstance(own, HostSqFlat) else 0
+        st_ = TIERING._regions.get(rid)
+        path = st_.mmap_path if st_ is not None else None
+        fbytes = os.path.getsize(path) if path and os.path.exists(path) \
+            else 0
+
+        def searches():
+            if not full:
+                t0 = time.perf_counter()
+                res = node.storage.vector_batch_search(region, queries, k,
+                                                       **kw)
+                return res, [(time.perf_counter() - t0) * 1e3]
+            if isinstance(own, HostSqFlat):
+                ts = []
+                for _ in range(2):
+                    t0 = time.perf_counter()
+                    res = node.storage.vector_batch_search(region, queries,
+                                                           k, **kw)
+                    ts.append((time.perf_counter() - t0) * 1e3)
+                return res, ts
+            res = node.storage.vector_batch_search(region, queries, k, **kw)
+            return res, [reader_ms(node, region, queries, k, kw)]
+
+        (res, ts), launches = phase_launches(searches)
+        got = ids_of(res)
+        rec = recall(got)
+        rm = heartbeat_row(coord, node, rid)
+        r_ = {"seconds": secs, "device_bytes": dbytes,
+              "alloc_delta": alloc - alloc0, "reserved": reserved,
+              "host_bytes": host,
+              "mmap_bytes": fbytes, "ms": ts, "recall": rec,
+              "serving_tier": rm.serving_tier, "launches": launches,
+              "ids": got}
+        out["rungs"][name if full else name + " up"] = r_
+        kern = {a: v for a, v in launches.items() if v}
+        lock_ms = getattr(own, "max_lock_ms", None)
+        print(f"[{card}] ladder rung {name}: transition {secs:.2f} s; device "
+              f"bytes {dbytes}, memory_allocated {alloc / 2**30:.2f} GiB "
+              f"({(alloc - alloc0) / 2**30:+.2f} against hbm; the serving "
+              f"index's device bytes {(dbytes - dbytes0) / 2**30:+.2f} "
+              f"against the fp32 index's), memory_reserved "
+              f"{reserved / 2**30:.2f} GiB, host bytes "
+              f"{host}, mmap file bytes {fbytes}; ms a 64-query batch "
+              + ("(one search, timed) " + f"{ts[0]:.1f}" if not full
+                 else "(two batches, timed) " + ", ".join(f"{t:.1f}"
+                                                         for t in ts)
+                 if isinstance(own, HostSqFlat)
+                 else f"(pipelined through the reader) {ts[0]:.4f}")
+              + f"; recall@{k} {rec:.4f}; heartbeat serving_tier "
+              f"{rm.serving_tier}; kernel launches {kern or 'none'}"
+              + (f"; longest device_lock hold of a host scan {lock_ms:.1f} ms"
+                 if lock_ms is not None else ""), flush=True)
+        check(rec >= 0.95, f"ladder {name}: recall@{k} >= 0.95")
+        check(alloc - alloc0 <= dbytes - dbytes0 + LADDER_ALLOC_SLACK,
+              f"ladder {name}: memory_allocated against hbm <= the serving "
+              f"index's device bytes against the fp32 index's + "
+              f"{LADDER_ALLOC_SLACK >> 20} MiB (every replaced index freed)")
+        check(rm.serving_tier == name,
+              f"ladder {name}: the next heartbeat's serving_tier == the rung")
+        if isinstance(own, HostSqFlat):
+            check(dbytes == 0 and not any(
+                launches[a] for a in launches
+                if a.startswith(("ivf_pruned_topk", "pruned_fused_topk"))),
+                f"ladder {name}: device bytes 0 and no B3/B4 launch on the "
+                "host rung")
+        return r_
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        rep = fn()
+        return rep, time.perf_counter() - t0
+
+    try:
+        rung_report("hbm", 0.0)
+        # -- down: the coordinator's TIER_DEMOTE, then the memory_tier tick --
+        coord._queue_cmd(lead, RegionCmd(
+            cmd_id=coord._next_cmd(), region_id=rid,
+            cmd_type=RegionCmdType.TIER_DEMOTE))
+        node.heartbeat_once()
+        flagged = TIERING.state().get(rid, {}).get("advisory", False)
+        runner = TierRunner(node)
+
+        def tick():
+            runner.tick()
+            runner._worker.join()
+            return runner.ticks
+
+        _, secs = timed(tick)
+        check(flagged and TIERING.region_tier(rid) == "hbm_sq8",
+              "ladder: the coordinator's TIER_DEMOTE flagged the region and "
+              "the store's memory_tier tick demoted it to hbm_sq8")
+        with first_launch(kernel_ivf_pruned, "ivf_pruned_topk") as captured:
+            node.storage.vector_batch_search(region, queries, k, **kw)
+        if captured:
+            a_, kw_, (kv, ki, _) = captured[0]
+            pv, pi, _ = kernel_ivf_pruned.ivf_pruned_topk_plain(*a_, **kw_)
+            ok, err = kernel_parity(kv, ki, pv, pi)
+            sq8 = a_[3].dtype == torch.uint8      # the buckets hold codes
+        else:
+            ok, err, sq8 = False, float("nan"), False
+        captured = a_ = kw_ = kv = ki = pv = pi = None
+        out["b3_sq8_parity"] = (ok, err)
+        r_ = rung_report("hbm_sq8", secs)
+        check(ok and sq8 and r_["launches"].get("ivf_pruned_topk_sq8", 0) > 0,
+              "ladder hbm_sq8: the region's searches launched B3-sq8, and "
+              f"its launch == the plain version (max abs err {err:.3e})")
+        for name in ("host_sq8", "mmap_sq8"):
+            rep, secs = timed(lambda: TIERING.demote(node, region))
+            check(rep.get("ok"), f"ladder: demote to {name} {rep}")
+            rung_report(name, secs)
+        mmap_path = TIERING._regions[rid].mmap_path
+        # -- up: mmap -> host through a tick under search traffic -----------
+        svc = IndexService(node, window_ms=CO_WINDOW_MS,
+                           max_batch=CO_MAX_BATCH)
+        stop = threading.Event()
+        served = [0]
+
+        def traffic():
+            i = 0
+            while not stop.is_set():
+                futs = [svc.submit(rid, queries[(i + j) % len(queries):
+                                                (i + j) % len(queries) + 1],
+                                   k, **kw) for j in range(CO_MAX_BATCH)]
+                i += CO_MAX_BATCH
+                for f in futs:
+                    f.result(timeout=120)
+                served[0] += len(futs)
+
+        lat = METRICS.latency("vector_search", rid)
+        want = float(FLAGS.get("tier_promote_qps"))
+        t_ = threading.Thread(target=traffic, name="ladder-traffic",
+                              daemon=True)
+        t0 = time.perf_counter()
+        t_.start()
+        while lat.windowed_qps() <= 1.5 * want and \
+                time.perf_counter() - t0 < 60:
+            time.sleep(0.25)
+        qps = lat.windowed_qps()
+        stop.set()
+        t_.join(timeout=180)
+        svc.close()
+        print(f"[{card}] ladder: {served[0]} one-row requests through "
+              f"IndexService at the mmap rung in {time.perf_counter() - t0:.1f}"
+              f" s, windowed search QPS {qps:.2f} (tier_promote_qps {want})",
+              flush=True)
+        _, secs = timed(tick)
+        check(TIERING.region_tier(rid) == "host_sq8",
+              f"ladder: the memory_tier tick under search traffic (windowed "
+              f"QPS {qps:.2f}) promoted the region to host_sq8")
+        rung_report("host_sq8", secs, full=False)
+        print(f"[{card}] ladder mmap_sq8 -> host_sq8 (tick): the mmap file "
+              f"gone {not os.path.exists(mmap_path)}", flush=True)
+        check(not os.path.exists(mmap_path),
+              "ladder: the mmap file is gone after the promotion")
+        for name in ("hbm_sq8", "hbm"):
+            rep, secs = timed(lambda: TIERING.promote(node, region))
+            check(rep.get("ok"), f"ladder: promote to {name} {rep}")
+            rung_report(name, secs, full=False)
+        after = ids_of(node.storage.vector_batch_search(region, queries, k,
+                                                        **kw))
+        rec_after = recall(after)
+        same_before = same_modulo_ties(rows_by_id, queries, after, before)
+        same_others = all(same_modulo_ties(rows_by_id, queries, after, o)
+                          for o in others.values())
+        print(f"[{card}] ladder round trip: recall@{k} {rec_after:.4f}; ids "
+              f"== before modulo ties {same_before} (exactly "
+              f"{after == before}); == the other replicas' modulo ties "
+              f"{same_others}", flush=True)
+        check(same_before and same_others and rec_after >= 0.95,
+              "ladder: ids after the round trip == those before it and the "
+              "other two replicas' (modulo ties)")
+        rm = heartbeat_row(coord, node, rid)
+        evs = coord.cluster_events(region_id=rid, actor="tier")
+        report = coord.explain_region_overrides(rid)
+        moves = [(e.old, e.new) for e in evs]
+        print(f"[{card}] ladder events {moves}; explain orphans "
+              f"{report['orphans']}; serving_tier {rm.serving_tier}",
+              flush=True)
+        check(len(evs) == 6 and report["orphans"] == []
+              and rm.serving_tier == "hbm",
+              "ladder: cluster_events shows the six tier events, "
+              "explain_region_overrides 0 orphans")
+        out["events"] = moves
+    finally:
+        for f_, v_ in saved.items():
+            FLAGS.set(f_, v_)
+    out["seconds_1m"] = time.perf_counter() - t_phase
+    print(f"[{card}] ladder phase, the 1M region: {out['seconds_1m']:.1f} s",
+          flush=True)
+    out["flat"] = ladder_flat_phase(live_vecs, queries, card, dev)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[{card}] ladder phase: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def ladder_flat_phase(x, queries, card, dev) -> dict:
+    """The ladder on a FLAT region of LADDER_FLAT_N x 768 (the first rows
+    of the live set, ids 0..n-1) on a one-replica store of its own
+    coordinator, ingested through Storage: B4-sq8 at hbm_sq8 against its
+    plain version; one digest refusal (a byte flipped at the `copied`
+    hook of the hbm_sq8 -> host_sq8 transcription: TierRefused inside,
+    tier.digest_refusals bumped, the old rung serving the same ids); the
+    clean walk down to mmap_sq8 and back, host_sq8 -> hbm_sq8 by the
+    staged put_codes pour (its rows/s); ids after the round trip against
+    those before it; at every step memory_allocated follows the serving
+    index's device bytes (each replaced index freed)."""
+    import gc
+
+    import torch
+
+    from dingo_tpu_torch.common.config import FLAGS
+    from dingo_tpu_torch.common.metrics import METRICS
+    from dingo_tpu_torch.coordinator.control import CoordinatorControl
+    from dingo_tpu_torch.engine.raw_engine import MemEngine
+    from dingo_tpu_torch.index import codec as vcodec
+    from dingo_tpu_torch.index import tiering
+    from dingo_tpu_torch.index.base import IndexParameter, IndexType
+    from dingo_tpu_torch.index.tiering import TIERING, HostSqFlat
+    from dingo_tpu_torch.ops import kernel_topk_pruned
+    from dingo_tpu_torch.ops.distance import Metric
+    from dingo_tpu_torch.raft import LocalTransport
+    from dingo_tpu_torch.store.node import StoreNode
+    from dingo_tpu_torch.store.region import RegionType
+
+    k = 10
+    n = min(LADDER_FLAT_N, len(x))
+    t_phase = time.perf_counter()
+    out: dict = {"rungs": {}}
+    saved = set_flags(FLAGS, tier_enabled=True, integrity_enabled=True)
+    fcoord = CoordinatorControl(MemEngine(), replication=1)
+    # a region id of its own: the ladder's state is keyed by region id
+    while fcoord.next_region_id() < 2000:
+        pass
+    node = StoreNode("f0", LocalTransport(), fcoord,
+                     raft_kw={"seed": 0, **REGION_RAFT}, device=dev)
+    frid = None
+    try:
+        dfn = fcoord.create_region(
+            vcodec.encode_vector_key(0, 0), vcodec.encode_vector_key(1),
+            region_type=RegionType.INDEX, index_parameter=IndexParameter(
+                index_type=IndexType.FLAT, dimension=x.shape[1],
+                metric=Metric.L2))
+        frid = dfn.region_id
+        node.heartbeat_once()
+        region = node.get_region(frid)
+        deadline = time.monotonic() + 60
+        while not node.engine.get_node(frid).is_leader():
+            if time.monotonic() > deadline:
+                raise SmokeFailure("ladder FLAT: no leader")
+            time.sleep(0.02)
+        t0 = time.perf_counter()
+        for lo in range(0, n, REGION_PROPOSAL_ROWS):
+            hi = min(n, lo + REGION_PROPOSAL_ROWS)
+            node.storage.vector_add(region, np.arange(lo, hi, dtype=np.int64),
+                                    x[lo:hi])
+        ingest_s = time.perf_counter() - t0
+        exact = exact_topk_device(x[:n], queries, k, dev)
+
+        def ids_of(rows):
+            return [[v.id for v in r] for r in rows]
+
+        def search():
+            return ids_of(node.storage.vector_batch_search(region, queries,
+                                                           k))
+
+        def recall(got):
+            return sum(len(set(g) & set(e.tolist()))
+                       for g, e in zip(got, exact)) / (len(exact) * k)
+
+        before = search()
+        torch.cuda.synchronize()
+        alloc0 = torch.cuda.memory_allocated()
+        dbytes0 = region.vector_index_wrapper.own_index \
+            .get_device_memory_size()
+        print(f"[{card}] ladder FLAT: {n} x {x.shape[1]} rows through "
+              f"Storage in {ingest_s:.1f} s on a one-replica store (region "
+              f"{frid}); recall@{k} at hbm {recall(before):.4f}", flush=True)
+
+        def step(kind, name):
+            t0 = time.perf_counter()
+            rep = getattr(TIERING, kind)(node, region)
+            secs = time.perf_counter() - t0
+            check(rep.get("ok"), f"ladder FLAT: {kind} to {name} {rep}")
+            torch.cuda.synchronize()
+            own = region.vector_index_wrapper.own_index
+            (got, _), launches = phase_launches(lambda: (search(), None))
+            rec = recall(got)
+            dbytes = own.get_device_memory_size()
+            gc.collect()
+            torch.cuda.synchronize()
+            alloc = torch.cuda.memory_allocated() - alloc0
+            out["rungs"][f"{kind} {name}"] = {
+                "seconds": secs, "recall": rec, "device_bytes": dbytes,
+                "alloc_delta": alloc, "launches": launches}
+            print(f"[{card}] ladder FLAT {kind} to {name}: {secs:.2f} s, "
+                  f"device bytes {dbytes}, memory_allocated "
+                  f"{alloc / 2**30:+.3f} GiB against hbm (the serving "
+                  f"index's device bytes {(dbytes - dbytes0) / 2**30:+.3f}), "
+                  f"recall@{k} {rec:.4f}, launches "
+                  f"{ {a: v for a, v in launches.items() if v} or 'none'}",
+                  flush=True)
+            check(alloc <= dbytes - dbytes0 + LADDER_ALLOC_SLACK,
+                  f"ladder FLAT {kind} to {name}: memory_allocated against "
+                  f"hbm <= the serving index's device bytes against the "
+                  f"fp32 index's + {LADDER_ALLOC_SLACK >> 20} MiB")
+            if isinstance(own, HostSqFlat):
+                check(dbytes == 0 and not any(
+                    v for a, v in launches.items()
+                    if a.startswith(("ivf_pruned_topk", "pruned_fused_topk"))),
+                    f"ladder FLAT {name}: device bytes 0, no B3/B4 launch")
+            return got, launches
+
+        _, launches = step("demote", "hbm_sq8")
+        with first_launch(kernel_topk_pruned, "pruned_fused_topk") as cap:
+            search()
+        if cap:
+            a_, kw_, (kv, ki, _) = cap[0]
+            pv, pi, _ = kernel_topk_pruned.pruned_fused_topk_plain(
+                *a_[:9], **dict(zip(("sq_vmin", "sq_scale"), a_[9:])),
+                **kw_)
+            ok, err = kernel_parity(kv, ki, pv, pi)
+            sq8 = a_[1].dtype == torch.uint8
+        else:
+            ok, err, sq8 = False, float("nan"), False
+        cap = a_ = kw_ = kv = ki = pv = pi = None
+        out["b4_sq8_parity"] = (ok, err)
+        check(ok and sq8 and launches.get("pruned_fused_topk_sq8", 0) > 0,
+              "ladder FLAT hbm_sq8: the region's searches launched B4-sq8, "
+              f"and its launch == the plain version (max abs err {err:.3e})")
+        # -- one digest refusal -------------------------------------------------
+        at_sq8 = search()
+        refusals0 = METRICS.counter("tier.digest_refusals",
+                                    region_id=frid).get()
+        raised = []
+
+        def corrupt(stage, ctx=None):
+            if stage == "copied" and ctx is not None:
+                ctx.store.vecs[0, 0] ^= 1      # one flipped destination byte
+
+        orig_verify = TIERING._verify_copy
+
+        def verify(*a, **kw_):
+            try:
+                return orig_verify(*a, **kw_)
+            except tiering.TierRefused as e:
+                raised.append(e)
+                raise
+
+        TIERING.test_hook, TIERING._verify_copy = corrupt, verify
+        try:
+            rep = TIERING.demote(node, region)
+        finally:
+            TIERING.test_hook = None
+            del TIERING._verify_copy
+        refusals = METRICS.counter("tier.digest_refusals",
+                                   region_id=frid).get() - refusals0
+        still = search()
+        print(f"[{card}] ladder FLAT digest refusal: report {rep}; "
+              f"TierRefused raised {len(raised)}, tier.digest_refusals "
+              f"+{refusals}; rung {TIERING.region_tier(frid)}, the same ids "
+              f"{still == at_sq8}", flush=True)
+        check(rep.get("ok") is False and raised and refusals == 1
+              and TIERING.region_tier(frid) == "hbm_sq8" and still == at_sq8,
+              "ladder FLAT: a byte flipped at the copied hook is refused "
+              "(TierRefused, tier.digest_refusals + 1) and the old rung "
+              "serves the same ids")
+        step("demote", "host_sq8")
+        step("demote", "mmap_sq8")
+        step("promote", "host_sq8")
+        pour = []
+        orig_pour = TIERING._staged_put_codes
+
+        def timed_pour(dstore, ids, codes):
+            t0 = time.perf_counter()
+            orig_pour(dstore, ids, codes)
+            torch.cuda.synchronize()
+            pour.append((len(ids), time.perf_counter() - t0))
+
+        TIERING._staged_put_codes = timed_pour
+        try:
+            step("promote", "hbm_sq8")
+        finally:
+            del TIERING._staged_put_codes
+        rows_, secs_ = pour[0] if pour else (0, float("nan"))
+        out["pour_rows_per_s"] = rows_ / secs_
+        print(f"[{card}] ladder FLAT host_sq8 -> hbm_sq8: the staged "
+              f"put_codes pour of {rows_} rows in {secs_:.3f} s, "
+              f"{out['pour_rows_per_s']:.1f} rows/s", flush=True)
+        check(len(pour) == 1, "ladder FLAT: the promotion to hbm_sq8 took "
+              "the staged put_codes pour")
+        after, _ = step("promote", "hbm")
+        same = same_modulo_ties(x, queries, after, before)
+        print(f"[{card}] ladder FLAT round trip: ids == before modulo ties "
+              f"{same} (exactly {after == before})", flush=True)
+        check(same, "ladder FLAT: ids after the round trip == before "
+              "(modulo ties)")
+        node.metrics._latest_mono = 0.0
+        node.heartbeat_once()
+    finally:
+        node.stop()
+        if frid is not None:
+            TIERING.forget_region(frid)
+        for f_, v_ in saved.items():
+            FLAGS.set(f_, v_)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[{card}] ladder FLAT: {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -4594,6 +5411,10 @@ BIN_UPSERTS, BIN_DELETES, BIN_RANGE_MAX = 8192, 4096, 1024
 #: DiskANN (BASELINE.json config 3's widths): subspaces, probes, and the
 #: rows each push carries
 DK_M, DK_NPROBE, DK_PUSH = 96, 32, 65536
+#: rows of the DiskANN phase: the 1M rows cut to 500,000 for the smoke's
+#: 1,200 s limit once the ladder and edge-cache phases came in (PERF.md
+#: section 4)
+DK_N = 500_000
 
 
 def exact_hamming_device(qb, xb, dev, chunk: int = 8192):
@@ -5075,16 +5896,16 @@ def diskann_phase(x, queries, extra, gt, nlist, card, dev) -> dict:
     counters = zero_launches()
     root = tempfile.gettempdir()
     free = shutil.disk_usage(root).free
-    need = int(n * d * 4 * 1.25) + (1 << 30)
-    n_dk = n
+    n_dk = min(n, DK_N)
+    need = int(n_dk * d * 4 * 1.25) + (1 << 30)
     if free < need:
         n_dk = int((free - (1 << 30)) / (d * 4 * 1.25)) // DK_PUSH * DK_PUSH
     print(f"[{card}] DiskANN phase: {free} bytes free under {root}; "
-          + (f"the rows cut from {n} to {n_dk} to fit" if n_dk < n else
-             f"{n} rows need ~{need} bytes"), flush=True)
+          + (f"the rows cut from {n} to {n_dk}, {need} bytes needed"
+             if n_dk < n else f"{n} rows need ~{need} bytes"), flush=True)
     check(n_dk > 0, "DiskANN phase: the disk holds its rows")
     xs = x[:n_dk]
-    gt_dk = gt if n_dk == n else exact_topk(xs, queries, k)
+    gt_dk = gt if n_dk == n else exact_topk_device(xs, queries, k, dev)
     tmp = tempfile.mkdtemp(prefix="dingo-diskann-", dir=root)
     out: dict = {"rows": n_dk}
     param = IndexParameter(index_type=IndexType.DISKANN, dimension=d,
@@ -5876,7 +6697,7 @@ def run(args) -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    gist = gist_phase(args.n, nlist, card)
+    gist = gist_phase(min(args.n, GIST_N), nlist, card)
     print(f"d {GIST_D} phase: {time.perf_counter() - t0:.1f} s", flush=True)
     peak_gist = torch.cuda.max_memory_allocated()
 
@@ -6052,6 +6873,14 @@ def run(args) -> int:
         e_["launches_binary_phase"] = binary["launches"].get(e_["name"], 0)
         e_["launches_diskann_phase"] = diskann["launches"].get(
             e_["name"], 0)
+        e_["launches_edge_cache_phase"] = region["edge_cache"][
+            "launches"].get(e_["name"], 0)
+        e_["launches_ladder_phase"] = region["ladder"]["launches"].get(
+            e_["name"], 0)
+    check(region["launches"].get("ivf_pruned_topk_sq8", 0) > 0
+          and region["launches"].get("pruned_fused_topk_sq8", 0) > 0,
+          "the region phase launched B3-sq8 and B4-sq8 (the ladder's "
+          "hbm_sq8 rung)")
     check(len(kernels) == 13 and all(e_["parity"] for e_ in kernels),
           "the kernels line lists 13 entries, each with parity")
     print(f"[{card}] serving-path ivf.pruned_dim_fraction: IVF (B3) "

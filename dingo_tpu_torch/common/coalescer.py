@@ -58,8 +58,16 @@ The wait estimate prices the rows ahead with the per-shape cost model
 (obs/cost.py) once a key's kernel has been measured, with the per-row
 EWMA of measured runs otherwise, and before any run with the
 ``cost_prior_row_ms`` prior (never 0, so a cold region's first overload
-burst sheds). The JAX package's in-flight dedupe and edge-cache hooks are
-not ported yet: every row of a batch is dispatched.
+burst sheds).
+
+In-flight dedupe (``cache_enabled``, cache/): identical query rows inside
+one flush collapse to one kernel row, fanned out to every waiter (row
+fingerprints of ops/digest.py). The plan is built from the post-expiry,
+priority-sorted survivors, so an expired member fails alone and a shared
+row dispatches at its most urgent member's position; the expiry estimate
+prices the deduped row count; the batch shrinks before padding, so the
+pow2 ladder and the staging rings see the deduped batch. The edge cache's
+lookup and fill wrap the submit in server/services.py.
 """
 
 from __future__ import annotations
@@ -72,6 +80,9 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from dingo_tpu_torch.cache import policy as cache_policy
+from dingo_tpu_torch.cache.dedupe import build_plan, deduped_rows
+from dingo_tpu_torch.cache.edge import CACHE
 from dingo_tpu_torch.common.config import (
     FLAGS,
     pipeline_depth,
@@ -394,6 +405,11 @@ class SearchCoalescer:
         # hopeless arm is a drop and obeys the admission policy gate
         drops = qp._policy_drops()
         rows = sum(len(e.queries) for e in entries)
+        if drops and cache_policy.dedupe_enabled():
+            # price the batch at the rows dedupe will dispatch: a
+            # duplicate-heavy flush must not be hopeless-shed on phantom
+            # rows (counting rows about to expire only errs conservative)
+            rows = deduped_rows(entries)
         est_run = _EXPIRY_RUN_MARGIN * self._est_run_ms(rows, key=key)
         live: List[_Entry] = []
         for e in entries:
@@ -471,8 +487,26 @@ class SearchCoalescer:
         return entries, run_span, waits_ms, qos
 
     @staticmethod
-    def _fan_out(entries: List[_Entry], results) -> None:
-        """Resolve every entry's future with its contiguous slice."""
+    def _form_batch(entries: List[_Entry], region_id: int):
+        """Stack the survivors' queries, collapsing in-flight duplicates
+        when dedupe is on. Returns (stacked, plan): plan None = contiguous
+        slices; a DedupePlan when rows collapsed (fan-out then goes through
+        ``plan.rows_for``). Runs after expiry and the priority sort."""
+        plan = build_plan(entries) if cache_policy.dedupe_enabled() \
+            else None
+        if plan is None:
+            return np.concatenate([e.queries for e in entries], axis=0), None
+        CACHE.on_dedup(region_id, plan.collapsed)
+        return plan.stacked, plan
+
+    @staticmethod
+    def _fan_out(entries: List[_Entry], results, plan=None) -> None:
+        """Resolve every entry's future: through the dedupe plan when rows
+        collapsed, else with its contiguous slice."""
+        if plan is not None:
+            for i, e in enumerate(entries):
+                e.future.set_result(plan.rows_for(i, results))
+            return
         off = 0
         for e in entries:
             n = len(e.queries)
@@ -506,7 +540,7 @@ class SearchCoalescer:
             {} if (qos and self._run_takes_stages) else None
         )
         try:
-            stacked = np.concatenate([e.queries for e in entries], axis=0)
+            stacked, plan = self._form_batch(entries, entries[0].region_id)
             form_ms = (time.monotonic() - flush_t0) * 1000.0
             run_t0 = time.monotonic()
             if stage_us is not None:
@@ -515,7 +549,7 @@ class SearchCoalescer:
                 results = self.run_fn(key, stacked)
             run_ms = (time.monotonic() - run_t0) * 1000.0
             self._note_run(len(stacked), run_ms, key=key)
-            self._fan_out(entries, results)
+            self._fan_out(entries, results, plan)
             if qos:
                 self._account_stages(entries, waits_ms, form_ms, run_ms,
                                      stage_us)
@@ -582,7 +616,7 @@ class SearchCoalescer:
             {} if "stage_us" in self._dispatch_params else None
         )
         try:
-            stacked = np.concatenate([e.queries for e in entries], axis=0)
+            stacked, plan = self._form_batch(entries, entries[0].region_id)
             if "staged" in self._dispatch_params:
                 if self._staging is None:
                     self._staging = KeyedStaging(pipeline_depth(),
@@ -602,7 +636,7 @@ class SearchCoalescer:
             run_span.detach(token)
             return _Handoff(self, entries, waits_ms, form_ms, dispatch_ms,
                             run_span, staged, thunk, stage_us, qos,
-                            len(stacked), key)
+                            len(stacked), key, plan)
         except Exception as exc:  # noqa: BLE001 — the waiters get it
             run_span.set_error(exc)
             run_span.detach(token)
@@ -706,11 +740,15 @@ class _Handoff:
 
     __slots__ = ("coalescer", "entries", "waits_ms", "form_ms",
                  "dispatch_ms", "run_span", "staged", "thunk", "stage_us",
-                 "qos", "rows", "key")
+                 "qos", "rows", "key", "plan")
 
     def __init__(self, coalescer, entries, waits_ms, form_ms, dispatch_ms,
-                 run_span, staged, thunk, stage_us, qos, rows, key=None):
+                 run_span, staged, thunk, stage_us, qos, rows, key=None,
+                 plan=None):
         self.key = key
+        #: the dedupe fan-out plan (None = contiguous slices); `rows` is
+        #: the deduped row count the kernel ran
+        self.plan = plan
         self.coalescer = coalescer
         self.entries = entries
         self.waits_ms = waits_ms
@@ -736,7 +774,7 @@ class _Handoff:
                                                    resolve_ms)
             c._note_stage_totals(kernel=kernel_ms, rerank=rerank_ms,
                                  resolve=resolve_ms)
-            c._fan_out(self.entries, results)
+            c._fan_out(self.entries, results, self.plan)
             if self.qos:
                 c._account_stages(self.entries, self.waits_ms,
                                   self.form_ms, resolve_ms, self.stage_us,

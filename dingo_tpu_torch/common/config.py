@@ -320,6 +320,61 @@ FLAGS.define("pipeline_depth", 2, mutable=True,
                    "upload can overlap batch N's compute up to this many "
                    "batches in flight (1 = no overlap, 2 = double "
                    "buffering)")
+FLAGS.define("cache_enabled", False, mutable=True,
+             help_="serving-edge result cache + in-flight query dedupe "
+                   "(dingo_tpu_torch/cache/): identical query rows inside "
+                   "one coalescer flush collapse to a single kernel row, "
+                   "and exact repeats of plain searches are answered from "
+                   "a bounded per-region result cache keyed on (query "
+                   "fingerprint, SlotStore.mutation_version, resolved "
+                   "params): a hit costs no queue slot and launches no "
+                   "kernel")
+FLAGS.define("cache_max_bytes", 64 * 1024 * 1024, mutable=True,
+             help_="LRU bound on the result cache's host memory across all "
+                   "regions (approximate accounting: cached rows are (id, "
+                   "distance) pairs). 0 disables caching while leaving "
+                   "in-flight dedupe active")
+FLAGS.define("cache_stale_versions", 1, mutable=True,
+             help_="serve-slightly-stale degrade rung: while a region's "
+                   "shed ladder is degraded (qos.degrade_level > 0) a "
+                   "lookup may fall back to entries at most this many "
+                   "mutation_versions behind the live store. 0 = exact "
+                   "version only, always")
+FLAGS.define("cache_semantic", False, mutable=True,
+             help_="semantic (approximate) cache hits via sq8-quantized "
+                   "query fingerprints: near-identical queries that "
+                   "quantize to the same codes share an entry. Gated live "
+                   "by the shadow-quality estimator: approximate hits "
+                   "serve only while the windowed recall CI lower bound "
+                   "holds quality_slo_recall")
+FLAGS.define("cache_tenant_share", 0.5, mutable=True,
+             help_="per-tenant fairness bound: the fraction of "
+                   "cache_max_bytes any single tenant's entries may occupy "
+                   "(its own inserts evict its own LRU tail past the "
+                   "share). <= 0 or >= 1 disables the bound")
+FLAGS.define("tier_enabled", False, mutable=True,
+             help_="memory-tier ladder (index/tiering.py): a store-local "
+                   "policy loop demotes cold regions along device fp32/bf16 "
+                   "-> device sq8 -> host-RAM sq8 -> mmap'd sq8 codes and "
+                   "promotes them back on re-warm, every transition "
+                   "digest-gated against the state-integrity ledger. "
+                   "Inputs: capacity demote advisories, heat working-set "
+                   "bytes against device headroom, windowed search QPS. "
+                   "Off = regions stay at their declared tier")
+FLAGS.define("tier_demote_headroom", 0.15, mutable=True,
+             help_="free device-memory fraction below which the tier loop "
+                   "demotes the coldest resident region one rung")
+FLAGS.define("tier_promote_qps", 5.0, mutable=True,
+             help_="sustained windowed vector-search QPS above which a "
+                   "demoted region promotes one rung back toward its "
+                   "declared tier (given device headroom to fit it)")
+FLAGS.define("tier_mmap_dir", "", mutable=True,
+             help_="directory for the mmap rung's code files (one "
+                   "region_<id>.codes per demoted region); empty = a "
+                   "per-process temp directory")
+FLAGS.define("tier_interval_s", 30.0, mutable=True,
+             help_="tier policy tick cadence (store crontab): each tick "
+                   "applies at most one transition per store")
 
 FLAGS.define("hnsw_device_search", "auto", mutable=True,
              help_="route HNSW searches through the device graph tier: "
@@ -478,6 +533,15 @@ def pipeline_depth() -> int:
         return max(1, int(FLAGS.get("pipeline_depth")))
     except (TypeError, ValueError):
         return 2
+
+
+def result_cache_enabled() -> bool:
+    """Whole-subsystem gate for the serving-edge cache (dedupe + result
+    cache): one flag read."""
+    v = FLAGS.get("cache_enabled")
+    if isinstance(v, str):
+        return v.strip().lower() in ("true", "1", "on", "yes")
+    return bool(v)
 
 
 def hnsw_device_enabled(device: torch.device) -> bool:

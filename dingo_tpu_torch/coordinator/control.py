@@ -156,6 +156,10 @@ class CoordinatorControl:
         #: region id -> the evidence of a replica divergence at equal
         #: applied indices (state-integrity plane, obs/integrity.py)
         self.integrity_diverged: Dict[int, Dict] = {}
+        #: regions a merge absorbed: a heartbeat whose region list was
+        #: read before its store applied the merge must not bring one back
+        #: (in memory, like store_metrics)
+        self.merged_away: set = set()
         #: control-plane flight recorder (obs/events.py): the merged
         #: cluster timeline of controller decisions harvested from
         #: heartbeats plus the coordinator's own emissions (in memory,
@@ -233,11 +237,14 @@ class CoordinatorControl:
     ) -> List[RegionCmd]:
         """StoreHeartbeat: record metrics, reconcile region topology from the
         store's reported definitions (splits survive leader crashes this
-        way — the immediate split-done report is only a latency optimization),
-        and return pending region commands (HandleStoreHeartbeatResponse
+        way — the immediate split-done report is only a latency optimization;
+        a region a merge absorbed is not brought back by a beat read before
+        its store applied the merge), and return pending region commands (HandleStoreHeartbeatResponse
         flow, store/heartbeat.cc:294)."""
         with self._lock:
             for rd in region_defs:
+                if rd.region_id in self.merged_away:
+                    continue      # a beat older than the merge's report
                 known = self.regions.get(rd.region_id)
                 if known is None or rd.epoch.as_tuple() > known.epoch.as_tuple():
                     self.regions[rd.region_id] = rd
@@ -504,9 +511,9 @@ class CoordinatorControl:
         """Re-derive the arriving store's capacity plan from its beat's
         heat rollups (coordinator/capacity.py): device headroom vs p99
         working-set demand + tier/split recommendations. Fresh DEMOTE
-        advisories become a TIER_DEMOTE region command, which the store
-        acks (the memory-tier ladder that acts on it is not ported). Split
-        advice stays advisory. Runs OUTSIDE the coordinator lock (takes it
+        advisories become a TIER_DEMOTE region command, which flags the
+        region for the store's memory-tier ladder (index/tiering.py) when
+        tier_enabled is on. Split advice stays advisory. Runs OUTSIDE the coordinator lock (takes it
         briefly to store the plan); never raises."""
         try:
             self._update_capacity_inner(store_id, metrics)
@@ -901,6 +908,7 @@ class CoordinatorControl:
     def on_region_merge_done(self, target_id: int, source_id: int,
                              target_def) -> None:
         with self._lock:
+            self.merged_away.add(source_id)
             self.regions.pop(source_id, None)
             self.region_leaders.pop(source_id, None)
             for q in self.store_ops.values():

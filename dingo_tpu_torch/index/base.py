@@ -174,6 +174,55 @@ def tensor_bytes(root, seen: Optional[Tuple[set, set]] = None) -> int:
     return total
 
 
+def _holds_tensor_on(value, dev_type: str) -> bool:
+    import torch
+
+    if isinstance(value, torch.Tensor):
+        return value.device.type == dev_type
+    if isinstance(value, dict):
+        value = value.values()
+    elif not isinstance(value, (list, tuple)):
+        return False
+    return any(_holds_tensor_on(v, dev_type) for v in _members(value))
+
+
+def drop_device_tensors(root) -> None:
+    """Let go of the tensors on a retired index's device, over tensor_bytes'
+    walk: each attribute of the port's objects that holds one (itself, or in
+    a list, tuple or dict) becomes None. No other index and no wrapper is
+    entered. The caller guarantees that nothing searches or writes the
+    index any more; whatever still refers to the object then holds no card
+    memory through it."""
+    import torch
+
+    from dingo_tpu_torch.index.wrapper import VectorIndexWrapper
+
+    dev_type = torch.device(getattr(root, "device", None) or "cpu").type
+    seen: set = set()
+    stack = [root]
+    while stack:
+        obj = stack.pop()
+        if id(obj) in seen:
+            continue
+        seen.add(id(obj))
+        if isinstance(obj, dict):
+            stack.extend(_members(obj.values()))
+            continue
+        if isinstance(obj, (list, tuple)):
+            stack.extend(_members(obj))
+            continue
+        if (not type(obj).__module__.startswith("dingo_tpu_torch")
+                or not hasattr(obj, "__dict__")
+                or isinstance(obj, VectorIndexWrapper)
+                or (isinstance(obj, VectorIndex) and obj is not root)):
+            continue
+        for name, value in list(vars(obj).items()):
+            if _holds_tensor_on(value, dev_type):
+                setattr(obj, name, None)
+            elif not isinstance(value, _ATOMS):
+                stack.append(value)
+
+
 @dataclasses.dataclass
 class FilterSpec:
     """Compiled filter: ranges ([lo, hi) id intervals, OR'd), include_ids

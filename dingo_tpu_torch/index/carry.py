@@ -20,6 +20,13 @@ and the level-0 adjacency) goes through the port's ``TpuHnsw.load``; the
 graph's nlinks and efConstruction come from the blob's header, so the
 host graph, the device mirror and the search defaults all carry over.
 
+``host_rung_from_reference`` carries the serving index of a region on a
+host rung of the memory-tier ladder: the JAX package's ``HostSqFlat.save``
+writes TpuFlat's sq8 form (``flat.npz`` with ids, codes and codec, meta
+precision "sq8", the region's own index type), which loads into the
+port's ``HostSqFlat`` over a ``HostSqSlotStore`` and answers with the
+same ids and distances.
+
 ``region_from_reference`` carries a whole region: the JAX package's
 engine state and region blob go into a port node, which rebuilds the
 region's index from its own engine.
@@ -164,6 +171,36 @@ def hnsw_from_reference(snapshot_dir: Union[str, os.PathLike], device=None,
             precision=meta.get("precision") or "fp32",
             nlinks=int(head[3]), efconstruction=int(head[4]))
     index = new_index(index_id, parameter, device=device)
+    index.load(path)
+    return index
+
+
+def host_rung_from_reference(snapshot_dir: Union[str, os.PathLike],
+                             device=None,
+                             parameter: Optional[IndexParameter] = None,
+                             index_id: int = 0):
+    """Port HostSqFlat (the host_sq8 rung's serving index) from a directory
+    written by the JAX package's ``HostSqFlat.save``. ``parameter`` is
+    inferred when absent: index type, dimension and metric from meta.json
+    (the tier is sq8). `device` is where the store's rows_device uploads."""
+    from dingo_tpu_torch.common.device import resolve_device
+    from dingo_tpu_torch.index.slot_store import HostSqSlotStore
+    from dingo_tpu_torch.index.tiering import HostSqFlat
+
+    path = os.fspath(snapshot_dir)
+    if parameter is None:
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+        if (meta.get("precision") or "sq8") != "sq8":
+            raise InvalidParameter(
+                f"a host-rung snapshot holds sq8 codes, not "
+                f"{meta.get('precision')}")
+        parameter = IndexParameter(
+            index_type=IndexType(meta["index_type"]),
+            dimension=int(meta["dimension"]), metric=Metric(meta["metric"]),
+            precision="sq8")
+    store = HostSqSlotStore(parameter.dimension, resolve_device(device))
+    index = HostSqFlat(index_id, parameter, store)
     index.load(path)
     return index
 

@@ -13,6 +13,8 @@ from typing import Optional, Tuple
 
 VECTOR_PREFIX = b"r"
 MAX_VECTOR_ID = (1 << 63) - 1
+#: a vector id's big-endian int64 (after the prefix byte and the partition)
+VECTOR_ID_STRUCT = struct.Struct(">q")
 
 
 def encode_vector_key(partition_id: int, vector_id: Optional[int] = None,

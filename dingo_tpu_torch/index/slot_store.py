@@ -20,7 +20,10 @@ dingo_tpu/index/slot_store.py).
                 the same values as sqnorm), written in the same slot runs.
   host        — HostSlotStore keeps the same bookkeeping with rows and
                 norms in numpy (IVF_PQ with host_vectors; bf16 rows as
-                their uint16 bit patterns).
+                their uint16 bit patterns). HostSqSlotStore and
+                MmapSqSlotStore keep sq8 codes in host RAM or in an
+                np.memmap file: the host rungs of the memory-tier ladder
+                (index/tiering.py).
 
 Capacity grows by doubling. Deletes are host tombstones; slots freed while
 searches are in flight park in limbo until the last lease ends, so an async
@@ -29,7 +32,9 @@ resolve never translates a reassigned slot.
 
 from __future__ import annotations
 
+import os
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -127,6 +132,16 @@ class SlotStore:
         # search captures vecs/sqnorm/the mask and launches under this lock
         self.device_lock = threading.RLock()
 
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """Host-to-device hook of the write path's row upload: a plain
+        copy. The tier ladder's promotion shadows it with an instance
+        attribute, a staging-ring uploader (common/pipeline.StagingRing),
+        so that bulk code ingest overlaps each chunk's upload with the
+        previous chunk's write (index/tiering.py). An uploader may return
+        more rows than it was given (a ring pads to the pow2 ladder):
+        callers slice."""
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
     # -- bookkeeping -------------------------------------------------------
     def __len__(self) -> int:
         return len(self._id_to_slot)
@@ -207,12 +222,11 @@ class SlotStore:
         bf16 rows rounded (their norms are those of the rounded rows, the
         JAX package's stored-row convention); int8 +/-1 rows go up as they
         are, a quarter of the bytes."""
+        n = len(rows_h)
         if self.dtype == torch.int8:
-            stored = torch.from_numpy(np.ascontiguousarray(
-                rows_h, np.int8)).to(self.device)
+            stored = self._upload(np.ascontiguousarray(rows_h, np.int8))[:n]
             return stored, stored.to(torch.float32)
-        rows = torch.from_numpy(np.ascontiguousarray(
-            rows_h, np.float32)).to(self.device)
+        rows = self._upload(np.ascontiguousarray(rows_h, np.float32))[:n]
         stored = rows.to(self.dtype)
         return stored, stored.to(torch.float32)
 
@@ -397,6 +411,10 @@ class SqSlotStore(SlotStore):
         self.sq_params: Optional[SqParams] = None
         self._sq_vmin_d: Optional[torch.Tensor] = None
         self._sq_scale_d: Optional[torch.Tensor] = None
+        #: (id of the f32 rows, row count, codes) of the latest put():
+        #: canonical_rows of the same batch (the integrity ledger's, right
+        #: after the put) reuses the codes instead of encoding again
+        self._canonical_memo = None
 
     def _row_dtypes(self):
         return (torch.uint8,)
@@ -448,11 +466,20 @@ class SqSlotStore(SlotStore):
     # -- float-facing writes, code-facing storage -------------------------
     def put(self, ids: np.ndarray, vectors: np.ndarray) -> np.ndarray:
         self.maybe_train(vectors)
-        return super().put(ids, self.encode(np.asarray(vectors, np.float32)))
+        codes = self.encode(np.asarray(vectors, np.float32))
+        self._canonical_memo = (id(vectors), len(codes), codes)
+        return super().put(ids, codes)
 
     def canonical_rows(self, rows: np.ndarray) -> np.ndarray:
         """The stored form of prepped rows: their sq8 codes (the integrity
-        ledger's 'rows' artifact of an sq8 store digests codes)."""
+        ledger's 'rows' artifact of an sq8 store digests codes). The codes
+        of the put() just made of the same array are reused (the memo is
+        consumed; every put() refreshes it, so a recycled object id never
+        pairs with stale codes)."""
+        memo = self._canonical_memo
+        if memo is not None and memo[0] == id(rows) and memo[1] == len(rows):
+            self._canonical_memo = None
+            return memo[2]
         return self.encode(np.asarray(rows, np.float32))
 
     def put_codes(self, ids: np.ndarray, codes: np.ndarray) -> np.ndarray:
@@ -463,10 +490,13 @@ class SqSlotStore(SlotStore):
         return super().put(ids, np.asarray(codes, np.uint8))
 
     def _stored_rows(self, rows_h: np.ndarray):
-        # rows_h are codes here; the norms describe their f32 decode
-        codes = np.ascontiguousarray(rows_h, np.uint8)
-        deq = torch.from_numpy(self.decode(codes)).to(self.device)
-        return torch.from_numpy(codes).to(self.device), deq
+        # rows_h are codes here; the norms describe their f32 decode, made
+        # on the device from the uploaded codes (f32 multiply, f32 add: the
+        # host decode's values)
+        codes = self._upload(np.ascontiguousarray(rows_h, np.uint8))
+        codes = codes[:len(rows_h)]
+        return codes, sq_decode_device(codes, self.sq_vmin_d,
+                                       self.sq_scale_d, torch.float32)
 
     def rows_device(self, slots: np.ndarray) -> torch.Tensor:
         idx = torch.as_tensor(np.asarray(slots, np.int64), device=self.device)
@@ -555,6 +585,151 @@ class HostSlotStore(SlotStore):
     def memory_size(self) -> int:
         # host bytes; the device holds only the owner's codes and centroids
         return int(self.vecs.nbytes + self.sqnorm.nbytes)
+
+
+class HostSqSlotStore(SqSlotStore):
+    """SqSlotStore whose uint8 codes and norms live in host RAM (numpy):
+    the host_sq8 rung of the memory-tier ladder (index/tiering.py). A
+    demoted region's codes leave the card, its serving arm becomes a paged
+    exact scan on the host (tiering.HostSqFlat) and its device bytes drop
+    to 0. The float-facing contract stays SqSlotStore's (put() encodes,
+    gather() decodes) and canonical_rows() still returns the codes, so the
+    integrity ledger's 'rows' artifact compares byte for byte across the
+    hbm_sq8, host_sq8 and mmap_sq8 rungs. `device` is only where
+    rows_device uploads."""
+
+    #: rows decoded at a time for the norms of a write (bounds the f32
+    #: temporary of a whole-region transcription)
+    DECODE_CHUNK = 65536
+
+    def _blocked_dtype_ok(self) -> bool:
+        return False   # the codes live on the host: no device scan mirror
+
+    def _alloc_storage(self, capacity: int):
+        return (np.zeros((capacity, self.dim), np.uint8),
+                np.zeros((capacity,), np.float32))
+
+    def _grow_storage(self, pad: int):
+        return (np.concatenate([np.asarray(self.vecs),
+                                np.zeros((pad, self.dim), np.uint8)]),
+                np.concatenate([self.sqnorm, np.zeros((pad,), np.float32)]))
+
+    def _norms(self, codes: np.ndarray) -> np.ndarray:
+        """Norms of the codes' f32 decode, as the JAX package's host store
+        computes them (np.einsum), DECODE_CHUNK rows at a time on a thread
+        each (numpy releases the GIL; a row's value does not depend on its
+        chunk)."""
+        out = np.empty(len(codes), np.float32)
+
+        def one(lo):
+            deq = self.decode(codes[lo:lo + self.DECODE_CHUNK])
+            out[lo:lo + len(deq)] = np.einsum("ld,ld->l", deq, deq)
+
+        starts = range(0, len(codes), self.DECODE_CHUNK)
+        if len(starts) > 1:
+            with ThreadPoolExecutor(min(len(starts),
+                                        os.cpu_count() or 1)) as pool:
+                list(pool.map(one, starts))
+        elif len(codes):
+            one(0)
+        return out
+
+    def _write_runs(self, runs, rows_h: np.ndarray) -> None:
+        # rows_h are codes (put() encodes before the base put)
+        codes = np.ascontiguousarray(rows_h, np.uint8)
+        sq = self._norms(codes)
+        with self.device_lock:
+            for lo, hi, s0 in runs:
+                self.vecs[s0:s0 + hi - lo] = codes[lo:hi]
+                self.sqnorm[s0:s0 + hi - lo] = sq[lo:hi]
+
+    def gather(self, ids: np.ndarray):
+        slots = self.slots_of(ids)
+        found = slots >= 0
+        codes = np.asarray(self.vecs[np.where(found, slots, 0)], np.uint8)
+        if self.sq_params is None:
+            return found, codes.astype(np.float32)
+        return found, self.decode(codes)
+
+    def rows_device(self, slots: np.ndarray) -> torch.Tensor:
+        # the host gather and decode are the upload
+        codes = np.asarray(self.vecs[np.asarray(slots, np.int64)], np.uint8)
+        rows = (codes.astype(np.float32) if self.sq_params is None
+                else self.decode(codes))
+        return torch.from_numpy(rows).to(self.device)
+
+    def codes_to_host(self) -> dict:
+        live = np.flatnonzero(self.ids_by_slot >= 0)
+        return {"ids": self.ids_by_slot[live],
+                "codes": np.asarray(self.vecs[live], np.uint8)}
+
+    def to_host(self) -> dict:
+        snap = self.codes_to_host()
+        codes = snap.pop("codes")
+        snap["vectors"] = (codes.astype(np.float32) if self.sq_params is None
+                           else self.decode(codes))
+        return snap
+
+    def memory_size(self) -> int:
+        # host bytes; this store holds nothing on the device
+        return int(np.asarray(self.vecs).nbytes + self.sqnorm.nbytes)
+
+
+class MmapSqSlotStore(HostSqSlotStore):
+    """HostSqSlotStore whose code array is an np.memmap on disk: the
+    mmap_sq8 rung, the bottom of the ladder. The paged scan faults codes
+    in on demand, so a cold region's steady RAM is its bookkeeping and
+    norms. The file is the raw [capacity, dim] uint8 code matrix, the host
+    rung's bytes."""
+
+    def __init__(self, dim: int, path: str, device: torch.device,
+                 capacity: int = MIN_CAPACITY):
+        # the storage hooks run inside super().__init__: path first
+        self._mmap_path = path
+        super().__init__(dim, device, capacity, blocked=False)
+
+    def _alloc_storage(self, capacity: int):
+        os.makedirs(os.path.dirname(self._mmap_path) or ".", exist_ok=True)
+        return (np.memmap(self._mmap_path, dtype=np.uint8, mode="w+",
+                          shape=(capacity, self.dim)),
+                np.zeros((capacity,), np.float32))
+
+    def _grow_storage(self, pad: int):
+        new_cap = self.capacity + pad
+        self.vecs.flush()
+        with open(self._mmap_path, "r+b") as f:
+            f.truncate(new_cap * self.dim)
+        return (np.memmap(self._mmap_path, dtype=np.uint8, mode="r+",
+                          shape=(new_cap, self.dim)),
+                np.concatenate([self.sqnorm, np.zeros((pad,), np.float32)]))
+
+    @property
+    def path(self) -> str:
+        return self._mmap_path
+
+    def disk_bytes(self) -> int:
+        return int(self.capacity) * int(self.dim)
+
+    def memory_size(self) -> int:
+        # the codes are on disk; the RAM cost is the norm cache
+        return int(self.sqnorm.nbytes)
+
+    def close(self, unlink: bool = True) -> None:
+        """Release the mapping (promotion, retirement): flush, drop the
+        map, optionally unlink the file. A straggling reader then meets a
+        zero-row array and fails loudly instead of touching an unmapped
+        page."""
+        with self.device_lock:
+            try:
+                self.vecs.flush()
+            except (AttributeError, ValueError, OSError):
+                pass
+            self.vecs = np.zeros((0, self.dim), np.uint8)
+        if unlink:
+            try:
+                os.unlink(self._mmap_path)
+            except OSError:
+                pass
 
 
 class SearchLease:

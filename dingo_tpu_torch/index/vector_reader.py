@@ -610,20 +610,41 @@ class VectorReader:
         (ids int64 [<= rows], vectors [<= rows, d]), all from one engine
         scan (the brute-force scan's and the index build's feed)."""
         ids: List[int] = []
-        vecs: List[np.ndarray] = []
+        blobs: List[bytes] = []
         for vid, blob in self._scan_data(*self.ctx.id_window()):
             ids.append(vid)
-            vecs.append(self._deser(blob))
+            blobs.append(blob)
             if len(ids) >= rows:
-                yield np.asarray(ids, np.int64), np.stack(vecs)
-                ids, vecs = [], []
+                yield np.asarray(ids, np.int64), self._page_rows(blobs)
+                ids, blobs = [], []
         if ids:
-            yield np.asarray(ids, np.int64), np.stack(vecs)
+            yield np.asarray(ids, np.int64), self._page_rows(blobs)
+
+    def _page_rows(self, blobs: List[bytes]) -> np.ndarray:
+        """A page's rows [n, d] (writable), read from one joined buffer:
+        every blob is one serialize_vector row of the region's width."""
+        dim = self.ctx.parameter.dimension
+        width, dtype = (dim // 8, np.uint8) if self._binary \
+            else (dim, np.float32)
+        nbytes = width * np.dtype(dtype).itemsize
+        bad = next((len(b) for b in blobs if len(b) != nbytes), None)
+        if bad is not None:
+            raise ValueError(f"a stored row of {bad} bytes in a region of "
+                             f"{nbytes}-byte rows")
+        return np.frombuffer(bytearray(b"".join(blobs)),
+                             dtype).reshape(len(blobs), width)
 
     def _scan_data(self, lo: int, hi: int):
         start = vcodec.encode_vector_key(self.ctx.partition_id, lo)
         end = vcodec.encode_vector_key(self.ctx.partition_id, hi)
+        # prefix + partition + id: the id at bytes 9-17 (decode_vector_key's
+        # layout, read in place for the common full-length key)
+        prefix = vcodec.VECTOR_PREFIX
+        id_at = vcodec.VECTOR_ID_STRUCT.unpack_from
         for key, blob in self._data.iter_visible(start, end, self.ctx.read_ts):
+            if len(key) >= 17 and key[:1] == prefix:
+                yield id_at(key, 9)[0], blob
+                continue
             _, vid, _ = vcodec.decode_vector_key(key)
             if vid is None:
                 continue

@@ -13,7 +13,7 @@ writes stay in the engine until re-materialization.
 from __future__ import annotations
 
 import threading
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -47,6 +47,28 @@ def _merge_results(a: SearchResult, b: SearchResult, topk: int, metric):
     return SearchResult(ids[keep][:topk], d[keep][:topk])
 
 
+class _Pin:
+    """One search's hold on the index it picked, from the pick to its
+    resolve: a retire (index/tiering.py) waits for the pins on an index it
+    swapped out before it frees that index's device tensors. release() is
+    idempotent; __del__ backstops a thunk that is never resolved."""
+
+    __slots__ = ("_owner", "_key", "_done")
+
+    def __init__(self, owner: "VectorIndexWrapper", key: int):
+        self._owner = owner
+        self._key = key
+        self._done = False
+
+    def release(self) -> None:
+        if not self._done:
+            self._done = True
+            self._owner._unpin(self._key)
+
+    def __del__(self):  # noqa: D105
+        self.release()
+
+
 class VectorIndexWrapper:
     def __init__(self, index_id: int, parameter: IndexParameter,
                  save_write_threshold: int = 10000, device=None):
@@ -69,6 +91,9 @@ class VectorIndexWrapper:
         self.snapshot_log_id = 0
         self.write_count = 0
         self.save_write_threshold = save_write_threshold
+        #: id(index) -> searches between their pick and their resolve
+        self._pins: Dict[int, int] = {}
+        self._unpinned = threading.Condition(self._lock)
 
     # -- index lifecycle -----------------------------------------------------
     def build_own(self) -> VectorIndex:
@@ -101,6 +126,35 @@ class VectorIndexWrapper:
             if self.share_index is not None:
                 return self.share_index.active()
             return None
+
+    def _pin(self) -> Tuple[Optional[VectorIndex], Optional[_Pin]]:
+        """active(), with a pin on the index counted by the wrapper that
+        owns it (a split child's pick pins the parent's index)."""
+        with self._lock:
+            if self.ready and self.own_index is not None:
+                idx = self.own_index
+                key = id(idx)
+                self._pins[key] = self._pins.get(key, 0) + 1
+                return idx, _Pin(self, key)
+            if self.share_index is not None:
+                return self.share_index._pin()
+            return None, None
+
+    def _unpin(self, key: int) -> None:
+        with self._lock:
+            n = self._pins[key] - 1
+            if n:
+                self._pins[key] = n
+            else:
+                del self._pins[key]
+                self._unpinned.notify_all()
+
+    def wait_unpinned(self, index: VectorIndex, timeout: float) -> bool:
+        """Wait until no search holds `index` (one swapped out: no new
+        search can pick it). False on timeout."""
+        with self._lock:
+            return self._unpinned.wait_for(
+                lambda: id(index) not in self._pins, timeout)
 
     def is_ready(self) -> bool:
         with self._lock:
@@ -198,13 +252,20 @@ class VectorIndexWrapper:
     def search(self, queries: np.ndarray, topk: int,
                filter_spec: Optional[FilterSpec] = None,
                **kw) -> List[SearchResult]:
-        idx = self.active()
+        idx, pin = self._pin()
         if idx is None:
             raise VectorIndexError(f"vector index {self.id} not ready")
-        results = idx.search(queries, topk, filter_spec, **kw)
+        try:
+            results = idx.search(queries, topk, filter_spec, **kw)
+        finally:
+            pin.release()
         sibling = self.sibling_index
-        if sibling is not None and sibling.active() is not None:
-            other = sibling.active().search(queries, topk, filter_spec, **kw)
+        sib, spin = sibling._pin() if sibling is not None else (None, None)
+        if sib is not None:
+            try:
+                other = sib.search(queries, topk, filter_spec, **kw)
+            finally:
+                spin.release()
             results = [
                 _merge_results(a, b, topk, self.parameter.metric)
                 for a, b in zip(results, other)
@@ -219,16 +280,29 @@ class VectorIndexWrapper:
         thunk around the serial path (the merge needs both on the host).
         ``staged`` (common/pipeline.StagedBatch) passes the serving
         pipeline's upload on to the index."""
-        idx = self.active()
+        idx, pin = self._pin()
         if idx is None:
             raise VectorIndexError(f"vector index {self.id} not ready")
         sibling = self.sibling_index
         if sibling is not None and sibling.active() is not None:
+            pin.release()    # the serial path pins at its own pick
             return lambda: self.search(queries, topk, filter_spec, **kw)
         dispatch = getattr(idx, "search_async", None)
-        if dispatch is None:
-            return lambda: idx.search(queries, topk, filter_spec, **kw)
-        return dispatch(queries, topk, filter_spec, staged=staged, **kw)
+        try:
+            thunk = (dispatch(queries, topk, filter_spec, staged=staged, **kw)
+                     if dispatch is not None else
+                     lambda: idx.search(queries, topk, filter_spec, **kw))
+        except BaseException:
+            pin.release()
+            raise
+
+        def resolve() -> List[SearchResult]:
+            try:
+                return thunk()
+            finally:
+                pin.release()
+
+        return resolve
 
     # -- policies --------------------------------------------------------------
     def need_to_save(self) -> bool:

@@ -10,15 +10,15 @@ Every figure is double-published:
 - as a StoreMetricsSnapshot cached on the collector, attached to the next
   heartbeat so the coordinator aggregates cluster-wide state.
 
-The port fills every field but those of the memory-tier ladder and the
-edge cache (``serving_tier`` and the three ``cache_*`` fields keep the
-snapshot types' defaults): engine key counts and sampled bytes, the
+The port fills every field: engine key counts and sampled bytes, the
 index's state, raft leadership and apply lag, the allocator's bytes in
 use, limit and peak on a CUDA store (through the HBM ledger's poll), the
 per-region device bytes and their peak (``HbmLedger``), the search QPS
 (IndexService's ``vector_search`` series), ``device_degraded``, and the
 observability planes: quality, pressure, integrity, heat, cost, the
-events harvested since the last beat and the live knobs they explain. A
+edge cache's hits, misses and entries, the memory-tier rung serving the
+region (``serving_tier``), the events harvested since the last beat and
+the live knobs they explain. A
 collection pass ticks the flight recorder's metric ring.
 """
 
@@ -214,6 +214,13 @@ class StoreMetricsCollector:
         rm.integrity_digests = digests
         rm.integrity_mismatch = mismatch
         rm.device_degraded = RECOVERY.is_degraded(region.id)
+        # serving-edge cache rollup (cache/): hits, misses, live entries
+        from dingo_tpu_torch.cache.edge import CACHE
+
+        cs = CACHE.region_stats(region.id)
+        rm.cache_hits = int(cs["hits"])
+        rm.cache_misses = int(cs["misses"])
+        rm.cache_entries = int(cs["entries"])
         # workload-heat rollup (obs/heat.py): traffic concentration and
         # the working-set curve at the region's own tier (touches == 0:
         # no evidence)
@@ -229,21 +236,25 @@ class StoreMetricsCollector:
             rm.heat_working_set_p99 = int(hs["ws_bytes"][99])
             rm.heat_touches = int(hs["touches"])
         rm.cost_row_us = float(COST.region_row_us(region.id))
+        # memory-tier ladder (index/tiering.py): the rung serving reads; an
+        # untracked region reports its resident precision's base rung
+        from dingo_tpu_torch.index.tiering import TIERING
+
+        rm.serving_tier = TIERING.region_tier(
+            region.id, getattr(own, "_precision", "") if own else "")
         # the live overrides in force now, as compact JSON: `explain`
-        # reconciles them against the merged event timeline. Without the
-        # memory-tier ladder a region serves at its resident rung
+        # reconciles them against the merged event timeline
         from dingo_tpu_torch.obs.events import events_enabled
 
         if events_enabled():
-            tier = ("hbm_sq8" if getattr(own, "_precision", "") == "sq8"
-                    else "hbm")
+            ts = TIERING.state().get(region.id)
             advisory = self.registry.gauge(
                 "qos.precision_advisory", region.id).get()
             rm.live_knobs = json.dumps({
                 "tuning": dict(getattr(own, "tuning", None) or {}),
                 "advisory_precision": "sq8" if advisory > 0 else "",
-                "tier": tier,
-                "tier_base": tier,
+                "tier": rm.serving_tier,
+                "tier_base": ts["base"] if ts else rm.serving_tier,
             }, sort_keys=True, separators=(",", ":"))
         last = INTEGRITY.last_verified_ms(region.id)
         self.registry.gauge(
@@ -289,7 +300,18 @@ class StoreMetricsCollector:
             INTEGRITY.forget_region(rid)
             HEAT.forget_region(rid)
             COST.forget_region(rid)
+            # the event ledger, the tier ladder, the edge cache and its
+            # stale-serving memo: a departed region's history, rung and
+            # entries must not leak to a region re-created under its id
+            from dingo_tpu_torch.cache import policy as cache_policy
+            from dingo_tpu_torch.cache.edge import CACHE, CODECS
+            from dingo_tpu_torch.index.tiering import TIERING
+
             EVENTS.forget_region(rid)
+            TIERING.forget_region(rid)
+            CACHE.forget_region(rid)
+            CODECS.forget_region(rid)
+            cache_policy.forget_region(rid)
         self._published_regions = current
         g = self.registry.gauge
         g("store.device.bytes_in_use").set(snap.device_bytes_in_use)

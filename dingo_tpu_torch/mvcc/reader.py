@@ -62,9 +62,11 @@ class Reader:
         enc_start = Codec.encode_bytes(start_key)
         enc_end = Codec.encode_bytes(end_key) if end_key else None
         current: Optional[bytes] = None
+        decode_key = Codec.decode_key
+        unpackage = Codec.unpackage_value
         for k, v in self.engine.scan(self.cf, enc_start, enc_end):
             try:
-                uk, kts = Codec.decode_key(k)
+                uk, kts = decode_key(k)
             except ValueError:
                 continue
             if uk == current:
@@ -72,7 +74,7 @@ class Reader:
             if kts > ts:
                 continue  # too new; a later (older-ts) row may be visible
             current = uk
-            flag, payload, ttl = Codec.unpackage_value(v)
+            flag, payload, ttl = unpackage(v)
             if flag is ValueFlag.DELETE:
                 continue
             if flag is ValueFlag.PUT_TTL and ttl <= _now_ms():

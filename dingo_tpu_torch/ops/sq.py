@@ -59,15 +59,22 @@ def sq_train(x: np.ndarray, margin: float = TRAIN_MARGIN) -> SqParams:
 
 def sq_encode(x: np.ndarray, params: SqParams) -> np.ndarray:
     """f32 rows [n, d] -> uint8 codes [n, d]; out-of-range values clip."""
-    x = np.asarray(x, np.float32)
-    q = np.rint((x - params.vmin[None, :]) / params.scale[None, :])
-    return np.clip(q, 0.0, 255.0).astype(np.uint8)
+    # the same operations as rint((x - vmin) / scale) and the clip, in
+    # place on one temporary
+    q = np.asarray(x, np.float32) - params.vmin[None, :]
+    q /= params.scale[None, :]
+    np.rint(q, out=q)
+    np.clip(q, 0.0, 255.0, out=q)
+    return q.astype(np.uint8)
 
 
 def sq_decode(codes: np.ndarray, params: SqParams) -> np.ndarray:
-    """uint8 codes -> the decoded f32 surrogate rows (host)."""
-    return (np.asarray(codes, np.float32) * params.scale[None, :]
-            + params.vmin[None, :])
+    """uint8 codes -> the decoded f32 surrogate rows (host): an f32
+    multiply, then an f32 add, in place on one copy."""
+    out = np.asarray(codes).astype(np.float32)
+    out *= params.scale[None, :]
+    out += params.vmin[None, :]
+    return out
 
 
 def sq_decode_device(codes: torch.Tensor, vmin: torch.Tensor,

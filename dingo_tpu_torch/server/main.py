@@ -10,10 +10,11 @@ port has: the coordinator's store-state update, lease GC and the three
 balance/replica planners; the store's heartbeat, split check, vector-index
 scrub, IVF view compaction, metrics collection, the quality tuner, the
 load-shedding ladder, the integrity scrub, the device-memory watermark
-poll and the flight recorder's node config. The gRPC serving of either
-role, and the store jobs whose modules are not ported (MVCC and scan GC,
-tiering), are not carried. ``maybe_metrics_http`` starts the plain-HTTP
-Prometheus sidecar when ``metrics_http_port`` is set.
+poll, the memory-tier ladder's tick and the flight recorder's node
+config. The gRPC serving of either role, and the store jobs whose modules
+are not ported (MVCC and scan GC), are not carried. ``maybe_metrics_http``
+starts the plain-HTTP Prometheus sidecar when ``metrics_http_port`` is
+set.
 """
 
 from __future__ import annotations
@@ -151,6 +152,16 @@ def store_crontab(node) -> CrontabManager:
         "consistency_scrub",
         float(FLAGS.get("integrity_scrub_interval_s")),
         IntegrityScrubRunner(node, crontab=crontab).tick,
+    )
+    # memory-tier ladder (index/tiering.py): one policy pass a tick,
+    # hot-gated on tier_enabled; a transition is a whole-region copy, so
+    # the tick body runs on its own worker
+    from dingo_tpu_torch.index.tiering import TierRunner
+
+    crontab.add(
+        "memory_tier",
+        float(FLAGS.get("tier_interval_s")),
+        TierRunner(node, crontab=crontab).tick,
     )
     # device-memory watermark poll (per-region owner ledgers refresh with
     # each store_metrics pass) and the flight recorder's node config

@@ -8,8 +8,12 @@ the JAX package's ``_get_coalescer``: every batch goes through the
 region's VectorReader (its id-window filter, its brute-force fallback for
 an untrained index) and the reader fills the coalescer's ``stage_us``
 split. Requests with the same (region, topk, scalar search parameters)
-share a batch. The gRPC server around it is not ported yet: callers submit
-in-process.
+share a batch. With ``cache_enabled`` those requests consult the
+serving-edge cache first (cache/edge.py): a request whose rows all hit
+resolves at once and launches nothing, a partial hit submits only its
+miss rows, and the fresh rows fill the cache when the region's
+mutation_version did not move while they were computed. The gRPC server
+around it is not ported yet: callers submit in-process.
 
     service = IndexService(node, window_ms=2.0, max_batch=64)
     rows = service.submit(1, queries, 10, nprobe=32).result(timeout=30)
@@ -29,6 +33,7 @@ from typing import Optional
 
 import numpy as np
 
+from dingo_tpu_torch.cache import edge as cache_edge
 from dingo_tpu_torch.common.coalescer import SearchCoalescer
 from dingo_tpu_torch.common.config import FLAGS
 from dingo_tpu_torch.common.metrics import METRICS
@@ -95,8 +100,7 @@ class IndexService:
                     for v in kw.values())
         if plain and self.window_ms > 0:
             key = (region_id, int(topk), tuple(sorted(kw.items())))
-            fut = self._get_coalescer().submit(key, queries,
-                                               region_id=region_id)
+            fut = self._submit_cached(key, region_id, queries, int(topk))
         else:
             fut = Future()
             try:
@@ -128,6 +132,54 @@ class IndexService:
                     qp.PRESSURE.on_served(region_id, budget)
 
             fut.add_done_callback(served)
+        return fut
+
+    def _submit_cached(self, key, region_id: int, queries,
+                       topk: int) -> Future:
+        """The coalesced submit wrapped in the edge cache: lookup before
+        the queue (a hit costs no queue slot and no kernel row), fill and
+        merge after the miss rows return."""
+        looked = None
+        if cache_edge.active():
+            region = self.node.get_region(region_id)
+            if region is not None:
+                w = getattr(region, "vector_index_wrapper", None)
+                looked = cache_edge.lookup(
+                    region_id, queries, topk, key[2],
+                    cache_edge.region_version(region),
+                    index=getattr(w, "own_index", None))
+        if looked is None:
+            return self._get_coalescer().submit(key, queries,
+                                                region_id=region_id)
+        fut: Future = Future()
+        if looked.complete:
+            fut.set_result(looked.rows)
+            return fut
+        q = np.asarray(queries)
+        budget = qp.current_budget() if qp.qos_enabled() else None
+        tenant = budget.tenant if budget is not None else "default"
+        inner = self._get_coalescer().submit(key, q[looked.miss_idx],
+                                             region_id=region_id)
+
+        def stitch(f: Future) -> None:
+            exc = f.exception()
+            if exc is not None:
+                fut.set_exception(exc)
+                return
+            try:
+                results = f.result()
+                # the version is read again now: rows that may straddle a
+                # write are served but not cached
+                cache_edge.fill(
+                    region_id, looked, results,
+                    cache_edge.region_version(
+                        self.node.get_region(region_id)),
+                    q, tenant=tenant)
+                fut.set_result(looked.merge(results))
+            except Exception as e:  # noqa: BLE001 — the caller's future
+                fut.set_exception(e)
+
+        inner.add_done_callback(stitch)
         return fut
 
     def close(self, drain: bool = True) -> None:

@@ -430,11 +430,15 @@ class StoreNode:
             if region is not None:
                 self.index_manager.save_index(region)
         elif t is RegionCmdType.TIER_DEMOTE:
-            # capacity-plane handshake: acked without action. The JAX
-            # package flags the region for its memory-tier ladder when
-            # tier_enabled is on (off by default, when it acks the same
-            # way); the ladder is not ported
-            pass
+            # capacity-plane handshake (index/tiering.py): flag the region
+            # for the store's own memory_tier tick, which picks the moment
+            # and the rung. Acked with tiering off too: a command the store
+            # will never act on must not cycle through the coordinator's
+            # retries as a failure
+            from dingo_tpu_torch.index.tiering import TIERING
+
+            if TIERING.enabled():
+                TIERING.note_advisory(cmd.region_id)
         elif t in (RegionCmdType.STOP, RegionCmdType.PURGE):
             self.engine.stop_node(cmd.region_id)
         else:

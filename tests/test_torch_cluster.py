@@ -373,6 +373,50 @@ def test_merge_regions():
     assert_same_modulo_ties(ref["rebuilt"], port["rebuilt"])
 
 
+def _stale_beat_after_merge(p):
+    """Split, merge back, then deliver a heartbeat whose region list a
+    store read before it applied the merge: the child's leader still
+    reporting the child's definition. Returns whether the coordinator's
+    map holds the child afterwards."""
+    transport, coord, nodes = p.cluster()
+    try:
+        d = p.index_region(coord, partition=5, hi=1000)
+        drive_heartbeats(nodes)
+        leader = wait_region_leader(nodes, d.region_id)
+        leader.storage.vector_add(
+            leader.get_region(d.region_id), np.arange(40, dtype=np.int64),
+            np.random.default_rng(3).standard_normal((40, 8)).astype(
+                np.float32))
+        child_id = coord.split_region(
+            d.region_id, p.vcodec.encode_vector_key(5, 20))
+        drive_heartbeats(nodes, rounds=4)
+        time.sleep(0.5)
+        child_leader = wait_region_leader(nodes, child_id)
+        stale = child_leader.get_region(child_id).definition
+        coord.merge_region(d.region_id, child_id)
+        drive_heartbeats(nodes, rounds=4)
+        time.sleep(0.5)
+        assert coord.regions.get(child_id) is None
+        coord.store_heartbeat(child_leader.store_id,
+                              region_ids=[d.region_id, child_id],
+                              leader_region_ids=[child_id],
+                              region_defs=[stale])
+        return coord.regions.get(child_id) is not None
+    finally:
+        stop_nodes(nodes)
+
+
+def test_stale_heartbeat_does_not_bring_back_a_merged_region():
+    """The coordinator reconciles its map from the definitions a store
+    reports as leader; a beat read before the store applied a merge
+    carries the absorbed child. The port keeps merged-away ids out of that
+    reconciliation (ROADMAP section C, fault C10: the smoke's cluster
+    phase waited out its merge on exactly this); the JAX package puts the
+    child back, pinned here as the known difference."""
+    assert _stale_beat_after_merge(Pkg("dingo_tpu_torch")) is False
+    assert _stale_beat_after_merge(Pkg("dingo_tpu")) is True
+
+
 def _split_checker(p):
     transport, coord, nodes = p.cluster()
     try:
@@ -473,8 +517,8 @@ def test_heartbeat_snapshot_carries_device_degraded():
 #: pressure, integrity, heat, cost, events; the search QPS of
 #: IndexService): both packages fill them from the same state, equal;
 #: device_peak_bytes is held by its relation to the region's device bytes
-#: (each package's own layout), and the fields of the memory-tier ladder
-#: and the edge cache, not ported yet, keep the types' defaults
+#: (each package's own layout); the memory-tier ladder's serving_tier and
+#: the edge cache's cache_* fields compare equal like the rest
 PLANE_FIELDS = (
     "search_qps", "device_peak_bytes", "quality_recall",
     "quality_recall_ci_low", "quality_recall_ci_high", "quality_samples",
@@ -484,9 +528,6 @@ PLANE_FIELDS = (
     "heat_hot_fraction", "heat_gini", "heat_working_set_p50",
     "heat_working_set_p90", "heat_working_set_p99", "heat_touches",
     "cost_row_us", "serving_tier", "live_knobs")
-#: of PLANE_FIELDS, those of the tiering and cache planes (not ported)
-DEFAULT_FIELDS = ("cache_hits", "cache_misses", "cache_entries",
-                  "serving_tier")
 #: fields both packages fill from the same state
 SHARED_FIELDS = ("region_id", "key_count", "approximate_bytes",
                  "vector_count", "index_ready", "index_building",
@@ -523,7 +564,6 @@ def _snapshot(p):
 
 def test_metrics_snapshot_fields():
     ref, port = both(_snapshot)
-    defaults = Pkg("dingo_tpu_torch").snapshot.RegionMetricsSnapshot(0)
     for sid, snap in port["snaps"].items():
         rsnap = ref["snaps"][sid]
         assert snap.store_id == rsnap.store_id == sid
@@ -534,9 +574,7 @@ def test_metrics_snapshot_fields():
                     continue     # the leader is whoever won the election
                 assert getattr(rm, f) == getattr(rrm, f), (sid, f)
             for f in PLANE_FIELDS:
-                if f in DEFAULT_FIELDS:
-                    assert getattr(rm, f) == getattr(defaults, f), (sid, f)
-                elif f == "device_peak_bytes":
+                if f == "device_peak_bytes":
                     for m in (rm, rrm):
                         assert m.device_peak_bytes >= \
                             m.device_memory_bytes > 0, (sid, f)
@@ -704,7 +742,7 @@ def test_server_crontab_schedules():
                                      "scrub_vector_index", "ivf_compact",
                                      "store_metrics", "quality_tuner",
                                      "qos_shed", "consistency_scrub",
-                                     "hbm_watermark"}
+                                     "memory_tier", "hbm_watermark"}
         wait_for(lambda: n.get_region(d.region_id) is not None,
                  what="the heartbeat job delivering CREATE")
         wait_for(lambda: bool(coord.get_store_metrics("s0")),

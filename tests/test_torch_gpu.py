@@ -2198,3 +2198,113 @@ def test_diskann_core_on_device(tmp_path):
     core2.close()
     core.destroy()
     assert core.status() is CoreState.UNINIT and not os.path.exists(path)
+
+
+@pytest.mark.parametrize("index_type", ["flat", "ivf_flat"])
+def test_tier_ladder_round_trip_on_the_card(index_type):
+    """The memory-tier ladder (index/tiering.py) on a one-replica store on
+    the card, 16,384 x 128 rows through Storage: hbm -> hbm_sq8 ->
+    host_sq8 -> mmap_sq8 and back. B4-sq8 (FLAT) or B3-sq8 (IVF_FLAT, the
+    IVF crossover forced at d 128; 64-column dimension blocks, so that the
+    blocked mirror exists) launches at hbm_sq8; the host rungs
+    hold 0 device bytes and launch neither kernel; at every rung
+    memory_allocated follows the serving index's device bytes (each
+    replaced index freed: within a quarter of the fp32 index's bytes);
+    the mmap file is removed on promotion; the ids after the round trip
+    equal those before it modulo ties (each reply an exact top-10 at
+    nprobe = nlist)."""
+    import gc
+    import os
+
+    from dingo_tpu_torch.common.config import FLAGS
+    from dingo_tpu_torch.coordinator.control import CoordinatorControl
+    from dingo_tpu_torch.engine.raw_engine import MemEngine
+    from dingo_tpu_torch.index import codec as vcodec
+    from dingo_tpu_torch.index.base import IndexParameter, IndexType
+    from dingo_tpu_torch.index.tiering import TIERING, HostSqFlat
+    from dingo_tpu_torch.ops import kernel_ivf_pruned, kernel_topk_pruned
+    from dingo_tpu_torch.raft import LocalTransport
+    from dingo_tpu_torch.store.node import StoreNode
+    from dingo_tpu_torch.store.region import RegionType
+
+    _cuda()
+    n, d, nlist = 16_384, 128, 16
+    rng = np.random.default_rng(17)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    q = x[:32] + np.float32(0.05) * rng.standard_normal(
+        (32, d)).astype(np.float32)
+    ids = np.arange(n)
+    ivf = index_type == "ivf_flat"
+    kern = (kernel_ivf_pruned.ivf_pruned_topk if ivf
+            else kernel_topk_pruned.pruned_fused_topk)
+    saved = {f: FLAGS.get(f) for f in ("use_pallas_ivf_search",
+                                       "ivf_dim_block")}
+    FLAGS.set("use_pallas_ivf_search", True)
+    FLAGS.set("ivf_dim_block", 64)
+    TIERING.reset()
+    coord = CoordinatorControl(MemEngine(), replication=1)
+    node = StoreNode("s0", LocalTransport(), coord, raft_kw={"seed": 0})
+    try:
+        kw = {"ncentroids": nlist, "default_nprobe": nlist} if ivf else {}
+        dfn = coord.create_region(
+            vcodec.encode_vector_key(0, 0), vcodec.encode_vector_key(1),
+            region_type=RegionType.INDEX, index_parameter=IndexParameter(
+                index_type=IndexType(index_type), dimension=d, **kw))
+        rid = dfn.region_id
+        node.heartbeat_once()
+        _leader_of({"s0": node}, rid)
+        region = node.get_region(rid)
+        for lo in range(0, n, 4096):
+            node.storage.vector_add(region, ids[lo:lo + 4096], x[lo:lo + 4096])
+        if ivf:
+            node.index_manager.rebuild(
+                region, raft_log=node.engine.get_node(rid).log)
+        search_kw = {"nprobe": nlist} if ivf else {}
+
+        def search():
+            return node.storage.vector_batch_search(region, q, 10,
+                                                    **search_kw)
+
+        before = search()
+        _assert_exact(before, x, ids, q)
+        w = region.vector_index_wrapper
+        torch.cuda.synchronize()
+        alloc0 = torch.cuda.memory_allocated()
+        dbytes0 = w.get_device_memory_size()
+        walk = []
+        for kind, name in (("demote", "hbm_sq8"), ("demote", "host_sq8"),
+                           ("demote", "mmap_sq8"), ("promote", "host_sq8"),
+                           ("promote", "hbm_sq8"), ("promote", "hbm")):
+            path = TIERING.state().get(rid, {}) and \
+                TIERING._regions[rid].mmap_path
+            assert getattr(TIERING, kind)(node, region)["ok"]
+            l_sq8 = kern.launches_sq8
+            rows = search()
+            torch.cuda.synchronize()
+            host = isinstance(w.own_index, HostSqFlat)
+            walk.append((name, kern.launches_sq8 - l_sq8,
+                         w.get_device_memory_size()))
+            gc.collect()
+            grown = torch.cuda.memory_allocated() - alloc0
+            assert grown <= (w.get_device_memory_size() - dbytes0
+                             + dbytes0 // 4), (name, grown, walk)
+            if host:
+                assert w.get_device_memory_size() == 0, name
+                assert kern.launches_sq8 == l_sq8, name
+            elif name == "hbm_sq8":
+                assert kern.launches_sq8 > l_sq8, (name, walk)
+            if kind == "promote" and name == "host_sq8":
+                assert path and not os.path.exists(path)
+        after = search()
+        _assert_exact(after, x, ids, q)
+        for a, b in zip(after, before):
+            ia, ib = [v.id for v in a], [v.id for v in b]
+            if ia != ib:          # ties only: the same sorted distances
+                np.testing.assert_allclose(
+                    sorted(v.distance for v in a),
+                    sorted(v.distance for v in b), rtol=RTOL, atol=ATOL)
+    finally:
+        node.stop()
+        TIERING.reset()
+        for f, v in saved.items():
+            FLAGS.set(f, v)

@@ -97,6 +97,12 @@ _BLOCKED_IMPORT = textwrap.dedent("""
             "dingo_tpu_torch.obs.heat", "dingo_tpu_torch.obs.cost",
             "dingo_tpu_torch.obs.flight", "dingo_tpu_torch.metrics.device",
             "dingo_tpu_torch.metrics.http"} <= set(names), names
+    # the memory-tier ladder and the serving-edge cache
+    assert {"dingo_tpu_torch.index.tiering", "dingo_tpu_torch.cache",
+            "dingo_tpu_torch.cache.keys", "dingo_tpu_torch.cache.store",
+            "dingo_tpu_torch.cache.policy", "dingo_tpu_torch.cache.dedupe",
+            "dingo_tpu_torch.cache.edge",
+            "dingo_tpu_torch.index.carry"} <= set(names), names
     import chip_smoke  # the on-card smoke script imports nothing of JAX either
     import precision_check  # nor does the f32-against-f64 check
     bad = [m for m in sys.modules
