@@ -5,8 +5,8 @@
     python3 chip_smoke.py --n 131072 --nlist 128   # a quicker, smaller run
     python3 chip_smoke.py --hnsw-n 131072          # a smaller HNSW build
 
-Builds the port's seven CUDA kernel libraries from ``dingo_tpu_torch/csrc``
-(one nvcc per source, in parallel), thirteen kernels and arms in all:
+Builds the port's eight CUDA kernel libraries from ``dingo_tpu_torch/csrc``
+(one nvcc per source, in parallel), fourteen kernels and arms in all:
 
   B1 fused_topk         csrc/fused_topk.cu         FLAT scan, pruning off
                                                    or d not in 128-column
@@ -28,7 +28,12 @@ Builds the port's seven CUDA kernel libraries from ``dingo_tpu_torch/csrc``
   G  candidate_scores   csrc/beam_scores.cu        HNSW walk and build: a
                                                    score per live candidate
                                                    slot (an XLA program
-                                                   there)
+                                                   there); per-pair arm
+     candidate_scores_block csrc/beam_block.cu     its block arm, the build
+                                                   walk's rounds: each
+                                                   distinct row of a
+                                                   64-query block read
+                                                   once, tensor cores
 
 then serves an IVF_FLAT region the way the Index role does: raft-ordered
 adds through VectorIndexWrapper, a brute-force FLAT search while the
@@ -168,9 +173,17 @@ does not fit the smoke's time beside the cluster phase): the device bulk build
 (rows/s split into the walk, the occlusion selection and the reprune;
 reverse_dropped), recall@10 >= 0.95 against exact top-10 computed on the
 card, pipelined ms per 64-query batch, the walk's hops / visited slots /
-occupancy, kernel G's launches, live-candidate share, time against its
-bound and parity with its plain version, device bytes, and a dispatch
-under the sync-debug mode; then a 20,000-row HNSW index whose host graph
+occupancy, kernel G's launches and live-candidate share, device bytes,
+and a dispatch under the sync-debug mode; kernel G by call site (the
+build's walk seed and rounds, selection and reprune; the search's seed
+and rounds): device time, launches and live share in windows of build
+batches (the designs the shapes take) and in a search with each of its
+two designs, its share of the build's phases and of a search, and on
+each site's busiest launch both designs against the plain version, bit
+for bit on a second launch, timed in turns, beside each design's bound;
+G's launches on the main path are read before any search with a swapped
+design; the search pipelined with each design in turns, 10 pairs; then
+a 20,000-row HNSW index whose host graph
 takes the writes (its one-thread native inserts run beside the HNSW
 phase; device walk against host walk at equal ef, upserts and deletes,
 filter pushdown, save/load). Each phase that serves through the wrappers
@@ -4911,27 +4924,318 @@ def exact_topk_device(x, q, k: int, dev=None):
     return best_i.cpu().numpy()
 
 
-def g_capture():
-    """Spy on kernel G (ops/kernel_beam.candidate_scores) that keeps a copy
-    of the arguments of the launch with the most live candidate slots."""
+#: batches of each window of G's per-site measurement in the bulk build
+G_WINDOW = 8
+#: rounds (pair, block, block, pair) of the HNSW search pipelined with each
+#: of G's designs in turns
+G_TURNS = 5
+#: GPU clock cycles a G measurement sleeps the stream before its first
+#: event (~0.5 ms), so that the wrapper's host work is queued behind it
+#: and the events read device time only
+G_SLEEP_CYCLES = 1_000_000
+
+
+def g_site(prefix: str, slots, beam_deg: int) -> str:
+    """The call site of a G launch by its slots' shape: the walk's seed
+    ([b, 1]) and rounds ([b, beam x degree]); in the build, the
+    occlusion selection and the reprune ([1024, degree + window])."""
+    from dingo_tpu_torch.ops.graph_build import REVERSE_WINDOW
+
+    c = slots.shape[1]
+    if c == 1:
+        return f"{prefix}.seed"
+    if c == beam_deg:
+        return f"{prefix}.rounds"
+    if c == 2 * HNSW_NLINKS + REVERSE_WINDOW:
+        return f"{prefix}.reprune"
+    return f"{prefix}.select"
+
+
+def time_dev_ms(fn, torch, iters: int = 10, warmup: int = 2) -> float:
+    """Device ms a call of fn: the stream sleeps first, so that the host's
+    launches queue behind it and the events see no host gap."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(G_SLEEP_CYCLES * max(1, iters // 2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def g_sites_spy(beam_deg: int, batch_rows: int, timings: dict):
+    """A spy on kernel G for the bulk build and the search, which calls the
+    wrapper as it is (the launches it counts are the main path's): per
+    window and call site (g_site; "build.rounds") the device time of every
+    launch (events around the wrapper after a stream sleep, so no host
+    time), launches, slots and live slots, and per site a copy of the
+    queries and slots of its busiest launch (most live slots). The build's
+    windows are G_PLAN's, each G_WINDOW `batch_rows`-row batches long,
+    entered at the walk's seed launches once `st["armed"]` is set: a
+    measured window records its launches under its name; an unmeasured
+    one only snapshots the graph builder's `timings` at its ends (no
+    sleep, no event). `st["search"]` = name records a search's launches
+    instead. Returns (orig, spy, st)."""
     import torch
 
     from dingo_tpu_torch.ops import kernel_beam
 
     orig = kernel_beam.candidate_scores
-    best: dict = {"live": -1}
+    st = {"armed": False, "seeds": 0, "search": None, "rec": {},
+          "best": {}, "times": {}}
+
+    def window():
+        i = (st["seeds"] - 1) // G_WINDOW
+        return G_PLAN[i] if 0 <= i < len(G_PLAN) else None
 
     def spy(*a, **kw):
+        slots = a[3]
+        build_seed = (st["search"] is None and slots.shape[1] == 1
+                      and slots.shape[0] == batch_rows)
+        if st["armed"] and build_seed:
+            # a build batch starts: close the last window, open the next
+            st["seeds"] += 1
+            if (st["seeds"] - 1) % G_WINDOW == 0:
+                i = (st["seeds"] - 1) // G_WINDOW
+                if 0 < i <= len(G_PLAN):
+                    w0 = G_PLAN[i - 1][0]
+                    st["times"][w0] = (st["times"][w0], dict(timings))
+                if i < len(G_PLAN):
+                    st["times"][G_PLAN[i][0]] = dict(timings)
+                else:
+                    st["armed"] = False
+        if st["search"] is not None:
+            name, measured = st["search"], True
+        else:
+            w = window() if st["armed"] else None
+            name, measured = w if w else (None, False)
+        if not measured:
+            return orig(*a, **kw)
+        site = g_site(name, slots, beam_deg)
+        torch.cuda._sleep(G_SLEEP_CYCLES)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
         out = orig(*a, **kw)
-        live = int((a[3] >= 0).sum())
-        if live > best["live"]:
-            best["live"] = live
-            best["args"] = [v.clone() if torch.is_tensor(v) else v
-                            for v in a]
+        e1.record()
+        live = int((slots >= 0).sum())
+        r = st["rec"].setdefault(site, [0.0, 0, 0, 0])
+        r[0] += e0.elapsed_time(e1)
+        r[1] += 1
+        r[2] += slots.numel()
+        r[3] += live
+        # the busiest launch of a site over the build's or the searches'
+        # windows
+        key = name.split(".")[0] + "." + site.rsplit(".", 1)[1]
+        best = st["best"].get(key)
+        if best is None or live > best["live"]:
+            st["best"][key] = {"live": live, "site": key, "args": [
+                a[0].clone(), a[1], a[2], slots.clone(), *a[4:]]}
         return out
 
     spy.__dict__ = orig.__dict__
-    return orig, spy, best
+    return orig, spy, st
+
+
+#: the build's windows of G's per-site measurement: (name, measured); the
+#: unmeasured ones time the graph builder's phases without the spy's
+#: sleeps and events
+G_PLAN = [("build", True), ("clean", False), ("clean2", False)]
+#: the graph builder's timed phase that holds each G call site
+G_PHASE = {"seed": "walk", "rounds": "walk", "select": "select",
+           "reprune": "reprune"}
+
+
+class g_designs:
+    """Within the block, G's designs as `arm` says, for the comparisons in
+    turns: "pair" every launch on the per-pair arm (G before the block arm
+    came), "block" every launch of at least BLOCK_MIN_SLOTS slots a query
+    on the block arm where it fits (whatever the query count). The
+    wrapper's choice (kernel_beam.takes_block_arm) is swapped for the
+    block's length; the launches made there are the caller's to leave out
+    of the main path's counts."""
+
+    def __init__(self, arm: str):
+        self.arm = arm
+
+    def __enter__(self):
+        from dingo_tpu_torch.ops import kernel_beam as kb
+
+        self.orig = kb.takes_block_arm
+        kb.takes_block_arm = (
+            (lambda q, v, s: False) if self.arm == "pair" else
+            (lambda q, v, s: s.shape[1] >= kb.BLOCK_MIN_SLOTS
+             and kb.block_arm_fits(q, v, s)))
+        return self
+
+    def __exit__(self, *exc):
+        from dingo_tpu_torch.ops import kernel_beam as kb
+
+        kb.takes_block_arm = self.orig
+        return False
+
+
+def g_build_sites(gst: dict, card: str, batch_rows: int) -> dict:
+    """G in the bulk build, each design by shape: each call site's device
+    time, launches, slots and live share a batch (the measured window),
+    and G's share of the graph builder's walk, selection and reprune
+    seconds a batch (the two clean windows, which ran without the spy's
+    sleeps and events)."""
+    spans = [gst["times"].get(w) for w in ("clean", "clean2")]
+    spans = [sp for sp in spans if isinstance(sp, tuple)]
+    if not spans:
+        print(f"[{card}] G in the build: not measured (the build ended "
+              "before its windows)", flush=True)
+        return {}
+    phase_s = {ph: float(np.mean([(t1.get(ph, 0.0) - t0.get(ph, 0.0))
+                                  / G_WINDOW for t0, t1 in spans]))
+               for ph in ("walk", "select", "reprune")}
+    g_ms = dict.fromkeys(phase_s, 0.0)
+    sites = {}
+    for site, (ms, n, slots, live) in sorted(gst["rec"].items()):
+        if not site.startswith("build."):
+            continue
+        kind = site.rsplit(".", 1)[1]
+        g_ms[G_PHASE[kind]] += ms / G_WINDOW
+        sites[kind] = {"ms_batch": ms / G_WINDOW,
+                       "launches_batch": n / G_WINDOW,
+                       "slots_batch": slots / G_WINDOW,
+                       "live_share": live / max(1, slots)}
+        print(f"[{card}] G build {kind}: {ms / G_WINDOW:.3f} ms device time "
+              f"a batch, {n / G_WINDOW:.2f} launches, {slots / G_WINDOW:.0f}"
+              f" slots ({live / max(1, slots):.4f} live)", flush=True)
+    rows_s = batch_rows / max(1e-9, sum(phase_s.values()))
+    print(f"[{card}] G build share (graph builder timings a batch over "
+          f"{len(spans)} windows of {G_WINDOW}): " + "; ".join(
+              f"{ph} {phase_s[ph] * 1e3:.2f} ms, G {g_ms[ph]:.2f} ms "
+              f"({g_ms[ph] / max(1e-9, phase_s[ph] * 1e3):.1%})"
+              for ph in phase_s)
+          + f"; {rows_s:.1f} rows/s over the three", flush=True)
+    return {"phase_s": phase_s, "g_ms": g_ms, "sites": sites,
+            "rows_s": rows_s}
+
+
+def g_search_sites(gst: dict, card: str, turns: dict) -> dict:
+    """G in a search of the HNSW phase, per design (g_designs): each call
+    site's device time, launches and live share, and G's share of the
+    search's pipelined ms (the same design's, taken in turns)."""
+    res = {}
+    for arm in ("pair", "block"):
+        tot = 0.0
+        for site, (ms, n, slots, live) in sorted(gst["rec"].items()):
+            if not site.startswith(f"search.{arm}."):
+                continue
+            tot += ms
+            print(f"[{card}] G search {site.rsplit('.', 1)[1]}, {arm} arm: "
+                  f"{ms:.3f} ms device time, {n} launches, {slots} slots "
+                  f"({live / max(1, slots):.4f} live)", flush=True)
+        pipe = median_spread(turns[arm])[0]
+        print(f"[{card}] G in a search, {arm} arm: {tot:.3f} ms of the "
+              f"pipelined {pipe:.3f} ms a 64-query batch ({tot / pipe:.1%}; "
+              f"pipelined readings {', '.join(f'{v:.3f}' for v in turns[arm])}"
+              " ms, in turns pair, block, block, pair)", flush=True)
+        res[arm] = {"g_ms": tot, "pipe_ms": pipe, "pipe_reads": turns[arm]}
+    return res
+
+
+def g_bounds(nbytes: float, live: int, d: int, dtype) -> dict:
+    """Each design's bound on one launch: the bytes side (`nbytes` at the
+    memory rate) against the operations that design does at its peak: 2 d
+    a live pair on the CUDA cores at the f32 rate (the per-pair arm), or
+    on the tensor cores (the block arm: f32 rows in SPLIT_PASSES TF32
+    passes, bf16 and sq8 rows as bf16)."""
+    import torch
+
+    flops = 2.0 * d * live
+    if dtype == torch.float32:
+        block_ops, block_peak = SPLIT_PASSES * flops, PEAK_TF32_FLOPS
+    else:
+        block_ops, block_peak = flops, PEAK_BF16_FLOPS
+    return {"pair": bound_of(nbytes, flops, PEAK_F32_FLOPS),
+            "block": bound_of(nbytes, block_ops, block_peak),
+            "bytes_ms": nbytes / PEAK_BYTES * 1e3,
+            "f32_ops_ms": flops / PEAK_F32_FLOPS * 1e3,
+            "tc_ops_ms": block_ops / block_peak * 1e3}
+
+
+def g_site_launch(key: str, best: dict, card: str, d: int) -> dict:
+    """Kernel G on a call site's busiest launch: each design's launcher
+    (kernel_beam._scores_pair, _scores_block; they count nothing) against
+    the plain version, each design's result repeated bit for bit, their
+    device times in turns (pair, block, block, pair), and each design's
+    bound (g_bounds): the distinct live rows and their norms read once,
+    the slots read and the scores written once."""
+    import torch
+
+    from dingo_tpu_torch.ops import kernel_beam
+
+    fns = {"pair": kernel_beam._scores_pair,
+           "block": kernel_beam._scores_block}
+    a = best["args"]
+    slots = a[3]
+    b_, c_ = slots.shape
+    live = best["live"]
+    pv = kernel_beam.candidate_scores_plain(*a)
+    fin = torch.isfinite(pv)
+    res = {"site": best["site"], "b": b_, "c": c_, "live": live,
+           "auto": "block" if kernel_beam.takes_block_arm(a[0], a[1], slots)
+           else "pair"}
+    for arm, fn in fns.items():
+        kv = fn(*a)
+        again = fn(*a)
+        ok = bool(torch.equal(fin, torch.isfinite(kv)) and torch.allclose(
+            kv[fin], pv[fin], rtol=RTOL, atol=ATOL))
+        res[f"{arm}_err"] = (float((kv[fin] - pv[fin]).abs().max())
+                             if bool(fin.any()) else 0.0)
+        res[f"{arm}_ok"] = ok
+        res[f"{arm}_repeat"] = bool(torch.equal(kv.view(torch.int32),
+                                                again.view(torch.int32)))
+    reads = {"pair": [], "block": []}
+    for _ in range(ROUNDS):
+        for arm in ("pair", "block", "block", "pair"):
+            reads[arm].append(time_dev_ms(lambda: fns[arm](*a), torch))
+    res["plain_ms"] = time_ms(lambda: kernel_beam.candidate_scores_plain(*a),
+                              torch, iters=2, warmup=1)
+    rows = int(torch.unique(slots[slots >= 0]).numel())
+    esize = a[1].element_size()
+    nbytes = rows * (d * esize + 4) + b_ * c_ * 8 + b_ * d * 4
+    res["rows"] = rows
+    bd = g_bounds(nbytes, live, d, a[1].dtype)
+    res.update({k_: bd[k_] for k_ in ("bytes_ms", "f32_ops_ms", "tc_ops_ms")})
+    for arm in ("pair", "block"):
+        res[f"{arm}_bound"], res[f"{arm}_by"] = bd[arm]
+        res[f"{arm}_ms"] = median_spread(reads[arm])[0]
+        res[f"{arm}_reads"] = reads[arm]
+    half = res["block_ms"] <= 2.0 * res["block_bound"]
+    check(res["pair_ok"] and res["block_ok"],
+          f"G on {best['site']}'s busiest launch: both designs == the plain "
+          f"version (max abs err pair {res['pair_err']:.3e}, block "
+          f"{res['block_err']:.3e})")
+    check(res["pair_repeat"] and res["block_repeat"],
+          f"G on {best['site']}'s busiest launch: a second launch gives the "
+          "same bits (both designs)")
+    tc = ("3xTF32 at TF32" if a[1].dtype == torch.float32 else "bf16 at bf16")
+    print(f"[{card}] G {best['site']} busiest launch [{b_}, {c_}], live "
+          f"{live} ({live / (b_ * c_):.4f}), {rows} distinct live rows "
+          f"({live / max(1, rows):.2f} pairs a row): block arm "
+          f"{spread_text(reads['block'])}; per-pair arm "
+          f"{spread_text(reads['pair'])} (in turns); plain "
+          f"{res['plain_ms']:.4f} ms; bytes {res['bytes_ms']:.4f} ms at "
+          f"{PEAK_BYTES / 1e12:.2f} TB/s; operations {res['f32_ops_ms']:.4f}"
+          f" ms on the CUDA cores (f32, {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s)"
+          f", {res['tc_ops_ms']:.4f} ms on the tensor cores ({tc} peak); "
+          f"block arm {res['block_ms'] / res['block_bound']:.2f}x its bound "
+          f"{res['block_bound']:.4f} ms ({res['block_by']}, tensor cores), "
+          f"{'within' if half else 'not within'} twice it; per-pair arm "
+          f"{res['pair_ms'] / res['pair_bound']:.2f}x its bound "
+          f"{res['pair_bound']:.4f} ms ({res['pair_by']}, CUDA cores); the "
+          f"shape takes the {res['auto']} arm", flush=True)
+    return res
 
 
 def hnsw_phase(n_h: int, card: str) -> dict:
@@ -4939,9 +5243,16 @@ def hnsw_phase(n_h: int, card: str) -> dict:
     device bulk build (build rows/s split into walk, occlusion selection
     and reprune, reverse_dropped), recall@10 at ef 200 against exact top-10
     computed on the card, pipelined ms per 64-query batch, the walk's
-    hops / visited / occupancy, kernel G's launches, live-candidate share,
-    time against its bound and parity with its plain version on a captured
-    launch, device bytes, and a dispatch under the sync-debug mode."""
+    hops / visited / occupancy, kernel G's launches and live-candidate
+    share, device bytes, and a dispatch under the sync-debug mode. Kernel
+    G by call site (g_sites_spy): its device time, launches, pairs and
+    live share in a window of build batches (the designs the shapes take)
+    and in a search with each design (g_designs); its share of the
+    build's walk, selection and reprune (windows without the spy's sleeps)
+    and of a search; each site's busiest launch on both designs against
+    the plain version and each design's bound (g_site_launch); the search
+    pipelined with each design in turns. G's launches on the main path
+    are read before any search with a swapped design."""
     import torch
 
     from dingo_tpu_torch.common.metrics import METRICS
@@ -4963,7 +5274,8 @@ def hnsw_phase(n_h: int, card: str) -> dict:
     idx = new_index(50, param)
     check(isinstance(idx, TpuHnsw) and idx.device.type == "cuda",
           "new_index(HNSW) builds the port's TpuHnsw on the card")
-    for attr in ("launches", "launches_bf16", "launches_sq8"):
+    for attr in ("launches", "launches_bf16", "launches_sq8", "block",
+                 "pair"):
         setattr(g, attr, 0)
     out: dict = {}
 
@@ -4972,13 +5284,22 @@ def hnsw_phase(n_h: int, card: str) -> dict:
     check(sess is not None, "hnsw_device_build 'auto' takes the device bulk "
           "build for a CUDA store")
     sess.builder.timings = {}
+    beam_deg = idx._beam_width(HNSW_EFC, 1) * idx._graph_deg
+    orig, spy, gst = g_sites_spy(beam_deg, sess.builder.batch_rows,
+                                 sess.builder.timings)
+    kernel_beam.candidate_scores = spy
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for lo in range(0, n_h, 65536):
-        hi = min(n_h, lo + 65536)
-        sess.add(np.arange(lo, hi, dtype=np.int64), x[lo:hi])
-    stats = sess.finish()
-    torch.cuda.synchronize()
+    try:
+        for lo in range(0, n_h, 65536):
+            hi = min(n_h, lo + 65536)
+            # G's windows start half way through the build
+            gst["armed"] |= gst["seeds"] == 0 and hi > n_h // 2
+            sess.add(np.arange(lo, hi, dtype=np.int64), x[lo:hi])
+        stats = sess.finish()
+        torch.cuda.synchronize()
+    finally:
+        kernel_beam.candidate_scores = orig
     build_s = time.perf_counter() - t0
     tm = sess.builder.timings
     out["build_launches"] = g.launches
@@ -4996,6 +5317,10 @@ def hnsw_phase(n_h: int, card: str) -> dict:
     check(stats["rows"] == n_h and idx.get_count() == n_h,
           f"HNSW bulk build holds {n_h} rows")
     check(g.launches > 0, "the bulk build launched kernel G")
+    check(g.block > 0 and g.pair > 0, "the bulk build launched both of G's "
+          f"designs (block arm {g.block}, per-pair arm {g.pair})")
+    out["build_block"], out["build_pair"] = g.block, g.pair
+    out["g_build"] = g_build_sites(gst, card, sess.builder.batch_rows)
     check(idx._native_pending, "the bulk-built graph is not back-filled "
           "into the host graph (no host-path use)")
 
@@ -5066,45 +5391,54 @@ def hnsw_phase(n_h: int, card: str) -> dict:
           + (f" ({synced})" if synced else ""))
     if th is not None:
         th()
-    # the main path's launches: the build and every search above; the
-    # capture, parity and timing launches below are not counted
-    launches = g.launches + g.launches_bf16 + g.launches_sq8
+    # the main path's launches: the build and every search above, each
+    # design as the shapes chose it; the searches with a swapped design
+    # and the parity and timing launches below are not counted
+    launches = {"block": g.block, "pair": g.pair}
+    search_block = launches["block"] > out["build_block"]
+    check(launches["block"] + launches["pair"] > out["build_block"]
+          + out["build_pair"], "the main path's searches launched G")
 
-    # -- kernel G on its busiest launch of a search ---------------------------
-    orig, spy, best = g_capture()
+    # -- kernel G by call site in a search, each design; pipelined in turns --
     kernel_beam.candidate_scores = spy
     try:
-        idx.search(queries, k, ef=HNSW_EF)
+        for arm in ("pair", "block"):
+            gst["search"] = f"search.{arm}"
+            with g_designs(arm):
+                idx.search(queries, k, ef=HNSW_EF)
     finally:
         kernel_beam.candidate_scores = orig
-    a = best["args"]
-    kv = g(*a)
-    pv = kernel_beam.candidate_scores_plain(*a)
-    fin = torch.isfinite(pv)
-    ok = bool(torch.equal(fin, torch.isfinite(kv)) and torch.allclose(
-        kv[fin], pv[fin], rtol=RTOL, atol=ATOL))
-    err = float((kv[fin] - pv[fin]).abs().max()) if bool(fin.any()) else 0.0
-    check(ok, f"G == its plain version on a search's busiest launch (max abs"
-          f" err {err:.3e}, {best['live']} live of {a[3].numel()} slots)")
-    reads, plain_reads = [], []
-    for _ in range(ROUNDS):
-        reads.append(time_ms(lambda: g(*a), torch, iters=10))
-        plain_reads.append(time_ms(
-            lambda: kernel_beam.candidate_scores_plain(*a), torch, iters=3,
-            warmup=1))
-    live = best["live"]
-    b_, c_ = a[3].shape
-    # each input read once: the distinct live rows and their norms (queries
-    # share rows), the slots; the scores written once
-    rows = int(torch.unique(a[3][a[3] >= 0]).numel())
-    nbytes = rows * (d * 4 + 4) + b_ * c_ * 8 + b_ * d * 4
-    bound, by = bound_of(nbytes, 2.0 * d * live)
-    g_ms = median_spread(reads)[0]
-    print(f"[{card}] G candidate_scores b={b_} C={c_} live {live} d={d}: "
-          f"{spread_text(reads)}, plain {median_spread(plain_reads)[0]:.4f} "
-          f"ms, bound {bound:.4f} ms ({by}: {rows} distinct live rows and "
-          f"norms, slots and scores at {PEAK_BYTES / 1e12:.2f} TB/s), "
-          f"{g_ms / bound:.2f}x the bound", flush=True)
+        gst["search"] = None
+    turns = {"pair": [], "block": []}
+    for _ in range(G_TURNS):
+        for arm in ("pair", "block", "block", "pair"):
+            with g_designs(arm):
+                idx.search_async(queries, k, ef=HNSW_EF)()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for th in [idx.search_async(queries, k, ef=HNSW_EF)
+                           for _ in range(reps)]:
+                    th()
+                turns[arm].append((time.perf_counter() - t0) * 1e3 / reps)
+    out["pipe_turns"] = {a_: median_spread(v)[0] for a_, v in turns.items()}
+    out["g_search"] = g_search_sites(gst, card, turns)
+    wins = sum(p_ > b_ for p_, b_ in zip(turns["pair"], turns["block"]))
+    print(f"[{card}] HNSW pipelined in turns: the block arm faster in {wins}"
+          f" of {len(turns['pair'])} pairs of readings; medians pair "
+          f"{out['pipe_turns']['pair']:.3f} ms, block "
+          f"{out['pipe_turns']['block']:.3f} ms; the search's rounds take "
+          f"the {'block' if search_block else 'per-pair'} arm by shape",
+          flush=True)
+
+    # -- kernel G on each call site's busiest launch -------------------------
+    sites = {}
+    for key in ("search.rounds", "build.rounds", "build.select",
+                "build.reprune", "search.seed", "build.seed"):
+        if key in gst["best"]:
+            sites[key] = g_site_launch(key, gst["best"][key], card, d)
+    check("search.rounds" in sites and "build.rounds" in sites,
+          "G's busiest launches of the search and build walk rounds were "
+          "captured")
 
     # -- device bytes -------------------------------------------------------
     st = idx.store
@@ -5118,9 +5452,7 @@ def hnsw_phase(n_h: int, card: str) -> dict:
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     out.update({
         "recall": rec, "launches_search": per_search, "live_share": share,
-        "hops": hops, "err": err, "ok": ok, "ms": g_ms,
-        "reads": reads, "plain_ms": median_spread(plain_reads)[0],
-        "bound": bound, "by": by, "launches": launches})
+        "hops": hops, "launches": launches, "sites": sites})
     return out
 
 
@@ -6099,6 +6431,7 @@ def run(args) -> int:
     kernel_pq._launcher()
     kernel_pq._lut_launcher()
     kernel_beam._launcher()
+    kernel_beam._block_launcher()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in cuda_build.build_logs.items():
         for line in log.splitlines():
@@ -6853,17 +7186,40 @@ def run(args) -> int:
                + kernels[3:4] + [tiers["pruned_fused_topk_bf16"],
                                  tiers["pruned_fused_topk_sq8"]]
                + kernels[4:])
-    # G: the HNSW phase's launches (its build and searches), its busiest
-    # search launch against the plain version and the live rows' bound
-    e = entry("candidate_scores", "beam_scores.cu",
-              "dingo_tpu/ops/beam.py:55 (XLA _candidate_scores, no Pallas "
-              "kernel)", hnsw["launches"], hnsw["err"], hnsw["ms"],
-              hnsw["plain_ms"], hnsw["bound"], hnsw["by"], hnsw["ok"], 0)
-    _, e["ms_min"], e["ms_max"] = median_spread(hnsw["reads"])
-    e["launches_build"] = hnsw["build_launches"]
+    # G, its two designs: the HNSW phase's main-path launches of each (its
+    # build and the searches before any swapped design); each design on
+    # the busiest launch of the sites it takes by shape, against the plain
+    # version and that design's bound; every site's numbers beside them
+    sites = hnsw["sites"]
+    g_rep = "dingo_tpu/ops/beam.py:55 (XLA _candidate_scores, no Pallas " \
+        "kernel)"
+    for arm, src in (("pair", "beam_scores.cu"), ("block", "beam_block.cu")):
+        name = "candidate_scores" + ("_block" if arm == "block" else "")
+        mine = [v for v in sites.values() if v["auto"] == arm]
+        if not mine:
+            check(False, f"{name}: no busiest launch captured")
+            continue
+        site = max(mine, key=lambda v: v["live"])
+        e = entry(name, src, g_rep, hnsw["launches"][arm],
+                  site[f"{arm}_err"], site[f"{arm}_ms"], site["plain_ms"],
+                  site[f"{arm}_bound"], site[f"{arm}_by"],
+                  site[f"{arm}_ok"] and site[f"{arm}_repeat"], 0)
+        _, e["ms_min"], e["ms_max"] = median_spread(site[f"{arm}_reads"])
+        e["at_site"] = site["site"]
+        e["launches_build"] = hnsw[f"build_{arm}"]
+        e["by_site"] = {
+            k: {"shape": [v["b"], v["c"]], "live": v["live"],
+                "distinct_rows": v["rows"], "ms": v[f"{arm}_ms"],
+                "bound_ms": v[f"{arm}_bound"], "bound_by": v[f"{arm}_by"],
+                "bytes_ms": v["bytes_ms"], "f32_ops_ms": v["f32_ops_ms"],
+                "tc_ops_ms": v["tc_ops_ms"], "plain_ms": v["plain_ms"],
+                "takes_this_arm": v["auto"] == arm}
+            for k, v in sites.items()}
+        e["build"] = hnsw["g_build"]
+        e["search"] = hnsw["g_search"].get(arm)
+        kernels.append(e)
     e["launches_per_search"] = hnsw["launches_search"]
     e["live_share"] = hnsw["live_share"]
-    kernels.append(e)
     for e_ in kernels:
         e_["launches_region_phase"] = region["launches"].get(e_["name"], 0)
         e_["launches_cluster_phase"] = region["cluster"]["launches"].get(
@@ -6881,8 +7237,8 @@ def run(args) -> int:
           and region["launches"].get("pruned_fused_topk_sq8", 0) > 0,
           "the region phase launched B3-sq8 and B4-sq8 (the ladder's "
           "hbm_sq8 rung)")
-    check(len(kernels) == 13 and all(e_["parity"] for e_ in kernels),
-          "the kernels line lists 13 entries, each with parity")
+    check(len(kernels) == 14 and all(e_["parity"] for e_ in kernels),
+          "the kernels line lists 14 entries, each with parity")
     print(f"[{card}] serving-path ivf.pruned_dim_fraction: IVF (B3) "
           f"{b3_serving_frac:.4f}, FLAT (B4) {b4_serving_frac:.4f}",
           flush=True)

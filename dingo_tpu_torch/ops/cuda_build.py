@@ -34,7 +34,7 @@ SOURCES = {"fused_topk": "fused_topk.cu", "ivf_topk": "ivf_topk.cu",
            "pruned_fused_topk": "pruned_fused_topk.cu",
            "ivf_pq_adc_topk": "ivf_pq_adc_topk.cu",
            "ivfpq_adc_lut": "ivfpq_adc_lut.cu",
-           "beam_scores": "beam_scores.cu"}
+           "beam_scores": "beam_scores.cu", "beam_block": "beam_block.cu"}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

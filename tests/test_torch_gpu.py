@@ -1618,27 +1618,30 @@ def test_region_search_b3_kernel_matches_plain():
 # ---------------- kernel G and the HNSW walk on the card ---------------------
 
 G_CASES = [
-    # b, C, d, cap, hole share
-    (64, 4096, 768, 20000, 0.9),
-    (3, 100, 32, 500, 0.0),
-    (5, 70, 33, 300, 0.5),          # d off the 16-byte loads: scalar path
-    (2, 9, 768, 64, 1.0),           # every slot a hole
+    # b, C, d, cap, hole share, rows the slots draw from (None: all)
+    (64, 4096, 768, 20000, 0.9, None),
+    (3, 100, 32, 500, 0.0, None),
+    (5, 70, 33, 300, 0.5, None),    # d off the 16-byte loads: scalar path
+    (2, 9, 768, 64, 1.0, None),     # every slot a hole
+    # the walk's shapes: queries share rows (2,000 of 100,000), one row in
+    # every live slot, repeats within a query, the build's reprune and
+    # the build walk's rounds
+    (64, 16384, 768, 100000, 0.5, 2000),
+    (64, 4096, 768, 20000, 0.0, 1),
+    (64, 2048, 128, 5000, 0.3, 50),
+    (1024, 72, 768, 100000, 0.2, None),
+    (256, 16384, 768, 100000, 0.5, None),
 ]
 
 
-@pytest.mark.parametrize("arm", ["f32", "bf16", "sq8"])
-@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
-@pytest.mark.parametrize("b,c,d,cap,holes", G_CASES)
-def test_candidate_scores_kernel_matches_plain(arm, metric, b, c, d, cap,
-                                               holes):
-    from dingo_tpu_torch.ops import kernel_beam as kb
-    from dingo_tpu_torch.ops.distance import Metric, squared_norms
+def _g_inputs(arm, b, c, d, cap, holes, pool, seed):
+    """CPU inputs of kernel G: queries, rows of the arm, their norms (the
+    store's convention), the sq8 codec, and slots [b, c] drawn from `pool`
+    random rows (None: all cap) with a `holes` share of -1."""
+    from dingo_tpu_torch.ops.distance import squared_norms
     from dingo_tpu_torch.ops.sq import sq_decode_device, sq_train, sq_encode
 
-    dev = _cuda()
-    m = {"l2": Metric.L2, "ip": Metric.INNER_PRODUCT,
-         "cosine": Metric.COSINE}[metric]
-    rng = np.random.default_rng(b * 7 + c)
+    rng = np.random.default_rng(seed)
     x = rng.standard_normal((cap, d)).astype(np.float32)
     q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32))
     vmin = scale = None
@@ -1653,21 +1656,234 @@ def test_candidate_scores_kernel_matches_plain(arm, metric, b, c, d, cap,
         vecs = torch.from_numpy(x).to(torch.bfloat16 if arm == "bf16"
                                       else torch.float32)
         sqn = squared_norms(vecs)
-    slots = rng.integers(0, cap, (b, c)).astype(np.int32)
+    rows = (np.arange(cap) if pool is None
+            else rng.choice(cap, pool, replace=False))
+    slots = rows[rng.integers(0, len(rows), (b, c))].astype(np.int32)
     slots[rng.random((b, c)) < holes] = -1
-    slots = torch.from_numpy(slots)
-    plain = kb.candidate_scores_plain(q, vecs, sqn, slots, m, vmin, scale)
+    return q, vecs, sqn, torch.from_numpy(slots), vmin, scale
+
+
+_METRICS = {"l2": "L2", "ip": "INNER_PRODUCT", "cosine": "COSINE"}
+
+
+def _g_check(got, plain, slots):
+    """Holes exactly -inf, live slots within the tolerance."""
+    got, plain, slots = (t.cpu().numpy() for t in (got, plain, slots))
+    np.testing.assert_array_equal(np.isneginf(got), slots < 0)
+    fin = slots >= 0
+    np.testing.assert_allclose(got[fin], plain[fin], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("arm", ["f32", "bf16", "sq8"])
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+@pytest.mark.parametrize("b,c,d,cap,holes,pool", G_CASES)
+def test_candidate_scores_kernel_matches_plain(arm, metric, b, c, d, cap,
+                                               holes, pool):
+    from dingo_tpu_torch.ops import kernel_beam as kb
+    from dingo_tpu_torch.ops.distance import Metric
+
+    dev = _cuda()
+    m = getattr(Metric, _METRICS[metric])
+    ins = _g_inputs(arm, b, c, d, cap, holes, pool, b * 7 + c)
     on = lambda t: None if t is None else t.to(dev)  # noqa: E731
+    # the large cases' plain version on the card (the same torch ops)
+    pdev = on if b * c > 1 << 18 else (lambda t: t)
+    plain = kb.candidate_scores_plain(*(pdev(t) for t in ins[:4]), m,
+                                      *(pdev(t) for t in ins[4:]))
     counter = "launches" if arm == "f32" else f"launches_{arm}"
     n0 = getattr(kb.candidate_scores, counter)
-    got = kb.candidate_scores(on(q), on(vecs), on(sqn), on(slots), m,
-                              on(vmin), on(scale)).cpu()
+    q, vecs, sqn, slots, vmin, scale = (on(t) for t in ins)
+    got = kb.candidate_scores(q, vecs, sqn, slots, m, vmin, scale)
     assert getattr(kb.candidate_scores, counter) == n0 + 1
-    np.testing.assert_array_equal(torch.isneginf(got).numpy(),
-                                  (slots < 0).numpy())
-    fin = (slots >= 0).numpy()
-    np.testing.assert_allclose(got.numpy()[fin], plain.numpy()[fin],
+    _g_check(got, plain, ins[3])
+    # each design where it can take the inputs, whichever the shape chose
+    _g_check(kb._scores_pair(q, vecs, sqn, slots, m, vmin, scale), plain,
+             ins[3])
+    if kb.block_arm_fits(q, vecs, slots):
+        _g_check(kb._scores_block(q, vecs, sqn, slots, m, vmin, scale),
+                 plain, ins[3])
+
+
+@pytest.mark.parametrize("arm", ["f32", "bf16", "sq8"])
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+@pytest.mark.parametrize("b,c,d,cap,holes,pool", [
+    (3, 100, 32, 500, 0.0, None),       # one partial query block
+    (70, 300, 48, 1000, 0.3, None),     # two blocks; d ends mid-stage
+    (130, 50, 64, 200, 0.1, 20),        # three blocks sharing 20 rows
+    (2, 9, 768, 64, 1.0, None),         # every slot a hole: no rows
+    (64, 600, 16, 100000, 0.0, None),   # one 16-column stage, rows > 256
+    (40, 300, 160, 2000, 0.2, 100),     # one block: runs of 1-2 stages
+])
+def test_candidate_scores_block_arm_forced_matches_plain(
+        arm, metric, b, c, d, cap, holes, pool):
+    """The block arm on shapes the walk does not give it (its launcher
+    called whatever the shape): partial query blocks, several blocks, a d
+    that ends inside a stage, no live slot, a tile boundary inside a
+    block, one block whose tiles are cut into runs of columns of unequal
+    length. The launcher counts nothing."""
+    from dingo_tpu_torch.ops import kernel_beam as kb
+    from dingo_tpu_torch.ops.distance import Metric
+
+    dev = _cuda()
+    if arm == "sq8" and d % 16:
+        pytest.skip("sq8 codes need d a multiple of 16 on the block arm")
+    m = getattr(Metric, _METRICS[metric])
+    ins = _g_inputs(arm, b, c, d, cap, holes, pool, b * 11 + c)
+    plain = kb.candidate_scores_plain(*ins[:4], m, *ins[4:])
+    on = lambda t: None if t is None else t.to(dev)  # noqa: E731
+    g = kb.candidate_scores
+    n0 = (g.block, g.pair, g.launches, g.launches_bf16, g.launches_sq8)
+    got = kb._scores_block(*(on(t) for t in ins[:4]), m,
+                           *(on(t) for t in ins[4:]))
+    assert (g.block, g.pair, g.launches, g.launches_bf16,
+            g.launches_sq8) == n0
+    _g_check(got, plain, ins[3])
+
+
+def test_candidate_scores_block_arm_empty_store():
+    """The block arm on a store with no row: every slot a hole, -inf, and
+    no product launched."""
+    from dingo_tpu_torch.ops import kernel_beam as kb
+    from dingo_tpu_torch.ops.distance import Metric
+
+    dev = _cuda()
+    q = torch.randn(4, 64, device=dev)
+    vecs = torch.zeros((0, 64), device=dev)
+    slots = torch.full((4, 2048), -1, dtype=torch.int32, device=dev)
+    got = kb._scores_block(q, vecs, torch.zeros(0, device=dev), slots,
+                           Metric.L2)
+    torch.cuda.synchronize()
+    assert bool(torch.isneginf(got).all())
+
+
+@pytest.mark.parametrize("arm", ["f32", "bf16", "sq8"])
+@pytest.mark.parametrize("b,c,d,cap,holes,pool", [
+    (64, 16384, 768, 100000, 0.5, 2000),
+    (256, 16384, 768, 100000, 0.5, None),
+])
+def test_candidate_scores_block_arm_bitwise_repeatable(arm, b, c, d, cap,
+                                                       holes, pool):
+    """Two launches of one input give the same bits, and so does a launch
+    on the candidate columns permuted (the claim pass then numbers the
+    rows in another order): a pair's dot depends only on its query and
+    its row."""
+    from dingo_tpu_torch.ops import kernel_beam as kb
+    from dingo_tpu_torch.ops.distance import Metric
+
+    dev = _cuda()
+    q, vecs, sqn, slots, vmin, scale = (
+        None if t is None else t.to(dev)
+        for t in _g_inputs(arm, b, c, d, cap, holes, pool, 23))
+    g = kb._scores_block
+    one = g(q, vecs, sqn, slots, Metric.L2, vmin, scale)
+    two = g(q, vecs, sqn, slots, Metric.L2, vmin, scale)
+    perm = torch.randperm(c, generator=torch.Generator().manual_seed(5))
+    perm = perm.to(dev)
+    three = g(q, vecs, sqn, slots[:, perm].contiguous(), Metric.L2, vmin,
+              scale)
+    assert torch.equal(one.view(torch.int32), two.view(torch.int32))
+    assert torch.equal(one[:, perm].view(torch.int32),
+                       three.view(torch.int32))
+
+
+def test_candidate_scores_design_arm_by_shape():
+    """The block arm takes the build walk's rounds, the per-pair arm the
+    seeds, the search's one-block rounds, the selection-sized and reprune
+    launches and inputs the block arm cannot copy in 16-byte pieces; each
+    launch moves its design's counter and its dtype arm's."""
+    from dingo_tpu_torch.ops import kernel_beam as kb
+    from dingo_tpu_torch.ops.distance import Metric
+
+    dev = _cuda()
+    g = kb.candidate_scores
+    cases = [  # (b, c, d, block arm?)
+        (64, 16384, 128, False), (256, 16384, 128, True),
+        (65, kb.BLOCK_MIN_SLOTS, 128, True),
+        (128, kb.BLOCK_MIN_SLOTS - 1, 128, False),
+        (64, 1, 128, False), (1024, 72, 128, False), (256, 512, 128, False),
+        (64, 4096, 33, False),              # d off the 16-byte pieces
+        (64 * kb.BLOCK_MAX_BLOCKS + 1, 2048, 32, False),   # too many blocks
+    ]
+    for b, c, d, block in cases:
+        q, vecs, sqn, slots, _, _ = (
+            None if t is None else t.to(dev)
+            for t in _g_inputs("f32", b, c, d, 3000, 0.5, None, 3))
+        nb, npair, nf = g.block, g.pair, g.launches
+        g(q, vecs, sqn, slots, Metric.L2)
+        assert (g.block - nb, g.pair - npair) == (
+            (1, 0) if block else (0, 1)), (b, c, d)
+        assert g.launches == nf + 1
+    # the per-design launchers take any shape they can and count nothing
+    nb, npair = g.block, g.pair
+    q, vecs, sqn, slots, _, _ = (
+        None if t is None else t.to(dev)
+        for t in _g_inputs("f32", 64, 16384, 128, 3000, 0.5, None, 3))
+    torch.testing.assert_close(kb._scores_pair(q, vecs, sqn, slots,
+                                               Metric.L2),
+                               kb._scores_block(q, vecs, sqn, slots,
+                                                Metric.L2),
                                rtol=RTOL, atol=ATOL)
+    q, vecs, sqn, slots, _, _ = (
+        None if t is None else t.to(dev)
+        for t in _g_inputs("f32", 4, 100, 33, 300, 0.5, None, 3))
+    with pytest.raises(ValueError):
+        kb._scores_block(q, vecs, sqn, slots, Metric.L2)
+    assert (g.block, g.pair) == (nb, npair)
+
+
+def test_candidate_scores_block_scratch_across_layouts():
+    """The block arm keeps its scratch from launch to launch: launches of
+    the search's and the build walk's layouts in turn, and a store that
+    grows between two launches of one layout, each match the plain
+    version (a map entry of an earlier launch or layout never reads as
+    claimed)."""
+    from dingo_tpu_torch.ops import kernel_beam as kb
+    from dingo_tpu_torch.ops.distance import Metric
+
+    dev = _cuda()
+    cases = [(128, 2048, 64, 5000, 0.3, 300),
+             (256, 2048, 64, 5000, 0.3, None),
+             (128, 2048, 64, 5000, 0.3, 300), (128, 2048, 64, 9000, 0.1, 300),
+             (128, 2048, 64, 9000, 0.6, 2000)]
+    for i, (b, c, d, cap, holes, pool) in enumerate(cases):
+        ins = _g_inputs("f32", b, c, d, cap, holes, pool, 31 + i)
+        plain = kb.candidate_scores_plain(*ins[:4], Metric.L2)
+        nb = kb.candidate_scores.block
+        got = kb.candidate_scores(*(t.to(dev) for t in ins[:4]), Metric.L2)
+        assert kb.candidate_scores.block == nb + 1
+        _g_check(got, plain, ins[3])
+
+
+@pytest.mark.parametrize("seed", [7, 11, 13])
+def test_candidate_scores_block_f32_as_exact_as_plain(seed):
+    """The f32 block arm multiplies in 3xTF32 on the tensor cores: its
+    scores' largest relative error against f64 (over |f64| >= 1e-3 of the
+    largest) is at most twice the plain f32 version's, at the walk's
+    shape (precision_check.py's gate)."""
+    from dingo_tpu_torch.ops import kernel_beam as kb
+    from dingo_tpu_torch.ops.distance import Metric
+
+    dev = _cuda()
+    q, vecs, sqn, slots = (
+        t.to(dev) for t in _g_inputs("f32", 64, 16384, 768, 100000, 0.5,
+                                     2000, seed)[:4])
+    for metric in (Metric.L2, Metric.INNER_PRODUCT):
+        got = kb._scores_block(q, vecs, sqn, slots, metric)
+        plain = kb.candidate_scores_plain(q, vecs, sqn, slots, metric)
+        live = slots >= 0
+        r = slots[live].long()
+        qi = torch.nonzero(live, as_tuple=True)[0]
+        q64, x64 = q.double()[qi], vecs.double()[r]
+        dot = (q64 * x64).sum(1)
+        ref = (-((q.double() ** 2).sum(1)[qi] - 2.0 * dot
+                 + sqn.double()[r]) if metric is Metric.L2 else dot)
+
+        def rel(v):
+            err = (v[live].double() - ref).abs()
+            big = ref.abs() >= 1e-3 * ref.abs().max()
+            return float((err[big] / ref.abs()[big]).max())
+
+        assert rel(got) <= 2.0 * rel(plain), (metric, rel(got), rel(plain))
 
 
 def test_candidate_scores_unaligned_rows_take_scalar_loads():

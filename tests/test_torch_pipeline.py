@@ -19,6 +19,7 @@ multiply and add; see tests/test_torch_precision.py).
 Threads are ordered with threading.Event, every wait has a timeout."""
 
 import threading
+import time
 import types
 
 import numpy as np
@@ -56,12 +57,12 @@ PKGS = {
     "jax": types.SimpleNamespace(
         Ring=jpipe.StagingRing, Lane=jpipe.CompletionLane,
         Coalescer=jco.SearchCoalescer, Stopped=jco.CoalescerStopped,
-        flags=JFLAGS, dev={},
+        coalescer=jco, flags=JFLAGS, dev={},
         host=lambda qpad: np.asarray(qpad)),
     "torch": types.SimpleNamespace(
         Ring=tpipe.StagingRing, Lane=tpipe.CompletionLane,
         Coalescer=tco.SearchCoalescer, Stopped=tco.CoalescerStopped,
-        flags=TFLAGS, dev={"device": "cpu"},
+        coalescer=tco, flags=TFLAGS, dev={"device": "cpu"},
         host=lambda qpad: qpad.numpy()),
 }
 
@@ -206,9 +207,29 @@ def test_completion_lane_fifo_and_stop_idempotent(pkg):
 
 # ---------------- dispatch/resolve overlap and stage totals -------------
 
-def test_dispatch_overlap_ordering(pkg):
+class _FrozenClock:
+    """The time module with monotonic() held at one instant."""
+
+    def __init__(self, now):
+        self.now = now
+
+    def monotonic(self):
+        return self.now
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+def test_dispatch_overlap_ordering(pkg, monkeypatch):
     """Both due batches dispatch before either resolves, and the lane
-    resolves them in dispatch order."""
+    resolves them in dispatch order.
+
+    Both batches take one creation instant (the coalescer module's clock
+    is held across the two submits), so "b" is due in the sweep that
+    finds "a" due, however long the submits take apart: with each
+    batch's own instant, a gap between them longer than the flush
+    thread's wake-up delay put "b" in a later sweep, after "a" had
+    resolved."""
     events = []
     guard = threading.Lock()
 
@@ -229,8 +250,11 @@ def test_dispatch_overlap_ordering(pkg):
     co = pkg.Coalescer(run, window_ms=50.0, dispatch_fn=dispatch,
                        **pkg.dev)
     try:
+        monkeypatch.setattr(pkg.coalescer, "time",
+                            _FrozenClock(time.monotonic()))
         fa = co.submit("a", np.zeros((2, 4), np.float32))
         fb = co.submit("b", np.zeros((2, 4), np.float32))
+        monkeypatch.setattr(pkg.coalescer, "time", time)
         assert fa.result(timeout=10) == ["a", "a"]
         assert fb.result(timeout=10) == ["b", "b"]
     finally:
