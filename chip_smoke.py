@@ -55,7 +55,7 @@ off), recall against the JAX package's gates, a rerank cache over every
 row, in-place writes on every route, device bytes beside fp32's,
 pipelined timing with fp32 and both tiers taking turns, a profile of the
 sq8 route, and five kernel-vs-plain cases per arm. Last, the default
-route at GIST1M's width (500,000 x 960 f32 from the same recipe, GIST1M's
+route at GIST1M's width (262,144 x 960 f32 from the same recipe, GIST1M's
 1,000,000 rows cut for the smoke's time, nlist 1024, every flag at its
 default): 960 does not tile into 128-column
 blocks, so a FLAT index serves on B1 and an IVF_FLAT region on B2 (B3 and
@@ -75,7 +75,7 @@ both, and a binary region through Storage and IndexService(node) (the
 brute force untrained, the index after the manager's rebuild, a filter
 and a radius request, the pipelined arm's staged misses); no B1-B5 launch
 in the phase. Then the diskann role's core at config 3's widths (m 96)
-on the first 500,000 of the rows (cut for the smoke's time) under
+on the first 262,144 of the rows (cut for the smoke's time) under
 tempfile.gettempdir(): push_data, the build split
 into coarse fit / PQ fit / encode, the load's device bytes, searches at
 nprobe 32 with rerank factor 32 (ms split into ADC scan, disk gather and
@@ -118,13 +118,23 @@ and depth, every earlier phase's device state released: three StoreNodes
 on LocalTransport (a dingo-store region's three replicas) on the one card,
 bound to one in-process CoordinatorControl, which creates the IVF_FLAT
 region (nlist 1024, every flag at its default) and delivers it to the
-stores by heartbeats; the 1M rows
+stores by heartbeats; the 1M rows, each with a table row (cat BIGINT,
+price DOUBLE, tag VARCHAR, encoded before the ingest's clock starts),
 through the leader's Storage.vector_add in 4,096-row raft proposals
 (acknowledged rows/s, the share of time in apply); untrained searches on
 every replica (the reader's brute-force scan, B4; ids == numpy exact
 modulo ties, replicas agree); VectorIndexManager.rebuild on each replica
 (engine scan / index ingest / train); B3 at nprobe 32 (recall@10 >= 0.95,
 the replicas' ids equal, region path against wrapper-direct ms);
+TABLE-filtered searches (table_phase: a CoprocessorV2 over the table CF,
+predicates "cat < 5" and "cat < 50 and price >= 0.2"; the pre variant's
+candidates scanned by B3 under their bucket mask, its prefilter split
+into the engine scan and the coprocessor's rows/s, recall@10 >= 0.95
+against exact top-10 over the filtered rows; the post variant at topk 6,
+whose over-fetch of 60 runs on B3, and 10, whose 100 takes the k > 64
+arm, each reply the filtered prefix of the unfiltered search on every
+replica; B3's device ms under each mask beside the unfiltered launch; a
+row deleted through raft leaves a follower's candidates, then comes back);
 IndexService(node) on the leader under the pipeline_sweep traffic while
 8,192 upserts and 4,096 deletes are proposed (each visible on the leader
 when acknowledged and on a follower once applied; no dispatch falls back
@@ -155,7 +165,7 @@ index's device bytes (each replaced index freed), ms a batch, recall@10
 >= 0.95 and the heartbeat's serving_tier; B3-sq8 against its plain version, device bytes
 0 and no B3/B4 launch on the host rungs, the mmap file removed, ids
 after the round trip against before and the other replicas, six tier
-events and 0 orphans), and the same walk on a 131,072 x 768 FLAT region
+events and 0 orphans), and the same walk on a 65,536 x 768 FLAT region
 of a one-replica store (B4-sq8 against its plain version, one digest
 refusal, the staged put_codes pour); then the cluster phase on
 the same region (one split_check tick at the default 1,000,000 keys proposes the
@@ -166,8 +176,16 @@ and the sibling-merged search, finish_merge_index on each replica in
 turn, a leader transfer; recall@10 >= 0.95 against exact top-10 on the
 card at every stage, equal ids on every replica, device peak); then the
 leader's node stops and the survivors hold every acknowledged write.
+Then the native LSM engine (lsm_phase: LsmRawEngine over
+csrc/host/lsm.cc, built with g++ at first use into build/dingo_tpu_torch)
+under a one-replica StoreNode in a temporary directory, an IVF_FLAT region
+of the first 65,536 rows (LSM_N, a depth cut for the smoke's time):
+ingest rows/s, an untrained search on B4, train and search on B3, the
+engine closed and reopened, the node's recover rebuilding the index from
+the engine scan (seconds, the scan's share), the same ids; flush,
+compaction, checkpoint and restore, SST counts and bytes on disk.
 Then HNSW at BASELINE.json config 4's widths (768 dims, M 32,
-efConstruction 200, ef 200, every flag at its default) on 500,000 rows of
+efConstruction 200, ef 200, every flag at its default) on 262,144 rows of
 its own from the same recipe (``--hnsw-n`` sets the depth; config 4's 1M
 does not fit the smoke's time beside the cluster phase): the device bulk build
 (rows/s split into the walk, the occlusion selection and the reprune;
@@ -191,7 +209,14 @@ and the reader checks that the recovery ladder never fired. Then the
 device recovery ladder on
 a 65,536-row FLAT region (a retried fault, a degraded region served by the
 host path and absorbing writes, re-materialization back onto B4, a real
-CUDA out-of-memory error classified). Timings are medians over ROUNDS
+CUDA out-of-memory error classified). Last, host paths
+(txn_doc_phase): a seeded script of Percolator transactions on a KV
+region of a one-replica node (commits, write conflicts, a lock seen by a
+reader, check_txn_status and resolve_lock after a lock's TTL,
+batch_rollback, gc below a safe point), its snapshot reads against a dict
+model; and a DOCUMENT region on three raft replicas with 10,000 typed
+documents, BM25 and range queries, a delete, and every node restarted
+with its index rebuilt, answering the same. Timings are medians over ROUNDS
 rounds in which the routes
 (pipelined searches) or the five kernels take turns, so two readings that
 are compared come from the same card and minute. Data is BASELINE.json
@@ -231,9 +256,10 @@ SPLIT_PASSES = 3
 #: route's 128-column blocks, so FLAT serves on B1 and IVF_FLAT on B2
 GIST_D = 960
 #: rows of the d 960 phase: GIST1M's 1,000,000 cut to 500,000 for the
-#: smoke's 1,200 s limit once the ladder and edge-cache phases came in
-#: (PERF.md section 4)
-GIST_N = 500_000
+#: smoke's 1,200 s limit once the ladder and edge-cache phases came in,
+#: then to 262,144 once the TABLE, LSM and transaction/document phases
+#: came in (PERF.md section 4)
+GIST_N = 262_144
 #: kernel-vs-plain tolerance: f32 sums land in a different order
 RTOL, ATOL = 1e-4, 1e-3
 #: the residual tables (entries ~1-100) against the torch composite: f32
@@ -2577,13 +2603,22 @@ def region_phase(x, queries, extra, gt, nlist, card, dev,
         FLAGS.set("integrity_enabled", True)
         print(f"[{card}] region phase: integrity_enabled True for the "
               "ingest (the JAX package's default)", flush=True)
+        # the table rows (the TABLE filter phase's) are encoded before
+        # the ingest's clock starts: it measures the write
+        t0 = time.perf_counter()
+        cols, trows = table_rows(n)
+        print(f"[{card}] region phase: {n} table rows (cat BIGINT, price "
+              f"DOUBLE, tag VARCHAR) encoded in {time.perf_counter() - t0:.1f}"
+              f" s, {np.mean([len(r_) for r_ in trows[:4096]]):.1f} bytes a "
+              "row", flush=True)
         leader()
         t0 = time.perf_counter()
         for lo in range(0, n, REGION_PROPOSAL_ROWS):
             hi = min(n, lo + REGION_PROPOSAL_ROWS)
             ids = np.arange(lo, hi, dtype=np.int64)
             on_leader(lambda nd, r, ids=ids, lo=lo, hi=hi:
-                      nd.storage.vector_add(r, ids, x[lo:hi]))
+                      nd.storage.vector_add(r, ids, x[lo:hi],
+                                            table_values=trows[lo:hi]))
         ingest_s = time.perf_counter() - t0
         lead = leader()
         settle()
@@ -2594,7 +2629,8 @@ def region_phase(x, queries, extra, gt, nlist, card, dev,
               f"{-(-n // REGION_PROPOSAL_ROWS)} proposals of "
               f"{REGION_PROPOSAL_ROWS} through the leader's "
               f"Storage.vector_add, 3 replicas: {ingest_s:.1f} s, "
-              f"acknowledged {out['ingest_rows_per_s']:.1f} rows/s; every "
+              f"acknowledged {out['ingest_rows_per_s']:.1f} rows/s (with a "
+              "table row each; without them: PERF.md section 6); every "
               f"replica applied at {settled_s:.1f} s; apply time / ingest "
               "wall " + ", ".join(
                   f"{s}{' (leader)' if s == lead else ''} "
@@ -2721,6 +2757,17 @@ def region_phase(x, queries, extra, gt, nlist, card, dev,
               f"wrapper {spread_text(reads['wrapper-direct'])}; per-round "
               "ratio median " + f"{np.median(np.divide(reads['region path'], reads['wrapper-direct'])):.4f}",
               flush=True)
+
+        # -- TABLE filters: the coprocessor over the table CF, B3 under the
+        # candidates' mask ---------------------------------------------------
+        out["table"], launches_ = phase_launches(
+            lambda: table_phase(nodes, regions, lead, live_peers, x, queries,
+                                cols, trows, card, dev, on_leader, settle))
+        out["table"]["launches"] = launches_
+        cols = trows = None
+        print(f"[{card}] table phase launches {launches_}", flush=True)
+        check(launches_["ivf_pruned_topk"] > 0,
+              "table phase: the TABLE-filtered searches ran on B3")
 
         # -- writes under coalesced load --------------------------------------
         pool_rng = np.random.default_rng(29)
@@ -2982,14 +3029,246 @@ def region_phase(x, queries, extra, gt, nlist, card, dev,
     return out
 
 
+#: the TABLE filter phase's schema (cat BIGINT uniform in 0-99, price
+#: DOUBLE uniform in [0, 1), tag VARCHAR of 7 values), its predicates
+#: (selective ~5%, broad ~40%) and the post variant's topk values: 6
+#: over-fetches 60 rows (<= K_MAX 64: B3), 10 over-fetches 100 (the k > 64
+#: arm, ivf_scan_scores, as in the JAX package)
+TABLE_TAGS = ("alpha", "beta", "gamma", "delta", "epsilon", "zeta", "eta")
+TABLE_PREDICATES = {
+    "selective": (["lt", ["field", "cat"], ["const", 5]],
+                  lambda c: c["cat"] < 5, "cat < 5"),
+    "broad": (["and", ["lt", ["field", "cat"], ["const", 50]],
+               ["ge", ["field", "price"], ["const", 0.2]]],
+              lambda c: (c["cat"] < 50) & (c["price"] >= 0.2),
+              "cat < 50 and price >= 0.2"),
+}
+TABLE_POST_TOPK = (6, 10)
+
+
+def table_rows(n: int, seed: int = 41) -> tuple:
+    """The region's table: numpy columns drawn from `seed` and each row's
+    CoprocessorV2 encoding (serial typed values in schema order)."""
+    from dingo_tpu_torch.coprocessor.coprocessor_v2 import encode_row
+
+    rng = np.random.default_rng(seed)
+    cols = {"cat": rng.integers(0, 100, n), "price": rng.random(n),
+            "tag": rng.integers(0, len(TABLE_TAGS), n)}
+    rows = [encode_row([c, p, TABLE_TAGS[t]]) for c, p, t in zip(
+        cols["cat"].tolist(), cols["price"].tolist(), cols["tag"].tolist())]
+    return cols, rows
+
+
+def table_phase(nodes, regions, lead, live_peers, x, queries, cols, rows,
+                card, dev, on_leader, settle) -> dict:
+    """TABLE-filtered VectorSearch on the trained region at nprobe
+    REGION_NPROBE, every flag at its default. The pre variant (one
+    64-query batch a predicate) scans the table CF through the
+    coprocessor into candidate ids, which B3 scans under their bucket
+    mask; the post variant over-fetches topk x 10 and filters on the host.
+    Checks: every returned id satisfies its predicate (numpy over the
+    columns), pre recall@10 >= 0.95 against exact top-10 over the filtered
+    rows, each post reply is the filtered prefix of the same index's
+    unfiltered search at topk x 10, B3 launches in the pre variant and the
+    topk-6 post variant, every replica's post replies agree, and a vector
+    deleted through raft leaves a follower's pre-variant candidates (then
+    comes back, with its table row)."""
+    import torch
+
+    from dingo_tpu_torch.coprocessor.coprocessor_v2 import (
+        CoprocessorDef,
+        CoprocessorV2,
+        SchemaColumn,
+    )
+    from dingo_tpu_torch.index.ivf_flat import ivf_scan_scores
+    from dingo_tpu_torch.index.vector_reader import (
+        VectorFilterMode,
+        VectorFilterType,
+    )
+    from dingo_tpu_torch.ops import kernel_ivf_pruned
+
+    n = len(x)
+    k = 10
+    b3 = kernel_ivf_pruned.ivf_pruned_topk
+    schema = [SchemaColumn("cat", "BIGINT", 0),
+              SchemaColumn("price", "DOUBLE", 1),
+              SchemaColumn("tag", "VARCHAR", 2)]
+    out: dict = {"pre": {}, "post": {}}
+    t_phase = time.perf_counter()
+
+    def cop(pred):
+        return CoprocessorV2(CoprocessorDef(
+            original_schema=schema, filter_expr=TABLE_PREDICATES[pred][0]))
+
+    def table_search(sid, variant, pred, topk, stage=None):
+        return nodes[sid].storage.vector_batch_search(
+            regions[sid], queries, topk, nprobe=REGION_NPROBE,
+            filter_mode=VectorFilterMode.TABLE,
+            filter_type=(VectorFilterType.QUERY_PRE if variant == "pre"
+                         else VectorFilterType.QUERY_POST),
+            coprocessor=cop(pred), stage_us=stage)
+
+    def ids_of(res):
+        return [[v.id for v in row] for row in res]
+
+    def satisfied(res, keep):
+        return all(bool(keep[v.id]) for row in res for v in row)
+
+    # the engine scan of the table CF alone: the pre variant's prefilter
+    # time less this is the coprocessor's
+    reader = nodes[lead].engine.new_vector_reader(regions[lead])
+    t0 = time.perf_counter()
+    scanned = sum(1 for _ in reader._scan_rows(reader._table,
+                                               *reader.ctx.id_window()))
+    scan_s = time.perf_counter() - t0
+    out["table_rows"] = scanned
+    out["scan_s"] = scan_s
+    print(f"[{card}] table phase: the engine scan of the table CF, "
+          f"{scanned} rows: {scan_s:.2f} s", flush=True)
+    check(scanned == n, f"table phase: the table CF holds a row for each "
+          f"of the {n} vectors ({scanned})")
+
+    # the unfiltered search's B3 launch, for the device time beside the
+    # masked one
+    with first_launch(kernel_ivf_pruned, "ivf_pruned_topk") as plain_call:
+        nodes[lead].storage.vector_batch_search(regions[lead], queries, k,
+                                                nprobe=REGION_NPROBE)
+    masks = {}
+    first_pre = {}
+    for pred, (_, keep_fn, text) in TABLE_PREDICATES.items():
+        keep = np.asarray(keep_fn(cols))
+        cand = int(keep.sum())
+        stage: dict = {}
+        l3 = b3.launches
+        t0 = time.perf_counter()
+        with first_launch(kernel_ivf_pruned, "ivf_pruned_topk") as call:
+            res = table_search(lead, "pre", pred, k, stage)
+        wall = time.perf_counter() - t0
+        launched = b3.launches - l3
+        got = ids_of(res)
+        first_pre[pred] = got
+        gt_f = exact_topk_masked(x, np.arange(n, dtype=np.int64), keep,
+                                 queries, k, dev)
+        rec = sum(len(set(r) & set(g.tolist()))
+                  for r, g in zip(got, gt_f)) / (len(gt_f) * k)
+        pre_s = stage["prefilter_us"] / 1e6
+        cop_s = max(pre_s - scan_s, 1e-9)
+        masked = int(call[0][0][6].sum()) if call else -1
+        masks[pred] = call[0] if call else None
+        out["pre"][pred] = {
+            "candidates": cand, "recall": rec, "b3_launches": launched,
+            "prefilter_s": pre_s, "coprocessor_s": cop_s,
+            "coprocessor_rows_per_s": scanned / cop_s,
+            "search_ms": stage["search_us"] / 1e3, "wall_s": wall,
+            "mask_rows": masked}
+        print(f"[{card}] table pre variant, {text}: {cand} candidates "
+              f"({cand / n:.4f} of the rows), prefilter {pre_s:.2f} s "
+              f"(engine scan {scan_s:.2f} s + coprocessor {cop_s:.2f} s, "
+              f"{scanned / cop_s:.1f} rows/s), search "
+              f"{stage['search_us'] / 1e3:.2f} ms a 64-query batch, whole "
+              f"call {wall:.2f} s; B3 launches {launched}, its mask "
+              f"{masked} rows; recall@{k} against exact over the filtered "
+              f"rows {rec:.4f}", flush=True)
+        check(launched > 0 and masked == cand,
+              f"table pre {text}: B3 ran under the candidates' bucket mask "
+              f"({masked} rows of {cand})")
+        check(satisfied(res, keep) and all(len(r) == k for r in got),
+              f"table pre {text}: every returned id satisfies the predicate")
+        check(rec >= 0.95, f"table pre {text}: recall@{k} {rec:.4f} >= 0.95")
+        # the post variant: over-fetch then filter on the host
+        for topk in TABLE_POST_TOPK:
+            over = ids_of(nodes[lead].storage.vector_batch_search(
+                regions[lead], queries, topk * 10, nprobe=REGION_NPROBE))
+            per = {}
+            l3, lx = b3.launches, ivf_scan_scores.calls
+            for sid in live_peers:
+                stage = {}
+                per[sid] = ids_of(table_search(sid, "post", pred, topk,
+                                               stage))
+                if sid == lead:
+                    post_stage = stage
+            arm = {"b3": b3.launches - l3,
+                   "k_over_64": ivf_scan_scores.calls - lx}
+            want = [[i for i in o if keep[i]][:topk] for o in over]
+            out["post"][f"{pred}_{topk}"] = {
+                "postfilter_s": post_stage["postfilter_us"] / 1e6,
+                "search_ms": post_stage["search_us"] / 1e3,
+                "launches": arm,
+                "mean_len": float(np.mean([len(r) for r in per[lead]]))}
+            print(f"[{card}] table post variant, {text}, topk {topk} "
+                  f"(over-fetch {topk * 10}): postfilter "
+                  f"{post_stage['postfilter_us'] / 1e3:.2f} ms, search "
+                  f"{post_stage['search_us'] / 1e3:.2f} ms a batch, mean "
+                  f"reply {out['post'][f'{pred}_{topk}']['mean_len']:.2f} "
+                  f"ids; B3 launches {arm['b3']}, k > 64 arm "
+                  f"{arm['k_over_64']} ({len(live_peers)} replicas)",
+                  flush=True)
+            check(all(per[sid] == want for sid in live_peers),
+                  f"table post {text} topk {topk}: every replica's reply is "
+                  f"the filtered prefix of the unfiltered top-{topk * 10}")
+            check(all(keep[i] for r in per[lead] for i in r),
+                  f"table post {text} topk {topk}: every returned id "
+                  "satisfies the predicate")
+            if topk * 10 <= kernel_ivf_pruned.K_MAX:
+                check(arm["b3"] >= len(live_peers),
+                      f"table post {text} topk {topk}: the over-fetch ran "
+                      "on B3")
+            else:
+                check(arm["k_over_64"] >= len(live_peers),
+                      f"table post {text} topk {topk}: the over-fetch of "
+                      f"{topk * 10} took the k > 64 arm")
+    # B3's device time under each mask beside the unfiltered launch (these
+    # launches compare, they are not the main path's: the count is put back)
+    l3 = b3.launches
+    times = {}
+    for tag, call in [("unfiltered", plain_call[0] if plain_call else None)] \
+            + [(p_, masks[p_]) for p_ in TABLE_PREDICATES]:
+        if call is None:
+            continue
+        a_, kw_, _ = call
+        times[tag] = time_dev_ms(lambda a_=a_, kw_=kw_: b3(*a_, **kw_),
+                                 torch)
+    b3.launches = l3
+    out["b3_ms"] = times
+    print(f"[{card}] table phase: B3 device ms a 64-query launch at nprobe "
+          f"{REGION_NPROBE}: " + ", ".join(
+              f"{t_} {v:.4f}" for t_, v in times.items()), flush=True)
+    plain_call = masks = None
+
+    # a delete through raft leaves the candidate set: a follower's pre
+    # variant after it is the leader's reply before it without that id
+    sel = "selective"
+    dead = first_pre[sel][0][0]
+    on_leader(lambda nd, r: nd.storage.vector_delete(r, [dead]))
+    settle()
+    follower = next(sid for sid in live_peers if sid != lead)
+    after = ids_of(table_search(follower, "pre", sel, k))
+    ok = True
+    for got_q, was_q in zip(after, first_pre[sel]):
+        kept = [i for i in was_q if i != dead]
+        ok = ok and dead not in got_q and got_q[:len(kept)] == kept
+    check(ok, f"table phase: id {dead}, deleted through raft, left the "
+          f"selective pre variant's candidates on {follower}, whose reply "
+          "is the leader's before the delete without it")
+    dead_arr = np.asarray([dead], np.int64)
+    on_leader(lambda nd, r: nd.storage.vector_add(
+        r, dead_arr, x[dead:dead + 1], table_values=[rows[dead]]))
+    settle()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[{card}] table phase: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 #: the edge-cache phase: 4-row requests (pipeline_sweep's shape) drawn
 #: Zipf(EDGE_ZIPF_S) from EDGE_QUERIES distinct queries, EDGE_REQUESTS of
 #: them, CO_IN_FLIGHT in flight a round, served once with the cache off
 #: and once with it on
 EDGE_QUERIES, EDGE_REQUESTS, EDGE_ZIPF_S = 512, 4096, 1.1
 #: rows of the FLAT region the ladder phase walks on a one-replica store:
-#: 262,144 cut to 131,072 for the smoke's 1,200 s limit (PERF.md section 4)
-LADDER_FLAT_N = 131_072
+#: 262,144 cut to 131,072 for the smoke's 1,200 s limit, then to 65,536
+#: once the TABLE, LSM and transaction/document phases came in (PERF.md
+#: section 4)
+LADDER_FLAT_N = 65_536
 #: at each ladder rung, torch.cuda.memory_allocated() against the hbm
 #: rung may exceed the serving index's device bytes against the fp32
 #: index's by at most this much (small live buffers of the reader); a
@@ -4886,11 +5165,12 @@ def obs_phase(coord, nodes, regions, rid, live_ids, live_vecs, queries,
 HNSW_NLINKS = 32
 HNSW_EFC = 200
 HNSW_EF = 200
-#: rows of the HNSW phase's device bulk build: half of BASELINE's 1M. The
-#: whole smoke with the cluster phase and a 1M build took 1059.7 s of its
-#: 1200 s limit (the HNSW phase 295.0 s; PERF.md sections 4 and 6), so the
-#: build's depth is cut; `--hnsw-n 1000000` runs config 4 whole
-HNSW_N = 500_000
+#: rows of the HNSW phase's device bulk build: BASELINE's 1M cut to
+#: 500,000 once the cluster phase came in (the whole smoke with a 1M build
+#: took 1059.7 s of its 1200 s limit, the HNSW phase 295.0 s), then to
+#: 262,144 once the TABLE, LSM and transaction/document phases came in
+#: (PERF.md section 4); `--hnsw-n 1000000` runs config 4 whole
+HNSW_N = 262_144
 #: rows of the HNSW writes phase: its host graph inserts one row at a time
 #: on one thread (the JAX package's native graph; 9.60-17.29 ms a row at
 #: d 768 and 4,096 rows on the card's hosts, PERF.md section 4), so the
@@ -5744,9 +6024,10 @@ BIN_UPSERTS, BIN_DELETES, BIN_RANGE_MAX = 8192, 4096, 1024
 #: rows each push carries
 DK_M, DK_NPROBE, DK_PUSH = 96, 32, 65536
 #: rows of the DiskANN phase: the 1M rows cut to 500,000 for the smoke's
-#: 1,200 s limit once the ladder and edge-cache phases came in (PERF.md
-#: section 4)
-DK_N = 500_000
+#: 1,200 s limit once the ladder and edge-cache phases came in, then to
+#: 262,144 once the TABLE, LSM and transaction/document phases came in
+#: (PERF.md section 4)
+DK_N = 262_144
 
 
 def exact_hamming_device(qb, xb, dev, chunk: int = 8192):
@@ -6365,6 +6646,435 @@ def diskann_phase(x, queries, extra, gt, nlist, card, dev) -> dict:
           f"DiskANN phase: no kernel launched ({out['launches']})")
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[{card}] DiskANN phase: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+#: rows of the LSM phase's IVF_FLAT region: the 1M region's rows cut to
+#: 65,536 for the smoke's 1,200 s limit (PERF.md section 4); full width
+LSM_N = 65_536
+#: the LSM phase's coarse lists (the region phase's 1,024 scaled to its rows)
+LSM_NLIST = 64
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(r, f_))
+               for r, _, fs in os.walk(path) for f_ in fs)
+
+
+def lsm_phase(x, queries, card, dev) -> dict:
+    """A one-replica StoreNode on the native LSM engine (LsmRawEngine over
+    csrc/host/lsm.cc, built with g++ at first use) in a temporary directory
+    on local disk, holding an IVF_FLAT region of LSM_N x d: ingest through
+    Storage.vector_add; an untrained search (the reader's brute force, B4);
+    train and search (B3); stop the node and close the engine; reopen from
+    the same directory, recover (meta, raft member, the index rebuilt from
+    the engine scan) and search again; then flush, compact, checkpoint
+    and restore. Checks: the ids after the reopen and the restore equal
+    those before (modulo ties), SST counts stay bounded after compaction,
+    and every acknowledged row is there after each step."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from dingo_tpu_torch.engine.lsm_engine import LsmRawEngine
+    from dingo_tpu_torch.index import codec as vcodec
+    from dingo_tpu_torch.index.base import IndexParameter, IndexType
+    from dingo_tpu_torch.ops import kernel_ivf_pruned, kernel_topk_pruned
+    from dingo_tpu_torch.ops.distance import Metric
+    from dingo_tpu_torch.raft import LocalTransport
+    from dingo_tpu_torch.store.node import StoreNode
+    from dingo_tpu_torch.store.region import RegionDefinition, RegionType
+
+    n, d = x.shape
+    k, rid = 10, 7
+    b3 = kernel_ivf_pruned.ivf_pruned_topk
+    b4 = kernel_topk_pruned.pruned_fused_topk
+    out: dict = {}
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="dingo_lsm_smoke_")
+    path, ckpt = os.path.join(root, "store"), os.path.join(root, "ckpt")
+    definition = RegionDefinition(
+        region_id=rid, start_key=vcodec.encode_vector_key(0, 0),
+        end_key=vcodec.encode_vector_key(1), peers=["s0"],
+        region_type=RegionType.INDEX, index_parameter=IndexParameter(
+            index_type=IndexType.IVF_FLAT, dimension=d, metric=Metric.L2,
+            ncentroids=LSM_NLIST, default_nprobe=REGION_NPROBE))
+    gt = exact_topk_device(x, queries, k, dev)
+
+    def open_node():
+        raw = LsmRawEngine(path)
+        return raw, StoreNode("s0", LocalTransport(), None, raw_engine=raw,
+                              raft_kw={"seed": 0, **REGION_RAFT}, device=dev)
+
+    def leader_of(node, timeout=30.0):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            rn = node.engine.get_node(rid)
+            if rn is not None and rn.is_leader():
+                return
+            time.sleep(0.02)
+        raise SmokeFailure("LSM phase: the one replica never led")
+
+    def ids_of(res):
+        return [[v.id for v in row] for row in res]
+
+    raw = node = None
+    try:
+        raw, node = open_node()
+        region = node.create_region(definition)
+        leader_of(node)
+        t0 = time.perf_counter()
+        for lo in range(0, n, REGION_PROPOSAL_ROWS):
+            hi = min(n, lo + REGION_PROPOSAL_ROWS)
+            node.storage.vector_add(region, np.arange(lo, hi, dtype=np.int64),
+                                    x[lo:hi])
+        ingest_s = time.perf_counter() - t0
+        out["ingest_rows_per_s"] = n / ingest_s
+        ssts = raw.sst_counts()
+        print(f"[{card}] LSM phase: {n} x {d} rows in {REGION_PROPOSAL_ROWS}"
+              f"-row proposals through Storage.vector_add on one replica: "
+              f"{ingest_s:.1f} s, {n / ingest_s:.1f} rows/s; SSTs a CF "
+              f"{ {cf: c for cf, c in ssts.items() if c} }; on disk "
+              f"{dir_bytes(path) / 2**20:.1f} MiB", flush=True)
+        l4 = b4.launches
+        untrained = ids_of(node.storage.vector_batch_search(region, queries,
+                                                            k))
+        check(b4.launches > l4 and same_modulo_ties(x, queries, untrained,
+                                                    gt),
+              "LSM phase: the untrained search ran on B4 and returned the "
+              f"exact top-{k} modulo ties")
+        t0 = time.perf_counter()
+        node.index_manager.rebuild(region)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        l3 = b3.launches
+        before = ids_of(node.storage.vector_batch_search(
+            region, queries, k, nprobe=REGION_NPROBE))
+        rec = sum(len(set(r) & set(g.tolist()))
+                  for r, g in zip(before, gt)) / (len(gt) * k)
+        out["recall"] = rec
+        check(b3.launches > l3 and rec >= 0.95,
+              f"LSM phase: the trained search ran on B3, recall@{k} "
+              f"{rec:.4f} >= 0.95")
+        node.stop()
+        raw.close()
+        node = raw = None
+        # -- reopen from the same directory ------------------------------
+        t0 = time.perf_counter()
+        raw, node = open_node()
+        t_open = time.perf_counter() - t0
+        recovered = node.recover()
+        reopen_s = time.perf_counter() - t0
+        st = node.index_manager.build_stats.get(rid, {})
+        region = node.get_region(rid)
+        leader_of(node)
+        count = node.storage.vector_count(region)
+        l3 = b3.launches
+        after = ids_of(node.storage.vector_batch_search(
+            region, queries, k, nprobe=REGION_NPROBE))
+        out["reopen_s"] = reopen_s
+        out["scan_share"] = st.get("scan_ms", 0.0) / 1e3 / reopen_s
+        print(f"[{card}] LSM phase: train and build {build_s:.2f} s; "
+              f"reopen + recover + rebuild {reopen_s:.2f} s (engine open "
+              f"{t_open:.2f} s, engine scan {st.get('scan_ms', 0) / 1e3:.2f}"
+              f" s = {out['scan_share']:.3f} of it, index ingest "
+              f"{st.get('ingest_ms', 0) / 1e3:.2f} s, train "
+              f"{st.get('train_ms', 0) / 1e3:.2f} s); recall@{k} {rec:.4f}",
+              flush=True)
+        check(recovered == 1 and count == n and b3.launches > l3
+              and same_modulo_ties(x, queries, after, before),
+              f"LSM phase: after the reopen the region holds all {n} "
+              f"acknowledged rows ({count}) and B3 returns the ids of before "
+              "the reopen modulo ties")
+        # -- flush, compact, checkpoint and restore -----------------------
+        raw.flush()
+        flushed = raw.sst_counts()
+        raw.compact()
+        compacted = raw.sst_counts()
+        t0 = time.perf_counter()
+        raw.checkpoint(ckpt)
+        ckpt_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        raw.restore_checkpoint(ckpt)
+        restore_s = time.perf_counter() - t0
+        count2 = node.storage.vector_count(region)
+        restored = ids_of(node.storage.vector_batch_search(
+            region, queries, k, nprobe=REGION_NPROBE))
+        out["disk_bytes"] = dir_bytes(path)
+        out["ckpt_bytes"] = dir_bytes(ckpt)
+        print(f"[{card}] LSM phase: SSTs a CF after the flush "
+              f"{ {cf: c for cf, c in flushed.items() if c} }, after the "
+              f"compaction { {cf: c for cf, c in compacted.items() if c} }; "
+              f"checkpoint {ckpt_s:.2f} s ({out['ckpt_bytes'] / 2**20:.1f} "
+              f"MiB), restore {restore_s:.2f} s; on disk "
+              f"{out['disk_bytes'] / 2**20:.1f} MiB for "
+              f"{n * d * 4 / 2**20:.1f} MiB of vectors", flush=True)
+        check(all(c <= 1 for c in compacted.values())
+              and all(compacted[cf] <= max(1, flushed[cf]) for cf in flushed),
+              "LSM phase: the compaction leaves at most one SST a CF")
+        check(count2 == n and restored == after,
+              f"LSM phase: after the checkpoint's restore the engine holds "
+              f"all {n} rows ({count2}) and the search returns the same ids")
+    finally:
+        if node is not None:
+            node.stop()
+        if raw is not None:
+            raw.close()
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[{card}] LSM phase: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+#: the transactions and documents phase: Percolator transactions over
+#: TXN_KEYS keys, and TXN_DOCS typed documents in a DOCUMENT region
+TXN_KEYS, TXN_ROUNDS, TXN_DOCS = 64, 400, 10_000
+#: the lock TTL of the transactions the script abandons
+TXN_TTL_MS = 20
+DOC_WORDS = ("red blue green shoes hat coat warm running walking winter "
+             "waterproof stylish comfortable hiking light heavy raft store "
+             "vector search engine storage region index").split()
+
+
+def txn_doc_phase(card, dev) -> dict:
+    """Host paths on the card's machine: a KV region on a one-replica
+    StoreNode runs a seeded script of Percolator transactions (prewrite
+    and commit, write conflicts, a lock seen by a reader, check_txn_status
+    and resolve_lock after a lock's TTL, batch_rollback, gc below a safe
+    point), and its snapshot reads are held against a dict model; then a
+    DOCUMENT region on three raft replicas takes TXN_DOCS typed documents,
+    answers BM25 and range queries, takes a delete, and after every node
+    restarts on its engine (recover rebuilds the index) answers the same."""
+    import random
+
+    from dingo_tpu_torch.engine import write_data as wd
+    from dingo_tpu_torch.engine.txn import (
+        KeyIsLocked,
+        Mutation,
+        Op,
+        TxnEngine,
+        WriteConflict,
+    )
+    from dingo_tpu_torch.index import codec as vcodec
+    from dingo_tpu_torch.raft import LocalTransport, NotLeader
+    from dingo_tpu_torch.store.node import StoreNode
+    from dingo_tpu_torch.store.region import RegionDefinition, RegionType
+
+    out: dict = {}
+    t_phase = time.perf_counter()
+    rng = random.Random(43)
+
+    def wait_leader(nodes, rid, timeout=30.0):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            lead = [s for s, n_ in nodes.items()
+                    if n_.engine.get_node(rid) is not None
+                    and n_.engine.get_node(rid).is_leader()]
+            if len(lead) == 1:
+                return lead[0]
+            time.sleep(0.02)
+        raise SmokeFailure(f"txn/doc phase: region {rid} has no leader")
+
+    # -- Percolator transactions against a dict model ----------------------
+    node = StoreNode("t0", LocalTransport(), None,
+                     raft_kw={"seed": 0, **REGION_RAFT}, device=dev)
+    try:
+        region = node.create_region(RegionDefinition(
+            region_id=11, start_key=b"", end_key=b"\xff" * 8, peers=["t0"],
+            region_type=RegionType.STORE))
+        wait_leader({"t0": node}, 11)
+        txn = TxnEngine(node.engine, region)
+        keys = [b"acct%03d" % i for i in range(TXN_KEYS)]
+        model: dict = {}
+        ts = [100]
+
+        def next_ts():
+            # even: an odd ts (a stale transaction's start) is never taken
+            ts[0] += 2
+            return ts[0]
+
+        seen = {"committed": 0, "conflict": 0, "locked_read": 0,
+                "rolled_back": 0, "resolved": 0}
+        t0 = time.perf_counter()
+        for _ in range(TXN_ROUNDS):
+            ks = rng.sample(keys, rng.randrange(1, 4))
+            start = next_ts()
+            muts = [Mutation(Op.DELETE, k_) if rng.random() < 0.1 else
+                    Mutation(Op.PUT, k_, b"v%d" % start) for k_ in ks]
+            fate = rng.random()
+            # an abandoned transaction's locks live TXN_TTL_MS
+            txn.prewrite(muts, ks[0], start,
+                         lock_ttl_ms=TXN_TTL_MS if 0.7 <= fate < 0.85
+                         else 3000)
+            if fate < 0.7:
+                commit = next_ts()
+                txn.commit(ks, start, commit)
+                for m in muts:
+                    if m.op is Op.PUT:
+                        model[m.key] = m.value
+                    else:
+                        model.pop(m.key, None)
+                seen["committed"] += 1
+                # a transaction that started before this commit conflicts
+                try:
+                    txn.prewrite([Mutation(Op.PUT, ks[0], b"stale")], ks[0],
+                                 start - 1)
+                    raise SmokeFailure("a stale prewrite was accepted")
+                except WriteConflict:
+                    seen["conflict"] += 1
+                    txn.batch_rollback([ks[0]], start - 1)
+            elif fate < 0.85:
+                # a reader meets the lock; once its TTL has run out the
+                # reader rolls the transaction back through its primary
+                # and resolves the secondaries' locks
+                try:
+                    txn.get(ks[-1], next_ts())
+                    raise SmokeFailure("a read passed a live lock")
+                except KeyIsLocked:
+                    seen["locked_read"] += 1
+                time.sleep(2 * TXN_TTL_MS / 1e3)
+                status = txn.check_txn_status(ks[0], start, next_ts())
+                if status["action"] != "rolled_back":
+                    raise SmokeFailure(f"an expired primary lock: {status}")
+                seen["resolved"] += txn.resolve_lock(start, 0)
+            else:
+                txn.batch_rollback(ks, start)
+                seen["rolled_back"] += 1
+        read_ts = next_ts()
+        got = dict(txn.scan(b"", b"\xff", read_ts))
+        safe = read_ts
+        removed = txn.gc(safe)
+        got_after_gc = dict(txn.scan(b"", b"\xff", next_ts()))
+        dump = txn.dump()
+        txn_s = time.perf_counter() - t0
+        out["txn"] = dict(seen, seconds=txn_s, gc_removed=removed,
+                          locks_left=len(dump["locks"]))
+        print(f"[{card}] txn phase: {TXN_ROUNDS} transactions over "
+              f"{TXN_KEYS} keys through raft in {txn_s:.2f} s ({seen}); gc "
+              f"below the safe point removed {removed} records; dump: "
+              f"{len(dump['writes'])} writes, {len(dump['datas'])} data "
+              f"rows, {len(dump['locks'])} locks", flush=True)
+        check(got == model and got_after_gc == model and not dump["locks"]
+              and seen["conflict"] and seen["locked_read"],
+              f"txn phase: the snapshot reads equal the dict model "
+              f"({len(model)} keys) before and after gc, no lock is left")
+    finally:
+        node.stop()
+
+    # -- a DOCUMENT region under raft ---------------------------------------
+    schema = {"title": "text", "body": "text", "price": "i64",
+              "rating": "f64", "in_stock": "bool"}
+    docs = [{"title": " ".join(rng.choice(DOC_WORDS)
+                               for _ in range(rng.randrange(1, 4))),
+             "body": " ".join(rng.choice(DOC_WORDS)
+                              for _ in range(rng.randrange(5, 25))),
+             "price": rng.randrange(1, 1000),
+             "rating": round(rng.uniform(0, 5), 2),
+             "in_stock": rng.random() < 0.7} for _ in range(TXN_DOCS)]
+    queries = [("red shoes", "or"), ("warm winter coat", "and"),
+               ("running shoes", "phrase"),
+               ("hiking price:[100 TO 300]", "query"),
+               ("+vector -raft rating:[4.0 TO 5.0]", "query"),
+               ('"waterproof hiking" in_stock:true', "query")]
+    peers = ["d0", "d1", "d2"]
+
+    def answers(nodes, rid):
+        res = {}
+        for s_, n_ in nodes.items():
+            idx = n_.get_region(rid).document_index
+            res[s_] = ([idx.search(q, topk=20, mode=m) for q, m in queries]
+                       + [idx.range_select("price", 100, 200),
+                          idx.range_select("rating", 4.5, None),
+                          idx.count()])
+        return res
+
+    def start_nodes(raws=None):
+        transport = LocalTransport()
+        return {s_: StoreNode(s_, transport, None,
+                              raft_kw={"seed": i, **REGION_RAFT},
+                              raw_engine=None if raws is None else raws[s_],
+                              device=dev)
+                for i, s_ in enumerate(peers)}
+
+    def propose(nodes, rid, data):
+        for _ in range(20):
+            s_ = wait_leader(nodes, rid)
+            try:
+                nodes[s_].engine.write(nodes[s_].get_region(rid), data)
+                return
+            except NotLeader:
+                time.sleep(0.1)
+        raise SmokeFailure("doc phase: leadership never stabilized")
+
+    def settle(nodes, rid, timeout=60.0):
+        target = nodes[wait_leader(nodes, rid)].engine.get_node(
+            rid).commit_index
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if all(n_.engine.get_node(rid).last_applied >= target
+                   for n_ in nodes.values()):
+                return
+            time.sleep(0.02)
+        raise SmokeFailure("doc phase: the replicas did not apply")
+
+    rid = 12
+    nodes = start_nodes()
+    try:
+        for n_ in nodes.values():
+            n_.create_region(RegionDefinition(
+                region_id=rid, start_key=vcodec.encode_vector_key(0, 0),
+                end_key=vcodec.encode_vector_key(1), peers=peers,
+                region_type=RegionType.DOCUMENT, document_schema=schema))
+        t0 = time.perf_counter()
+        for lo in range(0, TXN_DOCS, 1000):
+            propose(nodes, rid, wd.DocumentAddData(
+                ts=lo + 1, ids=list(range(lo, lo + 1000)),
+                documents=docs[lo:lo + 1000]))
+        deleted = list(range(0, TXN_DOCS, 97))
+        propose(nodes, rid, wd.DocumentDeleteData(ts=TXN_DOCS + 1,
+                                                  ids=deleted))
+        settle(nodes, rid)
+        add_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        before = answers(nodes, rid)
+        query_s = (time.perf_counter() - t0) / len(peers)
+        raws = {s_: n_.raw for s_, n_ in nodes.items()}
+    finally:
+        for n_ in nodes.values():
+            n_.stop()
+    nodes = start_nodes(raws)
+    try:
+        t0 = time.perf_counter()
+        recovered = [n_.recover() for n_ in nodes.values()]
+        restart_s = time.perf_counter() - t0
+        wait_leader(nodes, rid)
+        after = answers(nodes, rid)
+    finally:
+        for n_ in nodes.values():
+            n_.stop()
+    lead = before[peers[0]]
+    hits = sum(len(r) for r in lead[:len(queries)])
+    out["doc"] = {"add_s": add_s, "query_s": query_s,
+                  "restart_s": restart_s, "count": lead[-1], "hits": hits}
+    print(f"[{card}] doc phase: {TXN_DOCS} typed documents in 1,000-doc "
+          f"proposals on 3 replicas and {len(deleted)} deleted: "
+          f"{add_s:.2f} s; {len(queries)} BM25 queries and 2 range "
+          f"selects {query_s * 1e3:.1f} ms a replica ({hits} hits); the "
+          f"three nodes' restart with the index rebuilt {restart_s:.2f} s",
+          flush=True)
+    check(all(a == lead for a in before.values())
+          and lead[-1] == TXN_DOCS - len(deleted) and hits > 0
+          and not any(d_ in deleted for r in lead[:len(queries)]
+                      for d_, _ in r),
+          "doc phase: the replicas agree, count the live documents and "
+          "return no deleted one")
+    check(recovered == [1, 1, 1] and after == before,
+          "doc phase: after the restart every replica rebuilt its index "
+          "and answers the same ids and scores")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[{card}] txn/doc phase: {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -7081,10 +7791,24 @@ def run(args) -> int:
     peak_region = max(region["cluster"].get("region_peak_gib", 0.0) * 2**30,
                       torch.cuda.max_memory_allocated())
 
+    # -- the native LSM engine under a store node, on the first LSM_N rows
+    recovery_quiet("region phase", card)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lsm, lsm_launches = phase_launches(
+        lambda: lsm_phase(x[:min(n, LSM_N)], queries, card, dev))
+    print(f"LSM phase: {time.perf_counter() - t0:.1f} s; launches "
+          f"{lsm_launches}", flush=True)
+    check(lsm_launches["ivf_pruned_topk"] > 0
+          and lsm_launches["pruned_fused_topk"] > 0,
+          "LSM phase: its searches ran on B4 (untrained) and B3 (trained)")
+    recovery_quiet("LSM phase", card)
+
     # -- HNSW (BASELINE.json config 4) on its own rows, then the HNSW writes
     # phase and the recovery ladder; every earlier phase's device state
     # released first ---------------------------------------------------------
-    recovery_quiet("region phase", card)
     x = queries = extra = gt = None
     gc.collect()                  # the stopped replicas' reference cycles
     torch.cuda.synchronize()
@@ -7124,6 +7848,10 @@ def run(args) -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     recovery = recovery_phase(card)
+    # -- transactions and a DOCUMENT region: host paths --------------------
+    t0 = time.perf_counter()
+    txn_doc_phase(card, dev)
+    print(f"txn/doc phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound,
               by, ok, plain_calls, frac=None):
@@ -7233,6 +7961,9 @@ def run(args) -> int:
             "launches"].get(e_["name"], 0)
         e_["launches_ladder_phase"] = region["ladder"]["launches"].get(
             e_["name"], 0)
+        e_["launches_table_phase"] = region["table"]["launches"].get(
+            e_["name"], 0)
+        e_["launches_lsm_phase"] = lsm_launches.get(e_["name"], 0)
     check(region["launches"].get("ivf_pruned_topk_sq8", 0) > 0
           and region["launches"].get("pruned_fused_topk_sq8", 0) > 0,
           "the region phase launched B3-sq8 and B4-sq8 (the ladder's "

@@ -139,6 +139,12 @@ FLAGS.define("train_sample_rows", 65536, mutable=True,
              help_="train-sample row cap for k-means (0 = full corpus, "
                    "lifting derived caps too)")
 # -- the region path (engines) ----------------------------------------------
+FLAGS.define("lsm_sync_writes", False, mutable=True,
+             help_="fsync the native LSM WAL on every commit: power-loss "
+                   "durability instead of process-crash durability. Off by "
+                   "default: raft replication is the availability story "
+                   "and a per-commit fsync costs ~ms (rocksdb's "
+                   "WriteOptions.sync analog)")
 FLAGS.define("wal_checkpoint_bytes", 64 * 1024 * 1024, mutable=True,
              help_="WalEngine folds the WAL into a checkpoint once it "
                    "exceeds this size, bounding restart replay time")

@@ -12,9 +12,7 @@ then the vector index is updated iff log_id > wrapper.apply_log_id — the
 in-memory ANN index is an apply-log-tracked materialized view that can always
 be rebuilt from the engine.
 
-Ported: kv put/delete/delete-range, vector add/delete, region install, and
-split and merge (routed to the hosting StoreNode's handlers). Documents and
-transactions raise NotPorted.
+Split and merge are routed to the hosting StoreNode's handlers.
 """
 
 from __future__ import annotations
@@ -33,10 +31,10 @@ from dingo_tpu_torch.engine.raw_engine import (
 )
 from dingo_tpu_torch.engine import write_data as wd
 from dingo_tpu_torch.index import codec as vcodec
-from dingo_tpu_torch.index.base import NotPorted
 from dingo_tpu_torch.index.vector_reader import serialize_scalar, serialize_vector
 from dingo_tpu_torch.mvcc.codec import MAX_TS, Codec, ValueFlag
 from dingo_tpu_torch.store.region import Region
+from dingo_tpu_torch.raft import wire
 
 
 def apply_write(
@@ -69,9 +67,6 @@ def apply_write(
             raise NotImplementedError("region merge needs a StoreNode context")
         context.handle_merge(region, data, log_id)
         return None
-    if isinstance(data, (wd.DocumentAddData, wd.DocumentDeleteData,
-                         wd.TxnRaftData)):
-        raise NotPorted(f"{type(data).__name__} apply is not ported yet")
     if isinstance(data, wd.RegionInstallData):
         _apply_region_install(engine, region, data)
         # rebuild derived in-memory indexes on THIS replica (each replica's
@@ -89,6 +84,12 @@ def apply_write(
         _apply_vector_add(engine, region, data, log_id)
     elif isinstance(data, wd.VectorDeleteData):
         _apply_vector_delete(engine, region, data, log_id)
+    elif isinstance(data, wd.DocumentAddData):
+        _apply_document_add(engine, region, data, log_id)
+    elif isinstance(data, wd.DocumentDeleteData):
+        _apply_document_delete(engine, region, data, log_id)
+    elif isinstance(data, wd.TxnRaftData):
+        _apply_txn(engine, data)
     else:
         raise TypeError(f"unknown write payload {type(data)}")
     return None
@@ -265,3 +266,57 @@ def _apply_vector_delete(
     wrapper = region.vector_index_wrapper
     if wrapper is not None and wrapper.is_ready():
         wrapper.delete(np.asarray(data.ids, np.int64), log_id)
+
+
+def _apply_document_add(
+    engine: RawEngine, region: Region, data: wd.DocumentAddData, log_id: int
+) -> None:
+    """DocumentAdd handler: persist docs (source of truth) then update the
+    in-memory full-text index — same dual-write contract as vectors."""
+    part = region.definition.partition_id
+    batch = WriteBatch()
+    for did, doc in zip(data.ids, data.documents):
+        key = vcodec.encode_vector_key(part, int(did))
+        batch.put(
+            CF_DEFAULT,
+            Codec.encode_key(key, data.ts),
+            Codec.package_value(wire.encode_obj(doc)),
+        )
+    engine.write(batch)
+    if region.document_index is not None and (
+        log_id == 0 or log_id > region.document_index.apply_log_id
+    ):
+        for did, doc in zip(data.ids, data.documents):
+            region.document_index.upsert(int(did), doc)
+        if log_id:
+            region.document_index.apply_log_id = log_id
+
+
+def _apply_document_delete(
+    engine: RawEngine, region: Region, data: wd.DocumentDeleteData, log_id: int
+) -> None:
+    part = region.definition.partition_id
+    batch = WriteBatch()
+    for did in data.ids:
+        key = vcodec.encode_vector_key(part, int(did))
+        batch.put(
+            CF_DEFAULT,
+            Codec.encode_key(key, data.ts),
+            Codec.package_value(b"", ValueFlag.DELETE),
+        )
+    engine.write(batch)
+    if region.document_index is not None and (
+        log_id == 0 or log_id > region.document_index.apply_log_id
+    ):
+        region.document_index.delete([int(d) for d in data.ids])
+        if log_id:
+            region.document_index.apply_log_id = log_id
+
+
+def _apply_txn(engine: RawEngine, data: wd.TxnRaftData) -> None:
+    batch = WriteBatch()
+    for cf, key, value in data.puts:
+        batch.put(cf, key, value)
+    for cf, key in data.deletes:
+        batch.delete(cf, key)
+    engine.write(batch)

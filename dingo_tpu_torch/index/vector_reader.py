@@ -24,7 +24,9 @@ JAX package; NotPorted propagates. A device OOM walks the recovery ladder
 (index/recovery.py), and a device-degraded region is served by an exact
 numpy scan of the engine (``_host_exact_search``); every other error
 propagates. Search parameters (``nprobe``, HNSW's ``ef``) pass through
-to the index. TABLE filters (the coprocessor) raise NotPorted. A binary
+to the index. A TABLE filter runs a CoprocessorV2 over the region's table
+rows: the pre variant hands the matching ids to the index as a filter, the
+post variant filters an over-fetched search on the host. A binary
 region (BINARY_FLAT, BINARY_IVF_FLAT) keeps its rows and queries as
 packed uint8: its brute force scans a temporary TpuBinaryFlat and its
 degraded host path counts differing bits. The async arm fills ``stage_us`` with the
@@ -46,6 +48,7 @@ from dingo_tpu_torch.engine.raw_engine import (
     CF_DEFAULT,
     CF_VECTOR_SCALAR,
     CF_VECTOR_SCALAR_SPEEDUP,
+    CF_VECTOR_TABLE,
     RawEngine,
 )
 from dingo_tpu_torch.index import codec as vcodec
@@ -53,7 +56,6 @@ from dingo_tpu_torch.index.base import (
     FilterSpec,
     IndexParameter,
     IndexType,
-    NotPorted,
     NotSupported,
     NotTrained,
     SearchResult,
@@ -157,6 +159,7 @@ class VectorReader:
         self._data = MvccReader(ctx.engine, CF_DEFAULT)
         self._scalar = MvccReader(ctx.engine, CF_VECTOR_SCALAR)
         self._speedup = MvccReader(ctx.engine, CF_VECTOR_SCALAR_SPEEDUP)
+        self._table = MvccReader(ctx.engine, CF_VECTOR_TABLE)
         self._binary = is_binary_dim_param(ctx.parameter)
 
     def _scalar_source(
@@ -291,7 +294,7 @@ class VectorReader:
         filter_type: VectorFilterType = VectorFilterType.QUERY_POST,
         scalar_filter: Optional[ScalarFilter] = None,
         vector_ids: Optional[Sequence[int]] = None,
-        coprocessor=None,   # TABLE filters only, which raise NotPorted
+        coprocessor=None,
         with_vector_data: bool = False,
         with_scalar_data: bool = False,
         stage_us: Optional[dict] = None,
@@ -333,9 +336,27 @@ class VectorReader:
                 self._post_filter_scalar(r, scalar_filter, topk) for r in over
             ]
             postfilter_ns = _time.perf_counter_ns() - t0
+        elif filter_mode is VectorFilterMode.TABLE and (
+            filter_type is VectorFilterType.QUERY_PRE
+        ):
+            # coprocessor over the table CF -> candidate ids
+            # (vector_reader.cc:169-232 TABLE dispatch, pre variant)
+            t0 = _time.perf_counter_ns()
+            cand = self._scan_table_candidates(coprocessor)
+            spec = FilterSpec(ranges=base.ranges, include_ids=cand)
+            prefilter_ns = _time.perf_counter_ns() - t0
+            results = self._search_with_fallback(queries, topk, spec, **search_kw)
         elif filter_mode is VectorFilterMode.TABLE:
-            raise NotPorted("TABLE filters (the coprocessor) are not "
-                            "ported yet")
+            # post variant: over-fetch then coprocessor-filter each
+            # candidate's table row (same x10 contract as SCALAR post)
+            over = self._search_with_fallback(
+                queries, topk * POST_FILTER_OVERFETCH, base, **search_kw
+            )
+            t0 = _time.perf_counter_ns()
+            results = [
+                self._post_filter_table(r, coprocessor, topk) for r in over
+            ]
+            postfilter_ns = _time.perf_counter_ns() - t0
         else:
             results = self._search_with_fallback(queries, topk, base, **search_kw)
 
@@ -635,13 +656,17 @@ class VectorReader:
                              dtype).reshape(len(blobs), width)
 
     def _scan_data(self, lo: int, hi: int):
+        return self._scan_rows(self._data, lo, hi)
+
+    def _scan_rows(self, src: MvccReader, lo: int, hi: int):
+        """(id, blob) of `src`'s visible rows with ids in [lo, hi)."""
         start = vcodec.encode_vector_key(self.ctx.partition_id, lo)
         end = vcodec.encode_vector_key(self.ctx.partition_id, hi)
         # prefix + partition + id: the id at bytes 9-17 (decode_vector_key's
         # layout, read in place for the common full-length key)
         prefix = vcodec.VECTOR_PREFIX
         id_at = vcodec.VECTOR_ID_STRUCT.unpack_from
-        for key, blob in self._data.iter_visible(start, end, self.ctx.read_ts):
+        for key, blob in src.iter_visible(start, end, self.ctx.read_ts):
             if len(key) >= 17 and key[:1] == prefix:
                 yield id_at(key, 9)[0], blob
                 continue
@@ -657,17 +682,8 @@ class VectorReader:
     # scan a CF into a candidate id set, post-filter = keep over-fetched
     # hits whose CF row matches, stopping at topk
     def _scan_candidates(self, src: MvccReader, match) -> np.ndarray:
-        lo, hi = self.ctx.id_window()
-        start = vcodec.encode_vector_key(self.ctx.partition_id, lo)
-        end = vcodec.encode_vector_key(self.ctx.partition_id, hi)
-        out = []
-        for key, blob in src.iter_visible(start, end, self.ctx.read_ts):
-            _, vid, _ = vcodec.decode_vector_key(key)
-            if vid is None:
-                continue
-            if match(blob):
-                out.append(vid)
-        return np.asarray(out, np.int64)
+        return np.asarray([vid for vid, blob in self._scan_rows(
+            src, *self.ctx.id_window()) if match(blob)], np.int64)
 
     def _post_filter(
         self, result: SearchResult, topk: int, src: MvccReader, match
@@ -708,6 +724,29 @@ class VectorReader:
             lambda blob: scalar_filter.matches(
                 deserialize_scalar(blob) if blob else {}
             ),
+        )
+
+    def _scan_table_candidates(self, coprocessor) -> np.ndarray:
+        """TABLE pre-filter: run the coprocessor's filter over every table
+        row in the region (vector_reader.cc TABLE dispatch). A vector
+        without a table row is never a candidate, as the scalar pre-filter
+        drops a missing field."""
+        if coprocessor is None:
+            raise ValueError("TABLE filter requires a coprocessor")
+        return self._scan_candidates(
+            self._table,
+            lambda blob: coprocessor.filter_row(coprocessor.decode(blob)),
+        )
+
+    def _post_filter_table(
+        self, result: SearchResult, coprocessor, topk: int
+    ) -> SearchResult:
+        if coprocessor is None:
+            raise ValueError("TABLE filter requires a coprocessor")
+        return self._post_filter(
+            result, topk, self._table,
+            lambda blob: blob is not None
+            and coprocessor.filter_row(coprocessor.decode(blob)),
         )
 
     def _backfill(

@@ -182,6 +182,8 @@ class StoreMetricsCollector:
                 sum(owners.values()) if owners
                 else wrapper.get_device_memory_size())   # share/mid-build
             rm.device_peak_bytes = HBM.region_peak(region.id)
+        if region.document_index is not None:
+            rm.document_count = region.document_index.count()
         rm.search_qps = self.registry.latency(
             "vector_search", region.id).windowed_qps()
         # live quality estimate (obs/quality.py)

@@ -1,11 +1,13 @@
-"""ctypes binding of the port's host HNSW graph (port of ``load_hnsw`` in
-dingo_tpu/native/__init__.py).
+"""ctypes bindings of the port's host libraries (port of ``load_hnsw`` and
+``load_lsm`` in dingo_tpu/native/__init__.py): the HNSW graph and the LSM
+raw-KV engine.
 
-The source is the port's own copy, ``csrc/host/hnsw.cc``. It is compiled
-with g++ at first use into ``build/dingo_tpu_torch/libdingohnsw-<hash>.so``
-at the repository root (git-ignored), the hash covering the source, the
-flags and the CPU that ``-march=native`` resolves to, so an edited source
-rebuilds and a stale or foreign library is never loaded.
+The sources are the port's own copies, ``csrc/host/hnsw.cc`` and
+``csrc/host/lsm.cc``. Each is compiled with g++ at first use into
+``build/dingo_tpu_torch/lib<name>-<hash>.so`` at the repository root
+(git-ignored), the hash covering the source, the flags and the CPU that
+``-march=native`` resolves to, so an edited source rebuilds and a stale or
+foreign library is never loaded.
 The build goes to a private temporary file first and is renamed into place,
 so concurrent processes never load a half-written library. The flags are
 the JAX package's (``-march=native`` included: it lets g++ contract the
@@ -21,12 +23,14 @@ import subprocess
 import threading
 from pathlib import Path
 
-SRC = Path(__file__).resolve().parent.parent / "csrc" / "host" / "hnsw.cc"
+SRC_DIR = Path(__file__).resolve().parent.parent / "csrc" / "host"
+#: library name -> its source under SRC_DIR
+SOURCES = {"dingohnsw": "hnsw.cc", "dingolsm": "lsm.cc"}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dingo_tpu_torch"
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-march=native"]
 
 _lock = threading.Lock()
-_lib = None
+_libs: dict = {}
 
 
 def _native_arch() -> str:
@@ -40,34 +44,34 @@ def _native_arch() -> str:
     return out
 
 
-def _lib_path() -> Path:
+def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    h.update(SRC.read_bytes())
+    h.update((SRC_DIR / SOURCES[name]).read_bytes())
     h.update(" ".join(CXX_FLAGS).encode())
     h.update(_native_arch().encode())
-    return BUILD_DIR / f"libdingohnsw-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the host graph library unless it is built already."""
-    path = _lib_path()
+def build(name: str) -> Path:
+    """Compile host library `name` (a key of SOURCES) unless it is built
+    already."""
+    path = _lib_path(name)
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    subprocess.run(["g++", *CXX_FLAGS, str(SRC), "-o", str(tmp)],
-                   check=True, capture_output=True)
+    subprocess.run(["g++", *CXX_FLAGS, str(SRC_DIR / SOURCES[name]), "-o",
+                    str(tmp)], check=True, capture_output=True)
     os.replace(tmp, path)
     return path
 
 
 def load_hnsw() -> ctypes.CDLL:
     """The loaded host graph library with its argument types."""
-    global _lib
     with _lock:
-        if _lib is not None:
-            return _lib
-        lib = ctypes.CDLL(str(build()))
+        if "dingohnsw" in _libs:
+            return _libs["dingohnsw"]
+        lib = ctypes.CDLL(str(build("dingohnsw")))
         c = ctypes
         lib.hnsw_new.restype = c.c_void_p
         lib.hnsw_new.argtypes = [c.c_int, c.c_int, c.c_int, c.c_int,
@@ -97,5 +101,57 @@ def load_hnsw() -> ctypes.CDLL:
         lib.hnsw_save.argtypes = [c.c_void_p, c.POINTER(c.c_uint8)]
         lib.hnsw_load.restype = c.c_void_p
         lib.hnsw_load.argtypes = [c.POINTER(c.c_uint8), c.c_int64]
-        _lib = lib
+        _libs["dingohnsw"] = lib
+        return lib
+
+
+def load_lsm() -> ctypes.CDLL:
+    """The loaded LSM engine library with its argument types."""
+    with _lock:
+        if "dingolsm" in _libs:
+            return _libs["dingolsm"]
+        lib = ctypes.CDLL(str(build("dingolsm")))
+        c = ctypes
+        lib.lsm_open.restype = c.c_void_p
+        lib.lsm_open.argtypes = [c.c_char_p, c.c_uint64, c.c_int]
+        lib.lsm_close.argtypes = [c.c_void_p]
+        lib.lsm_write.restype = c.c_int
+        lib.lsm_write.argtypes = [c.c_void_p, c.c_char_p, c.c_uint64]
+        lib.lsm_get.restype = c.c_int
+        lib.lsm_get.argtypes = [
+            c.c_void_p, c.c_char_p, c.c_uint64,
+            c.POINTER(c.POINTER(c.c_char)), c.POINTER(c.c_uint64),
+        ]
+        lib.lsm_free_buf.argtypes = [c.POINTER(c.c_char)]
+        lib.lsm_scan.restype = c.c_void_p
+        lib.lsm_scan.argtypes = [
+            c.c_void_p, c.c_char_p, c.c_uint64, c.c_char_p, c.c_uint64,
+            c.c_int, c.c_int,
+        ]
+        lib.lsm_iter_next.restype = c.c_int
+        lib.lsm_iter_next.argtypes = [
+            c.c_void_p, c.POINTER(c.POINTER(c.c_char)),
+            c.POINTER(c.c_uint64), c.POINTER(c.POINTER(c.c_char)),
+            c.POINTER(c.c_uint64),
+        ]
+        lib.lsm_iter_close.argtypes = [c.c_void_p]
+        lib.lsm_count.restype = c.c_uint64
+        lib.lsm_count.argtypes = [
+            c.c_void_p, c.c_char_p, c.c_uint64, c.c_char_p, c.c_uint64,
+            c.c_int,
+        ]
+        lib.lsm_flush.restype = c.c_int
+        lib.lsm_flush.argtypes = [c.c_void_p]
+        lib.lsm_compact.restype = c.c_int
+        lib.lsm_compact.argtypes = [c.c_void_p]
+        lib.lsm_sst_count.restype = c.c_uint64
+        lib.lsm_sst_count.argtypes = [c.c_void_p]
+        lib.lsm_delete_range.restype = c.c_int64
+        lib.lsm_delete_range.argtypes = [
+            c.c_void_p, c.c_char_p, c.c_uint64, c.c_char_p, c.c_uint64,
+            c.c_int,
+        ]
+        lib.lsm_index_bytes.restype = c.c_uint64
+        lib.lsm_index_bytes.argtypes = [c.c_void_p]
+        _libs["dingolsm"] = lib
         return lib

@@ -11,10 +11,12 @@ balance/replica planners; the store's heartbeat, split check, vector-index
 scrub, IVF view compaction, metrics collection, the quality tuner, the
 load-shedding ladder, the integrity scrub, the device-memory watermark
 poll, the memory-tier ladder's tick and the flight recorder's node
-config. The gRPC serving of either role, and the store jobs whose modules
-are not ported (MVCC and scan GC), are not carried. ``maybe_metrics_http``
-starts the plain-HTTP Prometheus sidecar when ``metrics_http_port`` is
-set.
+config. The gRPC serving of either role is not carried, nor are two
+store jobs: the MVCC GC, whose safe point comes from the coordinator over
+gRPC, and the stream scan GC. ``maybe_metrics_http`` starts the plain-HTTP
+Prometheus sidecar when ``metrics_http_port`` is set. ``_make_engine``
+opens a role's raw engine (mem, WAL or the native LSM) from its data
+directory.
 """
 
 from __future__ import annotations
@@ -30,9 +32,25 @@ from dingo_tpu_torch.coordinator.balance import (
     BalanceRegionScheduler,
     ReplicaPlanScheduler,
 )
+from dingo_tpu_torch.engine.raw_engine import MemEngine, WalEngine
 from dingo_tpu_torch.store.checker import PreSplitChecker
 
 _log = get_logger("server.main")
+
+
+def _make_engine(args):
+    """Raw engine per ``args.engine`` ("mem", "wal" or "lsm"; default
+    "wal") and ``args.data_dir``: a MemEngine without a data directory."""
+    engine = getattr(args, "engine", "wal")
+    if not args.data_dir:
+        return MemEngine()
+    if engine == "lsm":
+        from dingo_tpu_torch.engine.lsm_engine import LsmRawEngine
+
+        return LsmRawEngine(args.data_dir)
+    if engine == "mem":
+        return MemEngine()
+    return WalEngine(args.data_dir)
 
 
 def coordinator_crontab(control, kv_control,

@@ -12,7 +12,7 @@ DeviceUnavailable without one).
 
 The coordinator is reached in process (a CoordinatorControl, or a
 RaftMetaCoordinator's ``control``). The vector-index snapshot pull from a
-peer goes over gRPC and raises NotPorted, as do DOCUMENT regions.
+peer goes over gRPC and raises NotPorted.
 
 ``MonoStoreNode`` is the region lifecycle over a MonoStoreEngine (a single
 replica, no raft, no coordinator): the node of a MONO_STORE deployment.
@@ -35,11 +35,15 @@ from dingo_tpu_torch.coordinator.control import RegionCmd, RegionCmdType
 from dingo_tpu_torch.engine import write_data as wd
 from dingo_tpu_torch.engine.mono_engine import MonoStoreEngine
 from dingo_tpu_torch.engine.raft_engine import RaftStoreEngine
-from dingo_tpu_torch.engine.raw_engine import MemEngine, RawEngine
+from dingo_tpu_torch.engine.raw_engine import CF_DEFAULT, MemEngine, RawEngine
 from dingo_tpu_torch.engine.storage import Storage
+from dingo_tpu_torch.index import codec as vcodec
 from dingo_tpu_torch.index.base import NotPorted
 from dingo_tpu_torch.index.manager import VectorIndexManager
 from dingo_tpu_torch.metrics.collector import StoreMetricsCollector
+from dingo_tpu_torch.mvcc.codec import MAX_TS
+from dingo_tpu_torch.mvcc.reader import Reader as MvccReader
+from dingo_tpu_torch.raft import wire
 from dingo_tpu_torch.raft.core import NotLeader
 from dingo_tpu_torch.store.region import (
     Region,
@@ -133,8 +137,8 @@ class StoreNode:
     def recover(self) -> int:
         """Full restart recovery (main.cc:1074-1076 ordering): reload region
         meta, re-add each region's raft member, and rebuild in-memory
-        vector indexes from the engine (the dual-write contract: the
-        engine is the source of truth, indexes are rebuildable views).
+        vector/document indexes from the engine (the dual-write contract:
+        the engine is the source of truth, indexes are rebuildable views).
         Returns the number of recovered regions."""
         n = self.meta.recover()
         for region in self.meta.get_all_regions():
@@ -146,6 +150,8 @@ class StoreNode:
                 wrapper = region.vector_index_wrapper
                 if wrapper is not None and wrapper.own_index is None:
                     self.index_manager.rebuild(region)
+                if region.document_index is not None:
+                    self.rebuild_document_index(region)
         return n
 
     def get_region(self, region_id: int) -> Optional[Region]:
@@ -197,6 +203,11 @@ class StoreNode:
             self.meta.add_region(child)
             self.engine.add_node(child, child_def.peers, **self.raft_kw)
             child.set_state(RegionState.NORMAL, f"split from {parent.id}")
+        if child.document_index is not None:
+            # the child's documents are in the engine already: it serves
+            # them from its own index at once (the JAX package leaves a
+            # split child's document index empty until a rebuild)
+            self.rebuild_document_index(child)
         # leader reports the new topology to the coordinator
         node = self.engine.get_node(parent.id)
         if self.coordinator is not None and node is not None and \
@@ -268,11 +279,34 @@ class StoreNode:
         target.vector_index_wrapper.set_sibling(None)
 
     def after_region_install(self, region: Region) -> None:
-        """Post-install (RegionImport) rebuild of the vector index on this
-        replica. Called from the RegionInstallData apply handler so EVERY
-        replica rebuilds from its freshly installed engine state."""
+        """Post-install (RegionImport) rebuild of derived in-memory indexes
+        on this replica. Called from the RegionInstallData apply handler so
+        EVERY replica rebuilds from its freshly installed engine state."""
         if region.vector_index_wrapper is not None:
             self.index_manager.rebuild(region)
+        if region.document_index is not None:
+            self.rebuild_document_index(region)
+
+    def rebuild_document_index(self, region: Region) -> int:
+        """Repopulate a DOCUMENT region's full-text index from the engine
+        (dual-write recovery contract, same as the vector index)."""
+        if region.document_index is None:
+            return 0
+        reader = MvccReader(self.raw, CF_DEFAULT)
+        lo, hi = region.id_window()
+        start = vcodec.encode_vector_key(region.definition.partition_id, lo)
+        end = vcodec.encode_vector_key(region.definition.partition_id, hi)
+        n = 0
+        for key, blob in reader.iter_visible(start, end, MAX_TS):
+            _, did, _ = vcodec.decode_vector_key(key)
+            if did is None:
+                continue
+            try:
+                region.document_index.upsert(did, wire.decode_obj(blob))
+                n += 1
+            except Exception:  # noqa: BLE001 — a row that is no document
+                continue
+        return n
 
     def finish_child_index(self, child_region_id: int) -> None:
         """Post-split rebuild: give the child its own index and drop the

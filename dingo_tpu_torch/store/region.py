@@ -7,8 +7,8 @@ persisted via TransformKvAble into the meta CF (:428). RegionChangeRecorder
 (:259) keeps an audit trail of state transitions.
 
 A region builds its vector index on the device it is given (``device``
-None = the CUDA device; DeviceUnavailable without one). DOCUMENT regions
-are not ported.
+None = the CUDA device; DeviceUnavailable without one). A DOCUMENT
+region holds a host DocumentIndex.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from dingo_tpu_torch.common import persist
 from dingo_tpu_torch.common.device import resolve_device
 from dingo_tpu_torch.engine.raw_engine import CF_META, RawEngine
 from dingo_tpu_torch.index import codec as vcodec
-from dingo_tpu_torch.index.base import IndexParameter, IndexType, NotPorted
+from dingo_tpu_torch.index.base import IndexParameter, IndexType
 from dingo_tpu_torch.index.wrapper import VectorIndexWrapper
 from dingo_tpu_torch.ops.distance import Metric
 
@@ -104,7 +104,10 @@ class Region:
                 device=self.device,
             )
         elif definition.region_type is RegionType.DOCUMENT:
-            raise NotPorted("DOCUMENT regions are not ported yet")
+            from dingo_tpu_torch.document import DocumentIndex
+
+            self.document_index = DocumentIndex(
+                definition.region_id, schema=definition.document_schema)
         self.change_log: List[Tuple[float, str]] = []  # RegionChangeRecorder
 
     @property

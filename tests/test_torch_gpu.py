@@ -2524,3 +2524,93 @@ def test_tier_ladder_round_trip_on_the_card(index_type):
         TIERING.reset()
         for f, v in saved.items():
             FLAGS.set(f, v)
+
+
+# ---------------- TABLE filters on B3 ---------------------------------------
+
+def test_table_filter_pre_and_post_on_b3():
+    """A trained IVF_FLAT region whose rows carry table rows: the TABLE
+    pre variant launches B3 under the candidates' bucket mask, the launch
+    equals B3's plain version, and at a full probe the ids are the exact
+    top-10 over the filtered rows modulo ties; the post variant at topk 6
+    over-fetches 60 rows on B3 and returns the filtered prefix of the
+    unfiltered search."""
+    from dingo_tpu_torch.coprocessor.coprocessor_v2 import (
+        CoprocessorDef,
+        CoprocessorV2,
+        SchemaColumn,
+        encode_row,
+    )
+    from dingo_tpu_torch.index import codec as vcodec
+    from dingo_tpu_torch.index.base import IndexParameter, IndexType
+    from dingo_tpu_torch.index.vector_reader import (
+        VectorFilterMode,
+        VectorFilterType,
+    )
+    from dingo_tpu_torch.ops import kernel_ivf_pruned
+    from dingo_tpu_torch.store.node import MonoStoreNode
+    from dingo_tpu_torch.store.region import RegionDefinition, RegionType
+
+    _cuda()
+    n, d, nlist = 6000, 256, 16
+    x, q = _region_data(n, d)
+    cat = np.arange(n) % 10
+    node = MonoStoreNode()
+    region = node.create_region(RegionDefinition(
+        region_id=2, start_key=vcodec.encode_vector_key(0, 0),
+        end_key=vcodec.encode_vector_key(1), region_type=RegionType.INDEX,
+        index_parameter=IndexParameter(index_type=IndexType.IVF_FLAT,
+                                       dimension=d, ncentroids=nlist)))
+    cop = CoprocessorV2(CoprocessorDef(
+        original_schema=[SchemaColumn("cat", "BIGINT", 0)],
+        filter_expr=["lt", ["field", "cat"], ["const", 3]]))
+    keep = cat < 3
+    orig = kernel_ivf_pruned.ivf_pruned_topk
+    seen = []
+
+    def spy(*a, **kw):
+        out = orig(*a, **kw)
+        seen.append(([t.clone() if torch.is_tensor(t) else t for t in a],
+                     dict(kw), [o.clone() for o in out]))
+        return out
+
+    spy.__dict__ = orig.__dict__
+    try:
+        for lo in range(0, n, 2000):
+            node.storage.vector_add(
+                region, np.arange(lo, lo + 2000), x[lo:lo + 2000],
+                table_values=[encode_row([int(c)]) for c in cat[lo:lo + 2000]])
+        node.index_manager.rebuild(region)
+        kernel_ivf_pruned.ivf_pruned_topk = spy
+        got = node.storage.vector_batch_search(
+            region, q, 10, nprobe=nlist, filter_mode=VectorFilterMode.TABLE,
+            filter_type=VectorFilterType.QUERY_PRE, coprocessor=cop)
+        assert len(seen) == 1
+        args, kw, (kv, ki, _) = seen[0]
+        assert int(args[6].sum()) == int(keep.sum()) < n
+        pv, pi, _ = kernel_ivf_pruned.ivf_pruned_topk_plain(*args, **kw)
+        _assert_parity(kv, ki, pv, pi)
+        cand = np.flatnonzero(keep)
+        dist = ((q[:, None, :] - x[None, cand, :]) ** 2).sum(-1)
+        for qi, row in enumerate(got):
+            ids = np.asarray([v.id for v in row])
+            assert keep[ids].all() and len(ids) == 10
+            want = cand[np.argsort(dist[qi], kind="stable")[:10]]
+            dd = np.sort(dist[qi])[:10]
+            for c in np.flatnonzero(ids != want):
+                assert min(abs(dd[c] - dd[c2]) for c2 in (c - 1, c + 1)
+                           if 0 <= c2 < 10) <= 1e-3 * max(1.0, dd[c])
+        seen.clear()
+        post = node.storage.vector_batch_search(
+            region, q, 6, nprobe=8, filter_mode=VectorFilterMode.TABLE,
+            filter_type=VectorFilterType.QUERY_POST, coprocessor=cop)
+        assert len(seen) == 1      # 60 rows, k padded to its shape bucket
+        assert 60 <= (seen[0][0][8] if len(seen[0][0]) > 8
+                      else seen[0][1]["k"]) <= kernel_ivf_pruned.K_MAX
+        over = node.storage.vector_batch_search(region, q, 60, nprobe=8)
+        for o, p_ in zip(over, post):
+            assert [v.id for v in p_] == [v.id for v in o
+                                          if keep[v.id]][:6]
+    finally:
+        kernel_ivf_pruned.ivf_pruned_topk = orig
+        node.stop()

@@ -103,6 +103,18 @@ _BLOCKED_IMPORT = textwrap.dedent("""
             "dingo_tpu_torch.cache.policy", "dingo_tpu_torch.cache.dedupe",
             "dingo_tpu_torch.cache.edge",
             "dingo_tpu_torch.index.carry"} <= set(names), names
+    # the coprocessor and its typed rows, transactions, GC, the native LSM
+    # engine, documents and the per-request tracker
+    assert {"dingo_tpu_torch.coprocessor.expr",
+            "dingo_tpu_torch.coprocessor.aggregation",
+            "dingo_tpu_torch.coprocessor.coprocessor_v2",
+            "dingo_tpu_torch.common.serial",
+            "dingo_tpu_torch.common.tracker",
+            "dingo_tpu_torch.engine.concurrency",
+            "dingo_tpu_torch.engine.txn", "dingo_tpu_torch.engine.gc",
+            "dingo_tpu_torch.engine.lsm_engine",
+            "dingo_tpu_torch.document", "dingo_tpu_torch.document.index",
+            "dingo_tpu_torch.document.query"} <= set(names), names
     import chip_smoke  # the on-card smoke script imports nothing of JAX either
     import precision_check  # nor does the f32-against-f64 check
     bad = [m for m in sys.modules

@@ -812,19 +812,24 @@ def test_not_ported_stubs_of_this_slice():
                  wd.MergeRegionData(source_region_id=2, source_end_key=b"")):
         with pytest.raises(NotImplementedError):
             engine.write(region, data)
+    # documents, transactions, TABLE filters and DOCUMENT regions are
+    # ported: the payloads apply (a region without a document index keeps
+    # only the engine rows), a TABLE filter without a coprocessor raises
+    # the JAX package's ValueError, a DOCUMENT region holds a DocumentIndex
     for data in (wd.DocumentAddData(ts=1, ids=[1], documents=[{}]),
                  wd.DocumentDeleteData(ts=1, ids=[1]),
-                 wd.TxnRaftData(puts=[], deletes=[])):
-        with pytest.raises(NotPorted):
-            engine.write(region, data)
-    with pytest.raises(NotPorted):                  # TABLE filter
+                 wd.TxnRaftData(puts=[("default", b"k", b"v")], deletes=[])):
+        engine.write(region, data)
+    assert raw.get("default", b"k") == b"v"
+    with pytest.raises(ValueError, match="coprocessor"):    # TABLE filter
         storage.vector_batch_search(
             region, rand(1), 1,
             filter_mode=p.reader.VectorFilterMode.TABLE)
-    with pytest.raises(NotPorted):                  # DOCUMENT region
-        p.regm.Region(p.regm.RegionDefinition(
-            region_id=3, start_key=b"a", end_key=b"b",
-            region_type=p.regm.RegionType.DOCUMENT), device="cpu")
+    doc_region = p.regm.Region(p.regm.RegionDefinition(
+        region_id=3, start_key=b"a", end_key=b"b",
+        region_type=p.regm.RegionType.DOCUMENT), device="cpu")
+    assert doc_region.document_index is not None
+    assert doc_region.vector_index_wrapper is None
     # a binary region's reader is ported: it reads packed uint8 rows
     bin_def = p.definition(index_type="binary_flat", dimension=64,
                            metric=p.dist.Metric.HAMMING)
