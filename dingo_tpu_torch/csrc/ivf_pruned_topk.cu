@@ -618,8 +618,8 @@ ivf_pruned_kernel(const Args a, int seed) {
             if (p < nalive) {
               const int row = alive[p];
               if ((msk[row] >> q) & 1)
-                lb = dingo::bounds_of(cq[row], xps[row], xsq[row], qp,
-                                      qtail, a.ascending).lb;
+                lb = dingo::arm_bounds<kRoundQ>(cq[row], xps[row], xsq[row],
+                                                qp, qtail, a.ascending).lb;
             }
             warp_offer(tv, nullptr, k, base, lb, -1);
           }
@@ -654,9 +654,9 @@ ivf_pruned_kernel(const Args a, int seed) {
 #pragma unroll
             for (int q = 0; q < QT; ++q) {
               if (q < nq && ((m >> q) & 1)) {
-                const float ub = dingo::bounds_of(cum[(size_t)q * L.ldc + row],
-                                                  xp, xs, s_qp[q],
-                                                  s_qtail[q], a.ascending).ub;
+                const float ub = dingo::arm_bounds<kRoundQ>(
+                    cum[(size_t)q * L.ldc + row], xp, xs, s_qp[q],
+                    s_qtail[q], a.ascending).ub;
                 if (ub < s_bnd[q]) m &= ~(1u << q);
               }
               cnt[q] += (m >> q) & 1;

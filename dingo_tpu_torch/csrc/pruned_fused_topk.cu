@@ -662,32 +662,6 @@ __device__ __forceinline__ int compact_rows(I* list, int len, Keep keep,
   return cnt;
 }
 
-// The bounds of a (query, row) pair after a block (topk_common.cuh's
-// bounds_of). The bf16 arms multiply the query rounded to bf16 (and sq8
-// rows rounded to bf16) while the norms are those of the f32 query and of
-// the f32 rows, so a pair's remaining blocks can add a little less than 0
-// to its L2 distance, or a little more than the Cauchy-Schwarz term to
-// its inner product: each side's bf16 rounding moves its tail's squared
-// norm by at most 2^-8 of it. There both bounds widen by 2^-7 of the tail
-// terms, which keeps them bounds of the score the arm computes: the scan
-// then prunes no pair its own arithmetic would have kept.
-template <bool kBf16>
-__device__ __forceinline__ dingo::Bounds arm_bounds(float cum, float xps,
-                                                    float xsq, float qp,
-                                                    float qtail,
-                                                    int ascending) {
-  dingo::Bounds r = dingo::bounds_of(cum, xps, xsq, qp, qtail, ascending);
-  if (kBf16) {
-    const float xtail = fmaxf(xsq - xps, 0.f);
-    const float cross = sqrtf(qtail * xtail);
-    const float slack =
-        ascending ? 0.0078125f * (qtail + xtail + 2.0f * cross)
-                  : 0.0078125f * 2.0f * cross;
-    r.ub += slack;
-    r.lb -= slack;
-  }
-  return r;
-}
 
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(THREADS, 2)
@@ -950,9 +924,9 @@ pruned_scan_kernel(const ScanArgs a) {
 #pragma unroll
             for (int i = 0; i < 8; ++i)
               lb[i] = ((byte >> i) & 1u)
-                          ? arm_bounds<kMma>(C[(warp * 8 + i) * C_LD + row],
-                                             xps_s[row], xsq_s[row], qp_r[i],
-                                             qt_r[i], a.ascending).lb
+                          ? dingo::arm_bounds<kMma>(
+                                C[(warp * 8 + i) * C_LD + row], xps_s[row],
+                                xsq_s[row], qp_r[i], qt_r[i], a.ascending).lb
                           : -CUDART_INF_F;
 #pragma unroll
             for (int i = 0; i < 8; ++i) {
@@ -985,9 +959,9 @@ pruned_scan_kernel(const ScanArgs a) {
           for (int i = 0; i < 8; ++i) {
             if ((byte >> i) & 1u) {
               const int ql = warp * 8 + i;
-              if (arm_bounds<kMma>(C[ql * C_LD + row], xps_s[row], xsq_s[row],
-                                   qp_r[i], qt_r[i], a.ascending).ub <
-                  bnd_r[i])
+              if (dingo::arm_bounds<kMma>(C[ql * C_LD + row], xps_s[row],
+                                          xsq_s[row], qp_r[i], qt_r[i],
+                                          a.ascending).ub < bnd_r[i])
                 keep &= ~(1u << i);
             }
           }

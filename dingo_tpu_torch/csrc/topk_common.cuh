@@ -106,6 +106,12 @@ __device__ __forceinline__ void warp_insert(float* vals, int* ids, int k,
 //   lb: L2 -(partial + (|q_tail| + |x_tail|)^2) (triangle inequality);
 //       IP cum - sqrt(qtail xtail); shaved by 1e-5 |lb| + 1e-6 so f32
 //       rounding stays on the conservative side.
+// ub is raised by 1e-5 (||q||^2 + ||x||^2) + 1e-6 for the same reason: a
+// seed launch publishes a row's exact final score as the threshold, and
+// the same row's ub at an earlier block, summed from partial dots and
+// prefix norms reduced in other orders, can round below it by a few ulps
+// of the norms; without the raise the row prunes itself and a k = 1
+// search whose query is that row comes back empty.
 struct Bounds {
   float ub, lb;
 };
@@ -126,6 +132,35 @@ __device__ __forceinline__ Bounds bounds_of(float cum, float xps, float xsq,
     r.lb = cum - s;
   }
   r.lb = r.lb - 1e-5f * fabsf(r.lb) - 1e-6f;
+  r.ub = r.ub + 1e-5f * (qp + qtail + xsq) + 1e-6f;
+  return r;
+}
+
+// The bounds of a (query, row) pair after a block in a kernel arm
+// (bounds_of). The arms that multiply in bf16 (B4's bf16 and sq8 arms,
+// B3's sq8 arm) multiply the query rounded to bf16 (and sq8 rows rounded
+// to bf16) while the norms are those of the f32 query and of the f32
+// rows, so a pair's remaining blocks can add a little less than 0 to its
+// L2 distance, or a little more than the Cauchy-Schwarz term to its inner
+// product: each side's bf16 rounding moves its tail's squared norm by at
+// most 2^-8 of it. There both bounds widen by 2^-7 of the tail terms,
+// which keeps them bounds of the score the arm computes: the scan then
+// prunes no pair its own arithmetic would have kept, a seeded row among
+// them.
+template <bool kBf16>
+__device__ __forceinline__ Bounds arm_bounds(float cum, float xps, float xsq,
+                                             float qp, float qtail,
+                                             int ascending) {
+  Bounds r = bounds_of(cum, xps, xsq, qp, qtail, ascending);
+  if (kBf16) {
+    const float xtail = fmaxf(xsq - xps, 0.f);
+    const float cross = sqrtf(qtail * xtail);
+    const float slack =
+        ascending ? 0.0078125f * (qtail + xtail + 2.0f * cross)
+                  : 0.0078125f * 2.0f * cross;
+    r.ub += slack;
+    r.lb -= slack;
+  }
   return r;
 }
 

@@ -11,9 +11,11 @@ import abc
 import dataclasses
 import enum
 import hashlib
+import warnings
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from dingo_tpu_torch.ops.distance import Metric
 
@@ -111,12 +113,35 @@ def precision_tier(parameter: IndexParameter) -> str:
     return tier
 
 
-def resolve_precision(parameter: IndexParameter) -> str:
-    """Effective precision tier of a float index (fp32, bf16 or sq8)."""
-    tier = precision_tier(parameter)
-    if parameter.dtype not in ("float32", "f32", "bfloat16", "bf16"):
-        raise NotPorted(f"storage dtype {parameter.dtype} is not ported")
-    return tier
+#: the JAX package's name of the same function
+resolve_precision = precision_tier
+
+#: row dtype of an fp32-tier float store by the numpy name of
+#: IndexParameter.dtype: the JAX package keeps the rows in that dtype, and
+#: float64 in float32 (JAX's default, without 64-bit mode)
+_STORAGE_DTYPES = {"float32": torch.float32, "float16": torch.float16,
+                   "float64": torch.float32, "int8": torch.int8}
+
+
+def storage_dtype(parameter: IndexParameter) -> torch.dtype:
+    """Row dtype of the fp32 tier's store for ``parameter.dtype`` (the bf16
+    and sq8 tiers ignore it, as in the JAX package). A name numpy does not
+    know raises TypeError, as the JAX package's jnp.dtype does; float64
+    warns that its rows are float32; a numpy dtype outside float16,
+    float32, float64 and int8 raises InvalidParameter (the JAX package
+    keeps any numpy dtype, bool and complex among them)."""
+    if parameter.dtype in ("float32", "f32"):
+        return torch.float32
+    name = np.dtype(parameter.dtype).name
+    dtype = _STORAGE_DTYPES.get(name)
+    if dtype is None:
+        raise InvalidParameter(
+            f"storage dtype {parameter.dtype!r}: the port stores float16, "
+            "float32, float64 (as float32) and int8 rows")
+    if name == "float64":
+        warnings.warn("storage dtype float64 keeps float32 rows, as the JAX "
+                      "package does without 64-bit mode", stacklevel=3)
+    return dtype
 
 
 _ATOMS = (int, float, str, bytes, np.generic, type(None))

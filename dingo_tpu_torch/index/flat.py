@@ -55,13 +55,19 @@ from dingo_tpu_torch.index.base import (
     SearchResult,
     VectorIndex,
     resolve_precision,
+    storage_dtype,
     strip_invalid,
 )
 from dingo_tpu_torch.index.rerank_cache import DeviceRerankCache
 from dingo_tpu_torch.obs.heat import HEAT, heat_enabled
 from dingo_tpu_torch.obs.integrity import INTEGRITY
 from dingo_tpu_torch.obs.quality import QUALITY
-from dingo_tpu_torch.index.slot_store import SlotStore, SqSlotStore, _next_pow2
+from dingo_tpu_torch.index.slot_store import (
+    KERNEL_DTYPES,
+    SlotStore,
+    SqSlotStore,
+    _next_pow2,
+)
 from dingo_tpu_torch.ops import kernel_topk, kernel_topk_pruned
 from dingo_tpu_torch.ops.devfault import DEVFAULT
 from dingo_tpu_torch.ops.distance import (
@@ -71,6 +77,7 @@ from dingo_tpu_torch.ops.distance import (
     np_normalize,
     score_matrix,
     scores_to_distances,
+    widen_int_rows,
 )
 from dingo_tpu_torch.ops.rerank import cached_rerank_device
 from dingo_tpu_torch.ops.sq import SqParams, sq_score_matrix
@@ -87,7 +94,7 @@ def flat_search_plain(vecs, sqnorm, mask, queries, k: int, metric: Metric):
 
 
 #: searches that took the plain arm (crossover off, COSINE, k > K_MAX, or
-#: the binary family's int8 rows)
+#: f16 and int8 rows, the binary family's among them)
 flat_search_plain.calls = 0
 
 
@@ -107,14 +114,17 @@ def sq_flat_search_plain(codes, vmin, scale, sqnorm, mask, queries, k: int,
 sq_flat_search_plain.calls = 0
 
 
-def _new_tier_store(precision: str, dim: int, device,
+def _new_tier_store(precision: str, parameter: IndexParameter, device,
                     capacity: int = 0) -> SlotStore:
-    """SlotStore of a precision tier: fp32 and bf16 are row dtypes of the
-    float store, sq8 is the quantizing store."""
+    """SlotStore of a precision tier: bf16 and fp32 are row dtypes of the
+    float store (fp32 keeps the parameter's storage dtype: f32, f16 or
+    int8), sq8 is the quantizing store."""
     kw = {"capacity": capacity} if capacity else {}
+    dim = parameter.dimension
     if precision == "sq8":
         return SqSlotStore(dim, device, **kw)
-    dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+    dtype = torch.bfloat16 if precision == "bf16" \
+        else storage_dtype(parameter)
     return SlotStore(dim, device, dtype=dtype, **kw)
 
 
@@ -454,13 +464,14 @@ class _SlotStoreIndex(VectorIndex):
         rows when only the first two hold; else the plain arm of the
         tier."""
         store = self.store
-        # the binary family's int8 rows stay on the plain arm, as the JAX
-        # package keeps them off its fused kernels (flat.py:544-546)
+        # f16 and int8 rows (the binary family's among them) stay on the
+        # plain arm, as the JAX package keeps them off its fused kernels
+        # (flat.py:544-546)
         fused_on = (
             fused_kernel_enabled(store.capacity, self.device)
             and self._kernel_metric in (Metric.L2, Metric.INNER_PRODUCT)
             and k <= kernel_topk.K_MAX
-            and store.dtype != torch.int8
+            and store.dtype in KERNEL_DTYPES
         )
         pruned_on = fused_on and store.vecs_blk is not None \
             and prune_scan_enabled()
@@ -496,9 +507,14 @@ class _SlotStoreIndex(VectorIndex):
                 None
         flat_search_plain.calls += 1
         DEVFAULT.maybe_fail("index.flat.search")
-        dists, slots = flat_search_plain(store.vecs, store.sqnorm, mask,
-                                         qpad, k, self._kernel_metric)
+        dists, slots = flat_search_plain(self._plain_rows(), store.sqnorm,
+                                         mask, qpad, k, self._kernel_metric)
         return dists, slots, None
+
+    def _plain_rows(self) -> torch.Tensor:
+        """The store's rows as the plain arm scores them (an int8 store of
+        a float index widens: ops/distance.widen_int_rows)."""
+        return widen_int_rows(self.store.vecs)
 
     # -- lifecycle ---------------------------------------------------------
     def get_count(self) -> int:
@@ -555,7 +571,7 @@ class _SlotStoreIndex(VectorIndex):
         rows: f32 rows, or the sq8 codes with their codec put back
         bit-exactly. Returns the rows' slots."""
         ids = np.asarray(ids, np.int64)
-        self.store = _new_tier_store(self._precision, self.dimension,
+        self.store = _new_tier_store(self._precision, self.parameter,
                                      self.device, capacity=max(len(ids), 1))
         self._init_precision(self._precision)
         if codes is not None:
@@ -613,7 +629,7 @@ class TpuFlat(_SlotStoreIndex):
         tier = resolve_precision(parameter)
         if tier == "sq8" and parameter.metric is Metric.HAMMING:
             raise InvalidParameter("sq8 tier needs a float metric")
-        self.store = _new_tier_store(tier, parameter.dimension, self.device)
+        self.store = _new_tier_store(tier, parameter, self.device)
         self._init_precision(tier)
         self._kernel_metric = parameter.metric
 
@@ -686,6 +702,10 @@ class BinaryPm1Mixin:
         if queries.shape[1] != self.nbytes:
             raise InvalidParameter(f"binary query shape {queries.shape}")
         return self._unpack_pm1(queries).astype(np.float32)
+
+    def _plain_rows(self) -> torch.Tensor:
+        # the +/-1 rows take _dot's exact int8 product
+        return self.store.vecs
 
     def _binary_store(self, capacity: int = 0) -> SlotStore:
         """An empty +/-1 int8 store on the index's device."""

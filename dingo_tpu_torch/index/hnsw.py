@@ -103,7 +103,7 @@ class TpuHnsw(_SlotStoreIndex):
             raise InvalidParameter("hamming not valid for HNSW")
         self.device = resolve_device(device)
         tier = resolve_precision(parameter)
-        self.store = _new_tier_store(tier, p.dimension, self.device)
+        self.store = _new_tier_store(tier, p, self.device)
         self._init_precision(tier)
         self.ef_search_default = max(64, p.efconstruction // 2)
         self._lib = load_hnsw()

@@ -75,6 +75,7 @@ from dingo_tpu_torch.index.ivf_layout import (
     expand_probes,
     shape_bucket,
 )
+from dingo_tpu_torch.index.slot_store import KERNEL_DTYPES
 from dingo_tpu_torch.ops import kernel_ivf, kernel_ivf_pruned
 from dingo_tpu_torch.ops.devfault import DEVFAULT
 from dingo_tpu_torch.ops.blocked import (
@@ -389,7 +390,7 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
         self.device = resolve_device(device)
         self._kernel_metric = parameter.metric
         tier = resolve_precision(parameter)
-        self.store = _new_tier_store(tier, parameter.dimension, self.device)
+        self.store = _new_tier_store(tier, parameter, self.device)
         self._init_precision(tier)
         self.nlist = parameter.ncentroids
         self.centroids: Optional[torch.Tensor] = None     # [nlist, d]
@@ -556,6 +557,12 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
         self.store.mutation_version += 1
 
     # -- bucketed view data ------------------------------------------------
+    def _kernel_rows(self) -> bool:
+        """Whether the store's rows are of a kernel arm (f32, bf16, sq8
+        codes): f16 and int8 rows take the plain arm, as in the JAX
+        package."""
+        return self.store.dtype in KERNEL_DTYPES
+
     def _prune_dim_block(self) -> Optional[int]:
         """Dimension-block width the pruned scan would use for this index,
         or None when pruning cannot apply (kernel crossover or flag off;
@@ -566,6 +573,8 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
         if not ivf_kernel_enabled(self.dimension, self.device):
             return None
         if not prune_scan_enabled():
+            return None
+        if not self._kernel_rows():
             return None
         if self.metric not in (Metric.L2, Metric.INNER_PRODUCT,
                                Metric.COSINE):
@@ -671,6 +680,7 @@ class TpuIvfFlat(IvfViewMaintenance, _SlotStoreIndex):
                     and self.metric in (Metric.L2, Metric.INNER_PRODUCT,
                                         Metric.COSINE)
                     and k_eff <= kernel_ivf.K_MAX
+                    and self._kernel_rows()
                 )
                 stats = None
                 sq = self._precision == "sq8"

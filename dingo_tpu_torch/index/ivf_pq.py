@@ -45,6 +45,7 @@ from dingo_tpu_torch.index.base import (
     VectorIndex,
     precision_tier,
     resolve_precision,
+    storage_dtype,
     strip_invalid,
 )
 from dingo_tpu_torch.index.flat import (
@@ -77,6 +78,7 @@ from dingo_tpu_torch.ops.distance import (
     np_normalize,
     scores_to_distances,
     squared_norms,
+    widen_int_rows,
 )
 from dingo_tpu_torch.ops.kmeans import (
     MAX_POINTS_PER_CENTROID,
@@ -123,9 +125,11 @@ def _chunked_host_scan(store: HostSlotStore, mask_h: np.ndarray,
         hi = min(store.vecs.shape[0], i + HOST_SCAN_CHUNK)
         if not mask_h[i:hi].any():
             continue
-        # bf16 rows go to the plain arm as bf16, as on a device store
-        rows = torch.from_numpy(store.host_rows(slice(i, hi))).to(
-            store.dtype)
+        # bf16 rows go to the plain arm as bf16, as on a device store;
+        # other rows as f32 (host_rows widens them)
+        rows = torch.from_numpy(store.host_rows(slice(i, hi)))
+        if store.dtype == torch.bfloat16:
+            rows = rows.to(torch.bfloat16)
         d, sl = flat_search_plain(
             rows.to(dev),
             torch.from_numpy(np.ascontiguousarray(sqnorm_h[i:hi])).to(dev),
@@ -258,7 +262,7 @@ class TpuIvfPq(IvfViewMaintenance, _SlotStoreIndex):
 
     def _new_store(self, capacity: int) -> SlotStore:
         dtype = torch.bfloat16 if self._precision == "bf16" \
-            else torch.float32
+            else storage_dtype(self.parameter)
         if self.parameter.host_vectors:
             return HostSlotStore(self.dimension, self.device, capacity,
                                  dtype=dtype)
@@ -505,8 +509,8 @@ class TpuIvfPq(IvfViewMaintenance, _SlotStoreIndex):
                         flat_search_plain.calls += 1
                         DEVFAULT.maybe_fail("index.flat.search")
                         dists, slots = flat_search_plain(
-                            store.vecs, store.sqnorm, mask, qpad, topk,
-                            self.metric)
+                            widen_int_rows(store.vecs), store.sqnorm, mask,
+                            qpad, topk, self.metric)
             else:
                 dists, slots, rerank_host, probes, nprobe_run = \
                     self._search_trained(qpad, b, topk, filter_spec, nprobe)

@@ -5,8 +5,9 @@ dingo_tpu/index/slot_store.py).
   host side   — ids_by_slot int64[capacity] (-1 = empty) + dict id->slot +
                 free-slot list + validity bitmap. 64-bit external ids never
                 go on the device; kernels work in slot space.
-  device side — vecs[capacity, d] in the tier's dtype (f32, bf16, int8 +/-1
-                rows of the binary family, or uint8 codes in SqSlotStore)
+  device side — vecs[capacity, d] in the tier's dtype (f32, bf16, the
+                f16 or int8 of IndexParameter.dtype, int8 +/-1 rows of
+                the binary family, or uint8 codes in SqSlotStore)
                 and sqnorm[capacity] f32, the norms of what the scans
                 accumulate: the stored bf16 rows, the f32 decode of the
                 codes, or nbits for +/-1 rows. Writes land in place, one slice
@@ -43,6 +44,7 @@ import torch
 from dingo_tpu_torch.common.config import blocked_layout_enabled
 from dingo_tpu_torch.common.device import upload
 from dingo_tpu_torch.ops.devfault import DEVFAULT
+from dingo_tpu_torch.ops.distance import to_row_dtype
 from dingo_tpu_torch.ops.blocked import (
     block_sqnorms,
     resolve_dim_block,
@@ -63,11 +65,15 @@ def _next_pow2(n: int) -> int:
     return 1 << max(0, (int(n) - 1)).bit_length()
 
 
-#: row dtypes of the float stores (SqSlotStore holds uint8 codes)
+#: row dtypes of the float tiers (SqSlotStore holds uint8 codes): the
+#: kernels' f32 and bf16 arms
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)
-#: row dtypes of SlotStore: the float tiers and the binary family's +/-1
-#: int8 rows
-ROW_DTYPES = FLOAT_DTYPES + (torch.int8,)
+#: row dtypes the scan kernels read: the float tiers and sq8 codes
+KERNEL_DTYPES = FLOAT_DTYPES + (torch.uint8,)
+#: row dtypes of SlotStore: the float tiers, the other storage dtypes of
+#: IndexParameter.dtype (f16; int8 from floats, as XLA converts them:
+#: ops/distance.to_row_dtype) and the binary family's +/-1 int8 rows
+ROW_DTYPES = FLOAT_DTYPES + (torch.float16, torch.int8)
 
 
 def host_bits(t: torch.Tensor) -> np.ndarray:
@@ -171,9 +177,10 @@ class SlotStore:
 
     def _blocked_dtype_ok(self) -> bool:
         """Tiers whose scan kernel (B4) reads a blocked mirror: f32, bf16
-        and sq8 codes (SqSlotStore); the binary family's int8 rows stay on
-        the plain arm, as in the JAX package."""
-        return self.dtype != torch.int8
+        and sq8 codes (SqSlotStore); f16 and int8 rows (the binary
+        family's among them) stay on the plain arm, as in the JAX
+        package."""
+        return self.dtype in KERNEL_DTYPES
 
     def memory_size(self) -> int:
         itemsize = torch.empty((), dtype=self.dtype).element_size()
@@ -221,28 +228,32 @@ class SlotStore:
         accumulate) for a batch of prepped rows: f32 rows as they are,
         bf16 rows rounded (their norms are those of the rounded rows, the
         JAX package's stored-row convention); int8 +/-1 rows go up as they
-        are, a quarter of the bytes."""
+        are, a quarter of the bytes; f32 rows of an int8 store saturate
+        (ops/distance.to_row_dtype)."""
         n = len(rows_h)
-        if self.dtype == torch.int8:
-            stored = self._upload(np.ascontiguousarray(rows_h, np.int8))[:n]
+        if self.dtype == torch.int8 and rows_h.dtype == np.int8:
+            stored = self._upload(np.ascontiguousarray(rows_h))[:n]
             return stored, stored.to(torch.float32)
         rows = self._upload(np.ascontiguousarray(rows_h, np.float32))[:n]
-        stored = rows.to(self.dtype)
+        stored = to_row_dtype(rows, self.dtype)
         return stored, stored.to(torch.float32)
 
     def canonical_rows(self, rows: np.ndarray) -> np.ndarray:
         """The stored form of prepped rows as host bytes: what the device
         rows hold after a put() of `rows` (the integrity ledger digests
         these, so the incremental digest and a device read-back agree bit
-        for bit). f32 and int8 rows as they are; bf16 rows rounded, as
-        their 16-bit patterns (numpy has no bf16: the same bytes as the
-        JAX package's ml_dtypes rows). SqSlotStore encodes."""
-        if self.dtype == torch.int8:
-            return np.ascontiguousarray(rows, np.int8)
+        for bit). f32 and int8 +/-1 rows as they are; f16 and bf16 rows
+        rounded, bf16 as its 16-bit patterns (numpy has no bf16: the same
+        bytes as the JAX package's ml_dtypes rows); f32 rows of an int8
+        store saturated as the device write saturates them (the JAX
+        package's canonical rows wrap there, a plain numpy cast, and its
+        scrub then flags its own device rows). SqSlotStore encodes."""
+        if self.dtype == torch.int8 and rows.dtype == np.int8:
+            return np.ascontiguousarray(rows)
         rows = np.ascontiguousarray(rows, np.float32)
         if self.dtype == torch.float32:
             return rows
-        return host_bits(torch.from_numpy(rows).to(self.dtype))
+        return host_bits(to_row_dtype(torch.from_numpy(rows), self.dtype))
 
     def _write_runs(self, runs, rows_h: np.ndarray) -> None:
         """Write rows sorted by slot; runs = [(lo, hi, first slot)] of
@@ -528,14 +539,16 @@ class HostSlotStore(SlotStore):
     index whose search never reads full rows from the device (IVF_PQ with
     host_vectors: it scans codes and reranks from host rows at resolve).
     Bookkeeping is SlotStore's; `device` is where rows_device uploads.
-    f32 rows, or bf16 rows kept as their uint16 bit patterns; never a
-    blocked mirror."""
+    Rows in the store's dtype, bf16 rows as their uint16 bit patterns;
+    never a blocked mirror."""
 
     def _blocked_dtype_ok(self) -> bool:
         return False
 
     def _np_dtype(self):
-        return np.uint16 if self.dtype == torch.bfloat16 else np.float32
+        if self.dtype == torch.bfloat16:
+            return np.dtype(np.uint16)
+        return torch.empty((), dtype=self.dtype).numpy().dtype
 
     def _alloc_storage(self, capacity: int):
         return (np.zeros((capacity, self.dim), self._np_dtype()),
@@ -568,9 +581,23 @@ class HostSlotStore(SlotStore):
                 self.sqnorm[s0:s0 + hi - lo] = sq[lo:hi]
 
     def _stored_rows(self, rows_h: np.ndarray):
-        rows = torch.from_numpy(np.ascontiguousarray(rows_h, np.float32))
-        stored = rows.to(self.dtype)
+        """bf16 rows rounded by torch; any other dtype cast by numpy, as
+        the JAX package's host store casts (its int8 rows wrap where the
+        device store's saturate)."""
+        rows = np.ascontiguousarray(rows_h, np.float32)
+        if self.dtype == torch.bfloat16:
+            stored = torch.from_numpy(rows).to(torch.bfloat16)
+        else:
+            stored = torch.from_numpy(rows.astype(self._np_dtype()))
         return stored, stored.to(torch.float32)
+
+    def canonical_rows(self, rows: np.ndarray) -> np.ndarray:
+        """The rows as this store keeps them: numpy's cast (bf16 rows as
+        SlotStore's)."""
+        if self.dtype == torch.bfloat16:
+            return super().canonical_rows(rows)
+        return np.ascontiguousarray(rows, np.float32).astype(
+            self._np_dtype())
 
     def rows_device(self, slots: np.ndarray) -> torch.Tensor:
         # the host gather is the upload

@@ -328,7 +328,7 @@ class TierManager:
         #: test seam, called with a stage name at fixed points of a
         #: transition: "copied" (between copy and digest verify; ctx is the
         #: destination index), "mid_demote"/"mid_promote" (after verify,
-        #: before install)
+        #: before install; at the start of an engine-rebuild arm)
         self.test_hook: Optional[Callable[..., None]] = None
         self.transitions = 0
         #: the policy inputs of the current tick, recorded into the
@@ -778,6 +778,9 @@ class TierManager:
         param = region.definition.index_parameter
         raft_log = self._raft_log(node, rid)
         if param.index_type is not IndexType.FLAT:
+            # the kill point of the rebuild arms (_rebuild_rung's): the
+            # JAX package's IVF and HNSW promotions have none
+            self._hook("mid_promote")
             ok = node.index_manager.rebuild_at_precision(
                 region, raft_log=raft_log, precision="sq8")
             if ok:

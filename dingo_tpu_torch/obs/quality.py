@@ -324,6 +324,7 @@ class ShadowOracle:
         if self.mode == "host":
             return self._exact_host(store, queries, k, filter_spec)
         from dingo_tpu_torch.common.device import upload
+        from dingo_tpu_torch.ops.distance import widen_int_rows
         from dingo_tpu_torch.ops.shadow import shadow_exact_topk
 
         kb = _k_bucket(k)
@@ -339,7 +340,7 @@ class ShadowOracle:
                 mask = upload(np_mask, store.device) \
                     if np_mask is not None else store.device_mask()
                 dists, slots = shadow_exact_topk(
-                    store.vecs, store.sqnorm, mask, qpad,
+                    widen_int_rows(store.vecs), store.sqnorm, mask, qpad,
                     k=kb, metric=self.metric,
                 )
             dists_h = dists.cpu().numpy()

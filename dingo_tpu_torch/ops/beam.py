@@ -138,8 +138,7 @@ def beam_search(adj: torch.Tensor, vecs: torch.Tensor, sqnorm: torch.Tensor,
     sv, ss = (vmin, scale) if sq else (None, None)
 
     def score(slots):
-        return kernel_beam.candidate_scores(qd, vecs, sqnorm, slots, metric,
-                                            sv, ss)
+        return kernel_beam.scores(qd, vecs, sqnorm, slots, metric, sv, ss)
 
     if isinstance(entry, torch.Tensor):
         entry_t = entry.to(device=dev, dtype=torch.int32).reshape(())

@@ -94,6 +94,29 @@ def _dot(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def saturate_int8(x: torch.Tensor) -> torch.Tensor:
+    """f32 values as int8 the way XLA converts them (the JAX package's
+    casts on the device): NaN to 0, a value past the int8 range to its
+    nearest end, the rest toward zero. A plain cast (numpy's or torch's)
+    wraps out-of-range values instead."""
+    return torch.nan_to_num(x, nan=0.0).clamp(-128, 127).to(torch.int8)
+
+
+def to_row_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """f32 values in a row dtype as XLA converts them: int8 saturates
+    (saturate_int8); a float dtype rounds to nearest even, as torch's cast
+    does."""
+    return saturate_int8(x) if dtype == torch.int8 else x.to(dtype)
+
+
+def widen_int_rows(x: torch.Tensor) -> torch.Tensor:
+    """Rows of a float index's int8 store as f32 (the JAX package's
+    einsum promotes them against the f32 query); any other rows as they
+    are. The binary family's +/-1 int8 rows skip it: _dot's exact int8
+    product casts the query to int8, exact for +/-1 queries only."""
+    return x.to(torch.float32) if x.dtype == torch.int8 else x
+
+
 def pairwise_l2sqr(q: torch.Tensor, x: torch.Tensor,
                    x_sqnorm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Squared L2 distance matrix [b, n], clamped at 0 against

@@ -193,8 +193,7 @@ def insert_batch(adj: torch.Tensor, vecs: torch.Tensor, sqnorm: torch.Tensor,
     nc = cand.shape[1]
     live = cand >= 0
     csafe = torch.clamp_min(cand, 0).long()
-    s_pc = kernel_beam.candidate_scores(qd, vecs, sqnorm, cand, metric, sv,
-                                        ss)
+    s_pc = kernel_beam.scores(qd, vecs, sqnorm, cand, metric, sv, ss)
     crows = _decoded_rows(vecs, csafe, sq, vmin, scale).to(torch.float32)
     csq = sqnorm[csafe]
     gram = torch.bmm(crows, crows.transpose(1, 2))            # [b, C, C]
@@ -272,8 +271,7 @@ def insert_batch(adj: torch.Tensor, vecs: torch.Tensor, sqnorm: torch.Tensor,
                             torch.full_like(cand2, -1), cand2)
         cand2 = _dedup_sorted(cand2, cap)
         drow = _decoded_rows(vecs, dsafe, sq, vmin, scale).to(torch.float32)
-        s2 = kernel_beam.candidate_scores(drow, vecs, sqnorm, cand2, metric,
-                                          sv, ss)
+        s2 = kernel_beam.scores(drow, vecs, sqnorm, cand2, metric, sv, ss)
         v2, i2 = _topk_stable(s2, deg)
         new_row = torch.where(torch.isneginf(v2), torch.full_like(i2, -1),
                               cand2.gather(1, i2).long()).to(torch.int32)

@@ -238,6 +238,11 @@ def candidate_scores_plain(queries: torch.Tensor, vecs: torch.Tensor,
     return out
 
 
+#: plain-version scorings on the walk and the build of f16 or int8 rows
+#: (scores), on any device
+candidate_scores_plain.calls = 0
+
+
 class _Launch(NamedTuple):
     """A CUDA launch's checked inputs."""
     queries: torch.Tensor
@@ -348,6 +353,22 @@ def _scores_block(queries, vecs, sqnorm, slots, metric, sq_vmin=None,
                          f"most {BLOCK_MAX_BLOCKS} query blocks and its "
                          "scratch within BLOCK_MAX_SCRATCH_BYTES")
     return _launch_block(x)
+
+
+def scores(queries: torch.Tensor, vecs: torch.Tensor, sqnorm: torch.Tensor,
+           slots: torch.Tensor, metric: Metric,
+           sq_vmin: Optional[torch.Tensor] = None,
+           sq_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The walk's and the build's candidate scores: kernel G
+    (candidate_scores) for rows of its arms (f32, bf16, sq8 codes); f16
+    and int8 rows (IndexParameter.dtype) take the plain version on any
+    device, the JAX package's XLA program for every dtype, counted in
+    candidate_scores_plain.calls."""
+    if vecs.dtype in _KIND:
+        return candidate_scores(queries, vecs, sqnorm, slots, metric,
+                                sq_vmin, sq_scale)
+    candidate_scores_plain.calls += 1
+    return candidate_scores_plain(queries, vecs, sqnorm, slots, metric)
 
 
 def candidate_scores(queries: torch.Tensor, vecs: torch.Tensor,

@@ -22,6 +22,7 @@ from dingo_tpu_torch.ops.distance import (
     metric_ascending,
     scores_to_distances,
     squared_norms,
+    to_row_dtype,
 )
 from dingo_tpu_torch.ops.sq import sq_decode_device
 
@@ -34,10 +35,12 @@ def _scores_from_rows(rows: torch.Tensor, c_sq: torch.Tensor,
     the graph build. Rows arrive in the compute dtype: f32 for exact
     scoring, the bf16 (surrogate) rows of the quantized tiers, with the
     query rounded to bf16 to match; products accumulate in f32 (a bf16 x
-    bf16 product is exact in f32)."""
+    bf16 product is exact in f32). Rows of another storage dtype (f16,
+    int8: the beam walk's) pair with the query cast to theirs, as the JAX
+    package's einsum does."""
     qd = queries.to(torch.float32)
     qc = qd if rows.dtype == torch.float32 else \
-        qd.to(rows.dtype).to(torch.float32)
+        to_row_dtype(qd, rows.dtype).to(torch.float32)
     dots = torch.einsum("bd,bkd->bk", qc, rows.to(torch.float32))
     if metric is Metric.L2:
         return -(squared_norms(qd)[:, None] - 2.0 * dots + c_sq)

@@ -10,6 +10,7 @@ numbers are each package's own clock."""
 
 import json
 import time
+import types
 
 import numpy as np
 import pytest
@@ -185,7 +186,16 @@ def test_live_overrides_equal_the_reference():
     assert got["dingo_tpu_torch"][0]["degrade_level"] == "2"
 
 
-def _episode(p, rid):
+def _episode(p, rid, monkeypatch):
+    """The seven emits of one episode, each package's events clock held at
+    one instant across them. ``explain_region`` sorts a knob's chain by
+    (ts_ms, node_id, actor_seq), and actor_seq starts at ts_ms * 1000 for
+    each actor: the ``capacity`` and ``tier`` events tie when they share a
+    millisecond and not across a boundary, so a package whose emits
+    straddled one would order the chain otherwise than the other."""
+    now = time.time()
+    monkeypatch.setattr(p.events, "time", types.SimpleNamespace(
+        time=lambda: now, perf_counter=time.perf_counter))
     E = p.events.EVENTS
     E.emit("tuner", rid, "nprobe", 8, 16, trigger="tighten",
            evidence={"ci_low": 0.7, "slo": 0.95})
@@ -212,8 +222,8 @@ def _report_view(report):
                         for e in report["entries"]]}
 
 
-def test_explain_reconstructs_the_full_episode_zero_orphans():
-    got = {n: _episode(p, 31) for n, p in P.items()}
+def test_explain_reconstructs_the_full_episode_zero_orphans(monkeypatch):
+    got = {n: _episode(p, 31, monkeypatch) for n, p in P.items()}
     port = got["dingo_tpu_torch"]
     assert port["orphans"] == []
     assert all(e["explained"] for e in port["entries"])

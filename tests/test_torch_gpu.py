@@ -2614,3 +2614,117 @@ def test_table_filter_pre_and_post_on_b3():
     finally:
         kernel_ivf_pruned.ivf_pruned_topk = orig
         node.stop()
+
+
+@pytest.mark.parametrize("name", ["kill_restart", "bitflip"])
+def test_chaos_scenario_on_the_card(name):
+    """The chaos harness's kill/restart and bitflip scenarios on an
+    IVF_FLAT region of 8,192 x 768 (nlist 8): every gate, and the trained
+    reads on B3."""
+    dev = _cuda()
+    from dingo_tpu_torch.index.base import IndexType
+    from dingo_tpu_torch.ops import kernel_ivf_pruned
+    from dingo_tpu_torch.tools import chaos
+
+    b3 = kernel_ivf_pruned.ivf_pruned_topk
+    before = b3.launches
+    out = chaos.SCENARIOS[name](0, device=dev, n=8192, dim=768,
+                                index_type=IndexType.IVF_FLAT, nlist=8,
+                                checkpoint_bytes=None)
+    assert out["passed"], out
+    assert out["acked"] >= 8192 - 96 and out["lost"] == 0
+    assert b3.launches > before
+
+
+@pytest.mark.parametrize("dtype", ["float16", "int8"])
+@pytest.mark.parametrize("family", ["flat", "ivf_flat", "hnsw"])
+def test_storage_dtypes_serve_on_the_card(family, dtype):
+    """f16 and int8 stores (IndexParameter.dtype) on the card: the kernels
+    read f32, bf16 and sq8 rows, so these take the plain arms (HNSW's walk
+    scores them with kernel G's plain version); the stored rows equal the
+    same index's on the CPU, and so do the answers (FLAT and IVF_FLAT ids
+    modulo ties; HNSW's device walk against the CPU's host graph: each
+    row's own id first)."""
+    dev = _cuda()
+    from dingo_tpu_torch.index.base import IndexParameter, IndexType
+    from dingo_tpu_torch.index.factory import new_index
+    from dingo_tpu_torch.ops import kernel_beam, kernel_topk, \
+        kernel_topk_pruned
+
+    rng = np.random.default_rng(5)
+    n, d = 2048, 128
+    x = (rng.standard_normal((n, d)) * 100).astype(np.float32)
+    ids = np.arange(n, dtype=np.int64)
+    q = x[:16] + rng.standard_normal((16, d)).astype(np.float32)
+    kw = {"ncentroids": 8, "default_nprobe": 8} if family == "ivf_flat" \
+        else {}
+    param = IndexParameter(index_type=IndexType(family), dimension=d,
+                           dtype=dtype, **kw)
+    got = {}
+    fused = (kernel_topk.fused_topk.launches,
+             kernel_topk_pruned.pruned_fused_topk.launches)
+    plain_g = kernel_beam.candidate_scores_plain.calls
+    for where in ("cpu", dev):
+        idx = new_index(1, param, device=where)
+        idx.upsert(ids, x)
+        if family == "ivf_flat":
+            idx.train(x)
+        rows = idx.store.vecs[idx.store.slots_of(ids)].cpu().numpy()
+        got[str(where)] = (rows, idx.search(q, 10))
+    (rc, resc), (rg, resg) = got["cpu"], got[str(dev)]
+    np.testing.assert_array_equal(rg, rc)
+    assert (kernel_topk.fused_topk.launches,
+            kernel_topk_pruned.pruned_fused_topk.launches) == fused
+    # ||q||^2 - 2 q.x + ||x||^2 summed in the card's order and the CPU's:
+    # 4 f32 ulps of the largest terms apart near a distance of 0
+    atol = 4 * float(np.finfo(np.float32).eps) * float(
+        (x * x).sum(1).max() + (q * q).sum(1).max())
+    for a, b in zip(resc, resg):
+        if family == "hnsw":
+            assert a.ids[0] == b.ids[0]
+            continue
+        np.testing.assert_allclose(b.distances, a.distances, rtol=1e-4,
+                                   atol=atol)
+        for c in np.flatnonzero(a.ids != b.ids):
+            assert c == len(a.ids) - 1 or any(
+                abs(b.distances[c] - b.distances[c2]) <= atol
+                for c2 in (c - 1, c + 1) if 0 <= c2 < len(b.ids))
+    if family == "hnsw":
+        assert kernel_beam.candidate_scores_plain.calls > plain_g
+
+
+@pytest.mark.parametrize("precision", ["fp32", "sq8"])
+@pytest.mark.parametrize("family", ["flat", "ivf_flat"])
+def test_pruned_kernels_keep_a_seeded_row_at_k1(family, precision):
+    """B3 and B4 at k = 1 with queries that are stored rows (ROADMAP C14):
+    a seed launch publishes a row's exact score as its query's threshold,
+    and the main launch scans that row again; its upper bound at an
+    earlier block must not round below its own score, or the row prunes
+    itself and the query comes back empty. Every query finds its own
+    id."""
+    dev = _cuda()
+    from dingo_tpu_torch.index.base import IndexParameter, IndexType
+    from dingo_tpu_torch.index.factory import new_index
+    from dingo_tpu_torch.ops import kernel_ivf_pruned, kernel_topk_pruned
+
+    rng = np.random.default_rng(11)
+    n, d = 8192, 768
+    centers = rng.standard_normal((64, d), dtype=np.float32)
+    x = centers[rng.integers(0, 64, n)] + np.float32(0.35) * \
+        rng.standard_normal((n, d), dtype=np.float32)
+    kw = {"ncentroids": 8, "default_nprobe": 4} if family == "ivf_flat" \
+        else {}
+    idx = new_index(1, IndexParameter(index_type=IndexType(family),
+                                      dimension=d, precision=precision,
+                                      **kw), device=dev)
+    idx.upsert(np.arange(n, dtype=np.int64), x)
+    if family == "ivf_flat":
+        idx.train(x)
+    kern = kernel_ivf_pruned.ivf_pruned_topk if family == "ivf_flat" \
+        else kernel_topk_pruned.pruned_fused_topk
+    arm = "launches" if precision == "fp32" else "launches_sq8"
+    before = getattr(kern, arm)
+    got = [int(r.ids[0]) if len(r.ids) else -1
+           for r in idx.search(x[:256], 1)]
+    assert getattr(kern, arm) > before
+    assert got == list(range(256))

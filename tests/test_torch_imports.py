@@ -115,6 +115,9 @@ _BLOCKED_IMPORT = textwrap.dedent("""
             "dingo_tpu_torch.engine.lsm_engine",
             "dingo_tpu_torch.document", "dingo_tpu_torch.document.index",
             "dingo_tpu_torch.document.query"} <= set(names), names
+    # the chaos harness and its crash-recovery matrix
+    assert {"dingo_tpu_torch.tools",
+            "dingo_tpu_torch.tools.chaos"} <= set(names), names
     import chip_smoke  # the on-card smoke script imports nothing of JAX either
     import precision_check  # nor does the f32-against-f64 check
     bad = [m for m in sys.modules

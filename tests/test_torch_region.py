@@ -794,8 +794,12 @@ def test_not_ported_raise_sites():
         TpuIvfFlat(1, IndexParameter(index_type=IndexType.IVF_FLAT,
                                      dimension=8, metric=Metric.HAMMING),
                    device="cpu")
-    with pytest.raises(NotPorted):                  # base.py
-        new_index(1, IndexParameter(dimension=8, dtype="int8"), device="cpu")
+    # storage dtypes are ported (base.py's NotPorted went): int8 rows, and
+    # a numpy dtype the port does not store is an invalid parameter
+    assert new_index(1, IndexParameter(dimension=8, dtype="int8"),
+                     device="cpu").store.dtype == torch.int8
+    with pytest.raises(InvalidParameter):
+        new_index(1, IndexParameter(dimension=8, dtype="bool"), device="cpu")
     assert not issubclass(NotPorted, NotSupported)
 
 

@@ -1,8 +1,8 @@
 """The memory-tier ladder of the port (index/tiering.py, the host and mmap
 sq8 slot stores) against the JAX package's: the cases of test_tiering.py
 on a one-store cluster of each package (FLAT/IVF_FLAT at DIM 16, 96
-rows), run through both packages, plus tools/chaos.py's tier_kill gates
-rebuilt on a durable node of each package, the staged code pour, the
+rows), run through both packages, plus the chaos harness's tier_kill
+scenario of each package, the staged code pour, the
 stores themselves, the collector's serving_tier and the carry of a
 host-rung snapshot the JAX package saved.
 
@@ -22,8 +22,6 @@ The port runs on the CPU (``device="cpu"``); raft waits have deadlines.
 import contextlib
 import importlib
 import os
-import shutil
-import tempfile
 import threading
 import time
 
@@ -69,14 +67,10 @@ class Pkg:
 
 class Cluster:
     """An in-process store cluster of one package (tools/chaos.py's
-    Cluster without the transport faults), durable when given a data
-    directory."""
+    Cluster without the transport faults) on memory engines."""
 
-    def __init__(self, p: Pkg, n_stores: int, replication: int, seed: int,
-                 data_dir=None):
+    def __init__(self, p: Pkg, n_stores: int, replication: int, seed: int):
         self.p = p
-        self.seed = seed
-        self.data_dir = data_dir
         self.transport = p.raft.LocalTransport(seed=seed)
         self.coord = p.control.CoordinatorControl(
             p.raw.MemEngine(), replication=replication)
@@ -85,23 +79,11 @@ class Cluster:
         # files' clusters start at 1000
         while self.coord.next_region_id() < FIRST_REGION_ID:
             pass
-        self.nodes = {}
-        self._engines = {}
-        for i in range(n_stores):
-            sid = f"s{i}"
-            self.nodes[sid] = self._store(sid, seed + i)
-
-    def _store(self, sid, seed):
-        p = self.p
-        if self.data_dir is not None:
-            raw = p.raw.WalEngine(f"{self.data_dir}/{sid}",
-                                  checkpoint_threshold_bytes=1 << 20)
-        else:
-            raw = p.raw.MemEngine()
-        self._engines[sid] = raw
-        return p.node.StoreNode(sid, self.transport, self.coord,
-                                raw_engine=raw, raft_kw={"seed": seed},
-                                **p.kw)
+        self.nodes = {
+            f"s{i}": p.node.StoreNode(f"s{i}", self.transport, self.coord,
+                                      raw_engine=p.raw.MemEngine(),
+                                      raft_kw={"seed": seed + i}, **p.kw)
+            for i in range(n_stores)}
 
     def create_region(self, index_type=None, precision="", **param_kw):
         b = self.p.base
@@ -133,18 +115,6 @@ class Cluster:
                     return sid, n
         raise AssertionError(f"no leader for region {region_id}")
 
-    def kill(self, sid):
-        node = self.nodes.pop(sid)
-        node.stop()
-        with contextlib.suppress(Exception):
-            self._engines[sid].close()
-
-    def restart(self, sid, seed_offset=100):
-        node = self._store(sid, self.seed + seed_offset)
-        node.recover()
-        self.nodes[sid] = node
-        return node
-
     def close(self):
         for n in self.nodes.values():
             with contextlib.suppress(Exception):
@@ -155,15 +125,12 @@ class Cluster:
 
 
 @contextlib.contextmanager
-def cluster(p, n_stores=1, replication=1, seed=7, durable=False):
-    tmp = tempfile.mkdtemp(prefix="tier-") if durable else None
-    c = Cluster(p, n_stores, replication, seed, data_dir=tmp)
+def cluster(p, n_stores=1, replication=1, seed=7):
+    c = Cluster(p, n_stores, replication, seed)
     try:
         yield c
     finally:
         c.close()
-        if tmp is not None:
-            shutil.rmtree(tmp, ignore_errors=True)
 
 
 @pytest.fixture(autouse=True)
@@ -475,97 +442,39 @@ def test_snapshot_source_refuses_non_sq_store(pkg):
         pkg.TIERING._snapshot_source(_Wrapper())
 
 
-# -- tools/chaos.py's tier_kill, on a durable node of each package --------
+# -- the chaos harness's tier_kill, through each package's scenario -------
 
-class _TierKill(RuntimeError):
-    pass
+def test_tier_kill_mid_transition_loses_nothing(monkeypatch):
+    """scenario_tier_kill of tools/chaos.py and of the port's
+    dingo_tpu_torch/tools/chaos.py (seed 3): a kill between the verified
+    copy and the swap of a demotion and one inside a promotion, each
+    restart through StoreNode.recover(); 0 acknowledged rows lost after
+    either restart, a clean scrub, still writable; the two packages'
+    survivors answer alike (their top-3 of the first four rows, read when
+    each scenario starts its warmed searches)."""
+    import tools.chaos as jax_chaos
+    from dingo_tpu_torch.tools import chaos as port_chaos
 
+    rows = {}
 
-def _acked_lost(node, region, acked):
-    ids = sorted(acked)
-    got = node.storage.vector_batch_query(region, ids)
-    lost = []
-    for vid, v in zip(ids, got):
-        if v is None or v.vector is None or not np.allclose(
-                np.asarray(v.vector), acked[vid], atol=1e-5):
-            lost.append(vid)
-    return lost
+    def spy(mod, name):
+        real = mod._steady_recompiles
 
+        def wrapped(node, region, queries, reps=3):
+            rows[name] = _topk(node, region, queries, k=3)
+            return real(node, region, queries, reps)
 
-def _digest_clean(p, node) -> bool:
-    results = p.integrity.INTEGRITY.scrub_node(node)
-    return all(r.get("status") in ("ok", "skipped", "advisory")
-               for per in results.values() for r in per.values())
+        monkeypatch.setattr(mod, "_steady_recompiles", wrapped)
 
-
-def _tier_kill(p, seed=3):
-    """A kill between the verified copy and the swap of a demotion, and
-    one inside a promotion; each restart goes through StoreNode.recover()
-    and rebuilds at the declared tier from the engine."""
-    T = p.TIERING
-    with cluster(p, seed=seed, durable=True) as c:
-        rid = c.create_region()
-        _sid, node = c.wait_leader(rid)
-        region = node.get_region(rid)
-        rng = np.random.default_rng(seed)
-        ids = np.arange(96, dtype=np.int64)
-        x = rng.standard_normal((96, DIM)).astype(np.float32)
-        acked = {}
-        for lo in range(0, 64, 8):
-            node.storage.vector_add(region, ids[lo:lo + 8], x[lo:lo + 8])
-            acked.update({int(ids[i]): x[i] for i in range(lo, lo + 8)})
-        assert T.demote(node, region)["ok"]          # hbm -> hbm_sq8
-
-        def kill_at(stage_name):
-            def hook(stage, _ctx=None):
-                if stage == stage_name:
-                    c.kill("s0")
-                    raise _TierKill(stage)
-            return hook
-
-        T.test_hook = kill_at("mid_demote")
-        with pytest.raises(_TierKill):
-            T.demote(node, region)
-        T.test_hook = None
-        node2 = c.restart("s0")
-        c.wait_leader(rid)
-        region2 = node2.get_region(rid)
-        node2.storage.vector_batch_search(region2, x[:1], 3)
-        T.reset()   # a restarted process starts with no ladder state
-        lost = _acked_lost(node2, region2, acked)
-        clean = _digest_clean(p, node2)
-        assert T.demote(node2, region2)["ok"]
-        assert T.demote(node2, region2)["ok"]
-        assert T.state()[rid]["rung"] == "host_sq8"
-        T.test_hook = kill_at("mid_promote")
-        with pytest.raises(_TierKill):
-            T.promote(node2, region2)
-        T.test_hook = None
-        node3 = c.restart("s0", seed_offset=200)
-        c.wait_leader(rid)
-        region3 = node3.get_region(rid)
-        node3.storage.vector_batch_search(region3, x[:1], 3)
-        T.reset()
-        lost += _acked_lost(node3, region3, acked)
-        clean = clean and _digest_clean(p, node3)
-        node3.storage.vector_add(region3, ids[64:72], x[64:72])
-        writable = node3.storage.vector_batch_query(
-            region3, [int(ids[64])])[0] is not None
-        rows = _topk(node3, region3, x[:4], k=3)
-    return {"lost": lost, "clean": clean, "writable": writable,
-            "rows": rows}
-
-
-def test_tier_kill_mid_transition_loses_nothing():
-    """tools/chaos.py::scenario_tier_kill's gates on each package: 0
-    acknowledged rows lost after either restart, a clean scrub, still
-    writable; the two packages' survivors answer alike."""
-    got = {name: _tier_kill(Pkg(name)) for name in PKGS}
+    spy(jax_chaos, "dingo_tpu")
+    spy(port_chaos, "dingo_tpu_torch")
+    got = {"dingo_tpu": jax_chaos.scenario_tier_kill(3),
+           "dingo_tpu_torch": port_chaos.scenario_tier_kill(3, device="cpu")}
     for name, g in got.items():
-        assert g["lost"] == [], name
-        assert g["clean"], name
-        assert g["writable"], name
-    _same_modulo_ties(got["dingo_tpu"]["rows"], got["dingo_tpu_torch"]["rows"],
+        assert g["lost"] == 0, name
+        assert g["gates"]["digest_clean"], name
+        assert g["gates"]["writable_after_recovery"], name
+    _same_modulo_ties(rows["dingo_tpu"], rows["dingo_tpu_torch"],
                       rtol=1e-5, atol=1e-5)
 
 
