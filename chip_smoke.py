@@ -2611,7 +2611,10 @@ def region_phase(x, queries, extra, gt, nlist, card, dev,
         raise SmokeFailure("region phase: leadership never stabilized")
 
     def settle(timeout=300.0):
-        target = raft(leader()).commit_index
+        # every entry any replica knows committed: after a leader change
+        # the new leader's commit index can lag one the old leader acked
+        leader()
+        target = max(raft(s).commit_index for s in live_peers)
         deadline = time.monotonic() + timeout
         while time.monotonic() < deadline:
             if all(raft(s).last_applied >= target for s in live_peers):
@@ -4158,6 +4161,7 @@ def cluster_phase(coord, nodes, rid, live_ids, live_vecs, extra, card,
     from dingo_tpu_torch.index import codec as vcodec
     from dingo_tpu_torch.index.base import FilterSpec
     from dingo_tpu_torch.raft import NotLeader
+    from dingo_tpu_torch.raft.core import NOOP
     from dingo_tpu_torch.store.checker import PreSplitChecker
 
     k, kw = 10, {"nprobe": REGION_NPROBE}
@@ -4213,7 +4217,10 @@ def cluster_phase(coord, nodes, rid, live_ids, live_vecs, extra, card,
                            "stabilized")
 
     def settle(r):
-        target = nodes[leader_of(r)].engine.get_node(r).commit_index
+        # every entry any replica knows committed: after a leader change
+        # the new leader's commit index can lag one the old leader acked
+        leader_of(r)
+        target = max(nodes[s].engine.get_node(r).commit_index for s in sids)
         wait(lambda: all(nodes[s].engine.get_node(r).last_applied >= target
                          for s in sids),
              f"every replica applied region {r}'s commit index", 300.0)
@@ -4360,6 +4367,8 @@ def cluster_phase(coord, nodes, rid, live_ids, live_vecs, extra, card,
 
     # -- writes on each side while split ---------------------------------------
     writes = []
+    lead_w = leader_of(rid)
+    term_w = nodes[lead_w].engine.get_node(rid).current_term
     t0 = time.perf_counter()
     for side, r, in_side in (("parent", rid, ~in_child),
                              ("child", child, in_child)):
@@ -4400,6 +4409,15 @@ def cluster_phase(coord, nodes, rid, live_ids, live_vecs, extra, card,
     out["writes_s"] = time.perf_counter() - t0
     settle(rid)
     settle(child)
+    lead_s = leader_of(rid)
+    rn = nodes[lead_s].engine.get_node(rid)
+    noops = sum(rn.log.entry_at(i)[1] == NOOP
+                for i in range(rn.log.first_index, rn.log.last_index() + 1))
+    print(f"[{card}] cluster writes settled: region {rid}'s raft leader "
+          f"{lead_w} (term {term_w}) at the writes, {lead_s} (term "
+          f"{rn.current_term}) once every replica applied; no-op entries "
+          f"in its log {noops} (a new leader appends one when its log "
+          "runs past its commit index)", flush=True)
     visibility(rid, "parent side once applied", writes[:1])
     visibility(child, "child side once applied (through the share)",
                writes[1:])

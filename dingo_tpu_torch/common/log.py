@@ -20,7 +20,7 @@ import logging
 import os
 import sys
 import threading
-from typing import Optional
+from typing import Dict, Optional
 
 _ROOT = "dingo"
 _LEVELS = ("DEBUG", "INFO", "WARNING", "ERROR", "CRITICAL")
@@ -99,3 +99,17 @@ def set_level(level: str, module: Optional[str] = None) -> None:
     else:
         name = f"{_ROOT}.{module}"
     logging.getLogger(name).setLevel(level)
+
+
+def get_levels() -> Dict[str, str]:
+    """Effective levels of every live dingo logger (NodeService
+    GetLogLevel)."""
+    _ensure_configured()
+    out = {}
+    root = logging.getLogger(_ROOT)
+    out[_ROOT] = logging.getLevelName(root.getEffectiveLevel())
+    for name, logger in list(logging.Logger.manager.loggerDict.items()):
+        if name.startswith(_ROOT + ".") and isinstance(
+                logger, logging.Logger):
+            out[name] = logging.getLevelName(logger.getEffectiveLevel())
+    return out

@@ -41,6 +41,7 @@ from dingo_tpu_torch.engine.raw_engine import RawEngine
 from dingo_tpu_torch.index.base import IndexParameter, VectorIndex
 from dingo_tpu_torch.index.factory import new_index
 from dingo_tpu_torch.index.vector_reader import ReaderContext, VectorReader
+from dingo_tpu_torch.raft.core import NOOP
 from dingo_tpu_torch.raft.log import RaftLog
 from dingo_tpu_torch.store.region import Region
 from dingo_tpu_torch.trace import TRACER
@@ -251,6 +252,8 @@ class VectorIndexManager:
         n = 0
         with TRACER.start_span("index.catchup") as span:
             for log_id, _term, payload in raft_log.get_data_entries(start, end):
+                if payload == NOOP:
+                    continue
                 data = wd.decode_write(payload)
                 if isinstance(data, wd.VectorAddData):
                     index.upsert(data.ids, data.vectors)

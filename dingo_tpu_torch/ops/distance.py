@@ -127,6 +127,12 @@ def pairwise_l2sqr(q: torch.Tensor, x: torch.Tensor,
     return torch.clamp_min(d, 0.0)
 
 
+def pairwise_inner_product(q: torch.Tensor,
+                           x: torch.Tensor) -> torch.Tensor:
+    """Inner-product similarity matrix [b, n] (descending = better)."""
+    return _dot(q, x)
+
+
 def normalize(x: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
     """Row L2-normalization with the squared-norm floor of np_normalize."""
     x32 = x.to(torch.float32)
@@ -141,6 +147,21 @@ def np_normalize(x, eps: float = 1e-30) -> np.ndarray:
     x = np.ascontiguousarray(x, np.float32)
     n = np.sqrt(np.maximum((x * x).sum(axis=1, dtype=np.float32), eps))
     return np.ascontiguousarray(x / n[:, None])
+
+
+def pairwise_cosine(q: torch.Tensor, x: torch.Tensor,
+                    x_is_normalized: bool = False,
+                    x_sqnorm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Cosine similarity matrix [b, n] (descending = better): the query
+    normalized, the rows scaled by their inverse norms unless they are
+    stored normalized."""
+    qn = normalize(q)
+    if x_is_normalized:
+        return _dot(qn, x)
+    if x_sqnorm is None:
+        x_sqnorm = squared_norms(x)
+    inv = torch.rsqrt(torch.clamp_min(x_sqnorm, 1e-30))
+    return _dot(qn, x) * inv[None, :]
 
 
 def bits_to_pm1(packed: torch.Tensor, nbits: int) -> torch.Tensor:
@@ -177,15 +198,9 @@ def score_matrix(q: torch.Tensor, x: torch.Tensor, metric: Metric,
     if metric is Metric.L2:
         return -pairwise_l2sqr(q, x, x_sqnorm)
     if metric is Metric.INNER_PRODUCT:
-        return _dot(q, x)
+        return pairwise_inner_product(q, x)
     if metric is Metric.COSINE:
-        qn = normalize(q)
-        if x_is_normalized:
-            return _dot(qn, x)
-        if x_sqnorm is None:
-            x_sqnorm = squared_norms(x)
-        inv = torch.rsqrt(torch.clamp_min(x_sqnorm, 1e-30))
-        return _dot(qn, x) * inv[None, :]
+        return pairwise_cosine(q, x, x_is_normalized, x_sqnorm)
     if metric is Metric.HAMMING:
         return -pairwise_hamming(q, x, nbits)
     raise ValueError(f"unknown metric {metric}")

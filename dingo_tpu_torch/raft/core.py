@@ -27,6 +27,10 @@ _log = get_logger("raft.core")
 
 FOLLOWER, CANDIDATE, LEADER = "follower", "candidate", "leader"
 
+#: payload of the entry a new leader appends when its log holds entries
+#: beyond its commit index; apply_fn never sees it
+NOOP = b""
+
 
 class NotLeader(Exception):
     def __init__(self, leader_hint: Optional[str] = None):
@@ -297,6 +301,15 @@ class RaftNode:
                 self.next_index = {p: last + 1 for p in self.peers}
                 self.match_index = {p: 0 for p in self.peers}
                 self.match_index[self.id] = last
+                if last > self.commit_index:
+                    # a leader commits only entries of its own term, so
+                    # earlier-term entries beyond the known commit index
+                    # (one the old leader acknowledged included) would
+                    # wait for the next proposal to be applied here and
+                    # on the followers: a no-op of this term commits them
+                    # now (Raft section 8; braft's configuration entry).
+                    # The JAX package's core appends none.
+                    self.match_index[self.id] = self.log.append(term, NOOP)
                 # fresh check-quorum clock: the new leader gets a full
                 # window before reachability is judged
                 now = time.monotonic()
@@ -587,7 +600,8 @@ class RaftNode:
                     if entry is None:
                         break
                     payload = entry[1]
-                self.apply_fn(nxt, payload)
+                if payload != NOOP:
+                    self.apply_fn(nxt, payload)
                 applied_any = True
                 with self._applied_cv:
                     self.last_applied = nxt

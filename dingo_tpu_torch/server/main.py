@@ -10,10 +10,12 @@ port has: the coordinator's store-state update, lease GC and the three
 balance/replica planners; the store's heartbeat, split check, vector-index
 scrub, IVF view compaction, metrics collection, the quality tuner, the
 load-shedding ladder, the integrity scrub, the device-memory watermark
-poll, the memory-tier ladder's tick and the flight recorder's node
-config. The gRPC serving of either role is not carried, nor are two
-store jobs: the MVCC GC, whose safe point comes from the coordinator over
-gRPC, and the stream scan GC. ``maybe_metrics_http`` starts the plain-HTTP
+poll, the memory-tier ladder's tick, the scan-session GC and the flight
+recorder's node config. The store role's gRPC server is
+server/rpc.py's DingoServer; the processes that host a role
+(``serve_store``, ``serve_coordinator``) are not carried, nor is the
+store's MVCC GC job, whose safe point comes from the coordinator over
+gRPC. ``maybe_metrics_http`` starts the plain-HTTP
 Prometheus sidecar when ``metrics_http_port`` is set. ``_make_engine``
 opens a role's raw engine (mem, WAL or the native LSM) from its data
 directory.
@@ -132,6 +134,11 @@ def store_crontab(node) -> CrontabManager:
             node.meta.get_all_regions()
         ),
     )
+    # scan-session GC (server.cc:555-582): KvScanBegin sessions that ran
+    # out or sat idle past their timeout are dropped
+    from dingo_tpu_torch.server.services import _SCAN_SESSIONS
+
+    crontab.add("scan_gc", 30.0, _SCAN_SESSIONS.recycle_idle)
     # metrics collection rides its own crontab so heartbeats reuse the
     # cached snapshot instead of paying a full region sweep per beat
     crontab.add(

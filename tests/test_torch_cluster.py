@@ -742,7 +742,8 @@ def test_server_crontab_schedules():
                                      "scrub_vector_index", "ivf_compact",
                                      "store_metrics", "quality_tuner",
                                      "qos_shed", "consistency_scrub",
-                                     "memory_tier", "hbm_watermark"}
+                                     "memory_tier", "hbm_watermark",
+                                     "scan_gc"}
         wait_for(lambda: n.get_region(d.region_id) is not None,
                  what="the heartbeat job delivering CREATE")
         wait_for(lambda: bool(coord.get_store_metrics("s0")),

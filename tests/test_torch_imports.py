@@ -1,5 +1,6 @@
-"""The port stands alone: it imports without JAX or the JAX package, and its
-entry points run on the CUDA device unless told otherwise."""
+"""The port stands alone: it imports without JAX or the JAX package, every
+module but the gRPC front end imports without grpc and protobuf too, and
+its entry points run on the CUDA device unless told otherwise."""
 
 import os
 import subprocess
@@ -11,8 +12,18 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+#: the gRPC front end: the only port modules that import grpc or protobuf
+#: (the card's machine has neither, and no phase of the smoke imports them)
+FRONT_END = ("dingo_tpu_torch.server.dingo_pb2",
+             "dingo_tpu_torch.server.convert",
+             "dingo_tpu_torch.server.grpc_services",
+             "dingo_tpu_torch.server.rpc",
+             "dingo_tpu_torch.raft.grpc_transport")
+
 _BLOCKED_IMPORT = textwrap.dedent("""
     import importlib, pkgutil, sys
+
+    FRONT_END = @FRONT_END@
 
     class Block:
         def find_spec(self, name, path=None, target=None):
@@ -26,8 +37,10 @@ _BLOCKED_IMPORT = textwrap.dedent("""
     import dingo_tpu_torch
     names = [m.name for m in pkgutil.walk_packages(
         dingo_tpu_torch.__path__, prefix="dingo_tpu_torch.")]
+    assert set(FRONT_END) <= set(names), names
     for name in names:
-        importlib.import_module(name)
+        if name not in FRONT_END:
+            importlib.import_module(name)
     # the precision tiers' modules, B1/B2's split-product models and the
     # coalesced serving path are among them
     assert {"dingo_tpu_torch.ops.sq", "dingo_tpu_torch.ops.split_dot",
@@ -36,7 +49,8 @@ _BLOCKED_IMPORT = textwrap.dedent("""
             "dingo_tpu_torch.common.coalescer",
             "dingo_tpu_torch.trace.span", "dingo_tpu_torch.trace.export",
             "dingo_tpu_torch.obs.pressure", "dingo_tpu_torch.obs.sentinel",
-            "dingo_tpu_torch.server.services"} <= set(names), names
+            "dingo_tpu_torch.server.services",
+            "dingo_tpu_torch.common.stream"} <= set(names), names
     # the replicated region path: raft, the MVCC engine, apply, Storage
     # and VectorReader, the index manager and the store node, none of
     # which may need grpc or protobuf (the card's machine has neither)
@@ -125,7 +139,27 @@ _BLOCKED_IMPORT = textwrap.dedent("""
            or m.startswith("google.protobuf")]
     assert not bad, bad
     print(len(names))
-""")
+""").replace("@FRONT_END@", repr(FRONT_END))
+
+# the front end imports grpc and protobuf, and still nothing of JAX
+_FRONT_END_IMPORT = textwrap.dedent("""
+    import importlib, sys
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "dingo_tpu"):
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    for name in @FRONT_END@:
+        importlib.import_module(name)
+    bad = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "jaxlib", "dingo_tpu")]
+    assert not bad, bad
+    assert "grpc" in sys.modules and "google.protobuf" in sys.modules
+    print("ok")
+""").replace("@FRONT_END@", repr(FRONT_END))
 
 
 def test_port_imports_with_jax_and_reference_blocked():
@@ -136,6 +170,12 @@ def test_port_imports_with_jax_and_reference_blocked():
     )
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 60
+    out = subprocess.run(
+        [sys.executable, "-c", _FRONT_END_IMPORT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_new_index_without_device_raises_when_no_cuda(monkeypatch):

@@ -71,6 +71,29 @@ def test_score_matrix_matches_jax(name, jm, tm):
     assert td.metric_ascending(tm) == jd.metric_ascending(jm)
 
 
+PAIRWISE = [("l2", "pairwise_l2sqr"), ("ip", "pairwise_inner_product"),
+            ("cosine", "pairwise_cosine")]
+
+
+@pytest.mark.parametrize("name,fn", PAIRWISE, ids=[m[0] for m in PAIRWISE])
+def test_pairwise_matches_jax(name, fn):
+    """The three pairwise matrices UtilService.VectorCalcDistance serves,
+    f32, against the JAX package's within rtol 1e-5 (atol 1e-5 for the
+    entries near 0 of IP and cosine)."""
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((7, 24), dtype=np.float32)
+    x = rng.standard_normal((40, 24), dtype=np.float32)
+    want = np.asarray(getattr(jd, fn)(jnp.asarray(q), jnp.asarray(x)))
+    got = getattr(td, fn)(_t(q), _t(x))
+    assert got.dtype == torch.float32 and got.shape == (7, 40)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    if name == "cosine":
+        xn = td.normalize(_t(x))
+        np.testing.assert_allclose(
+            td.pairwise_cosine(_t(q), xn, x_is_normalized=True).numpy(),
+            want, rtol=1e-5, atol=1e-5)
+
+
 def test_norms_and_normalize_match_jax():
     rng = np.random.default_rng(2)
     x = rng.standard_normal((50, 16), dtype=np.float32)

@@ -335,6 +335,60 @@ def test_no_commit_without_quorum():
         stop_all(nodes)
 
 
+def test_new_leader_applies_entry_acknowledged_by_old_leader():
+    """An entry the old leader committed, applied and acknowledged, whose
+    commit index never reached the followers before the old leader was cut
+    off, is applied on the new leader and its follower at once: the new
+    leader commits a no-op of its term (the port departs from the JAX
+    package here, whose new leader applies it only with the next proposal)
+    and apply_fn never sees the no-op."""
+    transport = LocalTransport()
+    applied = {}
+    cut = {}
+
+    def on_apply(nid, payload):
+        if payload == b"acked" and nid == cut.get("leader"):
+            # the old leader's apply of the acknowledged entry: cut it off
+            # before a heartbeat can carry the commit index to anyone
+            for other in applied:
+                if other != nid:
+                    transport.partition(nid, other)
+
+    nodes = {}
+    for i in range(3):
+        nid = f"n{i}"
+        applied[nid] = []
+
+        def apply_fn(index, payload, nid=nid):
+            applied[nid].append(payload)
+            on_apply(nid, payload)
+
+        nodes[nid] = RaftNode(nid, ["n0", "n1", "n2"], transport,
+                              apply_fn=apply_fn, seed=i,
+                              election_timeout=(0.6, 1.0),
+                              heartbeat_interval=0.3)
+    for n in nodes.values():
+        n.start()
+    try:
+        leader = wait_leader(nodes)
+        leader.propose(b"first")
+        assert wait_for(lambda: all(a == [b"first"]
+                                    for a in applied.values()))
+        cut["leader"] = leader.id
+        leader.propose(b"acked")
+        survivors = {k: v for k, v in nodes.items() if k != leader.id}
+        assert all(applied[k] == [b"first"] for k in survivors)
+        new_leader = wait_leader(survivors, timeout=10.0)
+        assert new_leader.id != leader.id
+        assert wait_for(lambda: all(applied[k] == [b"first", b"acked"]
+                                    for k in survivors), 5.0), applied
+        last = new_leader.log.last_index()
+        assert new_leader.log.entry_at(last)[1] == b""
+        assert wait_for(lambda: new_leader.last_applied == last)
+    finally:
+        stop_all(nodes)
+
+
 def test_check_quorum_deposes_partitioned_leader():
     transport, nodes, _ = make_cluster(election_timeout=(0.1, 0.2),
                                        heartbeat_interval=0.03)
